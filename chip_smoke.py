@@ -2,18 +2,27 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-1. prints the card (nvidia-smi name and power limit) and builds the fused
-   leapfrog kernel from csrc/ with nvcc;
-2. holds the kernel against its plain torch version on the card at the
-   flagship shape (1024 chains, K = 10, 32x32): both call contracts,
-   n_steps in {0, 1, 5} with and without an entry gradient, per-chain eps,
-   a per-chain mask with a dead slot, and the gradient against float64;
-   then times one L = 20 trajectory of each;
-3. drives the main path at full width through the public API: the
+1. prints the card (nvidia-smi name and power limit) and builds both CUDA
+   kernels from csrc/ with nvcc, one process per source, started together;
+2. holds the fused leapfrog kernel (B1/B2) against its plain torch version
+   on the card at the flagship shape (1024 chains, K = 10, 32x32): both
+   call contracts, n_steps in {0, 1, 5} with and without an entry gradient,
+   per-chain eps, a per-chain mask with a dead slot, and the gradient
+   against float64; then times one L = 20 trajectory of each;
+3. holds the diagonal-Fisher Riemannian kernel (B3) against its plain
+   version at the cfg5 shape (256 chains, K = 16, per-chain masks with dead
+   slots, beta 1 and 0.3) and the cfg1 shape (128 chains, K = 10, shared
+   mask), checks that a chain that overflows comes back as a solver
+   failure, and times one trajectory of each shape;
+4. drives the fixed-K path at full width through the public API, the
+   launch counts set to 0 just before it and read just after: the
    cfg6_chees preset (ChEES, B2's contract) and the same scene under the
-   HMC head (B1's contract), and checks that both ran through the kernel,
-   that the draws are finite and that the posterior total flux agrees with
-   the reference's record for this image.
+   HMC head (B1's contract);
+5. drives the Riemannian path the same way: cfg5_transdim_mcmc at 256
+   chains, K_max 16 (trans-d sweeps with B3 moves at per-chain masks) and
+   cfg1_rhmc with rhmc.metric=diag at 128 chains (B3, shared mask), both
+   shortened; checks that they ran through B3, that the draws are finite,
+   and that the posteriors agree with the reference's records.
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -30,6 +39,11 @@ from pathlib import Path
 # full-length record (runs/cfg6_full_r5.json): mean 2184.8, sd 75.8
 REF_TOTAL_FLUX = (2184.8, 75.8)
 TOL = {"theta": 3e-4, "p": 5e-3, "u": 0.3, "grad_rel": 5e-3, "grad_f64": 0.017}
+# B3 against its plain version: tests/test_pallas_rhmc_diag.py:119-126
+# (theta 1e-4, p 1e-3, h 2e-3).  h0, h1 and u1 are float32 numbers of
+# magnitude ~2e4 on this scene, where float32's own spacing is ~2e-3, so
+# their bound is 2e-3 plus four spacings at their magnitude.
+RTOL = {"theta": 1e-4, "p": 1e-3, "h": 2e-3, "resid": 1e-5}
 
 
 def _max_err(a, b) -> float:
@@ -141,8 +155,107 @@ def check_kernel(fl, cfg, dev):
     return err, ms
 
 
+def _rhmc_inputs(truth, c, k, dev, seed, per_chain):
+    """theta near the truth in the first slots (prior-like draws in the
+    rest), standard-normal xi, jittered eps and the mask: per chain with
+    dead slots (the trans-d head's case) or shared and all alive."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = min(truth.shape[0], k)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = truth[:n].to(dev)[None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    if k > n:
+        theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+        theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    eps = 0.03 * (0.8 + 0.4 * torch.rand((c,), generator=gen, device=dev))
+    if per_chain:
+        # alive counts 6..k, slot order shuffled per chain
+        n_alive = torch.randint(6, k + 1, (c,), generator=gen, device=dev)
+        order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+        mask = (order < n_alive[:, None]).to(torch.float32)
+    else:
+        mask = torch.ones(k, device=dev)
+    return theta, xi, eps, mask
+
+
+def _h_tol(h) -> float:
+    import numpy as np
+
+    return RTOL["h"] + 4.0 * float(np.spacing(np.float32(h.abs().max().item())))
+
+
+def check_rhmc_kernel(frd, rhmc_mod, cfg, dev):
+    """Phase 3: B3 against its plain version on the card at the cfg5 shape
+    (256 chains, K = 16, per-chain masks with dead slots, beta 1 and 0.3)
+    and the diag-rhmc cfg1 shape (128 chains, K = 10, shared mask), a
+    chain that overflows, and one timed trajectory of each shape.  Returns
+    the largest theta error and the times."""
+    import torch
+
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    spec, prior = cfg.scene, cfg.prior
+    cases = [  # (name, chains, K, n_steps, fixed_point_iters, per-chain mask, beta)
+        ("cfg5", 256, 16, 6, 4, True, 1.0),
+        ("cfg5 beta=0.3", 256, 16, 6, 4, True, 0.3),
+        ("cfg1", 128, 10, 16, 6, False, 1.0),
+    ]
+    err = 0.0
+    ms = {}
+    for i, (name, c, k, n_steps, fpi, per_chain, beta) in enumerate(cases):
+        theta, xi, eps, mask = _rhmc_inputs(truth, c, k, dev, i, per_chain)
+        fused = frd.make_fused_rhmc_diag(spec, img, prior, k, n_steps, fpi)
+        plain = lambda: frd.fused_rhmc_diag_reference(  # noqa: E731
+            spec, img, prior, theta, xi, eps, mask, beta, n_steps, fpi)
+        out, ref = fused(theta, xi, eps, mask, beta), plain()
+        errs = {nm: float((a - b).abs().max()) for nm, a, b in zip(
+            ("theta", "p", "h0", "h1", "u1", "resid"), out, ref)}
+        tols = dict(theta=RTOL["theta"], p=RTOL["p"], h0=_h_tol(ref[2]),
+                    h1=_h_tol(ref[3]), u1=_h_tol(ref[4]), resid=RTOL["resid"])
+        print(f"B3 {name} ({c} chains, K={k}, {n_steps} steps x {fpi} sweeps) vs plain: "
+              f"{json.dumps(errs)}; tolerances {json.dumps(tols)}")
+        for nm, e in errs.items():
+            if not e <= tols[nm]:
+                raise AssertionError(f"B3 {name}: {nm} error {e} > {tols[nm]}")
+        err = max(err, errs["theta"])
+        if per_chain:
+            dead = mask == 0
+            if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+                raise AssertionError(f"B3 {name}: a dead slot moved")
+        if beta == 1.0:
+            ms[name] = _time_ms(lambda: fused(theta, xi, eps, mask, beta), 20)
+            ms[name + "_plain"] = _time_ms(plain, 3)
+            print(f"B3 {name}: kernel {ms[name]:.4f} ms, plain {ms[name + '_plain']:.4f} ms "
+                  "per trajectory")
+
+    # a chain that overflows (exp(95) > float32's range): NaN residual,
+    # reported by the transition as a solver failure and rejected
+    theta, xi, eps, mask = _rhmc_inputs(truth, 256, 16, dev, 7, True)
+    theta[0, :, 2] = 95.0
+    fused = frd.make_fused_rhmc_diag(spec, img, prior, 16, 6, 4)
+    out = fused(theta, xi, eps, mask)
+    u = torch.zeros(256, device=dev)
+    new, info = rhmc_mod.rhmc_transition(
+        rhmc_mod.ChainState(theta, u, torch.zeros_like(theta)), xi,
+        torch.full((256,), 0.5, device=dev), torch.full((256,), 0.01, device=dev),
+        fused, torch.tensor(0.03, device=dev), mask)
+    if not (bool(torch.isnan(out[5][0])) and bool(info.solver_fail[0])
+            and not bool(info.accepted[0]) and torch.equal(new.theta[0], theta[0])):
+        raise AssertionError(f"B3: the overflowing chain was not a solver failure "
+                             f"(resid {float(out[5][0])})")
+    if not bool(torch.isfinite(out[5][1:]).all()):
+        raise AssertionError("B3: the overflowing chain reached another chain")
+    torch.cuda.synchronize()
+    print("B3 overflowing chain: resid NaN -> solver failure, rejected; "
+          "the other 255 chains finite")
+    return err, ms
+
+
 def run_slice(api, cfg, dev):
-    """Phase 3: the main path at full width through the public API."""
+    """Phase 4: the fixed-K path at full width through the public API."""
     import dataclasses
 
     import numpy as np
@@ -177,6 +290,85 @@ def run_slice(api, cfg, dev):
                                  f"reference posterior {mean} ± {sd}")
 
 
+# Posterior references on the flagship image (JAX package, full-length
+# runs): cfg5_transdim_mcmc (runs/cfg5_full_r4.json): star count mean 10.15,
+# sd 1.07; total flux 2185.0 +- 84.3.  cfg1_rhmc with the diagonal metric at
+# 128 chains (runs/cfg1_diag128_xla_r4.json): total flux 2140.3 +- 75.0.
+REF_CFG5 = {"count": (10.15, 1.07), "flux": (2185.0, 84.3)}
+REF_CFG1_DIAG = {"flux": (2140.3, 75.0)}
+
+
+def run_riemannian_slice(api, configs, dev):
+    """Phase 5: the Riemannian path at full width through the public API.
+
+    Both runs are shortened (cfg5: the preset's 400 warmup transitions from
+    its prior start, then 100 draws; cfg1: 200 + 100), so their posteriors
+    carry more Monte Carlo error and less burn-in than the records': the
+    bands below are one posterior sd of the record (the star count's mean
+    within its sd 1.07, the total flux within 84.3 and 75.0), wide enough
+    for a short run and far narrower than the prior (n ~ Poisson(8), flux
+    ~ 8 x 180)."""
+    import dataclasses
+
+    import numpy as np
+
+    runs = {
+        "cfg5_transdim_mcmc": dataclasses.replace(
+            configs["cfg5_transdim_mcmc"], n_warmup=400, n_samples=100),
+        "cfg1_rhmc diag": dataclasses.replace(
+            configs["cfg1_rhmc"], n_chains=128, n_warmup=200, n_samples=100,
+            rhmc=configs["cfg1_rhmc"].rhmc._replace(metric="diag")),
+    }
+    for name, rcfg in runs.items():
+        out = api.sample(rcfg, dev, seed=1)
+        summ = api.summarize_output(out)
+        st = out.stats
+        tf = summ["total_flux"]
+        line = (f"slice {name}: {rcfg.n_chains} chains, K={rcfg.kmax}, {rcfg.n_warmup} "
+                f"warmup + {rcfg.n_samples} draws in {st['wall_seconds']:.3f} s, kernel "
+                f"{st['kernel']} x{st['kernel_launches']}, accept {st['accept']:.3f}, step "
+                f"{st['step_size']:.4g}, divergences {st['divergences']}, solver "
+                f"rejections {st['solver_rejections']}; total flux {tf['mean']:.2f} ± "
+                f"{tf['sd']:.2f} (R-hat {tf['rhat']:.4f})")
+        if "star_count" in summ:
+            sc = summ["star_count"]
+            line += (f"; star count mode {sc['mode']}, mean {sc['mean']:.3f} ± "
+                     f"{sc['sd']:.3f}, trans-d accept {st['td_accept']:.4f}")
+        print(line)
+        if st["kernel"] != "rhmc_diag_cuda" or st["kernel_launches"] <= 0:
+            raise AssertionError(f"{name} did not run through B3: {st}")
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{name}: non-finite draws")
+        if not 0.5 <= st["accept"] <= 1.0:
+            raise AssertionError(f"{name}: mean within-model accept {st['accept']}")
+        ref = REF_CFG5 if "star_count" in summ else REF_CFG1_DIAG
+        mean, sd = ref["flux"]
+        if not abs(tf["mean"] - mean) <= sd:
+            raise AssertionError(f"{name}: total flux {tf['mean']} vs the reference "
+                                 f"posterior {mean} ± {sd}")
+        if "star_count" in summ:
+            mean, sd = ref["count"]
+            if not abs(summ["star_count"]["mean"] - mean) <= sd:
+                raise AssertionError(f"{name}: mean star count "
+                                     f"{summ['star_count']['mean']} vs {mean} ± {sd}")
+
+
+def _build_all(build):
+    """nvcc on every kernel source at once, one process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("fused_leapfrog", "fused_rhmc_diag")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build.build_kernel, names)))
+    print(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
+    for name, (lib, report, seconds) in built.items():
+        print(f"  {name}: nvcc {seconds:.2f} s -> {lib.name}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -184,7 +376,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from starcat_torch import api, fused_leapfrog as fl
+    from starcat_torch import api, build, fused_leapfrog as fl
+    from starcat_torch import fused_rhmc_diag as frd
+    from starcat_torch import rhmc
     from starcat_torch.configs import CONFIGS
 
     smi = subprocess.run(
@@ -193,15 +387,12 @@ def main() -> int:
     print(smi[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    lib, report, seconds = fl.build_kernel()
-    print(f"kernel build: {seconds:.2f} s -> {lib.name}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    _build_all(build)
 
     dev = torch.device("cuda:0")
     cfg = CONFIGS["cfg6_chees"]
     err, ms = check_kernel(fl, cfg, dev)
+    err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
 
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -209,9 +400,21 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"static": fl.STATIC_LAUNCHES, "dyn": fl.DYN_LAUNCHES}
-    print(f"main path: {wall:.3f} s wall; launches {launches}")
+    print(f"fixed-K path: {wall:.3f} s wall; launches {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel contract was never launched: {launches}")
+
+    frd.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_riemannian_slice(api, CONFIGS, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["b3"] = frd.LAUNCHES
+    print(f"Riemannian path: {wall:.3f} s wall; B3 launches {launches['b3']}")
+    if launches["b3"] <= 0:
+        raise AssertionError("B3 was never launched on the Riemannian path")
+    print(f"B3 at the cfg1 shape: kernel {ms_b3['cfg1']:.4f} ms, plain "
+          f"{ms_b3['cfg1_plain']:.4f} ms per trajectory")
 
     src = "starcat_torch/csrc/fused_leapfrog.cu"
     rows = [
@@ -224,6 +427,11 @@ def main() -> int:
          "replaces": "starcat/pallas_kernels.py:317",
          "launches": launches["dyn"], "max_abs_err": err["dyn"],
          "ms": ms["dyn"], "plain_ms": ms["plain"]},
+        {"name": "fused_rhmc_diag (B3, diagonal-Fisher Riemannian trajectory)",
+         "route": "cuda", "source": "starcat_torch/csrc/fused_rhmc_diag.cu",
+         "replaces": "starcat/pallas_rhmc_diag.py:405",
+         "launches": launches["b3"], "max_abs_err": err_b3,
+         "ms": ms_b3["cfg5"], "plain_ms": ms_b3["cfg5_plain"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

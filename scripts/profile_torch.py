@@ -3,11 +3,12 @@
     python scripts/profile_torch.py [--config cfg6_chees] [--n-warmup 100]
                                     [--n-samples 50] [key=value ...]
 
-Runs the preset once unprofiled (to build the kernel and warm up), then once
-under torch.profiler, and prints one JSON line: the wall time of the
+Runs the preset once unprofiled (to build the kernels and warm up), then
+once under torch.profiler, and prints one JSON line: the wall time of the
 profiled run, the device time summed over all kernels, the device-busy
-share (device time / wall), and the device time by kernel name, largest
-first.  Needs a CUDA device.
+share (device time / wall), the device time by kernel name, largest first,
+and the number of aten operator calls made on the host (nested calls
+included).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -57,10 +58,13 @@ def main() -> None:
     from torch.autograd import DeviceType
 
     by_name = {}  # device-side kernel and memcpy events only, no CPU ops
+    aten_calls = 0
     for e in prof.key_averages():
         t = dev_time(e)
         if e.device_type == DeviceType.CUDA and t > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + t
+        elif e.device_type == DeviceType.CPU and e.key.startswith("aten::"):
+            aten_calls += e.count
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
     print(json.dumps({
@@ -69,7 +73,9 @@ def main() -> None:
         "device": torch.cuda.get_device_name(0),
         "wall_s": wall, "device_s": total / 1e6,
         "device_busy_share": total / 1e6 / wall,
+        "kernel": out.stats["kernel"],
         "kernel_launches": out.stats["kernel_launches"],
+        "aten_calls": aten_calls,
         "top_device_s": {k: v / 1e6 for k, v in top},
     }))
 

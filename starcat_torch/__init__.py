@@ -3,9 +3,12 @@
 The JAX package `starcat/` is the reference; every module here has its
 counterpart there under the same name.  This package imports torch and
 numpy only — never jax, never starcat — so it runs on a machine that has
-no JAX installed.  Its one hand-written kernel, the fused leapfrog
-trajectory (`fused_leapfrog.py`, `csrc/fused_leapfrog.cu`), replaces the
-two Pallas trajectory kernels of `starcat/pallas_kernels.py`.
+no JAX installed.  Its hand-written CUDA kernels, built by nvcc at first
+use (`build.py`), replace Pallas kernels of `starcat/`: the fused leapfrog
+trajectory (`fused_leapfrog.py`, `csrc/fused_leapfrog.cu`) the two of
+`starcat/pallas_kernels.py` (B1, B2), and the diagonal-Fisher Riemannian
+trajectory (`fused_rhmc_diag.py`, `csrc/fused_rhmc_diag.cu`) the one of
+`starcat/pallas_rhmc_diag.py` that small scenes run (B3).
 """
 from .potential import (
     PriorSpec,

@@ -1,12 +1,15 @@
 """High-level API (port of starcat/api.py): build the scene and potential
 from a RunConfig and run one head on it, on an explicitly named device.
 
-Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it) and
-``chees``.  ``RunConfig.kernel`` picks the trajectory: the fused CUDA kernel
-(``stats["kernel"] == "cuda_fused"``) or the plain torch leapfrog
-(``"torch"``); ``stats["kernel_launches"]`` counts the kernel's launches in
-the run.  The run draws every random number from one ``torch.Generator`` on
-the run's device, seeded from ``seed``.
+Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it), ``chees``,
+``rhmc`` (diagonal metric) and ``transdim``.  ``RunConfig.kernel`` picks the
+trajectory: the head's CUDA kernel or its plain torch version.
+``stats["kernel"]`` names what ran: ``cuda_fused`` / ``torch`` for hmc and
+chees (kernel B1/B2), ``rhmc_diag_cuda`` / ``rhmc_diag_torch`` for rhmc
+(kernel B3), and ``<mutation>_cuda`` / ``<mutation>_torch`` for transdim;
+``stats["kernel_launches"]`` counts the CUDA kernels' launches in the run.
+The run draws every random number from one ``torch.Generator`` on the
+run's device, seeded from ``seed``.
 """
 from __future__ import annotations
 
@@ -17,25 +20,43 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import diagnostics, fused_leapfrog
+from . import diagnostics, fused_leapfrog, fused_rhmc_diag
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
 from .hmc import run_hmc, run_hmc_fused
 from .potential import constrain, make_potential_and_grad
+from .rhmc import check_metric, run_rhmc, run_rhmc_fused
+from .transdim_mcmc import run_transdim
+
+PORTED_HEADS = ("hmc", "oracle", "chees", "rhmc", "transdim")
+# the ROADMAP.md items that port the reference's other heads
+UNPORTED_HEADS = {"smc": "A8", "nuts": "A11", "advi": "A11"}
 
 
 @dataclass
 class SampleOutput:
     config: RunConfig
     thetas: np.ndarray          # (C, N, K, 3) draws
-    masks: np.ndarray           # (K,)
+    masks: np.ndarray           # (K,), or per draw (C, N, K) for transdim
     stats: dict[str, Any] = field(default_factory=dict)
+
+
+def _check_head(cfg: RunConfig) -> None:
+    """Raise for a head or metric that is not ported yet (the trans-d
+    head's mutation is checked where its kernel is made)."""
+    if cfg.head not in PORTED_HEADS:
+        item = UNPORTED_HEADS.get(cfg.head, "queue A")
+        raise ValueError(f"head {cfg.head!r} is not ported yet (ROADMAP.md "
+                         f"{item}); ported heads: hmc, chees, rhmc, transdim")
+    if cfg.head == "rhmc":
+        check_metric(cfg.rhmc.metric)
 
 
 def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     """RunConfig.kernel -> "cuda" or "torch".  Nothing falls back: "cuda"
-    off a CUDA device or off the kernel's domain raises, and "auto" on a
-    CUDA device takes the kernel (which raises off its domain)."""
+    off a CUDA device or off the domain of the kernel the head runs raises,
+    and "auto" on a CUDA device takes the kernel (which raises off its
+    domain)."""
     if pref not in ("auto", "cuda", "torch"):
         raise ValueError(f"kernel must be 'auto'|'cuda'|'torch', got {pref!r}")
     if pref == "torch":
@@ -44,7 +65,12 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
         return "cuda" if device.type == "cuda" else "torch"
     if device.type != "cuda":
         raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
-    fused_leapfrog.check_domain(cfg.scene, cfg.kmax)
+    riemannian = cfg.head == "rhmc" or (cfg.head == "transdim"
+                                        and cfg.tdm.mutation == "rhmc_diag")
+    if riemannian:
+        fused_rhmc_diag.check_domain(cfg.scene, cfg.kmax)
+    else:
+        fused_leapfrog.check_domain(cfg.scene, cfg.kmax)
     return "cuda"
 
 
@@ -63,11 +89,14 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
     pg = make_potential_and_grad(spec, img, prior)
     grad_fn = lambda th: pg(th, mask)  # noqa: E731
 
+    _check_head(cfg)
     kernel = resolve_kernel(cfg.kernel, device, cfg)
     stats: dict[str, Any] = {"kernel": "cuda_fused" if kernel == "cuda" else "torch"}
-    launches0 = fused_leapfrog.LAUNCHES
+    launches0 = fused_leapfrog.LAUNCHES + fused_rhmc_diag.LAUNCHES
     t_start = time.perf_counter()
-    theta0 = _init_chains(generator, cfg, truth_theta.to(device))
+    theta0 = (_init_chains(generator, cfg, truth_theta.to(device))
+              if cfg.head != "transdim" else None)
+    masks = mask.cpu().numpy()
 
     if cfg.head in ("hmc", "oracle"):
         if kernel == "cuda":
@@ -96,18 +125,30 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
                      warmup_extensions=ad["warmup_extensions"],
                      eq_stages=ad["eq_stages"],
                      eq_disagreement=ad["eq_disagreement"])
-    else:
-        raise ValueError(f"head {cfg.head!r} is not ported yet "
-                         "(ROADMAP.md queue A); ported heads: hmc, chees")
+    elif cfg.head == "rhmc":
+        run = run_rhmc_fused if kernel == "cuda" else run_rhmc
+        res, wr = run(generator, spec, img, prior, theta0, mask, cfg.n_samples,
+                      cfg.n_warmup, cfg.rhmc, thin=cfg.thin)
+        stats.update(kernel=f"rhmc_diag_{kernel}", step_size=float(wr.step_size),
+                     solver_rejections=int(res.solver_fail.sum()))
+    else:  # transdim
+        res, eps = run_transdim(generator, spec, img, prior, cfg.kmax,
+                                cfg.n_chains, cfg.n_samples, cfg.n_warmup,
+                                cfg.tdm, fused=kernel == "cuda")
+        masks = res.masks.cpu().numpy()  # (C, N, K) per-draw alive masks
+        stats.update(kernel=f"{cfg.tdm.mutation}_{kernel}",
+                     step_size=float(eps), td_accept=float(res.td_accept.mean()),
+                     solver_rejections=int(res.solver_fail.sum()))
     thetas = res.thetas.cpu().numpy()
     stats.update(accept=float(res.accept_prob.mean()),
                  divergences=int(res.diverged.sum()))
     stats["wall_seconds"] = time.perf_counter() - t_start
-    stats["kernel_launches"] = fused_leapfrog.LAUNCHES - launches0
+    stats["kernel_launches"] = (fused_leapfrog.LAUNCHES + fused_rhmc_diag.LAUNCHES
+                                - launches0)
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else str(device))
     stats["truth"] = {k: v.numpy() for k, v in zip("xyf", constrain(truth_theta, spec))}
-    return SampleOutput(cfg, thetas, mask.cpu().numpy(), stats)
+    return SampleOutput(cfg, thetas, masks, stats)
 
 
 def _init_chains(generator: torch.Generator, cfg: RunConfig,
@@ -119,12 +160,24 @@ def _init_chains(generator: torch.Generator, cfg: RunConfig,
 
 
 def summarize_output(out: SampleOutput) -> dict[str, Any]:
-    """Permutation-safe posterior summaries of a fixed-K run: the total
-    flux, and per-coordinate moments when the catalog holds one star."""
+    """Permutation-safe posterior summaries: the total flux, per-coordinate
+    moments when a fixed-K catalog holds one star, and the star-count
+    posterior (mode, mean, sd, pmf) for per-draw (C, N, K) masks."""
     th = out.thetas  # (C, N, K, 3)
-    alive = out.masks[None, None, :]
+    alive = out.masks[None, None, :] if out.masks.ndim == 1 else out.masks
     summ = {"total_flux": diagnostics.summarize((np.exp(th[..., 2]) * alive).sum(-1))}
-    if th.shape[2] == 1:
+    if out.masks.ndim == 3:
+        counts = alive.sum(-1).reshape(-1).astype(int)
+        kmax = th.shape[2]
+        hist = np.bincount(counts, minlength=kmax + 1)[: kmax + 1]
+        pn = hist / max(counts.size, 1)
+        summ["star_count"] = {
+            "mode": int(np.argmax(hist)),
+            "mean": float(counts.mean()),
+            "sd": float(counts.std()),
+            "pmf": {str(i): round(float(q), 4) for i, q in enumerate(pn) if q > 0},
+        }
+    if out.masks.ndim == 1 and th.shape[2] == 1:
         w, h = out.config.scene.width, out.config.scene.height
         summ["x"] = diagnostics.summarize(w / (1 + np.exp(-th[:, :, 0, 0])))
         summ["y"] = diagnostics.summarize(h / (1 + np.exp(-th[:, :, 0, 1])))

@@ -1,7 +1,10 @@
 """Typed run configs and the presets whose heads are ported (port of
 starcat/configs.py): ``cfg0_single_star`` (the oracle's single-star scene,
-sampled by the HMC head) and ``cfg6_chees`` (the flagship 10-star 32x32
-scene under ChEES).  Other presets join as their heads land.
+sampled by the HMC head), ``cfg1_rhmc`` (the flagship 10-star 32x32 scene
+under RHMC; its default full metric waits for kernel B6, so it runs with
+``rhmc.metric=diag``), ``cfg5_transdim_mcmc`` (the trans-dimensional MCMC
+chain on the same scene, diagonal-Fisher RHMC moves) and ``cfg6_chees`` (the
+same scene under ChEES).  Other presets join as their heads land.
 
 The mock data are the reference's own: ``data/scenes.npz`` holds the truth
 and image that ``starcat.configs.RunConfig.make_data`` draws at the default
@@ -21,7 +24,10 @@ import torch
 from .chees import ChEESConfig
 from .hmc import HMCConfig
 from .potential import PriorSpec
+from .rhmc import RHMCConfig
 from .scene import SceneSpec
+from .transdim import TransDimConfig
+from .transdim_mcmc import TransDimMCMCConfig
 
 SCENES = Path(__file__).resolve().parent / "data" / "scenes.npz"
 
@@ -33,19 +39,21 @@ class RunConfig:
     prior: PriorSpec
     n_stars: int            # true star count of the mock scene
     kmax: int               # catalog capacity (== n_stars for fixed-K heads)
-    head: str               # "hmc" | "chees" | "oracle" (-> the HMC head)
+    head: str               # "hmc" | "chees" | "rhmc" | "transdim" | "oracle" (-> hmc)
     n_chains: int = 64
     n_samples: int = 1000   # recorded draws
     n_warmup: int = 500
-    # trajectory implementation of the hmc/chees heads:
-    #   "auto"  — the fused CUDA kernel on a CUDA device, plain torch on the CPU
-    #   "cuda"  — the fused CUDA kernel; raises off its domain or device
-    #   "torch" — the plain torch leapfrog (an explicit request, for measuring)
+    # trajectory implementation of every head:
+    #   "auto"  — the head's CUDA kernel on a CUDA device, plain torch on the CPU
+    #   "cuda"  — the CUDA kernel; raises off its domain or device
+    #   "torch" — the plain torch trajectory (an explicit request, for measuring)
     kernel: str = "auto"
     thin: int = 1           # transitions per recorded draw (HMC head)
     truth_seed: int = 11
     data_seed: int = 12
     hmc: HMCConfig = HMCConfig()
+    rhmc: RHMCConfig = RHMCConfig()
+    tdm: TransDimMCMCConfig = TransDimMCMCConfig()
     chees: ChEESConfig = ChEESConfig()
     notes: str = ""
 
@@ -87,6 +95,39 @@ cfg0_single_star = _register(RunConfig(
     notes="NumPy-oracle scene; `run` maps it onto the HMC head",
 ))
 
+# config 1: the flagship scene under RHMC, 64 chains.  The reference's
+# default metric is the full Fisher matrix (kernel B6, not ported yet):
+# api.sample raises for it, and rhmc.metric=diag runs kernel B3
+cfg1_rhmc = _register(RunConfig(
+    name="cfg1_rhmc",
+    scene=SceneSpec(32, 32, 1.5, 10.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=10, kmax=10,
+    head="rhmc",
+    n_chains=64, n_samples=1000, n_warmup=400,
+    rhmc=RHMCConfig(step_size=0.3, n_leapfrog=16, fixed_point_iters=6),
+    notes="RHMC; run with rhmc.metric=diag (kernel B3) until B6 lands",
+))
+
+# config 5: the reference's own sampler shape, a trans-dimensional MCMC
+# chain: birth/death + split/merge sweeps interleaved with within-model
+# diagonal-Fisher RHMC moves at per-chain alive masks
+cfg5_transdim_mcmc = _register(RunConfig(
+    name="cfg5_transdim_mcmc",
+    scene=SceneSpec(32, 32, 1.5, 10.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=10, kmax=16,
+    head="transdim",
+    n_chains=256, n_samples=1000, n_warmup=400,
+    tdm=TransDimMCMCConfig(
+        step_size=0.15, mutation="rhmc_diag", n_leapfrog=6,
+        fixed_point_iters=4, n_transdim_sweeps=2, target_accept=0.8,
+        divergence_penalty=8.0,
+        transdim=TransDimConfig(lam_count=8.0, split_sigma=1.0),
+    ),
+    notes="trans-d chain, diagonal-Fisher RHMC moves on kernel B3",
+))
+
 # config 6: the flagship 10-star 32x32 scene under ChEES-HMC
 cfg6_chees = _register(RunConfig(
     name="cfg6_chees",
@@ -118,8 +159,9 @@ def _set_dotted(obj: Any, path: list[str], val: Any) -> Any:
 
 
 def apply_overrides(cfg: RunConfig, overrides: dict[str, Any]) -> RunConfig:
-    """key=value overrides; dotted keys reach nested configs
-    (e.g. chees.max_leapfrog=256, hmc.n_leapfrog=10)."""
+    """key=value overrides; dotted keys reach nested configs to any depth
+    (e.g. chees.max_leapfrog=256, rhmc.metric=diag,
+    tdm.transdim.lam_count=3.0)."""
     for key, val in overrides.items():
         cfg = _set_dotted(cfg, key.split("."), val)
     return cfg

@@ -14,34 +14,24 @@ Without an entry gradient the trajectory evaluates it first (n + 1 evals).
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_leapfrog_reference`, only for tensors on the
-CPU.  The kernel is compiled with nvcc at first use into build/kernels/,
-keyed by a hash of its source, and loaded with ctypes.
+CPU.  The kernel is compiled with nvcc at first use into build/kernels/
+(build.build_kernel), keyed by a hash of its source, and loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from .build import MAX_SMEM_BYTES, build_kernel, check_tensor as _check
 from .integrators import plain_trajectory
 from .potential import PriorSpec, make_potential_and_grad
 from .scene import SceneSpec
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_leapfrog.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_PIXELS = 48 * 48      # B1's domain: H * W <= 48^2 and K <= 16
 MAX_STARS = 16
-MAX_SMEM_BYTES = 232448   # what one block may hold on an H100
 
 # Launch counts of the CUDA kernel: every launch, and by contract.
 LAUNCHES = 0
@@ -54,42 +44,9 @@ def reset_launch_counts() -> None:
     LAUNCHES = STATIC_LAUNCHES = DYN_LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    found = str(path) if path.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernel needs the CUDA "
-                           "toolkit (set CUDA_HOME)")
-    return found
-
-
-@functools.cache
-def build_kernel() -> tuple[Path, str, float]:
-    """Compile the kernel if its build is missing; returns (library path,
-    the compiler's resource report, seconds spent building)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"fused_leapfrog_{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text(), 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    log.write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stderr, seconds
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernel()[0]))
+    lib = ctypes.CDLL(str(build_kernel("fused_leapfrog")[0]))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.starcat_fused_leapfrog.argtypes = (
         [vp] * 6 + [ci] + [vp] * 6 + [ci] * 4 + [cf] * 6 + [vp])
@@ -137,17 +94,6 @@ def fused_leapfrog_reference(spec: SceneSpec, image: torch.Tensor,
         if int(n_steps) == 0:
             return theta, p, u, grad
     return plain_trajectory(grad_fn)(theta, p, eps, inv_mass, mask, n_steps, grad)
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 class _Launcher:

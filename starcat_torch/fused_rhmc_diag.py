@@ -1,0 +1,186 @@
+"""Fused diagonal-Fisher Riemannian trajectory: the hand-written CUDA kernel
+(csrc/fused_rhmc_diag.cu) behind the call contract of the Pallas kernel it
+replaces, B3 (starcat/pallas_rhmc_diag.py: make_pallas_rhmc_diag_leapfrog):
+
+    make_fused_rhmc_diag(spec, image, prior, kmax, n_steps,
+                         fixed_point_iters, jitter)
+        -> fused(theta, xi, eps, mask, beta=1.0)
+        -> (theta' (C, K, 3), p' (C, K, 3), h0, h1, u1, resid (C,))
+
+theta and xi are (C, K, 3) float32, xi standard normal: the momentum
+p0 = sqrt(g(theta)) xi mask is drawn inside.  eps is a scalar or (C,); mask
+is (K,) shared or (C, K) per chain; beta tempers the likelihood and may be a
+float or a device scalar tensor, which the kernel reads without a host sync.
+h0, h1 are the Hamiltonian at both ends, u1 = U_beta(theta'), and resid the
+per-chain solver residual (NaN when the trajectory blew up).
+
+On a CUDA tensor the wrapper launches the kernel or raises; it takes the
+plain version, :func:`fused_rhmc_diag_reference` (the generalised leapfrog
+with the autograd dH/dtheta), only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from .build import MAX_SMEM_BYTES, build_kernel, check_tensor as _check
+from .integrators import riemannian_leapfrog
+from .metric import make_diag_metric_fn
+from .potential import PriorSpec, log_likelihood, log_prior
+from .rhmc import make_rhmc_diag_functions
+from .scene import SceneSpec
+
+MAX_PIXELS = 48 * 48      # the kernel's domain: H * W <= 48^2 and K <= 16
+MAX_STARS = 16
+
+# Launch count of the CUDA kernel.
+LAUNCHES = 0
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_kernel("fused_rhmc_diag")[0]))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.starcat_fused_rhmc_diag.argtypes = (
+        [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp])
+    lib.starcat_fused_rhmc_diag.restype = ci
+    lib.starcat_cuda_error_string.argtypes = [ci]
+    lib.starcat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(kmax: int, height: int, width: int) -> int:
+    """Shared memory one block needs (mirrors smem_floats in the source)."""
+    return 4 * (70 * kmax + 8 + 3 * height * width
+                + 5 * kmax * (width + height))
+
+
+def check_domain(spec: SceneSpec, kmax: int) -> None:
+    """Raise unless the kernel takes this scene and catalog capacity."""
+    hw = spec.height * spec.width
+    if hw > MAX_PIXELS or kmax > MAX_STARS or kmax < 1:
+        raise ValueError(
+            f"the fused CUDA diagonal-Fisher trajectory takes H*W <= "
+            f"{MAX_PIXELS} and 1 <= K <= {MAX_STARS}, got "
+            f"{spec.height}x{spec.width} and K={kmax}; crowded fields wait "
+            "for the port of kernel B4 (ROADMAP.md queue B)")
+    if smem_bytes(kmax, spec.height, spec.width) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a {spec.height}x{spec.width} scene with K={kmax} needs "
+            f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
+            f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+
+
+def fused_rhmc_diag_reference(spec: SceneSpec, image: torch.Tensor,
+                              prior: PriorSpec, theta: torch.Tensor,
+                              xi: torch.Tensor, eps, mask: torch.Tensor,
+                              beta=1.0, n_steps: int = 6,
+                              fixed_point_iters: int = 6,
+                              jitter: float = 1e-3):
+    """The kernel's trajectory in plain torch, on whatever device and in
+    whatever dtype its tensors have: riemannian_leapfrog over
+    make_rhmc_diag_functions (dH/dtheta by autograd) on the tempered
+    potential U_beta = -(beta log L + log prior) and the diagonal metric."""
+    img = image.to(theta.dtype)
+
+    def potential(th, m):
+        return -(beta * log_likelihood(th, m, spec, img) + log_prior(th, m, prior))
+
+    dmetric = make_diag_metric_fn(spec, prior, jitter)
+    metric = lambda th, m: dmetric(th, m, beta)  # noqa: E731
+    ham, dhdt, dhdp = make_rhmc_diag_functions(potential, metric)
+    p0 = torch.sqrt(metric(theta, mask)) * xi * mask[..., None]
+    res = riemannian_leapfrog(lambda th, p: dhdt(th, p, mask),
+                              lambda th, p: dhdp(th, p, mask),
+                              theta, p0, eps, n_steps, fixed_point_iters)
+    h0 = ham(theta, p0, mask)
+    h1 = ham(res.theta, res.p, mask)
+    return (res.theta, res.p, h0, h1, potential(res.theta, mask),
+            res.solver_resid)
+
+
+def make_fused_rhmc_diag(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
+                         kmax: int, n_steps: int, fixed_point_iters: int = 6,
+                         jitter: float = 1e-3):
+    """B3's contract: fused(theta, xi, eps, mask, beta=1.0) -> (theta', p',
+    h0, h1, u1, resid), one launch per call on a CUDA device."""
+    if int(n_steps) < 0 or int(fixed_point_iters) < 0:
+        raise ValueError(f"n_steps and fixed_point_iters must be >= 0, got "
+                         f"{n_steps} and {fixed_point_iters}")
+    n_steps, fpi = int(n_steps), int(fixed_point_iters)
+    image = image.to(torch.float32).contiguous()
+    if tuple(image.shape) != (spec.height, spec.width):
+        raise ValueError(f"image must be ({spec.height}, {spec.width}), "
+                         f"got {tuple(image.shape)}")
+    if image.device.type == "cuda":
+        check_domain(spec, kmax)
+    sig = float(spec.psf_sigma)
+    scalars = (
+        sig, 1.0 / (math.sqrt(2.0 * math.pi) * sig), float(spec.background),
+        float(prior.logf_mean), float(prior.logf_sigma),
+        -math.log(prior.logf_sigma) - 0.5 * math.log(2.0 * math.pi),
+        float(jitter),
+    )
+
+    def fused(theta, xi, eps, mask, beta=1.0):
+        if theta.device.type == "cpu":
+            return fused_rhmc_diag_reference(
+                spec, image.to(theta.device), prior, theta, xi, eps, mask,
+                beta, n_steps, fpi, jitter)
+        if theta.device.type != "cuda":
+            raise ValueError(f"no fused RHMC trajectory for device {theta.device}")
+        return _launch(theta, xi, eps, mask, beta)
+
+    def _launch(theta, xi, eps, mask, beta):
+        global LAUNCHES
+        dev, k = theta.device, kmax
+        c = theta.shape[0]
+        if c < 1:
+            raise ValueError("the fused RHMC trajectory needs at least one chain")
+        if image.device != dev:
+            raise ValueError(f"image is on {image.device}, theta on {dev}")
+        _check("theta", theta, (c, k, 3), dev)
+        _check("xi", xi, (c, k, 3), dev)
+        if mask.ndim == 1:
+            _check("mask", mask, (k,), dev)
+            mask_stride = 0
+        else:
+            _check("mask", mask, (c, k), dev)
+            mask_stride = k
+        eps_c = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+        if eps_c.ndim > 1 or (eps_c.ndim == 1 and eps_c.shape[0] != c):
+            raise ValueError(f"eps must be a scalar or ({c},), got {tuple(eps_c.shape)}")
+        eps_c = eps_c.reshape(-1).expand(c).contiguous()
+        if isinstance(beta, torch.Tensor):
+            if beta.dtype != torch.float32 or beta.numel() != 1 or beta.device != dev:
+                raise ValueError("beta must be one float32 on the chains' device")
+            beta_dev = beta.reshape(1).contiguous()
+        else:
+            beta_dev = torch.full((1,), float(beta), dtype=torch.float32, device=dev)
+        theta_out = torch.empty_like(theta)
+        p_out = torch.empty_like(theta)
+        outs = torch.empty((4, c), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _library().starcat_fused_rhmc_diag(
+                theta.data_ptr(), xi.data_ptr(), eps_c.data_ptr(),
+                mask.data_ptr(), mask_stride, beta_dev.data_ptr(),
+                image.data_ptr(), theta_out.data_ptr(), p_out.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                outs[3].data_ptr(), c, k, spec.height, spec.width, n_steps,
+                fpi, *scalars, stream)
+        if rc != 0:
+            msg = _library().starcat_cuda_error_string(rc).decode()
+            raise RuntimeError(f"fused RHMC launch failed: {msg} ({rc})")
+        LAUNCHES += 1
+        return theta_out, p_out, outs[0], outs[1], outs[2], outs[3]
+
+    return fused

@@ -1,0 +1,73 @@
+"""Diagonal Fisher metric (port of the diagonal part of starcat/metric.py).
+
+The metric of the diagonal-Fisher Riemannian heads is
+
+    g_a(theta) = beta * F_a + info_a   (alive slots; dead slots: 1)  + jitter
+    F_a        = sum_p J_a(p)^2 / lam_p,   J_a(p) = d lam_p / d theta_a
+
+the diagonal of the Poisson Fisher information in the unconstrained
+parameters, plus the prior's information.  Every function batches over the
+leading (chain) axes; ``mask`` is (K,) shared or (..., K) per chain.  The
+metric keeps the catalog layout: g is (..., K, 3), where the reference's
+single-chain function returns the same numbers flattened to (3K,).
+
+The full (3K, 3K) metric (``scene_jacobian``, ``make_metric_fn``) belongs
+to kernel B6 and is not ported yet (ROADMAP.md A10).
+"""
+from __future__ import annotations
+
+import torch
+
+from .potential import PriorSpec, constrain
+from .scene import SceneSpec, gaussian_profile_1d, gaussian_profile_1d_grad, pixel_centers
+
+
+def prior_information(theta: torch.Tensor, mask: torch.Tensor,
+                      prior: PriorSpec) -> torch.Tensor:
+    """Negative Hessian of the log prior, diagonal, (..., K, 3)."""
+    s_pos = torch.sigmoid(theta[..., :2])
+    info_pos = 2.0 * s_pos * (1.0 - s_pos)       # -d2/du2 of the logit-uniform
+    info_flux = torch.full_like(theta[..., 2], 1.0 / prior.logf_sigma ** 2)
+    info = torch.cat([info_pos, info_flux[..., None]], dim=-1)
+    return info * mask[..., None]
+
+
+def make_diag_metric_fn(spec: SceneSpec, prior: PriorSpec, jitter: float = 1e-3):
+    """diag_metric(theta (..., K, 3), mask, beta=1.0) -> g (..., K, 3).
+
+    ``beta`` tempers the likelihood's Fisher term (a float or a 0-d
+    tensor).  Each entry is the separable bilinear form
+    coef_k^2 * (row_k^2 @ (1/lam) @ col_k^2) of the 1-D PSF profiles, so
+    the (K, 3, H, W) Jacobian is never formed."""
+
+    def diag_metric(theta: torch.Tensor, mask: torch.Tensor, beta=1.0) -> torch.Tensor:
+        x, y, f = constrain(theta, spec)
+        cx = pixel_centers(spec.width, theta.dtype, theta.device)
+        cy = pixel_centers(spec.height, theta.dtype, theta.device)
+        gx = gaussian_profile_1d(x, cx, spec.psf_sigma)          # (..., K, W)
+        gy = gaussian_profile_1d(y, cy, spec.psf_sigma)          # (..., K, H)
+        dgx = gaussian_profile_1d_grad(x, cx, spec.psf_sigma)
+        dgy = gaussian_profile_1d_grad(y, cy, spec.psf_sigma)
+        w = f * mask
+        lam = spec.background + torch.einsum("...kh,...kw->...hw",
+                                             gy * w[..., None], gx)
+        r = 1.0 / lam                                            # (..., H, W)
+        p1 = torch.einsum("...kh,...hw->...kw", gy * gy, r)
+        p2 = torch.einsum("...kh,...hw->...kw", dgy * dgy, r)
+
+        sx = torch.sigmoid(theta[..., 0])
+        sy = torch.sigmoid(theta[..., 1])
+        dx_dux = spec.width * sx * (1.0 - sx)
+        dy_duy = spec.height * sy * (1.0 - sy)
+
+        f_ux = (w * dx_dux) ** 2 * torch.sum(p1 * dgx * dgx, dim=-1)
+        f_uy = (w * dy_duy) ** 2 * torch.sum(p2 * gx * gx, dim=-1)
+        f_s = w ** 2 * torch.sum(p1 * gx * gx, dim=-1)
+        fisher = torch.stack([f_ux, f_uy, f_s], dim=-1)          # (..., K, 3)
+
+        g = beta * fisher + prior_information(theta, mask, prior)
+        m3 = mask[..., None]
+        g = g * m3 + (1.0 - m3)                                  # dead slots exactly 1
+        return g + jitter
+
+    return diag_metric

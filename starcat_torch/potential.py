@@ -11,7 +11,9 @@ s ~ N(logf_mean, logf_sigma^2).  Every function batches over the leading
 contribute exactly zero to lam, U and grad U.
 
 The likelihood gradient is the reference's closed form: two contractions of
-the Poisson residual R = D/lam - 1 against the separable profiles.
+the Poisson residual R = D/lam - 1 against the separable profiles.  The
+tempered potential U_beta = -(beta log L + log prior) serves the
+trans-dimensional head's beta path.
 """
 from __future__ import annotations
 
@@ -112,6 +114,26 @@ def make_potential(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec):
                  + log_prior(theta, mask, prior))
 
     return potential
+
+
+def make_tempered_potential_and_grad(spec: SceneSpec, image: torch.Tensor,
+                                     prior: PriorSpec):
+    """(U_beta, dU_beta/dtheta) of the likelihood-tempered target
+
+        U_beta(theta) = -[ beta * log L(theta) + log prior(theta) ]
+
+    as fn(theta, mask, beta); beta is a float or a 0-d tensor."""
+    pg = make_potential_and_grad(spec, image, prior)
+
+    def tempered(theta: torch.Tensor, mask: torch.Tensor, beta):
+        u_full, g_full = pg(theta, mask)
+        lp = log_prior(theta, mask, prior)
+        glp = log_prior_grad(theta, mask, prior)
+        ll = -u_full - lp
+        gll = -g_full - glp
+        return -(beta * ll + lp), -(beta * gll + glp)
+
+    return tempered
 
 
 def make_potential_and_grad(spec: SceneSpec, image: torch.Tensor,

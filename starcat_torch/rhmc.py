@@ -1,0 +1,194 @@
+"""Riemannian-manifold HMC head on the diagonal Fisher metric (port of the
+diagonal path of starcat/rhmc.py).
+
+    H(theta, p) = U(theta) + 1/2 sum_a log g_a(theta) + 1/2 sum_a p_a^2 / g_a(theta)
+
+integrated by the generalised leapfrog with a fixed number of Picard sweeps
+(integrators.riemannian_leapfrog), on the metric of
+metric.make_diag_metric_fn.  Momenta are refreshed as p = sqrt(g) xi mask,
+so dead slots never move.  A trajectory whose fixed-point residual is not
+below ``solver_tol`` (NaN included) is force-rejected and reported as a
+solver failure, apart from Delta-H divergences; warmup's dual averaging
+sees the failures through ``divergence_penalty``.
+
+Every trajectory has the call contract of kernel B3: ``trajectory(theta, xi,
+eps, mask, beta) -> (theta', p', h0, h1, u1, resid)``.  The CUDA kernel
+(fused_rhmc_diag.make_fused_rhmc_diag, :func:`run_rhmc_fused`) or its plain
+version (fused_rhmc_diag.fused_rhmc_diag_reference, :func:`run_rhmc`)
+supplies it; the transition is a pure function of its draws (xi, u_jit,
+u_acc).  The full (dense) metric is kernel B6's and is not ported yet.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from .driver import ChainState, run_mcmc
+from .potential import make_potential_and_grad
+
+
+class RHMCConfig(NamedTuple):
+    step_size: float = 0.05
+    n_leapfrog: int = 10
+    fixed_point_iters: int = 6
+    target_accept: float = 0.9
+    divergence_threshold: float = 1000.0
+    # "diag" is the ported metric; "full" (the reference's default, the
+    # dense Fisher metric) raises until kernel B6 is ported
+    metric: str = "full"
+    solver_tol: float = 0.05
+    divergence_penalty: float = 5.0
+
+
+class RHMCInfo(NamedTuple):
+    accept_prob: torch.Tensor
+    accepted: torch.Tensor
+    diverged: torch.Tensor
+    energy_error: torch.Tensor
+    solver_fail: torch.Tensor  # force-rejected: residual not below solver_tol
+
+
+def check_metric(metric: str) -> None:
+    """Raise unless the metric is ported."""
+    if metric == "full":
+        raise ValueError(
+            "the full (dense) Fisher metric is not ported yet: it needs "
+            "kernel B6 (ROADMAP.md A10); use rhmc.metric=diag")
+    if metric != "diag":
+        raise ValueError(f"rhmc.metric must be 'full' or 'diag', got {metric!r}")
+
+
+def make_rhmc_diag_functions(potential_fn: Callable, diag_metric_fn: Callable):
+    """(hamiltonian, dH_dtheta, dH_dp) for a diagonal position-dependent
+    metric, each taking (theta (C, K, 3), p (C, K, 3), mask) and batched
+    over chains: H is (C,), the derivatives (C, K, 3).
+
+    dH/dtheta is autograd of the sum of H over chains; chains are
+    independent, so each chain gets its own gradient.  The graph is built
+    afresh on detached inputs at every call, so Picard sweeps do not
+    stack graphs."""
+
+    def ham(theta, p, mask):
+        g = diag_metric_fn(theta, mask)
+        return (potential_fn(theta, mask)
+                + 0.5 * torch.sum(torch.log(g), dim=(-2, -1))
+                + 0.5 * torch.sum(p * p / g, dim=(-2, -1)))
+
+    def dham_dtheta(theta, p, mask):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(ham(th, p.detach(), mask).sum(), th)
+        return grad
+
+    def dham_dp(theta, p, mask):
+        return p / diag_metric_fn(theta, mask)
+
+    return ham, dham_dtheta, dham_dp
+
+
+def rhmc_transition(states: ChainState, xi: torch.Tensor, u_jit: torch.Tensor,
+                    u_acc: torch.Tensor, trajectory: Callable, eps,
+                    mask: torch.Tensor, beta=1.0,
+                    divergence_threshold: float = 1000.0,
+                    solver_tol: float = 0.05):
+    """One RHMC transition of every chain on a B3-contract trajectory.
+
+    xi (C, K, 3) standard normal (the momentum is sqrt(g) xi mask), u_jit
+    and u_acc (C,) uniform on [0, 1): eps is jittered by +-20% per chain.
+    ``states.u`` must hold U_beta at ``states.theta``; the gradient is not
+    used and passes through."""
+    eps_c = eps * (0.8 + 0.4 * u_jit)
+    theta_n, _, h0, h1, u_n, resid = trajectory(states.theta, xi, eps_c, mask, beta)
+    e_err = h1 - h0
+    e_err = torch.where(torch.isfinite(e_err), e_err, torch.full_like(e_err, math.inf))
+    accept_prob = torch.exp(torch.clamp(-e_err, max=0.0))
+    diverged = e_err > divergence_threshold
+    # the solver's NaN residual fails too: the proposal is then not the
+    # reversible map the MH ratio assumes
+    solver_fail = ~(resid < solver_tol)
+    accept_prob = torch.where(solver_fail, torch.zeros_like(accept_prob), accept_prob)
+    accept = u_acc < accept_prob
+    theta = torch.where(accept[:, None, None], theta_n, states.theta)
+    u = torch.where(accept, u_n, states.u)
+    return ChainState(theta, u, states.grad), RHMCInfo(
+        accept_prob, accept, diverged, e_err, solver_fail)
+
+
+def make_rhmc_kernel(trajectory: Callable, mask: torch.Tensor,
+                     config: RHMCConfig, generator: torch.Generator, beta=1.0):
+    """Batched kernel with driver.py's signature (states, eps, inv_mass);
+    inv_mass is ignored (the metric is the mass).  Draws xi, u_jit and
+    u_acc for all chains, in that order."""
+
+    def kernel(states: ChainState, eps, inv_mass):
+        del inv_mass
+        th = states.theta
+        xi = torch.randn(th.shape, generator=generator, dtype=th.dtype, device=th.device)
+        u_jit = torch.rand((th.shape[0],), generator=generator, device=th.device)
+        u_acc = torch.rand((th.shape[0],), generator=generator, device=th.device)
+        return rhmc_transition(states, xi, u_jit, u_acc, trajectory, eps, mask,
+                               beta, config.divergence_threshold,
+                               config.solver_tol)
+
+    return kernel
+
+
+def make_trajectory(spec, image: torch.Tensor, prior, kmax: int,
+                    config: RHMCConfig, fused: bool, jitter: float = 1e-3):
+    """The B3-contract trajectory: the CUDA kernel's wrapper (which runs the
+    plain version only for CPU tensors) or, with ``fused=False``, the plain
+    version on any device."""
+    # imported here: fused_rhmc_diag builds its plain version from this module
+    from .fused_rhmc_diag import fused_rhmc_diag_reference, make_fused_rhmc_diag
+
+    check_metric(config.metric)
+    if fused:
+        return make_fused_rhmc_diag(spec, image, prior, kmax, config.n_leapfrog,
+                                    config.fixed_point_iters, jitter)
+    return functools.partial(fused_rhmc_diag_reference, spec, image, prior,
+                             n_steps=config.n_leapfrog,
+                             fixed_point_iters=config.fixed_point_iters,
+                             jitter=jitter)
+
+
+def make_fused_rhmc_kernel(spec, image: torch.Tensor, prior, mask: torch.Tensor,
+                           config: RHMCConfig, generator: torch.Generator,
+                           beta=1.0, jitter: float = 1e-3):
+    """The RHMC kernel with every trajectory in one launch of the CUDA
+    kernel B3; mask is (K,) or per chain (C, K)."""
+    traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config,
+                           True, jitter)
+    return make_rhmc_kernel(traj, mask, config, generator, beta)
+
+
+def _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
+         config: RHMCConfig, thin: int):
+    pg = make_potential_and_grad(spec, image, prior)
+    return run_mcmc(kernel, lambda th: pg(th, mask), theta0, n_samples,
+                    n_warmup, step_size=config.step_size,
+                    target_accept=config.target_accept, thin=thin,
+                    adapt_mass=False,
+                    divergence_penalty=config.divergence_penalty)
+
+
+def run_rhmc(generator: torch.Generator, spec, image: torch.Tensor, prior,
+             theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
+             n_warmup: int, config: RHMCConfig = RHMCConfig(), thin: int = 1):
+    """init -> step-size-only warmup -> sample on the plain trajectory."""
+    traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config, False)
+    kernel = make_rhmc_kernel(traj, mask, config, generator)
+    return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
+                config, thin)
+
+
+def run_rhmc_fused(generator: torch.Generator, spec, image: torch.Tensor, prior,
+                   theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
+                   n_warmup: int, config: RHMCConfig = RHMCConfig(),
+                   thin: int = 1):
+    """run_rhmc with every trajectory in one launch of kernel B3."""
+    kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator)
+    return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
+                config, thin)

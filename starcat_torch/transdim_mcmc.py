@@ -1,0 +1,236 @@
+"""Trans-dimensional MCMC head (port of starcat/transdim_mcmc.py).
+
+Each transition composes two kernels that target the same joint
+distribution over (mask, theta), the slot-symmetrised measure of
+transdim.py:
+
+  1. ``n_transdim_sweeps`` birth/death + split/merge sweeps, which change
+     each chain's alive mask;
+  2. one within-model move at each chain's current mask, dead slots frozen:
+     ``hmc`` (kernel B1's trajectory, per-chain masks) or ``rhmc_diag``
+     (kernel B3's diagonal-Fisher trajectory, per-chain masks).
+
+The mask is chain state here, so this head carries its own warmup (dual
+averaging on the step size only, with the divergence penalty) and sampling
+loops.  The log-likelihood cache of the trans-d ratios is refreshed for
+free after the within-model move, loglik = -U - log prior.  ``beta``
+tempers the likelihood (target prior * L^beta; the cache then holds the
+tempered log-likelihood); beta = 0 makes the whole head sample the prior.
+
+Random numbers come from the run's one generator, in a fixed order per
+transition: each sweep's draws (transdim.draw_sweep), then the within-model
+move's.  Blocked sampling and checkpoints are not ported yet (ROADMAP A12).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .adapt import da_init, da_update
+from .driver import ChainState
+from .fused_leapfrog import make_fused_leapfrog
+from .hmc import hmc_transition
+from .integrators import plain_trajectory
+from .potential import (
+    PriorSpec,
+    log_likelihood,
+    log_prior,
+    make_potential_and_grad,
+    make_tempered_potential_and_grad,
+    sample_prior,
+)
+from .rhmc import RHMCConfig, check_metric, make_trajectory, rhmc_transition
+from .scene import SceneSpec
+from .transdim import TransDimConfig, draw_sweep, transdim_sweep
+
+
+class TransDimMCMCConfig(NamedTuple):
+    step_size: float = 0.1
+    # within-model move: "hmc" | "rhmc_diag"; "rhmc" (the full metric)
+    # raises until kernel B6 is ported
+    mutation: str = "hmc"
+    n_leapfrog: int = 10
+    fixed_point_iters: int = 4
+    n_transdim_sweeps: int = 2
+    target_accept: float = 0.8
+    divergence_threshold: float = 1000.0
+    solver_tol: float = 0.05
+    divergence_penalty: float = 5.0
+    transdim: TransDimConfig = TransDimConfig()
+
+
+class TDState(NamedTuple):
+    """Per-chain state; the mask is state here, where the fixed-K heads
+    close over one."""
+
+    theta: torch.Tensor   # (C, K, 3)
+    mask: torch.Tensor    # (C, K) in {0., 1.}
+    loglik: torch.Tensor  # (C,) (tempered) log-likelihood cache
+
+
+class TDInfo(NamedTuple):
+    accept_prob: torch.Tensor  # (C,) within-model acceptance probability
+    diverged: torch.Tensor     # (C,)
+    td_accept: torch.Tensor    # (C,) mean trans-d acceptance over the sweeps
+    n_alive: torch.Tensor      # (C,) star count after the transition
+    solver_fail: torch.Tensor  # (C,) Riemannian solver force-rejections
+
+
+def init_td_states(generator: torch.Generator, spec: SceneSpec,
+                   image: torch.Tensor, prior: PriorSpec, kmax: int,
+                   n_chains: int, lam_count: float, beta=1.0) -> TDState:
+    """Prior-initialised chains: parameters from the prior, n from the
+    Poisson(lam_count) truncated to [0, kmax], the first n slots alive."""
+    dev = image.device
+    thetas = sample_prior(generator, n_chains * kmax, prior, dev).reshape(n_chains, kmax, 3)
+    ks = torch.arange(kmax + 1, dtype=torch.float64, device=dev)
+    logpmf = ks * math.log(lam_count) - torch.lgamma(ks + 1.0)
+    n_draw = torch.multinomial(torch.softmax(logpmf, dim=0).to(torch.float32),
+                               n_chains, replacement=True, generator=generator)
+    masks = (torch.arange(kmax, device=dev)[None, :] < n_draw[:, None]).to(torch.float32)
+    loglik = beta * log_likelihood(thetas, masks, spec, image)
+    return TDState(thetas, masks, loglik)
+
+
+def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
+                         kmax: int, cfg: TransDimMCMCConfig,
+                         generator: torch.Generator, beta=1.0,
+                         fused: bool = False):
+    """Batched transition: kernel(TDState, eps) -> (TDState, TDInfo).
+
+    fused=True runs the within-model trajectory in the CUDA kernel (B1 for
+    ``hmc``, B3 for ``rhmc_diag``); off it, the plain torch trajectory."""
+    if cfg.mutation == "rhmc":
+        check_metric("full")
+    if cfg.mutation not in ("hmc", "rhmc_diag"):
+        raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: hmc, rhmc_diag")
+    if beta == 1.0:
+        llf = lambda th, m: log_likelihood(th, m, spec, image)  # noqa: E731
+        pg = make_potential_and_grad(spec, image, prior)
+    else:
+        llf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
+        tpg = make_tempered_potential_and_grad(spec, image, prior)
+        pg = lambda th, m: tpg(th, m, beta)  # noqa: E731
+
+    if cfg.mutation == "hmc":
+        if fused and beta != 1.0:
+            # the fused HMC trajectory evaluates the beta = 1 posterior; the
+            # Riemannian kernel takes beta itself
+            raise ValueError("tempered trans-d MCMC on the CUDA kernel: use "
+                             "mutation=rhmc_diag, or kernel=torch for hmc")
+        fused_traj = (make_fused_leapfrog(spec, image, prior, kmax, cfg.n_leapfrog)
+                      if fused else None)
+
+        def within_model(theta, mask, u, eps):
+            c, k = mask.shape
+            dev = theta.device
+            _, g = pg(theta, mask)
+            p0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype, device=dev)
+            u_jit = torch.rand((c,), generator=generator, device=dev)
+            u_acc = torch.rand((c,), generator=generator, device=dev)
+            if fused_traj is None:
+                trajectory = plain_trajectory(lambda th: pg(th, mask))
+            else:
+                trajectory = lambda th, p, e, im, m, n, gr: fused_traj(  # noqa: E731
+                    th, p, e, im, m, grad=gr)
+            sts, info = hmc_transition(
+                ChainState(theta, u, g), eps, torch.ones((k, 3), device=dev), mask,
+                p0, u_jit, u_acc, trajectory, cfg.n_leapfrog, cfg.divergence_threshold)
+            return sts, info, torch.zeros_like(info.diverged)
+    else:
+        rcfg = RHMCConfig(n_leapfrog=cfg.n_leapfrog,
+                          fixed_point_iters=cfg.fixed_point_iters, metric="diag")
+        rhmc_traj = make_trajectory(spec, image, prior, kmax, rcfg, fused)
+
+        def within_model(theta, mask, u, eps):
+            c = theta.shape[0]
+            dev = theta.device
+            xi = torch.randn(theta.shape, generator=generator, dtype=theta.dtype, device=dev)
+            u_jit = torch.rand((c,), generator=generator, device=dev)
+            u_acc = torch.rand((c,), generator=generator, device=dev)
+            sts, info = rhmc_transition(
+                ChainState(theta, u, torch.zeros_like(theta)), xi, u_jit, u_acc,
+                rhmc_traj, eps, mask, beta, cfg.divergence_threshold, cfg.solver_tol)
+            return sts, info, info.solver_fail
+
+    def kernel(state: TDState, eps):
+        theta, mask, ll = state
+        c = theta.shape[0]
+        td_acc = torch.zeros((c,), dtype=torch.float32, device=theta.device)
+        for _ in range(cfg.n_transdim_sweeps):
+            draws = draw_sweep(generator, c, kmax, spec, prior, cfg.transdim,
+                               theta.device)
+            theta, mask, ll, info = transdim_sweep(theta, mask, ll, llf, prior, spec,
+                                                   cfg.transdim, draws, image)
+            td_acc = td_acc + info.accepted.to(torch.float32)
+        td_accept = td_acc / max(cfg.n_transdim_sweeps, 1)
+
+        u = -(ll + log_prior(theta, mask, prior))
+        sts, info, sf = within_model(theta, mask, u, eps)
+        ll2 = -sts.u - log_prior(sts.theta, mask, prior)
+        return TDState(sts.theta, mask, ll2), TDInfo(
+            info.accept_prob, info.diverged, td_accept, mask.sum(-1), sf)
+
+    return kernel
+
+
+class TDSampleResult(NamedTuple):
+    thetas: torch.Tensor       # (C, N, K, 3)
+    masks: torch.Tensor        # (C, N, K) bool
+    accept_prob: torch.Tensor  # (C, N)
+    diverged: torch.Tensor     # (C, N)
+    td_accept: torch.Tensor    # (C, N)
+    solver_fail: torch.Tensor  # (C, N)
+    final_state: TDState
+
+
+def warmup(states: TDState, kernel, n_warmup: int, step_size: float,
+           target_accept: float, divergence_penalty: float = 0.0):
+    """Dual-averaging step-size warmup (no mass adaptation: the mask varies
+    per chain).  The statistic is mean(accept_prob) - divergence_penalty *
+    frac(diverged | solver_fail).  Returns (states, eps_bar)."""
+    da = da_init(step_size, states.theta.device)
+    st = states
+    for _ in range(n_warmup):
+        st, info = kernel(st, torch.exp(da.log_eps))
+        bad = (info.diverged | info.solver_fail).to(torch.float32).mean()
+        da = da_update(da, info.accept_prob.mean() - divergence_penalty * bad,
+                       target=target_accept)
+    return st, torch.exp(da.log_eps_bar)
+
+
+def sample(states: TDState, kernel, n_samples: int, eps) -> TDSampleResult:
+    """Sampling at a fixed eps, draws and per-draw masks kept on the device."""
+    c, k = states.mask.shape
+    dev = states.theta.device
+    thetas = torch.empty((c, n_samples, k, 3), dtype=states.theta.dtype, device=dev)
+    masks = torch.empty((c, n_samples, k), dtype=torch.bool, device=dev)
+    aprob = torch.empty((c, n_samples), dtype=torch.float32, device=dev)
+    div = torch.empty((c, n_samples), dtype=torch.bool, device=dev)
+    td = torch.empty((c, n_samples), dtype=torch.float32, device=dev)
+    sf = torch.empty((c, n_samples), dtype=torch.bool, device=dev)
+    st = states
+    for i in range(n_samples):
+        st, info = kernel(st, eps)
+        thetas[:, i] = st.theta
+        masks[:, i] = st.mask > 0.5
+        aprob[:, i] = info.accept_prob
+        div[:, i] = info.diverged
+        td[:, i] = info.td_accept
+        sf[:, i] = info.solver_fail
+    return TDSampleResult(thetas, masks, aprob, div, td, sf, st)
+
+
+def run_transdim(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
+                 prior: PriorSpec, kmax: int, n_chains: int, n_samples: int,
+                 n_warmup: int, cfg: TransDimMCMCConfig = TransDimMCMCConfig(),
+                 fused: bool = False, beta=1.0):
+    """init -> warmup -> sampling; returns (TDSampleResult, step_size)."""
+    kernel = make_transdim_kernel(spec, image, prior, kmax, cfg, generator, beta, fused)
+    states = init_td_states(generator, spec, image, prior, kmax, n_chains,
+                            cfg.transdim.lam_count, beta)
+    states, eps = warmup(states, kernel, n_warmup, cfg.step_size,
+                         cfg.target_accept, cfg.divergence_penalty)
+    return sample(states, kernel, n_samples, eps), eps

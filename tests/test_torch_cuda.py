@@ -153,3 +153,140 @@ def test_slice_runs_through_the_kernel(dev, head):
     truth_flux = float(out.stats["truth"]["f"][0])
     flux = api.summarize_output(out)["flux"]
     assert abs(flux["mean"] - truth_flux) < 4 * flux["sd"]
+
+
+# ---- kernel B3: the diagonal-Fisher Riemannian trajectory ----------------
+
+# tests/test_pallas_rhmc_diag.py:119-126: theta 1e-4, p 1e-3, h 2e-3.  h0,
+# h1 and u1 are float32 numbers of magnitude ~2e4 at the flagship scene,
+# where float32's own spacing is ~2e-3, so the h bound adds four spacings.
+RTOL = dict(theta=1e-4, p=1e-3, h=2e-3, resid=1e-5)
+
+
+def _h_tol(h):
+    return RTOL["h"] + 4.0 * float(np.spacing(np.float32(h.abs().max().item())))
+
+
+def _rhmc_inputs(c, k, dev, per_chain, seed=0):
+    cfg = CONFIGS["cfg5_transdim_mcmc"]
+    truth, img = cfg.make_data()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = min(10, k)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = truth[:n].to(dev)[None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    if k > n:
+        theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+        theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    eps = 0.03 * (0.8 + 0.4 * torch.rand((c,), generator=gen, device=dev))
+    if per_chain:
+        alive = torch.randint(6, k + 1, (c,), generator=gen, device=dev)
+        order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+        mask = (order < alive[:, None]).to(torch.float32)
+    else:
+        mask = torch.ones(k, device=dev)
+    return cfg, img.to(dev), theta, xi, eps, mask
+
+
+def _assert_rhmc_close(out, ref):
+    assert float((out[0] - ref[0]).abs().max()) <= RTOL["theta"]
+    assert float((out[1] - ref[1]).abs().max()) <= RTOL["p"]
+    for a, b in zip(out[2:5], ref[2:5]):
+        assert float((a - b).abs().max()) <= _h_tol(b)
+    assert float((out[5] - ref[5]).abs().max()) <= RTOL["resid"]
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.0])
+@pytest.mark.parametrize("shape", ["cfg5", "cfg1"])
+def test_rhmc_kernel_matches_plain(dev, shape, beta):
+    from starcat_torch import fused_rhmc_diag as frd
+
+    c, k, n_steps, fpi, per_chain = ((64, 16, 6, 4, True) if shape == "cfg5"
+                                     else (32, 10, 16, 6, False))
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(c, k, dev, per_chain)
+    out = frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, k, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(beta, device=dev))
+    ref = frd.fused_rhmc_diag_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
+                                        beta, n_steps, fpi)
+    torch.cuda.synchronize()
+    _assert_rhmc_close(out, ref)
+    if per_chain:  # dead slots frozen bit for bit, their momentum zero
+        dead = mask == 0
+        assert bool(dead.any())
+        assert torch.equal(out[0][dead], theta[dead])
+        assert bool((out[1][dead] == 0).all())
+
+
+def test_rhmc_kernel_reports_a_nan_chain_as_a_solver_failure(dev):
+    from starcat_torch import fused_rhmc_diag as frd
+    from starcat_torch.driver import ChainState
+    from starcat_torch.rhmc import rhmc_transition
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(16, 16, dev, True, seed=3)
+    theta[0, :, 2] = 95.0  # exp(95) overflows float32
+    fused = frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 16, 6, 4)
+    out = fused(theta, xi, eps, mask)
+    assert bool(torch.isnan(out[5][0])) and bool(torch.isfinite(out[5][1:]).all())
+    u = torch.zeros(16, device=dev)
+    new, info = rhmc_transition(ChainState(theta, u, torch.zeros_like(theta)), xi,
+                                torch.full((16,), 0.5, device=dev),
+                                torch.full((16,), 0.01, device=dev), fused,
+                                torch.tensor(0.03, device=dev), mask)
+    assert bool(info.solver_fail[0]) and not bool(info.accepted[0])
+    assert torch.equal(new.theta[0], theta[0])
+
+
+def test_rhmc_wrapper_rejects_bad_inputs(dev):
+    from starcat_torch import fused_rhmc_diag as frd
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(8, 16, dev, True)
+    fused = frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 16, 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fused(theta.double(), xi, eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi[:, :5], eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi, eps, mask[:, :5])
+    with pytest.raises(ValueError, match="eps"):
+        fused(theta, xi, eps[:3], mask)
+    with pytest.raises(ValueError, match="beta"):
+        fused(theta, xi, eps, mask, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="B4"):
+        frd.make_fused_rhmc_diag(cfg.scene._replace(height=64, width=64),
+                                 torch.zeros((64, 64), device=dev), cfg.prior, 16, 2, 2)
+    with pytest.raises(ValueError, match="B4"):
+        frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 17, 2, 2)
+
+
+def test_rhmc_launch_count(dev):
+    from starcat_torch import fused_rhmc_diag as frd
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(8, 16, dev, True)
+    frd.reset_launch_counts()
+    fused = frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 16, 1, 1)
+    fused(theta, xi, eps, mask)
+    fused(theta, xi, eps, mask, 0.5)
+    assert frd.LAUNCHES == 2
+
+
+@pytest.mark.parametrize("name,over,kernel", [
+    ("cfg5_transdim_mcmc", {"n_chains": 64, "n_warmup": 40, "n_samples": 20},
+     "rhmc_diag_cuda"),
+    ("cfg5_transdim_mcmc", {"n_chains": 64, "n_warmup": 40, "n_samples": 20,
+                            "tdm.mutation": "hmc"}, "hmc_cuda"),
+    ("cfg1_rhmc", {"n_chains": 64, "n_warmup": 60, "n_samples": 30, "rhmc.metric": "diag"},
+     "rhmc_diag_cuda"),
+])
+def test_riemannian_and_transdim_heads_run_through_the_kernels(dev, name, over, kernel):
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(CONFIGS[name], over)
+    out = api.sample(cfg, dev, seed=1)
+    assert out.stats["kernel"] == kernel and out.stats["kernel_launches"] > 0
+    assert np.isfinite(out.thetas).all()
+    assert 0.3 < out.stats["accept"] <= 1.0
+    summ = api.summarize_output(out)
+    assert np.isfinite(summ["total_flux"]["mean"])
+    if name.startswith("cfg5"):
+        assert out.masks.shape == (cfg.n_chains, cfg.n_samples, cfg.kmax)
+        assert 6 <= summ["star_count"]["mean"] <= 14

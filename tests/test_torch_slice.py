@@ -66,7 +66,8 @@ def test_cli_run_prints_its_json_line():
 def test_cli_list_names_the_ported_presets():
     res = _cli("list")
     assert res.returncode == 0, res.stderr
-    assert "cfg0_single_star" in res.stdout and "cfg6_chees" in res.stdout
+    for name in ("cfg0_single_star", "cfg1_rhmc", "cfg5_transdim_mcmc", "cfg6_chees"):
+        assert name in res.stdout
 
 
 def test_cli_default_device_refuses_to_run_without_cuda():
@@ -92,7 +93,10 @@ def test_short_cfg6_chees_run_on_the_plain_path():
 
 def test_port_imports_no_jax():
     code = ("import sys, starcat_torch, starcat_torch.api, starcat_torch.__main__, "
-            "starcat_torch.chees, starcat_torch.convert, starcat_torch.fused_leapfrog; "
+            "starcat_torch.chees, starcat_torch.convert, starcat_torch.fused_leapfrog, "
+            "starcat_torch.build, starcat_torch.metric, starcat_torch.rhmc, "
+            "starcat_torch.fused_rhmc_diag, starcat_torch.transdim, "
+            "starcat_torch.transdim_mcmc; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'starcat')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -102,7 +106,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("name,jax_name", [("cfg0_single_star", "cfg0_single_star"),
                                            ("cfg6_chees", "cfg6_chees"),
-                                           ("cfg6_chees", "cfg2_nuts")])
+                                           ("cfg6_chees", "cfg2_nuts"),
+                                           ("cfg1_rhmc", "cfg1_rhmc"),
+                                           ("cfg5_transdim_mcmc", "cfg5_transdim_mcmc")])
 def test_committed_scenes_equal_jax_make_data(name, jax_name):
     theta_t, img_t = CONFIGS[name].make_data()
     theta_j, img_j = JAX_CONFIGS[jax_name].make_data()
@@ -129,12 +135,23 @@ def test_kernel_selection():
     crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128))
     with pytest.raises(ValueError, match="B5"):
         api.resolve_kernel("cuda", torch.device("cuda"), crowded)
+    # the Riemannian heads run kernel B3, whose domain names B4 off it
+    for name in ("cfg5_transdim_mcmc", "cfg1_rhmc"):
+        big = dataclasses.replace(CONFIGS[name], kmax=64,
+                                  rhmc=CONFIGS[name].rhmc._replace(metric="diag"))
+        with pytest.raises(ValueError, match="B4"):
+            api.resolve_kernel("cuda", torch.device("cuda"), big)
+        assert api.resolve_kernel("auto", cpu, CONFIGS[name]) == "torch"
+    hmc_td = apply_overrides(CONFIGS["cfg5_transdim_mcmc"], {"tdm.mutation": "hmc"})
+    with pytest.raises(ValueError, match="B5"):
+        api.resolve_kernel("cuda", torch.device("cuda"),
+                           dataclasses.replace(hmc_td, kmax=64))
 
 
 def test_unported_head_raises():
     cfg = dataclasses.replace(CONFIGS["cfg0_single_star"], head="nuts", n_chains=2,
                               n_samples=2, n_warmup=2)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP.md A11\)"):
         api.sample(cfg, "cpu")
 
 
