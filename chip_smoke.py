@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-1. prints the card (nvidia-smi name and power limit) and builds both CUDA
-   kernels from csrc/ with nvcc, one process per source, started together;
+1. prints the card (nvidia-smi name and power limit) and builds the three
+   CUDA kernels from csrc/ with nvcc, one process per source, started
+   together;
 2. holds the fused leapfrog kernel (B1/B2) against its plain torch version
    on the card at the flagship shape (1024 chains, K = 10, 32x32): both
    call contracts, n_steps in {0, 1, 5} with and without an entry gradient,
@@ -14,15 +15,25 @@
    slots, beta 1 and 0.3) and the cfg1 shape (128 chains, K = 10, shared
    mask), checks that a chain that overflows comes back as a solver
    failure, and times one trajectory of each shape;
-4. drives the fixed-K path at full width through the public API, the
+4. holds the full-Fisher Riemannian kernel (B6) against its plain version,
+   chain by chain, at the cfg3 shape (512 particles, K = 16, per-chain
+   masks with dead slots, beta 1 and 0.3, and against float64) and the cfg1
+   shape (64 chains, K = 10, shared mask), checks that a chain that
+   overflows comes back as a solver failure, and times one trajectory at
+   the cfg3 shape with 4096 particles and at the cfg1 shape;
+5. drives the fixed-K path at full width through the public API, the
    launch counts set to 0 just before it and read just after: the
    cfg6_chees preset (ChEES, B2's contract) and the same scene under the
    HMC head (B1's contract);
-5. drives the Riemannian path the same way: cfg5_transdim_mcmc at 256
-   chains, K_max 16 (trans-d sweeps with B3 moves at per-chain masks) and
-   cfg1_rhmc with rhmc.metric=diag at 128 chains (B3, shared mask), both
-   shortened; checks that they ran through B3, that the draws are finite,
-   and that the posteriors agree with the reference's records.
+6. drives the diagonal Riemannian path the same way: cfg5_transdim_mcmc at
+   256 chains, K_max 16 (trans-d sweeps with B3 moves at per-chain masks)
+   and cfg1_rhmc with rhmc.metric=diag at 128 chains (B3, shared mask),
+   both shortened; checks that they ran through B3, that the draws are
+   finite, and that the posteriors agree with the reference's records;
+7. drives the full-metric path the same way: cfg3_transdim_smc as the
+   preset stands (4096 particles, tempering to beta = 1, B6 mutations at
+   per-particle masks) and cfg1_rhmc on its full metric, shortened (B6,
+   shared mask); checks that they ran through B6 and the records' bands.
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -254,8 +265,143 @@ def check_rhmc_kernel(frd, rhmc_mod, cfg, dev):
     return err, ms
 
 
+SOLVER_TOL = 0.05  # rhmc.RHMCConfig.solver_tol: a larger residual is rejected
+TIGHT = 1e-3       # chains whose fixed points converged this far
+
+
+def _per_chain(d):
+    return d.reshape(d.shape[0], -1).amax(1) if d.ndim > 1 else d
+
+
+def _compare_b6(name, out, ref, ref64=None):
+    """B6 against its plain version, chain by chain.
+
+    * Solver failures (residual not below SOLVER_TOL, NaN included) agree
+      on at least 99% of the chains: a chain at the edge of the solver's
+      reach may fall either side of the bound in two float32 programs.
+    * On the chains whose fixed points converged tightly in both (residual
+      < TIGHT), every output is within RTOL (h: plus four float32 spacings).
+      On the looser converged chains float32 rounding is amplified by the
+      chain's own trajectory; there, given a float64 run of the plain
+      version, the kernel must be no farther from it than the float32
+      plain version is, plus RTOL.
+    Returns the largest theta error on the tight chains."""
+    import torch
+
+    rk, rr = out[5], ref[5]
+    fail_k, fail_r = ~(rk < SOLVER_TOL), ~(rr < SOLVER_TOL)
+    c = rk.shape[0]
+    disagree = int((fail_k != fail_r).sum())
+    tight = (rk < TIGHT) & (rr < TIGHT)
+    names = ("theta", "p", "h0", "h1", "u1", "resid")
+    tols = dict(theta=RTOL["theta"], p=RTOL["p"], h0=_h_tol(ref[2][tight]),
+                h1=_h_tol(ref[3][tight]), u1=_h_tol(ref[4][tight]), resid=RTOL["resid"])
+    errs = {nm: float(_per_chain((a - b).abs())[tight].max())
+            for nm, a, b in zip(names, out, ref)}
+    print(f"B6 {name}: solver failures kernel {int(fail_k.sum())}, plain {int(fail_r.sum())}, "
+          f"disagreeing {disagree} of {c}; on the {int(tight.sum())} tight chains "
+          f"{json.dumps(errs)}; tolerances {json.dumps(tols)}")
+    if disagree > 0.01 * c:
+        raise AssertionError(f"B6 {name}: {disagree} chains' solver verdicts disagree")
+    if int(tight.sum()) < 0.8 * c:
+        raise AssertionError(f"B6 {name}: only {int(tight.sum())} of {c} chains converged")
+    for nm, e in errs.items():
+        if not e <= tols[nm]:
+            raise AssertionError(f"B6 {name}: {nm} error {e} > {tols[nm]}")
+    if ref64 is not None:
+        conv = ~fail_k & ~fail_r & (ref64[5] < SOLVER_TOL)
+        far = {}
+        for nm, a, b, z in zip(names[:5], out, ref, ref64):
+            dk = float(_per_chain((a.double() - z).abs())[conv].max())
+            dp = float(_per_chain((b.double() - z).abs())[conv].max())
+            far[nm] = (dk, dp)
+            bound = dp + (_h_tol(z[conv]) if nm in ("h0", "h1", "u1") else RTOL[nm])
+            if not dk <= bound:
+                raise AssertionError(f"B6 {name}: {nm} {dk} from float64 on the converged "
+                                     f"chains, the plain version {dp}")
+        print(f"B6 {name} vs float64 on the {int(conv.sum())} converged chains "
+              f"(kernel, plain float32): {json.dumps(far)}")
+    return errs["theta"]
+
+
+def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
+    """Phase 4: B6 against its plain version on the card at the cfg3 shape
+    (512 particles, K = 16, per-chain masks with dead slots, beta 1 and 0.3;
+    beta 1 also against float64) and the cfg1 shape (64 chains, K = 10,
+    shared mask, 16 steps x 6 sweeps, at the step the cfg1 preset adapts
+    to), a chain that overflows, and one timed trajectory at the cfg3 shape
+    with the preset's 4096 particles and at the cfg1 shape.  Returns the
+    largest theta error and the times."""
+    import torch
+
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    spec, prior = cfg.scene, cfg.prior
+    cases = [  # (name, chains, K, n_steps, fixed_point_iters, per-chain mask, beta)
+        ("cfg3", 512, 16, 6, 4, True, 1.0),
+        ("cfg3 beta=0.3", 512, 16, 6, 4, True, 0.3),
+        ("cfg1", 64, 10, 16, 6, False, 1.0),
+    ]
+    err = 0.0
+    for i, (name, c, k, n_steps, fpi, per_chain, beta) in enumerate(cases):
+        theta, xi, eps, mask = _rhmc_inputs(truth, c, k, dev, 10 + i, per_chain)
+        if name == "cfg1":
+            eps = eps / 3.0  # the step the cfg1 preset adapts to (~0.01)
+        fused = fr.make_fused_rhmc(spec, img, prior, k, n_steps, fpi)
+        out = fused(theta, xi, eps, mask, torch.tensor(beta, device=dev))
+        ref = fr.fused_rhmc_reference(spec, img, prior, theta, xi, eps, mask, beta,
+                                      n_steps, fpi)
+        ref64 = None
+        if name == "cfg3":
+            ref64 = fr.fused_rhmc_reference(spec, img.double(), prior, theta.double(),
+                                            xi.double(), eps.double(), mask.double(),
+                                            beta, n_steps, fpi)
+        err = max(err, _compare_b6(name, out, ref, ref64))
+        if per_chain:
+            # on every chain that did not blow up (a NaN metric spreads to
+            # the whole chain, which the transition rejects)
+            dead = (mask == 0) & (out[5] < SOLVER_TOL)[:, None]
+            if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+                raise AssertionError(f"B6 {name}: a dead slot moved")
+
+    ms = {}
+    for name, c, k, n_steps, fpi, per_chain, scale in (("cfg3", 4096, 16, 6, 4, True, 1.0),
+                                                       ("cfg1", 64, 10, 16, 6, False, 1 / 3)):
+        theta, xi, eps, mask = _rhmc_inputs(truth, c, k, dev, 20, per_chain)
+        eps = eps * scale
+        fused = fr.make_fused_rhmc(spec, img, prior, k, n_steps, fpi)
+        ms[name] = _time_ms(lambda: fused(theta, xi, eps, mask, 1.0), 3)
+        ms[name + "_plain"] = _time_ms(lambda: fr.fused_rhmc_reference(
+            spec, img, prior, theta, xi, eps, mask, 1.0, n_steps, fpi), 1)
+        print(f"B6 {name} ({c} chains, K={k}, {n_steps} steps x {fpi} sweeps): kernel "
+              f"{ms[name]:.4f} ms, plain {ms[name + '_plain']:.4f} ms per trajectory")
+
+    # a chain that overflows (exp(95) > float32's range): NaN residual,
+    # reported by the transition as a solver failure and rejected
+    c = 64
+    theta, xi, eps, mask = _rhmc_inputs(truth, c, 16, dev, 17, True)
+    theta[0, :, 2] = 95.0
+    fused = fr.make_fused_rhmc(spec, img, prior, 16, 6, 4)
+    out = fused(theta, xi, eps / 3.0, mask)
+    u = torch.zeros(c, device=dev)
+    new, info = rhmc_mod.rhmc_transition(
+        rhmc_mod.ChainState(theta, u, torch.zeros_like(theta)), xi,
+        torch.full((c,), 0.5, device=dev), torch.full((c,), 0.01, device=dev),
+        fused, torch.tensor(0.01, device=dev), mask)
+    if not (bool(torch.isnan(out[5][0])) and bool(info.solver_fail[0])
+            and not bool(info.accepted[0]) and torch.equal(new.theta[0], theta[0])):
+        raise AssertionError(f"B6: the overflowing chain was not a solver failure "
+                             f"(resid {float(out[5][0])})")
+    if not bool(torch.isfinite(out[5][1:]).all()):
+        raise AssertionError("B6: the overflowing chain reached another chain")
+    torch.cuda.synchronize()
+    print(f"B6 overflowing chain: resid NaN -> solver failure, rejected; "
+          f"the other {c - 1} chains finite")
+    return err, ms
+
+
 def run_slice(api, cfg, dev):
-    """Phase 4: the fixed-K path at full width through the public API."""
+    """Phase 5: the fixed-K path at full width through the public API."""
     import dataclasses
 
     import numpy as np
@@ -299,7 +445,8 @@ REF_CFG1_DIAG = {"flux": (2140.3, 75.0)}
 
 
 def run_riemannian_slice(api, configs, dev):
-    """Phase 5: the Riemannian path at full width through the public API.
+    """Phase 6: the diagonal Riemannian path at full width through the
+    public API.
 
     Both runs are shortened (cfg5: the preset's 400 warmup transitions from
     its prior start, then 100 draws; cfg1: 200 + 100), so their posteriors
@@ -353,11 +500,76 @@ def run_riemannian_slice(api, configs, dev):
                                      f"{summ['star_count']['mean']} vs {mean} ± {sd}")
 
 
+# Posterior bands on the flagship image for the B6 path, each spanning the
+# JAX package's full-length records: cfg3_transdim_smc over four seeds
+# (runs/cfg3_full_r5.json, cfg3_full_r3.json, cfg3_seed1_r4.json,
+# cfg3_seed3_r5.json: 21 temperature steps each, star-count mean
+# 9.37-10.05, total flux 2152-2186, sd ~82); cfg1_rhmc on the full metric
+# (runs/cfg1_full_r5.json): total flux 2129.1 +- 72.3.
+REF_CFG3 = {"steps": (19, 23), "count": (9.2, 10.3), "modes": (9, 10), "flux": (2169.8, 41.0)}
+REF_CFG1_FULL = {"flux": (2129.1, 72.3)}
+
+
+def run_b6_slice(api, configs, dev):
+    """Phase 7: the full-metric path at full width through the public API:
+    cfg3_transdim_smc as the preset stands (4096 particles, K_max 16,
+    tempering to beta = 1, two trans-d sweeps and two B6 mutations per
+    step), then cfg1_rhmc on the full metric shortened to 200 + 100
+    transitions at its 64 chains.  Checks that both ran through B6, that
+    the draws are finite, and that the posteriors fall in the records'
+    bands (the shortened cfg1 run within one posterior sd)."""
+    import dataclasses
+
+    import numpy as np
+
+    runs = {
+        "cfg3_transdim_smc": configs["cfg3_transdim_smc"],
+        "cfg1_rhmc full": dataclasses.replace(configs["cfg1_rhmc"], n_warmup=200,
+                                              n_samples=100),
+    }
+    for name, rcfg in runs.items():
+        out = api.sample(rcfg, dev, seed=0)
+        summ = api.summarize_output(out)
+        st = out.stats
+        tf = summ["total_flux"]
+        line = (f"slice {name}: kernel {st['kernel']} x{st['kernel_launches']}, "
+                f"{st['wall_seconds']:.3f} s, accept {st['accept']:.3f}, step "
+                f"{st['step_size']:.4g}, divergences {st['divergences']}, solver rejections "
+                f"{st['solver_rejections']}; total flux {tf['mean']:.2f} ± {tf['sd']:.2f}")
+        if rcfg.head == "smc":
+            sc = summ["star_count"]
+            line += (f"; {st['n_temp_steps']} temperature steps to beta {st['beta']:.4f}, "
+                     f"logZ {st['log_z']:.3f}; star count mode {sc['mode']}, mean "
+                     f"{sc['mean']:.3f} ± {sc['sd']:.3f}")
+        else:
+            line += f" (R-hat {tf['rhat']:.4f})"
+        print(line)
+        want = "rhmc_cuda" if rcfg.head == "smc" else "rhmc_full_cuda"
+        if st["kernel"] != want or st["kernel_launches"] <= 0:
+            raise AssertionError(f"{name} did not run through B6: {st}")
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{name}: non-finite draws")
+        if rcfg.head == "smc":
+            lo, hi = REF_CFG3["steps"]
+            if st["beta"] != 1.0 or not lo <= st["n_temp_steps"] <= hi:
+                raise AssertionError(f"cfg3: beta {st['beta']} after {st['n_temp_steps']} steps")
+            lo, hi = REF_CFG3["count"]
+            if not lo <= sc["mean"] <= hi or sc["mode"] not in REF_CFG3["modes"]:
+                raise AssertionError(f"cfg3: star count mode {sc['mode']}, mean {sc['mean']}")
+            mean, band = REF_CFG3["flux"]
+        else:
+            mean, band = REF_CFG1_FULL["flux"]
+            if not 0.5 <= st["accept"] <= 1.0:
+                raise AssertionError(f"{name}: mean accept {st['accept']}")
+        if not abs(tf["mean"] - mean) <= band:
+            raise AssertionError(f"{name}: total flux {tf['mean']} vs {mean} ± {band}")
+
+
 def _build_all(build):
     """nvcc on every kernel source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("fused_leapfrog", "fused_rhmc_diag")
+    names = ("fused_leapfrog", "fused_rhmc_diag", "fused_rhmc")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build_kernel, names)))
@@ -377,6 +589,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from starcat_torch import api, build, fused_leapfrog as fl
+    from starcat_torch import fused_rhmc as fr
     from starcat_torch import fused_rhmc_diag as frd
     from starcat_torch import rhmc
     from starcat_torch.configs import CONFIGS
@@ -393,6 +606,7 @@ def main() -> int:
     cfg = CONFIGS["cfg6_chees"]
     err, ms = check_kernel(fl, cfg, dev)
     err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
+    err_b6, ms_b6 = check_rhmc_full_kernel(fr, rhmc, CONFIGS["cfg3_transdim_smc"], dev)
 
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -416,6 +630,18 @@ def main() -> int:
     print(f"B3 at the cfg1 shape: kernel {ms_b3['cfg1']:.4f} ms, plain "
           f"{ms_b3['cfg1_plain']:.4f} ms per trajectory")
 
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_b6_slice(api, CONFIGS, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["b6"] = fr.LAUNCHES
+    print(f"full-metric path: {wall:.3f} s wall; B6 launches {launches['b6']}")
+    if launches["b6"] <= 0:
+        raise AssertionError("B6 was never launched on the full-metric path")
+    print(f"B6 at the cfg1 shape: kernel {ms_b6['cfg1']:.4f} ms, plain "
+          f"{ms_b6['cfg1_plain']:.4f} ms per trajectory")
+
     src = "starcat_torch/csrc/fused_leapfrog.cu"
     rows = [
         {"name": "fused_leapfrog (B1 contract, static L)", "route": "cuda",
@@ -432,6 +658,11 @@ def main() -> int:
          "replaces": "starcat/pallas_rhmc_diag.py:405",
          "launches": launches["b3"], "max_abs_err": err_b3,
          "ms": ms_b3["cfg5"], "plain_ms": ms_b3["cfg5_plain"]},
+        {"name": "fused_rhmc (B6, full-Fisher Riemannian trajectory)",
+         "route": "cuda", "source": "starcat_torch/csrc/fused_rhmc.cu",
+         "replaces": "starcat/pallas_rhmc.py:663",
+         "launches": launches["b6"], "max_abs_err": err_b6,
+         "ms": ms_b6["cfg3"], "plain_ms": ms_b6["cfg3_plain"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ port runs, so both packages sample the same image.
     JAX_PLATFORMS=cpu python scripts/export_torch_scenes.py
 
 Entries: ``cfg0_single_star`` and ``flagship`` (the 10-star 32x32 scene
-that cfg1_rhmc, cfg2_nuts, cfg5_transdim_mcmc and cfg6_chees share, with
-the same prior, star count and seeds).  Each
+that cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc, cfg5_transdim_mcmc and
+cfg6_chees share, with the same prior, star count and seeds).  Each
 entry holds ``theta`` (n_stars, 3) and ``image`` (H, W) as float32, and
 ``meta`` = (height, width, psf_sigma, background, logf_mean, logf_sigma,
 n_stars, truth_seed, data_seed), which starcat_torch.configs matches.
@@ -46,7 +46,7 @@ def main() -> None:
         arrays[f"{entry}/meta"] = _meta(cfg)
     # the flagship entry stands for these presets too: same scene, prior,
     # star count and seeds
-    for name in ("cfg1_rhmc", "cfg2_nuts", "cfg5_transdim_mcmc"):
+    for name in ("cfg1_rhmc", "cfg2_nuts", "cfg3_transdim_smc", "cfg5_transdim_mcmc"):
         if not np.array_equal(_meta(CONFIGS[name]), arrays["flagship/meta"]):
             raise SystemExit(f"{name} no longer shares the flagship scene")
     OUT.parent.mkdir(parents=True, exist_ok=True)

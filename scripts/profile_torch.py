@@ -8,7 +8,9 @@ once under torch.profiler, and prints one JSON line: the wall time of the
 profiled run, the device time summed over all kernels, the device-busy
 share (device time / wall), the device time by kernel name, largest first,
 and the number of aten operator calls made on the host (nested calls
-included).  Needs a CUDA device.
+included), in all and per transition (per temperature step for the smc
+head, e.g. --config cfg3_transdim_smc, whose length --n-warmup and
+--n-samples do not set).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,9 +40,11 @@ def main() -> None:
     from starcat_torch.api import sample
     from starcat_torch.configs import CONFIGS, apply_overrides
 
-    over = {"n_warmup": args.n_warmup, "n_samples": args.n_samples,
-            **_parse_overrides(args.overrides)}
-    cfg = apply_overrides(CONFIGS[args.config], over)
+    cfg = CONFIGS[args.config]
+    over = _parse_overrides(args.overrides)
+    if cfg.head != "smc":
+        over = {"n_warmup": args.n_warmup, "n_samples": args.n_samples, **over}
+    cfg = apply_overrides(cfg, over)
     sample(cfg, "cuda", seed=0)  # build + warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -67,15 +71,22 @@ def main() -> None:
             aten_calls += e.count
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
+    if cfg.head == "smc":
+        unit, n_units = "temperature step", out.stats["n_temp_steps"]
+    else:
+        unit, n_units = "transition", cfg.n_warmup + cfg.n_samples * cfg.thin
     print(json.dumps({
-        "config": cfg.name, "head": cfg.head, "n_chains": cfg.n_chains,
-        "n_warmup": cfg.n_warmup, "n_samples": cfg.n_samples,
+        "config": cfg.name, "head": cfg.head,
+        **({"n_particles": cfg.smc.n_particles} if cfg.head == "smc" else
+           {"n_chains": cfg.n_chains, "n_warmup": cfg.n_warmup, "n_samples": cfg.n_samples}),
         "device": torch.cuda.get_device_name(0),
         "wall_s": wall, "device_s": total / 1e6,
         "device_busy_share": total / 1e6 / wall,
         "kernel": out.stats["kernel"],
         "kernel_launches": out.stats["kernel_launches"],
         "aten_calls": aten_calls,
+        "unit": unit, "aten_calls_per_unit": aten_calls / max(n_units, 1),
+        "device_s_per_unit": total / 1e6 / max(n_units, 1),
         "top_device_s": {k: v / 1e6 for k, v in top},
     }))
 

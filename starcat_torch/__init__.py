@@ -6,9 +6,11 @@ numpy only — never jax, never starcat — so it runs on a machine that has
 no JAX installed.  Its hand-written CUDA kernels, built by nvcc at first
 use (`build.py`), replace Pallas kernels of `starcat/`: the fused leapfrog
 trajectory (`fused_leapfrog.py`, `csrc/fused_leapfrog.cu`) the two of
-`starcat/pallas_kernels.py` (B1, B2), and the diagonal-Fisher Riemannian
+`starcat/pallas_kernels.py` (B1, B2), the diagonal-Fisher Riemannian
 trajectory (`fused_rhmc_diag.py`, `csrc/fused_rhmc_diag.cu`) the one of
-`starcat/pallas_rhmc_diag.py` that small scenes run (B3).
+`starcat/pallas_rhmc_diag.py` that small scenes run (B3), and the
+full-Fisher Riemannian trajectory (`fused_rhmc.py`, `csrc/fused_rhmc.cu`)
+the one of `starcat/pallas_rhmc.py` (B6).
 """
 from .potential import (
     PriorSpec,

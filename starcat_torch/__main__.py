@@ -3,8 +3,8 @@
 Commands:
   list                                                list presets
   run       --config cfg6_chees [--device cuda] [key=value ...]
-  validate  [--config cfg0_single_star] [--heads hmc,chees,rhmc,transdim]
-            [--device cuda]
+  validate  [--config cfg0_single_star]
+            [--heads hmc,chees,rhmc,rhmc_diag,smc,transdim] [--device cuda]
 
 ``--device`` defaults to cuda, and a run raises when CUDA is not available;
 pass ``--device cpu`` to run the plain torch path on the CPU.
@@ -58,11 +58,14 @@ def cmd_validate(args):
     """Gate each head against the NumPy oracle on the single-star scene:
     the posterior means of ux, uy and log f must agree within z < 4.
 
-    ``rhmc`` runs with rhmc.metric=diag (kernel B3) until the full metric's
-    kernel B6 is ported, and the report says so.  ``transdim`` is gated on
-    the alive-slot marginal: conditional on slot 0 being alive, its
-    posterior equals the oracle's fixed-K=1 posterior, so dead draws are
-    dropped and each chain is trimmed to the smallest alive count."""
+    ``rhmc`` runs the reference's default full metric (kernel B6) and
+    ``rhmc_diag`` the rhmc head on the diagonal metric (B3).  ``smc`` runs
+    as the reference's validate configures it (2048 particles, three HMC
+    mutations of 15 steps per temperature); its particles are the draws of
+    one series.  ``transdim`` is gated on the alive-slot marginal:
+    conditional on slot 0 being alive, its posterior equals the oracle's
+    fixed-K=1 posterior, so dead draws are dropped and each chain is
+    trimmed to the smallest alive count."""
     import numpy as np
 
     from oracle.numpy_sampler import run_oracle
@@ -84,14 +87,19 @@ def cmd_validate(args):
     ok = True
     report = {}
     for head in args.heads.split(","):
-        hcfg = dataclasses.replace(cfg, head=head, n_chains=16, n_samples=1000,
-                                   n_warmup=400,
-                                   rhmc=cfg.rhmc._replace(metric="diag"))
+        metric = "diag" if head == "rhmc_diag" else "full"
+        hcfg = dataclasses.replace(
+            cfg, head="rhmc" if head == "rhmc_diag" else head, n_chains=16,
+            n_samples=1000, n_warmup=400, rhmc=cfg.rhmc._replace(metric=metric),
+            smc=cfg.smc._replace(n_particles=2048, mutation="hmc", n_leapfrog=15,
+                                 n_mutation_steps=3))
         out = sample(hcfg, args.device, seed=2)
-        draws = out.thetas
+        draws = out.thetas        # (C, N, K, 3); smc: (P, 1, K, 3)
+        if draws.shape[1] == 1:
+            draws = np.moveaxis(draws, 0, 1)  # particles on the draw axis
         hrep = {}
-        if head == "rhmc":
-            hrep["metric"] = "diag (the full metric waits for kernel B6)"
+        if hcfg.head == "rhmc":
+            hrep["metric"] = metric
         if head == "transdim":
             alive = out.masks[:, :, 0]                       # (C, N)
             hrep["alive_frac"] = round(float(alive.mean()), 4)
@@ -135,7 +143,7 @@ def main(argv=None):
 
     p_val = sub.add_parser("validate", help="oracle vs port validation")
     p_val.add_argument("--config", default="cfg0_single_star")
-    p_val.add_argument("--heads", default="hmc,chees,rhmc,transdim",
+    p_val.add_argument("--heads", default="hmc,chees,rhmc,rhmc_diag,smc,transdim",
                        help="comma-separated heads to gate against the oracle")
     p_val.add_argument("--device", default="cuda")
     p_val.set_defaults(fn=cmd_validate)

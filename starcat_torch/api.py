@@ -2,12 +2,15 @@
 from a RunConfig and run one head on it, on an explicitly named device.
 
 Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it), ``chees``,
-``rhmc`` (diagonal metric) and ``transdim``.  ``RunConfig.kernel`` picks the
-trajectory: the head's CUDA kernel or its plain torch version.
-``stats["kernel"]`` names what ran: ``cuda_fused`` / ``torch`` for hmc and
-chees (kernel B1/B2), ``rhmc_diag_cuda`` / ``rhmc_diag_torch`` for rhmc
-(kernel B3), and ``<mutation>_cuda`` / ``<mutation>_torch`` for transdim;
-``stats["kernel_launches"]`` counts the CUDA kernels' launches in the run.
+``rhmc`` (full or diagonal Fisher metric), ``smc`` and ``transdim``.
+``RunConfig.kernel`` picks the trajectory: the head's CUDA kernel or its
+plain torch version.  ``stats["kernel"]`` names what ran: ``cuda_fused`` /
+``torch`` for hmc and chees (kernel B1/B2), ``rhmc_full_cuda`` /
+``rhmc_full_torch`` (kernel B6) or ``rhmc_diag_cuda`` / ``rhmc_diag_torch``
+(kernel B3) for rhmc, and ``<mutation>_cuda`` / ``<mutation>_torch`` for
+smc and transdim (the smc ``hmc`` mutation has no kernel and is always
+``hmc_torch``); ``stats["kernel_launches"]`` counts the CUDA kernels'
+launches in the run.
 The run draws every random number from one ``torch.Generator`` on the
 run's device, seeded from ``seed``.
 """
@@ -20,24 +23,26 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import diagnostics, fused_leapfrog, fused_rhmc_diag
+from . import diagnostics, fused_leapfrog, fused_rhmc, fused_rhmc_diag
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
 from .hmc import run_hmc, run_hmc_fused
 from .potential import constrain, make_potential_and_grad
 from .rhmc import check_metric, run_rhmc, run_rhmc_fused
-from .transdim_mcmc import run_transdim
+from .smc import MUTATIONS, check_mutation, run_smc
+from .transdim_mcmc import TD_MUTATIONS, run_transdim
 
-PORTED_HEADS = ("hmc", "oracle", "chees", "rhmc", "transdim")
+PORTED_HEADS = ("hmc", "oracle", "chees", "rhmc", "smc", "transdim")
 # the ROADMAP.md items that port the reference's other heads
-UNPORTED_HEADS = {"smc": "A8", "nuts": "A11", "advi": "A11"}
+UNPORTED_HEADS = {"nuts": "A11", "advi": "A11"}
+_KERNELS = (fused_leapfrog, fused_rhmc, fused_rhmc_diag)
 
 
 @dataclass
 class SampleOutput:
     config: RunConfig
     thetas: np.ndarray          # (C, N, K, 3) draws
-    masks: np.ndarray           # (K,), or per draw (C, N, K) for transdim
+    masks: np.ndarray           # (K,); per particle (P, K) for smc; per draw (C, N, K) for transdim
     stats: dict[str, Any] = field(default_factory=dict)
 
 
@@ -47,9 +52,26 @@ def _check_head(cfg: RunConfig) -> None:
     if cfg.head not in PORTED_HEADS:
         item = UNPORTED_HEADS.get(cfg.head, "queue A")
         raise ValueError(f"head {cfg.head!r} is not ported yet (ROADMAP.md "
-                         f"{item}); ported heads: hmc, chees, rhmc, transdim")
+                         f"{item}); ported heads: hmc, chees, rhmc, smc, transdim")
     if cfg.head == "rhmc":
         check_metric(cfg.rhmc.metric)
+    if cfg.head == "smc":
+        check_mutation(cfg.smc.mutation)
+    if cfg.head == "transdim" and cfg.tdm.mutation not in TD_MUTATIONS:
+        raise ValueError(f"unknown mutation {cfg.tdm.mutation!r}; ported: "
+                         f"{', '.join(TD_MUTATIONS)}")
+
+
+def _metric_of(cfg: RunConfig) -> str | None:
+    """The Riemannian metric the head's kernel runs ("full": B6, "diag":
+    B3), or None for the plain leapfrog (B1/B2; the smc hmc mutation)."""
+    if cfg.head == "rhmc":
+        return cfg.rhmc.metric
+    if cfg.head == "smc":
+        return MUTATIONS[cfg.smc.mutation]
+    if cfg.head == "transdim" and cfg.tdm.mutation != "hmc":
+        return "full" if cfg.tdm.mutation == "rhmc" else "diag"
+    return None
 
 
 def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
@@ -59,18 +81,23 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     domain)."""
     if pref not in ("auto", "cuda", "torch"):
         raise ValueError(f"kernel must be 'auto'|'cuda'|'torch', got {pref!r}")
-    if pref == "torch":
+    metric = _metric_of(cfg)
+    no_kernel = cfg.head == "smc" and metric is None
+    if pref == "torch" or (pref == "auto" and no_kernel):
         return "torch"
     if pref == "auto":
         return "cuda" if device.type == "cuda" else "torch"
-    if device.type != "cuda":
-        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
-    riemannian = cfg.head == "rhmc" or (cfg.head == "transdim"
-                                        and cfg.tdm.mutation == "rhmc_diag")
-    if riemannian:
+    if no_kernel:
+        raise ValueError("the smc hmc mutation has no CUDA kernel (the plain "
+                         "tempered leapfrog); use kernel=auto or torch")
+    if metric == "full":
+        fused_rhmc.check_domain(cfg.scene, cfg.kmax)
+    elif metric == "diag":
         fused_rhmc_diag.check_domain(cfg.scene, cfg.kmax)
     else:
         fused_leapfrog.check_domain(cfg.scene, cfg.kmax)
+    if device.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
     return "cuda"
 
 
@@ -92,10 +119,10 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
     _check_head(cfg)
     kernel = resolve_kernel(cfg.kernel, device, cfg)
     stats: dict[str, Any] = {"kernel": "cuda_fused" if kernel == "cuda" else "torch"}
-    launches0 = fused_leapfrog.LAUNCHES + fused_rhmc_diag.LAUNCHES
+    launches0 = sum(k.LAUNCHES for k in _KERNELS)
     t_start = time.perf_counter()
     theta0 = (_init_chains(generator, cfg, truth_theta.to(device))
-              if cfg.head != "transdim" else None)
+              if cfg.head not in ("smc", "transdim") else None)
     masks = mask.cpu().numpy()
 
     if cfg.head in ("hmc", "oracle"):
@@ -129,8 +156,26 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
         run = run_rhmc_fused if kernel == "cuda" else run_rhmc
         res, wr = run(generator, spec, img, prior, theta0, mask, cfg.n_samples,
                       cfg.n_warmup, cfg.rhmc, thin=cfg.thin)
-        stats.update(kernel=f"rhmc_diag_{kernel}", step_size=float(wr.step_size),
+        stats.update(kernel=f"rhmc_{cfg.rhmc.metric}_{kernel}",
+                     step_size=float(wr.step_size),
                      solver_rejections=int(res.solver_fail.sum()))
+    elif cfg.head == "smc":
+        res = run_smc(generator, spec, img, prior, cfg.kmax, cfg.smc,
+                      fused=kernel == "cuda")
+        beta = float(res.beta)
+        stats.update(kernel=f"{cfg.smc.mutation.removesuffix('_pallas')}_{kernel}",
+                     log_z=float(res.log_z), n_temp_steps=int(res.n_steps),
+                     accept=float(res.mean_accept), step_size=float(res.eps),
+                     beta=beta, final_rounds=int(res.final_done),
+                     divergences=int(res.divergences),
+                     solver_rejections=int(res.solver_rejections))
+        if res.island_diag is not None:
+            stats.update(res.island_diag)
+        if beta < 1.0:
+            stats["warning"] = (f"tempering capped at beta={beta:.4f} "
+                                f"(max_steps={cfg.smc.max_steps}); raise smc.max_steps")
+        thetas = res.theta.cpu().numpy()[:, None]     # (P, 1, K, 3)
+        masks = res.mask.cpu().numpy()                # (P, K)
     else:  # transdim
         res, eps = run_transdim(generator, spec, img, prior, cfg.kmax,
                                 cfg.n_chains, cfg.n_samples, cfg.n_warmup,
@@ -139,12 +184,12 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
         stats.update(kernel=f"{cfg.tdm.mutation}_{kernel}",
                      step_size=float(eps), td_accept=float(res.td_accept.mean()),
                      solver_rejections=int(res.solver_fail.sum()))
-    thetas = res.thetas.cpu().numpy()
-    stats.update(accept=float(res.accept_prob.mean()),
-                 divergences=int(res.diverged.sum()))
+    if cfg.head != "smc":
+        thetas = res.thetas.cpu().numpy()
+        stats.update(accept=float(res.accept_prob.mean()),
+                     divergences=int(res.diverged.sum()))
     stats["wall_seconds"] = time.perf_counter() - t_start
-    stats["kernel_launches"] = (fused_leapfrog.LAUNCHES + fused_rhmc_diag.LAUNCHES
-                                - launches0)
+    stats["kernel_launches"] = sum(k.LAUNCHES for k in _KERNELS) - launches0
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else str(device))
     stats["truth"] = {k: v.numpy() for k, v in zip("xyf", constrain(truth_theta, spec))}
@@ -162,11 +207,23 @@ def _init_chains(generator: torch.Generator, cfg: RunConfig,
 def summarize_output(out: SampleOutput) -> dict[str, Any]:
     """Permutation-safe posterior summaries: the total flux, per-coordinate
     moments when a fixed-K catalog holds one star, and the star-count
-    posterior (mode, mean, sd, pmf) for per-draw (C, N, K) masks."""
+    posterior (mode, mean, sd, pmf) for per-particle (P, K) or per-draw
+    (C, N, K) masks.  SMC's (P, 1, K, 3) draws put the particles on the
+    draw axis, so the sd and MCSE run across particles."""
     th = out.thetas  # (C, N, K, 3)
-    alive = out.masks[None, None, :] if out.masks.ndim == 1 else out.masks
-    summ = {"total_flux": diagnostics.summarize((np.exp(th[..., 2]) * alive).sum(-1))}
-    if out.masks.ndim == 3:
+    mask = out.masks
+    if mask.ndim == 1:
+        alive = mask[None, None, :]
+    elif mask.ndim == 2:      # per particle (smc)
+        alive = mask[:, None, :]
+    else:                     # per draw (transdim)
+        alive = mask
+
+    def series(a: np.ndarray) -> np.ndarray:
+        return a.T if (a.shape[1] == 1 and a.shape[0] > 1) else a
+
+    summ = {"total_flux": diagnostics.summarize(series((np.exp(th[..., 2]) * alive).sum(-1)))}
+    if mask.ndim >= 2:
         counts = alive.sum(-1).reshape(-1).astype(int)
         kmax = th.shape[2]
         hist = np.bincount(counts, minlength=kmax + 1)[: kmax + 1]
@@ -177,9 +234,9 @@ def summarize_output(out: SampleOutput) -> dict[str, Any]:
             "sd": float(counts.std()),
             "pmf": {str(i): round(float(q), 4) for i, q in enumerate(pn) if q > 0},
         }
-    if out.masks.ndim == 1 and th.shape[2] == 1:
+    if mask.ndim == 1 and th.shape[2] == 1:
         w, h = out.config.scene.width, out.config.scene.height
-        summ["x"] = diagnostics.summarize(w / (1 + np.exp(-th[:, :, 0, 0])))
-        summ["y"] = diagnostics.summarize(h / (1 + np.exp(-th[:, :, 0, 1])))
-        summ["flux"] = diagnostics.summarize(np.exp(th[:, :, 0, 2]))
+        summ["x"] = diagnostics.summarize(series(w / (1 + np.exp(-th[:, :, 0, 0]))))
+        summ["y"] = diagnostics.summarize(series(h / (1 + np.exp(-th[:, :, 0, 1]))))
+        summ["flux"] = diagnostics.summarize(series(np.exp(th[:, :, 0, 2])))
     return summ

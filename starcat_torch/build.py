@@ -3,12 +3,16 @@ use into a shared library with a plain C interface under build/kernels/,
 keyed by a hash of the source and the flags, which the wrappers load with
 ctypes.  Nothing here runs on import, and nothing falls back: a missing
 toolkit or a failed compile raises.  :func:`check_tensor` is the wrappers'
-common check of what they pass a kernel.
+common check of what they pass a kernel; :func:`launch_riemannian` is the
+one launch of the two Riemannian trajectory kernels (B3, B6), which share
+their C interface.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -70,3 +74,72 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _riemannian_library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_kernel(name)[0]))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = getattr(lib, f"starcat_{name}")
+    fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
+    fn.restype = ci
+    lib.starcat_cuda_error_string.argtypes = [ci]
+    lib.starcat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def riemannian_scalars(spec, prior, jitter: float) -> tuple:
+    """The scene, prior and jitter constants the Riemannian kernels take."""
+    sig = float(spec.psf_sigma)
+    return (sig, 1.0 / (math.sqrt(2.0 * math.pi) * sig), float(spec.background),
+            float(prior.logf_mean), float(prior.logf_sigma),
+            -math.log(prior.logf_sigma) - 0.5 * math.log(2.0 * math.pi), float(jitter))
+
+
+def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
+                      fpi: int, scalars: tuple, theta: torch.Tensor,
+                      xi: torch.Tensor, eps, mask: torch.Tensor, beta):
+    """One launch of csrc/<name>.cu's trajectory kernel on CUDA tensors,
+    after checking what it is given: theta, xi (C, K, 3), eps a scalar or
+    (C,), mask (K,) or (C, K), beta a float or one float32 on the device.
+    Returns (theta', p', h0, h1, u1, resid); raises if the launch fails."""
+    dev, k = theta.device, kmax
+    c = theta.shape[0]
+    if c < 1:
+        raise ValueError("a Riemannian trajectory needs at least one chain")
+    if image.device != dev:
+        raise ValueError(f"image is on {image.device}, theta on {dev}")
+    check_tensor("theta", theta, (c, k, 3), dev)
+    check_tensor("xi", xi, (c, k, 3), dev)
+    if mask.ndim == 1:
+        check_tensor("mask", mask, (k,), dev)
+        mask_stride = 0
+    else:
+        check_tensor("mask", mask, (c, k), dev)
+        mask_stride = k
+    eps_c = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    if eps_c.ndim > 1 or (eps_c.ndim == 1 and eps_c.shape[0] != c):
+        raise ValueError(f"eps must be a scalar or ({c},), got {tuple(eps_c.shape)}")
+    eps_c = eps_c.reshape(-1).expand(c).contiguous()
+    if isinstance(beta, torch.Tensor):
+        if beta.dtype != torch.float32 or beta.numel() != 1 or beta.device != dev:
+            raise ValueError("beta must be one float32 on the chains' device")
+        beta_dev = beta.reshape(1).contiguous()
+    else:
+        beta_dev = torch.full((1,), float(beta), dtype=torch.float32, device=dev)
+    theta_out = torch.empty_like(theta)
+    p_out = torch.empty_like(theta)
+    outs = torch.empty((4, c), dtype=torch.float32, device=dev)
+    lib = _riemannian_library(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"starcat_{name}")(
+            theta.data_ptr(), xi.data_ptr(), eps_c.data_ptr(), mask.data_ptr(),
+            mask_stride, beta_dev.data_ptr(), image.data_ptr(), theta_out.data_ptr(),
+            p_out.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr(), outs[3].data_ptr(), c, k, image.shape[0],
+            image.shape[1], n_steps, fpi, *scalars, stream)
+    if rc != 0:
+        msg = lib.starcat_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    return theta_out, p_out, outs[0], outs[1], outs[2], outs[3]

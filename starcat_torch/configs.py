@@ -1,10 +1,12 @@
 """Typed run configs and the presets whose heads are ported (port of
 starcat/configs.py): ``cfg0_single_star`` (the oracle's single-star scene,
 sampled by the HMC head), ``cfg1_rhmc`` (the flagship 10-star 32x32 scene
-under RHMC; its default full metric waits for kernel B6, so it runs with
-``rhmc.metric=diag``), ``cfg5_transdim_mcmc`` (the trans-dimensional MCMC
-chain on the same scene, diagonal-Fisher RHMC moves) and ``cfg6_chees`` (the
-same scene under ChEES).  Other presets join as their heads land.
+under RHMC on the full Fisher metric, kernel B6; ``rhmc.metric=diag`` runs
+its diagonal on B3), ``cfg3_transdim_smc`` (trans-dimensional SMC on the
+same scene, full-metric RHMC mutations on B6), ``cfg5_transdim_mcmc`` (the
+trans-dimensional MCMC chain on the same scene, diagonal-Fisher RHMC moves)
+and ``cfg6_chees`` (the same scene under ChEES).  Other presets join as
+their heads land.
 
 The mock data are the reference's own: ``data/scenes.npz`` holds the truth
 and image that ``starcat.configs.RunConfig.make_data`` draws at the default
@@ -26,6 +28,7 @@ from .hmc import HMCConfig
 from .potential import PriorSpec
 from .rhmc import RHMCConfig
 from .scene import SceneSpec
+from .smc import SMCConfig
 from .transdim import TransDimConfig
 from .transdim_mcmc import TransDimMCMCConfig
 
@@ -39,7 +42,7 @@ class RunConfig:
     prior: PriorSpec
     n_stars: int            # true star count of the mock scene
     kmax: int               # catalog capacity (== n_stars for fixed-K heads)
-    head: str               # "hmc" | "chees" | "rhmc" | "transdim" | "oracle" (-> hmc)
+    head: str               # "hmc" | "chees" | "rhmc" | "smc" | "transdim" | "oracle" (-> hmc)
     n_chains: int = 64
     n_samples: int = 1000   # recorded draws
     n_warmup: int = 500
@@ -48,11 +51,12 @@ class RunConfig:
     #   "cuda"  — the CUDA kernel; raises off its domain or device
     #   "torch" — the plain torch trajectory (an explicit request, for measuring)
     kernel: str = "auto"
-    thin: int = 1           # transitions per recorded draw (HMC head)
+    thin: int = 1           # transitions per recorded draw (hmc and rhmc heads)
     truth_seed: int = 11
     data_seed: int = 12
     hmc: HMCConfig = HMCConfig()
     rhmc: RHMCConfig = RHMCConfig()
+    smc: SMCConfig = SMCConfig()
     tdm: TransDimMCMCConfig = TransDimMCMCConfig()
     chees: ChEESConfig = ChEESConfig()
     notes: str = ""
@@ -95,9 +99,9 @@ cfg0_single_star = _register(RunConfig(
     notes="NumPy-oracle scene; `run` maps it onto the HMC head",
 ))
 
-# config 1: the flagship scene under RHMC, 64 chains.  The reference's
-# default metric is the full Fisher matrix (kernel B6, not ported yet):
-# api.sample raises for it, and rhmc.metric=diag runs kernel B3
+# config 1: the flagship scene under RHMC, 64 chains, on the reference's
+# default metric, the full Fisher matrix (kernel B6); rhmc.metric=diag runs
+# its diagonal on kernel B3.  The reference's record runs it with thin=4.
 cfg1_rhmc = _register(RunConfig(
     name="cfg1_rhmc",
     scene=SceneSpec(32, 32, 1.5, 10.0),
@@ -106,7 +110,24 @@ cfg1_rhmc = _register(RunConfig(
     head="rhmc",
     n_chains=64, n_samples=1000, n_warmup=400,
     rhmc=RHMCConfig(step_size=0.3, n_leapfrog=16, fixed_point_iters=6),
-    notes="RHMC; run with rhmc.metric=diag (kernel B3) until B6 lands",
+    notes="RHMC on the full Fisher metric (kernel B6); record run: thin=4",
+))
+
+# config 3: trans-dimensional cataloging by SMC on the flagship scene:
+# 4096 particles, K_max 16, adaptive tempering to beta = 1, each step two
+# birth/death + split/merge sweeps and two full-metric RHMC mutations
+cfg3_transdim_smc = _register(RunConfig(
+    name="cfg3_transdim_smc",
+    scene=SceneSpec(32, 32, 1.5, 10.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=10, kmax=16,
+    head="smc",
+    smc=SMCConfig(
+        n_particles=4096, mutation="rhmc", n_mutation_steps=2, n_leapfrog=6,
+        fixed_point_iters=4, n_transdim_sweeps=2, step_size0=0.3,
+        transdim=TransDimConfig(lam_count=8.0, split_sigma=1.0),
+    ),
+    notes="trans-d SMC, full-metric RHMC mutations on kernel B6",
 ))
 
 # config 5: the reference's own sampler shape, a trans-dimensional MCMC

@@ -13,6 +13,7 @@ from .driver import ChainState
 from .potential import PriorSpec
 from .rhmc import RHMCConfig
 from .scene import SceneSpec
+from .smc import SMCConfig, SMCState
 from .transdim import TransDimConfig
 from .transdim_mcmc import TDState, TransDimMCMCConfig
 
@@ -71,3 +72,31 @@ def td_state_from_numpy(theta, mask, loglik, device) -> TDState:
     """A reference TDState as NumPy (theta (C, K, 3), mask (C, K), loglik
     (C,); its per-chain keys have no counterpart) on ``device``."""
     return TDState(_f32(theta, device), _f32(mask, device), _f32(loglik, device))
+
+
+def smc_config_from_jax(cfg) -> SMCConfig:
+    """The reference's SMCConfig, its nested TransDimConfig included.  The
+    ``*_pallas`` mutation names become the port's (the kernel is chosen by
+    RunConfig.kernel); the relocate sweeps are not ported, so a config that
+    turns them on raises."""
+    fields = cfg._asdict()
+    if fields.pop("n_relocate_sweeps", 0) > 0:
+        raise ValueError("SMC relocate sweeps are not ported")
+    fields.pop("relocate_flux_sigma", None)
+    fields.pop("relocate_pos_sigma", None)
+    fields["mutation"] = fields["mutation"].removesuffix("_pallas")
+    fields["transdim"] = transdim_config_from_jax(cfg.transdim)
+    return SMCConfig(**fields)
+
+
+def smc_state_from_numpy(theta, mask, loglik, beta, log_z, eps, n_steps,
+                         mean_accept, final_done, device) -> SMCState:
+    """A reference SMCState as NumPy (its key has no counterpart) on
+    ``device``; the port's run counters start at 0."""
+    def i32(v):
+        return torch.tensor(int(v), dtype=torch.int32, device=device)
+
+    return SMCState(_f32(theta, device), _f32(mask, device), _f32(loglik, device),
+                    _f32(beta, device), _f32(log_z, device), _f32(eps, device),
+                    i32(n_steps), _f32(mean_accept, device), i32(final_done),
+                    i32(0), i32(0))

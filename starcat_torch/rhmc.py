@@ -1,22 +1,23 @@
-"""Riemannian-manifold HMC head on the diagonal Fisher metric (port of the
-diagonal path of starcat/rhmc.py).
+"""Riemannian-manifold HMC head (port of starcat/rhmc.py) on the dense
+Fisher metric (``metric="full"``, the reference's default) or its diagonal
+(``metric="diag"``):
 
-    H(theta, p) = U(theta) + 1/2 sum_a log g_a(theta) + 1/2 sum_a p_a^2 / g_a(theta)
+    H(theta, p) = U(theta) + 1/2 log det G(theta) + 1/2 p^T G(theta)^-1 p
 
 integrated by the generalised leapfrog with a fixed number of Picard sweeps
-(integrators.riemannian_leapfrog), on the metric of
-metric.make_diag_metric_fn.  Momenta are refreshed as p = sqrt(g) xi mask,
-so dead slots never move.  A trajectory whose fixed-point residual is not
-below ``solver_tol`` (NaN included) is force-rejected and reported as a
-solver failure, apart from Delta-H divergences; warmup's dual averaging
-sees the failures through ``divergence_penalty``.
+(integrators.riemannian_leapfrog).  Momenta are refreshed as p = L xi mask
+with L the Cholesky factor of G (sqrt(g) xi mask for the diagonal), so dead
+slots never move.  A trajectory whose fixed-point residual is not below
+``solver_tol`` (NaN included) is force-rejected and reported as a solver
+failure, apart from Delta-H divergences; warmup's dual averaging sees the
+failures through ``divergence_penalty``.
 
-Every trajectory has the call contract of kernel B3: ``trajectory(theta, xi,
-eps, mask, beta) -> (theta', p', h0, h1, u1, resid)``.  The CUDA kernel
-(fused_rhmc_diag.make_fused_rhmc_diag, :func:`run_rhmc_fused`) or its plain
-version (fused_rhmc_diag.fused_rhmc_diag_reference, :func:`run_rhmc`)
-supplies it; the transition is a pure function of its draws (xi, u_jit,
-u_acc).  The full (dense) metric is kernel B6's and is not ported yet.
+Every trajectory has the call contract of kernels B3 and B6:
+``trajectory(theta, xi, eps, mask, beta) -> (theta', p', h0, h1, u1,
+resid)``.  :func:`make_trajectory` supplies it: the CUDA kernel's wrapper
+(fused_rhmc.make_fused_rhmc for the full metric, B6;
+fused_rhmc_diag.make_fused_rhmc_diag for the diagonal, B3) or its plain
+version.  The transition is a pure function of its draws (xi, u_jit, u_acc).
 """
 from __future__ import annotations
 
@@ -36,8 +37,7 @@ class RHMCConfig(NamedTuple):
     fixed_point_iters: int = 6
     target_accept: float = 0.9
     divergence_threshold: float = 1000.0
-    # "diag" is the ported metric; "full" (the reference's default, the
-    # dense Fisher metric) raises until kernel B6 is ported
+    # "full": the dense Fisher metric (kernel B6); "diag": its diagonal (B3)
     metric: str = "full"
     solver_tol: float = 0.05
     divergence_penalty: float = 5.0
@@ -52,13 +52,51 @@ class RHMCInfo(NamedTuple):
 
 
 def check_metric(metric: str) -> None:
-    """Raise unless the metric is ported."""
-    if metric == "full":
-        raise ValueError(
-            "the full (dense) Fisher metric is not ported yet: it needs "
-            "kernel B6 (ROADMAP.md A10); use rhmc.metric=diag")
-    if metric != "diag":
+    """Raise unless the metric is one the head knows."""
+    if metric not in ("full", "diag"):
         raise ValueError(f"rhmc.metric must be 'full' or 'diag', got {metric!r}")
+
+
+def cholesky_or_nan(g: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each (..., D, D) matrix; NaN throughout for
+    a matrix that is not positive definite (the reference's Cholesky gives
+    NaN there too), so the trajectory reports a solver failure."""
+    chol, info = torch.linalg.cholesky_ex(g)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(chol, float("nan")), chol)
+
+
+def make_rhmc_functions(potential_fn: Callable, metric_fn: Callable):
+    """(hamiltonian, dH_dtheta, dH_dp) for the dense metric, each taking
+    (theta (C, K, 3), p (C, K, 3), mask) and batched over chains: H is (C,),
+    the derivatives (C, K, 3).  metric_fn returns G (C, 3K, 3K) in the
+    star-major order of theta.reshape(C, 3K).
+
+    dH/dtheta is autograd of the sum of H over chains, through the metric
+    build, the Cholesky and the triangular solves; the graph is built afresh
+    on detached inputs at every call, so Picard sweeps do not stack graphs."""
+
+    def _solve(theta, p, mask):
+        chol = cholesky_or_nan(metric_fn(theta, mask))
+        pf = p.reshape(p.shape[0], -1, 1)
+        return chol, pf, torch.cholesky_solve(pf, chol)
+
+    def ham(theta, p, mask):
+        chol, pf, ginv_p = _solve(theta, p, mask)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+        return (potential_fn(theta, mask) + 0.5 * logdet
+                + 0.5 * torch.sum(pf * ginv_p, dim=(-2, -1)))
+
+    def dham_dtheta(theta, p, mask):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(ham(th, p.detach(), mask).sum(), th)
+        return grad
+
+    def dham_dp(theta, p, mask):
+        return _solve(theta, p, mask)[2].reshape(p.shape)
+
+    return ham, dham_dtheta, dham_dp
 
 
 def make_rhmc_diag_functions(potential_fn: Callable, diag_metric_fn: Callable):
@@ -94,9 +132,9 @@ def rhmc_transition(states: ChainState, xi: torch.Tensor, u_jit: torch.Tensor,
                     mask: torch.Tensor, beta=1.0,
                     divergence_threshold: float = 1000.0,
                     solver_tol: float = 0.05):
-    """One RHMC transition of every chain on a B3-contract trajectory.
+    """One RHMC transition of every chain on a B3/B6-contract trajectory.
 
-    xi (C, K, 3) standard normal (the momentum is sqrt(g) xi mask), u_jit
+    xi (C, K, 3) standard normal (the trajectory makes the momentum), u_jit
     and u_acc (C,) uniform on [0, 1): eps is jittered by +-20% per chain.
     ``states.u`` must hold U_beta at ``states.theta``; the gradient is not
     used and passes through."""
@@ -138,18 +176,22 @@ def make_rhmc_kernel(trajectory: Callable, mask: torch.Tensor,
 
 def make_trajectory(spec, image: torch.Tensor, prior, kmax: int,
                     config: RHMCConfig, fused: bool, jitter: float = 1e-3):
-    """The B3-contract trajectory: the CUDA kernel's wrapper (which runs the
-    plain version only for CPU tensors) or, with ``fused=False``, the plain
-    version on any device."""
-    # imported here: fused_rhmc_diag builds its plain version from this module
+    """The trajectory of ``config.metric``: the CUDA kernel's wrapper, B6
+    for "full" and B3 for "diag" (which runs the plain version only for CPU
+    tensors), or, with ``fused=False``, the plain version on any device."""
+    # imported here: the kernels' modules build their plain versions from
+    # this one
+    from .fused_rhmc import fused_rhmc_reference, make_fused_rhmc
     from .fused_rhmc_diag import fused_rhmc_diag_reference, make_fused_rhmc_diag
 
     check_metric(config.metric)
+    full = config.metric == "full"
     if fused:
-        return make_fused_rhmc_diag(spec, image, prior, kmax, config.n_leapfrog,
-                                    config.fixed_point_iters, jitter)
-    return functools.partial(fused_rhmc_diag_reference, spec, image, prior,
-                             n_steps=config.n_leapfrog,
+        make = make_fused_rhmc if full else make_fused_rhmc_diag
+        return make(spec, image, prior, kmax, config.n_leapfrog,
+                    config.fixed_point_iters, jitter)
+    return functools.partial(fused_rhmc_reference if full else fused_rhmc_diag_reference,
+                             spec, image, prior, n_steps=config.n_leapfrog,
                              fixed_point_iters=config.fixed_point_iters,
                              jitter=jitter)
 
@@ -158,7 +200,7 @@ def make_fused_rhmc_kernel(spec, image: torch.Tensor, prior, mask: torch.Tensor,
                            config: RHMCConfig, generator: torch.Generator,
                            beta=1.0, jitter: float = 1e-3):
     """The RHMC kernel with every trajectory in one launch of the CUDA
-    kernel B3; mask is (K,) or per chain (C, K)."""
+    kernel of ``config.metric`` (B6 or B3); mask is (K,) or per chain (C, K)."""
     traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config,
                            True, jitter)
     return make_rhmc_kernel(traj, mask, config, generator, beta)
@@ -188,7 +230,7 @@ def run_rhmc_fused(generator: torch.Generator, spec, image: torch.Tensor, prior,
                    theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
                    n_warmup: int, config: RHMCConfig = RHMCConfig(),
                    thin: int = 1):
-    """run_rhmc with every trajectory in one launch of kernel B3."""
+    """run_rhmc with every trajectory in one launch of kernel B6 or B3."""
     kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator)
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
                 config, thin)

@@ -7,8 +7,9 @@ transdim.py:
   1. ``n_transdim_sweeps`` birth/death + split/merge sweeps, which change
      each chain's alive mask;
   2. one within-model move at each chain's current mask, dead slots frozen:
-     ``hmc`` (kernel B1's trajectory, per-chain masks) or ``rhmc_diag``
-     (kernel B3's diagonal-Fisher trajectory, per-chain masks).
+     ``hmc`` (kernel B1's trajectory), ``rhmc`` (kernel B6's full-Fisher
+     trajectory) or ``rhmc_diag`` (kernel B3's diagonal-Fisher trajectory),
+     all at per-chain masks.
 
 The mask is chain state here, so this head carries its own warmup (dual
 averaging on the step size only, with the divergence penalty) and sampling
@@ -18,8 +19,9 @@ tempers the likelihood (target prior * L^beta; the cache then holds the
 tempered log-likelihood); beta = 0 makes the whole head sample the prior.
 
 Random numbers come from the run's one generator, in a fixed order per
-transition: each sweep's draws (transdim.draw_sweep), then the within-model
-move's.  Blocked sampling and checkpoints are not ported yet (ROADMAP A12).
+transition (:func:`draw_transition`): each sweep's draws
+(transdim.draw_sweep), then the within-model move's; the transition is a
+pure function of them.  Blocked sampling and checkpoints are not ported yet (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -41,15 +43,18 @@ from .potential import (
     make_tempered_potential_and_grad,
     sample_prior,
 )
-from .rhmc import RHMCConfig, check_metric, make_trajectory, rhmc_transition
+from .rhmc import RHMCConfig, make_trajectory, rhmc_transition
 from .scene import SceneSpec
 from .transdim import TransDimConfig, draw_sweep, transdim_sweep
 
 
+TD_MUTATIONS = ("hmc", "rhmc", "rhmc_diag")
+
+
 class TransDimMCMCConfig(NamedTuple):
     step_size: float = 0.1
-    # within-model move: "hmc" | "rhmc_diag"; "rhmc" (the full metric)
-    # raises until kernel B6 is ported
+    # within-model move: "hmc" (B1) | "rhmc" (the full metric, B6) |
+    # "rhmc_diag" (B3)
     mutation: str = "hmc"
     n_leapfrog: int = 10
     fixed_point_iters: int = 4
@@ -78,6 +83,15 @@ class TDInfo(NamedTuple):
     solver_fail: torch.Tensor  # (C,) Riemannian solver force-rejections
 
 
+def draw_counts(generator: torch.Generator, lam_count: float, kmax: int, n: int,
+                device) -> torch.Tensor:
+    """n star counts from the Poisson(lam_count) truncated to [0, kmax]."""
+    ks = torch.arange(kmax + 1, dtype=torch.float64, device=device)
+    logpmf = ks * math.log(lam_count) - torch.lgamma(ks + 1.0)
+    return torch.multinomial(torch.softmax(logpmf, dim=0).to(torch.float32),
+                             n, replacement=True, generator=generator)
+
+
 def init_td_states(generator: torch.Generator, spec: SceneSpec,
                    image: torch.Tensor, prior: PriorSpec, kmax: int,
                    n_chains: int, lam_count: float, beta=1.0) -> TDState:
@@ -85,27 +99,44 @@ def init_td_states(generator: torch.Generator, spec: SceneSpec,
     Poisson(lam_count) truncated to [0, kmax], the first n slots alive."""
     dev = image.device
     thetas = sample_prior(generator, n_chains * kmax, prior, dev).reshape(n_chains, kmax, 3)
-    ks = torch.arange(kmax + 1, dtype=torch.float64, device=dev)
-    logpmf = ks * math.log(lam_count) - torch.lgamma(ks + 1.0)
-    n_draw = torch.multinomial(torch.softmax(logpmf, dim=0).to(torch.float32),
-                               n_chains, replacement=True, generator=generator)
+    n_draw = draw_counts(generator, lam_count, kmax, n_chains, dev)
     masks = (torch.arange(kmax, device=dev)[None, :] < n_draw[:, None]).to(torch.float32)
     loglik = beta * log_likelihood(thetas, masks, spec, image)
     return TDState(thetas, masks, loglik)
+
+
+class TDDraws(NamedTuple):
+    """The random inputs of one transition."""
+
+    sweeps: tuple  # one transdim.SweepDraws per trans-d sweep
+    move: tuple    # the within-model move's (noise (C, K, 3), u_jit (C,), u_acc (C,))
+
+
+def draw_transition(generator: torch.Generator, c: int, kmax: int, spec: SceneSpec,
+                    prior: PriorSpec, cfg: TransDimMCMCConfig, device) -> TDDraws:
+    """One transition's random inputs in a fixed order: each sweep's, then
+    the within-model move's (momentum or its noise, jitter, acceptance)."""
+    sweeps = tuple(draw_sweep(generator, c, kmax, spec, prior, cfg.transdim, device)
+                   for _ in range(cfg.n_transdim_sweeps))
+    move = (torch.randn((c, kmax, 3), generator=generator, device=device),
+            torch.rand((c,), generator=generator, device=device),
+            torch.rand((c,), generator=generator, device=device))
+    return TDDraws(sweeps, move)
 
 
 def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                          kmax: int, cfg: TransDimMCMCConfig,
                          generator: torch.Generator, beta=1.0,
                          fused: bool = False):
-    """Batched transition: kernel(TDState, eps) -> (TDState, TDInfo).
+    """Batched transition: kernel(TDState, eps, draws=None) -> (TDState,
+    TDInfo), a pure function of its draws (drawn from ``generator`` by
+    :func:`draw_transition` when not given).
 
     fused=True runs the within-model trajectory in the CUDA kernel (B1 for
-    ``hmc``, B3 for ``rhmc_diag``); off it, the plain torch trajectory."""
-    if cfg.mutation == "rhmc":
-        check_metric("full")
-    if cfg.mutation not in ("hmc", "rhmc_diag"):
-        raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: hmc, rhmc_diag")
+    ``hmc``, B6 for ``rhmc``, B3 for ``rhmc_diag``); off it, the plain torch
+    trajectory."""
+    if cfg.mutation not in TD_MUTATIONS:
+        raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: {', '.join(TD_MUTATIONS)}")
     if beta == 1.0:
         llf = lambda th, m: log_likelihood(th, m, spec, image)  # noqa: E731
         pg = make_potential_and_grad(spec, image, prior)
@@ -119,56 +150,48 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
             # the fused HMC trajectory evaluates the beta = 1 posterior; the
             # Riemannian kernel takes beta itself
             raise ValueError("tempered trans-d MCMC on the CUDA kernel: use "
-                             "mutation=rhmc_diag, or kernel=torch for hmc")
+                             "mutation=rhmc or rhmc_diag, or kernel=torch for hmc")
         fused_traj = (make_fused_leapfrog(spec, image, prior, kmax, cfg.n_leapfrog)
                       if fused else None)
 
-        def within_model(theta, mask, u, eps):
-            c, k = mask.shape
-            dev = theta.device
+        def within_model(theta, mask, u, eps, p0, u_jit, u_acc):
             _, g = pg(theta, mask)
-            p0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype, device=dev)
-            u_jit = torch.rand((c,), generator=generator, device=dev)
-            u_acc = torch.rand((c,), generator=generator, device=dev)
             if fused_traj is None:
                 trajectory = plain_trajectory(lambda th: pg(th, mask))
             else:
                 trajectory = lambda th, p, e, im, m, n, gr: fused_traj(  # noqa: E731
                     th, p, e, im, m, grad=gr)
             sts, info = hmc_transition(
-                ChainState(theta, u, g), eps, torch.ones((k, 3), device=dev), mask,
-                p0, u_jit, u_acc, trajectory, cfg.n_leapfrog, cfg.divergence_threshold)
+                ChainState(theta, u, g), eps, torch.ones((kmax, 3), device=theta.device),
+                mask, p0, u_jit, u_acc, trajectory, cfg.n_leapfrog,
+                cfg.divergence_threshold)
             return sts, info, torch.zeros_like(info.diverged)
     else:
         rcfg = RHMCConfig(n_leapfrog=cfg.n_leapfrog,
-                          fixed_point_iters=cfg.fixed_point_iters, metric="diag")
+                          fixed_point_iters=cfg.fixed_point_iters,
+                          metric="full" if cfg.mutation == "rhmc" else "diag")
         rhmc_traj = make_trajectory(spec, image, prior, kmax, rcfg, fused)
 
-        def within_model(theta, mask, u, eps):
-            c = theta.shape[0]
-            dev = theta.device
-            xi = torch.randn(theta.shape, generator=generator, dtype=theta.dtype, device=dev)
-            u_jit = torch.rand((c,), generator=generator, device=dev)
-            u_acc = torch.rand((c,), generator=generator, device=dev)
+        def within_model(theta, mask, u, eps, xi, u_jit, u_acc):
             sts, info = rhmc_transition(
                 ChainState(theta, u, torch.zeros_like(theta)), xi, u_jit, u_acc,
                 rhmc_traj, eps, mask, beta, cfg.divergence_threshold, cfg.solver_tol)
             return sts, info, info.solver_fail
 
-    def kernel(state: TDState, eps):
+    def kernel(state: TDState, eps, draws: TDDraws | None = None):
         theta, mask, ll = state
         c = theta.shape[0]
+        if draws is None:
+            draws = draw_transition(generator, c, kmax, spec, prior, cfg, theta.device)
         td_acc = torch.zeros((c,), dtype=torch.float32, device=theta.device)
-        for _ in range(cfg.n_transdim_sweeps):
-            draws = draw_sweep(generator, c, kmax, spec, prior, cfg.transdim,
-                               theta.device)
+        for sd in draws.sweeps:
             theta, mask, ll, info = transdim_sweep(theta, mask, ll, llf, prior, spec,
-                                                   cfg.transdim, draws, image)
+                                                   cfg.transdim, sd, image)
             td_acc = td_acc + info.accepted.to(torch.float32)
         td_accept = td_acc / max(cfg.n_transdim_sweeps, 1)
 
         u = -(ll + log_prior(theta, mask, prior))
-        sts, info, sf = within_model(theta, mask, u, eps)
+        sts, info, sf = within_model(theta, mask, u, eps, *draws.move)
         ll2 = -sts.u - log_prior(sts.theta, mask, prior)
         return TDState(sts.theta, mask, ll2), TDInfo(
             info.accept_prob, info.diverged, td_accept, mask.sum(-1), sf)

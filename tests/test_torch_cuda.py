@@ -290,3 +290,112 @@ def test_riemannian_and_transdim_heads_run_through_the_kernels(dev, name, over, 
     if name.startswith("cfg5"):
         assert out.masks.shape == (cfg.n_chains, cfg.n_samples, cfg.kmax)
         assert 6 <= summ["star_count"]["mean"] <= 14
+
+
+# -- B6, the full-Fisher Riemannian trajectory --------------------------------
+
+TIGHT = 1e-3  # chains whose fixed points converged this far in both versions
+
+
+@pytest.mark.parametrize("beta", [0.3, 1.0])
+@pytest.mark.parametrize("shape", ["cfg3", "cfg1"])
+def test_full_rhmc_kernel_matches_plain(dev, shape, beta):
+    """B6 against its plain version on the chains whose fixed points
+    converged tightly in both (on the others float32 rounding is amplified
+    by the chain's own trajectory, both versions alike); solver verdicts
+    agree on every chain."""
+    from starcat_torch import fused_rhmc as fr
+
+    c, k, n_steps, fpi, per_chain = ((64, 16, 6, 4, True) if shape == "cfg3"
+                                     else (32, 10, 16, 6, False))
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(c, k, dev, per_chain)
+    eps = eps / 3.0
+    out = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, k, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(beta, device=dev))
+    ref = fr.fused_rhmc_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
+                                  beta, n_steps, fpi)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= 0.9 * c
+    _assert_rhmc_close([o[tight] for o in out], [r[tight] for r in ref])
+    if per_chain:  # dead slots of converged chains frozen bit for bit, momentum zero
+        dead = (mask == 0) & (out[5] < 0.05)[:, None]
+        assert bool(dead.any())
+        assert torch.equal(out[0][dead], theta[dead])
+        assert bool((out[1][dead] == 0).all())
+
+
+def test_full_rhmc_kernel_reports_a_nan_chain_as_a_solver_failure(dev):
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch.driver import ChainState
+    from starcat_torch.rhmc import rhmc_transition
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(16, 16, dev, True, seed=3)
+    theta[0, :, 2] = 95.0  # exp(95) overflows float32
+    fused = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 16, 6, 4)
+    out = fused(theta, xi, eps / 3.0, mask)
+    assert bool(torch.isnan(out[5][0])) and bool(torch.isfinite(out[5][1:]).all())
+    u = torch.zeros(16, device=dev)
+    new, info = rhmc_transition(ChainState(theta, u, torch.zeros_like(theta)), xi,
+                                torch.full((16,), 0.5, device=dev),
+                                torch.full((16,), 0.01, device=dev), fused,
+                                torch.tensor(0.01, device=dev), mask)
+    assert bool(info.solver_fail[0]) and not bool(info.accepted[0])
+    assert torch.equal(new.theta[0], theta[0])
+
+
+def test_full_rhmc_wrapper_rejects_bad_inputs(dev):
+    from starcat_torch import fused_rhmc as fr
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(8, 16, dev, True)
+    fused = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 16, 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fused(theta.double(), xi, eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi[:, :5], eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi, eps, mask[:, :5])
+    with pytest.raises(ValueError, match="eps"):
+        fused(theta, xi, eps[:3], mask)
+    with pytest.raises(ValueError, match="beta"):
+        fused(theta, xi, eps, mask, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="B6"):
+        fr.make_fused_rhmc(cfg.scene._replace(height=64, width=64),
+                           torch.zeros((64, 64), device=dev), cfg.prior, 16, 2, 2)
+    with pytest.raises(ValueError, match="B6"):
+        fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 17, 2, 2)
+
+
+def test_full_rhmc_launch_count(dev):
+    from starcat_torch import fused_rhmc as fr
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(8, 16, dev, True)
+    fr.reset_launch_counts()
+    fused = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 16, 1, 1)
+    fused(theta, xi, eps, mask)
+    fused(theta, xi, eps, mask, 0.5)
+    assert fr.LAUNCHES == 2
+
+
+@pytest.mark.parametrize("name,over,kernel", [
+    ("cfg1_rhmc", {"n_chains": 64, "n_warmup": 60, "n_samples": 30}, "rhmc_full_cuda"),
+    ("cfg5_transdim_mcmc", {"n_chains": 64, "n_warmup": 40, "n_samples": 20,
+                            "tdm.mutation": "rhmc"}, "rhmc_cuda"),
+    ("cfg3_transdim_smc", {"smc.n_particles": 512, "smc.max_steps": 4}, "rhmc_cuda"),
+])
+def test_full_metric_heads_run_through_b6(dev, name, over, kernel):
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(CONFIGS[name], over)
+    fr.reset_launch_counts()
+    out = api.sample(cfg, dev, seed=1)
+    assert out.stats["kernel"] == kernel and out.stats["kernel_launches"] > 0
+    assert fr.LAUNCHES == out.stats["kernel_launches"]
+    assert np.isfinite(out.thetas).all()
+    assert 0.1 < out.stats["accept"] <= 1.0
+    assert np.isfinite(api.summarize_output(out)["total_flux"]["mean"])
+    if name.startswith("cfg3"):
+        assert out.thetas.shape == (512, 1, cfg.kmax, 3) and out.masks.shape == (512, cfg.kmax)
+        assert out.stats["n_temp_steps"] == 4 and 0.0 < out.stats["beta"] < 1.0

@@ -184,10 +184,17 @@ def test_reference_matches_pallas_interpret(scene, form):
 
 
 def test_full_metric_raises_naming_b6(scene):
+    """The full metric is ported on kernel B6: make_trajectory gives its
+    wrapper, and B6's domain refuses crowded fields naming B6."""
+    from starcat_torch import fused_rhmc as fr
+
     s = scene
+    traj = trhmc.make_trajectory(s["tspec"], _t(s["img"]), s["tprior"], K,
+                                 trhmc.RHMCConfig(n_leapfrog=1, fixed_point_iters=1), fused=True)
+    out = traj(_t(s["theta"]), _t(s["xi"]), 0.01, torch.ones(K))
+    assert out[0].shape == (C, K, 3) and bool(torch.isfinite(out[5]).all())
     with pytest.raises(ValueError, match="B6"):
-        trhmc.make_trajectory(s["tspec"], _t(s["img"]), s["tprior"], K,
-                              trhmc.RHMCConfig(), fused=True)
+        fr.check_domain(s["tspec"]._replace(height=128, width=128), K)
 
 
 @pytest.mark.parametrize("solver_tol", [0.05, 0.0])

@@ -66,7 +66,8 @@ def test_cli_run_prints_its_json_line():
 def test_cli_list_names_the_ported_presets():
     res = _cli("list")
     assert res.returncode == 0, res.stderr
-    for name in ("cfg0_single_star", "cfg1_rhmc", "cfg5_transdim_mcmc", "cfg6_chees"):
+    for name in ("cfg0_single_star", "cfg1_rhmc", "cfg3_transdim_smc",
+                 "cfg5_transdim_mcmc", "cfg6_chees"):
         assert name in res.stdout
 
 
@@ -95,8 +96,8 @@ def test_port_imports_no_jax():
     code = ("import sys, starcat_torch, starcat_torch.api, starcat_torch.__main__, "
             "starcat_torch.chees, starcat_torch.convert, starcat_torch.fused_leapfrog, "
             "starcat_torch.build, starcat_torch.metric, starcat_torch.rhmc, "
-            "starcat_torch.fused_rhmc_diag, starcat_torch.transdim, "
-            "starcat_torch.transdim_mcmc; "
+            "starcat_torch.fused_rhmc_diag, starcat_torch.fused_rhmc, "
+            "starcat_torch.smc, starcat_torch.transdim, starcat_torch.transdim_mcmc; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'starcat')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -108,6 +109,7 @@ def test_port_imports_no_jax():
                                            ("cfg6_chees", "cfg6_chees"),
                                            ("cfg6_chees", "cfg2_nuts"),
                                            ("cfg1_rhmc", "cfg1_rhmc"),
+                                           ("cfg3_transdim_smc", "cfg3_transdim_smc"),
                                            ("cfg5_transdim_mcmc", "cfg5_transdim_mcmc")])
 def test_committed_scenes_equal_jax_make_data(name, jax_name):
     theta_t, img_t = CONFIGS[name].make_data()

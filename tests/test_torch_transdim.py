@@ -312,7 +312,11 @@ def test_short_preset_runs_on_the_plain_path(name, over):
     ("transdim", {"tdm.mutation": "nuts"}, "unknown mutation"),
 ])
 def test_unported_metric_or_mutation_raises(head, over, match):
+    """The full metric and the trans-d rhmc mutation run on kernel B6 now:
+    asked for the kernel beyond its domain (K = 64), they raise naming B6;
+    an unknown mutation still raises before any kernel is chosen."""
     cfg = apply_overrides(dataclasses.replace(CONFIGS["cfg1_rhmc"], head=head, n_chains=2,
-                                              n_samples=2, n_warmup=2), over)
+                                              n_samples=2, n_warmup=2, kmax=64,
+                                              kernel="cuda"), over)
     with pytest.raises(ValueError, match=match):
         api.sample(cfg, "cpu")
