@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-1. prints the card (nvidia-smi name and power limit) and builds the three
+1. prints the card (nvidia-smi name and power limit) and builds the five
    CUDA kernels from csrc/ with nvcc, one process per source, started
-   together;
+   together, printing each kernel's registers and spills;
 2. holds the fused leapfrog kernel (B1/B2) against its plain torch version
    on the card at the flagship shape (1024 chains, K = 10, 32x32): both
    call contracts, n_steps in {0, 1, 5} with and without an entry gradient,
@@ -21,19 +21,27 @@
    shape (64 chains, K = 10, shared mask), checks that a chain that
    overflows comes back as a solver failure, and times one trajectory at
    the cfg3 shape with 4096 particles and at the cfg1 shape;
-5. drives the fixed-K path at full width through the public API, the
-   launch counts set to 0 just before it and read just after: the
-   cfg6_chees preset (ChEES, B2's contract) and the same scene under the
-   HMC head (B1's contract);
-6. drives the diagonal Riemannian path the same way: cfg5_transdim_mcmc at
-   256 chains, K_max 16 (trans-d sweeps with B3 moves at per-chain masks)
-   and cfg1_rhmc with rhmc.metric=diag at 128 chains (B3, shared mask),
-   both shortened; checks that they ran through B3, that the draws are
-   finite, and that the posteriors agree with the reference's records;
-7. drives the full-metric path the same way: cfg3_transdim_smc as the
-   preset stands (4096 particles, tempering to beta = 1, B6 mutations at
-   per-particle masks) and cfg1_rhmc on its full metric, shortened (B6,
-   shared mask); checks that they ran through B6 and the records' bands.
+5. holds the crowded-field leapfrog (B5) against its plain version at the
+   crowded bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
+   per-chain masks, with and without an entry gradient, L = 0 and 1, long
+   trajectories and the gradient against float64, a chain that overflows,
+   B5 against B1 on the flagship shape; times one trajectory of each;
+6. holds the crowded-field diagonal-Fisher kernel (B4) against its plain
+   version chain by chain at the cfg4 mutation shape (K = 64, 6 x 4,
+   per-particle masks, beta 1 and 0.3 from a device scalar, and against
+   float64) and at K = 50 with a shared mask, checks a chain that
+   overflows, and times one trajectory at the preset's 4096 particles;
+7-10. drive each path at full width through the public API, the launch
+   counts set to 0 just before each and read just after: the fixed-K path
+   (cfg6_chees, B2's contract, and the HMC head, B1's); the diagonal
+   Riemannian path (cfg5_transdim_mcmc and cfg1_rhmc with rhmc.metric=diag,
+   shortened, B3); the full-metric path (cfg3_transdim_smc as the preset
+   stands, cfg1_rhmc shortened, B6); the crowded path (cfg4_crowded at 4096
+   particles for three temperature steps, B4, and head=hmc kmax=50 at 1024
+   chains, 100 + 50, B5), each checked against the records' bands;
+11. prints one JSON line with a row per kernel (launches on its path, the
+   largest error against its plain version, kernel and plain times, and the
+   bound: the least time the card could take for the same work).
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -77,10 +85,10 @@ def _compare(case: str, out, ref) -> float:
     return errs["theta"]
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -192,10 +200,8 @@ def _rhmc_inputs(truth, c, k, dev, seed, per_chain):
     return theta, xi, eps, mask
 
 
-def _h_tol(h) -> float:
-    import numpy as np
-
-    return RTOL["h"] + 4.0 * float(np.spacing(np.float32(h.abs().max().item())))
+def _h_tol(h, spacings: int = 4) -> float:
+    return RTOL["h"] + _spacings(h, spacings)
 
 
 def check_rhmc_kernel(frd, rhmc_mod, cfg, dev):
@@ -273,14 +279,16 @@ def _per_chain(d):
     return d.reshape(d.shape[0], -1).amax(1) if d.ndim > 1 else d
 
 
-def _compare_b6(name, out, ref, ref64=None):
-    """B6 against its plain version, chain by chain.
+def _compare_chains(name, out, ref, ref64=None, h_spacings=4, p_rel=False):
+    """A Riemannian kernel (B4, B6) against its plain version, chain by chain.
 
     * Solver failures (residual not below SOLVER_TOL, NaN included) agree
       on at least 99% of the chains: a chain at the edge of the solver's
       reach may fall either side of the bound in two float32 programs.
     * On the chains whose fixed points converged tightly in both (residual
-      < TIGHT), every output is within RTOL (h: plus four float32 spacings).
+      < TIGHT), every output is within RTOL (h: plus ``h_spacings`` float32
+      spacings at its magnitude; p, with ``p_rel``, relative to 1 + |p|,
+      since p = sqrt(g) xi grows with the Fisher information).
       On the looser converged chains float32 rounding is amplified by the
       chain's own trajectory; there, given a float64 run of the plain
       version, the kernel must be no farther from it than the float32
@@ -294,32 +302,38 @@ def _compare_b6(name, out, ref, ref64=None):
     disagree = int((fail_k != fail_r).sum())
     tight = (rk < TIGHT) & (rr < TIGHT)
     names = ("theta", "p", "h0", "h1", "u1", "resid")
-    tols = dict(theta=RTOL["theta"], p=RTOL["p"], h0=_h_tol(ref[2][tight]),
-                h1=_h_tol(ref[3][tight]), u1=_h_tol(ref[4][tight]), resid=RTOL["resid"])
-    errs = {nm: float(_per_chain((a - b).abs())[tight].max())
+    tols = dict(theta=RTOL["theta"], p=RTOL["p"], h0=_h_tol(ref[2][tight], h_spacings),
+                h1=_h_tol(ref[3][tight], h_spacings), u1=_h_tol(ref[4][tight], h_spacings),
+                resid=RTOL["resid"])
+    def dist(nm, a, b):
+        d = (a - b).abs()
+        return d / (1.0 + b.abs()) if (p_rel and nm == "p") else d
+
+    errs = {nm: float(_per_chain(dist(nm, a, b))[tight].max())
             for nm, a, b in zip(names, out, ref)}
-    print(f"B6 {name}: solver failures kernel {int(fail_k.sum())}, plain {int(fail_r.sum())}, "
+    print(f"{name}: solver failures kernel {int(fail_k.sum())}, plain {int(fail_r.sum())}, "
           f"disagreeing {disagree} of {c}; on the {int(tight.sum())} tight chains "
           f"{json.dumps(errs)}; tolerances {json.dumps(tols)}")
     if disagree > 0.01 * c:
-        raise AssertionError(f"B6 {name}: {disagree} chains' solver verdicts disagree")
+        raise AssertionError(f"{name}: {disagree} chains' solver verdicts disagree")
     if int(tight.sum()) < 0.8 * c:
-        raise AssertionError(f"B6 {name}: only {int(tight.sum())} of {c} chains converged")
+        raise AssertionError(f"{name}: only {int(tight.sum())} of {c} chains converged")
     for nm, e in errs.items():
         if not e <= tols[nm]:
-            raise AssertionError(f"B6 {name}: {nm} error {e} > {tols[nm]}")
+            raise AssertionError(f"{name}: {nm} error {e} > {tols[nm]}")
     if ref64 is not None:
         conv = ~fail_k & ~fail_r & (ref64[5] < SOLVER_TOL)
         far = {}
         for nm, a, b, z in zip(names[:5], out, ref, ref64):
-            dk = float(_per_chain((a.double() - z).abs())[conv].max())
-            dp = float(_per_chain((b.double() - z).abs())[conv].max())
+            dk = float(_per_chain(dist(nm, a.double(), z))[conv].max())
+            dp = float(_per_chain(dist(nm, b.double(), z))[conv].max())
             far[nm] = (dk, dp)
-            bound = dp + (_h_tol(z[conv]) if nm in ("h0", "h1", "u1") else RTOL[nm])
+            bound = dp + (_h_tol(z[conv], h_spacings) if nm in ("h0", "h1", "u1")
+                          else RTOL[nm])
             if not dk <= bound:
-                raise AssertionError(f"B6 {name}: {nm} {dk} from float64 on the converged "
+                raise AssertionError(f"{name}: {nm} {dk} from float64 on the converged "
                                      f"chains, the plain version {dp}")
-        print(f"B6 {name} vs float64 on the {int(conv.sum())} converged chains "
+        print(f"{name} vs float64 on the {int(conv.sum())} converged chains "
               f"(kernel, plain float32): {json.dumps(far)}")
     return errs["theta"]
 
@@ -356,7 +370,7 @@ def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
             ref64 = fr.fused_rhmc_reference(spec, img.double(), prior, theta.double(),
                                             xi.double(), eps.double(), mask.double(),
                                             beta, n_steps, fpi)
-        err = max(err, _compare_b6(name, out, ref, ref64))
+        err = max(err, _compare_chains(f"B6 {name}", out, ref, ref64))
         if per_chain:
             # on every chain that did not blow up (a NaN metric spreads to
             # the whole chain, which the transition rejects)
@@ -400,8 +414,254 @@ def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
     return err, ms
 
 
+# B5 and B4 hold energies of order 7e5 (the crowded field's log-likelihood),
+# where one float32 spacing is 0.06: the kernels sum them in double, the
+# plain version in float32, so U and h are bounded by the B1/B3 bars plus
+# eight float32 spacings at their magnitude.
+def _spacings(x, n: int) -> float:
+    import numpy as np
+
+    return n * float(np.spacing(np.float32(x.abs().max().item())))
+
+
+def _crowded_inputs(truth, c, k, dev, seed):
+    """theta near the crowded field's truth in its first slots (prior-like
+    draws in the rest), standard-normal p, jittered eps."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = min(truth.shape[0], k)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = truth[:n].to(dev)[None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    if k > n:
+        theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+        theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    p = torch.randn((c, k, 3), generator=gen, device=dev)
+    eps = 0.8 + 0.4 * torch.rand((c,), generator=gen, device=dev)
+    return theta, p, eps
+
+
+def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
+    """Phase 5: B5 against its plain version on the card at the crowded
+    bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
+    per-chain masks, with and without an entry gradient, L = 0 and 1; the
+    gradient against float64; a chain that overflows, rejected by the HMC
+    transition; B5 forced onto the flagship shape against B1; one L = 10
+    trajectory of kernel and plain timed in one call.  Returns the largest
+    theta error and the times."""
+    import torch
+
+    truth, image = cfg4.make_data()
+    img = image.to(dev)
+    spec, prior = cfg4.scene, cfg4.prior
+    c, k, L = 1024, 50, 10
+    theta, p, eps = _crowded_inputs(truth, c, k, dev, 30)
+    eps = 0.002 * eps
+    inv_mass = torch.full((k, 3), 0.9, device=dev)
+    mask = torch.ones(k, device=dev)
+    ref = lambda th, pp, m, n, g: fl.fused_leapfrog_reference(  # noqa: E731
+        spec, img, prior, th, pp, eps, inv_mass, m, n, g)
+    _, _, _, g0 = ref(theta, p, mask, 0, None)
+    err = 0.0
+    tol_u = 0.0
+
+    def errors(out, want):
+        th, pp, u, g = (o.double() for o in out)
+        return {"theta": _max_err(th, want[0]), "p": _max_err(pp, want[1]),
+                "u": _max_err(u, want[2]),
+                "grad_rel": float(((g - want[3]).abs() / (1.0 + want[3].abs())).max())}
+
+    def compare(case, out, want, want64=None):
+        """Within TOL of the plain version; on a long trajectory, where the
+        field's stiffness amplifies float32 rounding in both versions, a
+        quantity off TOL passes if the kernel is no farther from a float64
+        run of the plain version than the float32 plain version is, plus TOL."""
+        nonlocal err, tol_u
+        tol = dict(TOL, u=TOL["u"] + _spacings(want[2], 8))
+        tol_u = max(tol_u, tol["u"])
+        errs = errors(out, want)
+        far = errors(out, want64) if want64 is not None else None
+        near = errors(want, want64) if want64 is not None else None
+        for name, e in errs.items():
+            if e <= tol[name]:
+                continue
+            if far is None or not far[name] <= near[name] + tol[name]:
+                raise AssertionError(f"B5 {case}: {name} error {e} > {tol[name]}"
+                                     + (f"; from float64 {far[name]}, the plain version "
+                                        f"{near[name]}" if far else ""))
+            print(f"B5 {case}: {name} {e:.3g} from the plain version; from float64 the "
+                  f"kernel {far[name]:.3g}, the plain version {near[name]:.3g}")
+        err = max(err, errs["theta"])
+
+    def ref64(th, pp, m, n, g):
+        return fl.fused_leapfrog_reference(
+            spec, img.double(), prior, th.double(), pp.double(), eps.double(),
+            inv_mass.double(), m.double(), n, None if g is None else g.double())
+
+    for n in (0, 1, L):
+        fused = flc.make_fused_leapfrog(spec, img, prior, k, n)
+        for grad in (None, g0):
+            tag = f"n={n} grad={'in' if grad is not None else 'none'}"
+            compare(tag, fused(theta, p, eps, inv_mass, mask, grad=grad),
+                    ref(theta, p, mask, n, grad),
+                    ref64(theta, p, mask, n, grad) if n == L else None)
+    # per-chain masks: slots 47..49 dead on every odd chain, momentum zeroed
+    mask_c = torch.ones((c, k), device=dev)
+    mask_c[1::2, 47:] = 0.0
+    p_m = p * mask_c[..., None]
+    fused = flc.make_fused_leapfrog(spec, img, prior, k, L)
+    out = fused(theta, p_m, eps, inv_mass, mask_c)
+    compare("per-chain mask", out, ref(theta, p_m, mask_c, L, None),
+            ref64(theta, p_m, mask_c, L, None))
+    if not torch.equal(out[0][1::2, 47:], theta[1::2, 47:]):
+        raise AssertionError("B5: a dead slot moved")
+    if not bool((out[3][1::2, 47:] == 0).all()):
+        raise AssertionError("B5: a dead slot has a nonzero gradient")
+
+    # the gradient against float64, relative to its magnitude (up to 1e4 on
+    # the crowded field): no farther than the float32 plain version is, plus
+    # TOL["grad_rel"]
+    g64 = ref64(theta, p, mask, 0, None)[3]
+    _, _, _, gk = flc.make_fused_leapfrog(spec, img, prior, k, 0)(theta, p, eps, inv_mass, mask)
+    grad_f64 = float(((gk.double() - g64).abs() / (1.0 + g64.abs())).max())
+    grad_f64_plain = float(((g0.double() - g64).abs() / (1.0 + g64.abs())).max())
+    if not grad_f64 <= grad_f64_plain + TOL["grad_rel"]:
+        raise AssertionError(f"B5 grad vs float64: {grad_f64} > {grad_f64_plain} (the plain "
+                             f"version's) + {TOL['grad_rel']}")
+
+    # a chain that overflows (exp(95) > float32's range): non-finite energy,
+    # rejected by the HMC transition; the other chains stay finite
+    th_o = theta.clone()
+    th_o[0, :, 2] = 95.0
+    out = fused(th_o, p, eps, inv_mass, mask, grad=g0)
+    u0 = ref(th_o, p, mask, 0, None)[2]
+    new, info = hmc_mod.hmc_transition(
+        hmc_mod.ChainState(th_o, u0, g0), torch.tensor(0.002, device=dev), inv_mass, mask, p,
+        torch.full((c,), 0.5, device=dev), torch.full((c,), 0.01, device=dev),
+        lambda th, pp, e, im, m, nn, g: fused(th, pp, e, im, m, grad=g), L)
+    if bool(torch.isfinite(out[2][0])) or bool(info.accepted[0]) \
+            or not torch.equal(new.theta[0], th_o[0]):
+        raise AssertionError(f"B5: the overflowing chain was not rejected (u {float(out[2][0])})")
+    if not bool(torch.isfinite(out[2][1:]).all()):
+        raise AssertionError("B5: the overflowing chain reached another chain")
+
+    # B5 forced onto the flagship shape, where B1's domain holds too
+    t6, i6 = cfg6.make_data()
+    i6 = i6.to(dev)
+    th6, p6, e6 = _crowded_inputs(t6, c, cfg6.kmax, dev, 31)
+    e6 = 0.002 * e6
+    im6 = torch.full((cfg6.kmax, 3), 0.9, device=dev)
+    m6 = torch.ones(cfg6.kmax, device=dev)
+    a = flc.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 5)(th6, p6, e6, im6, m6)
+    b = fl.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 5)(th6, p6, e6, im6, m6)
+    compare("flagship shape vs B1", a, b)
+    torch.cuda.synchronize()
+    print(f"B5 vs plain (C={c}, K={k}, {spec.height}x{spec.width}, L in 0, 1, {L}): "
+          f"max theta err {err:.3g}; grad vs float64 (relative) {grad_f64:.3g}, the "
+          f"plain version's {grad_f64_plain:.3g}; "
+          f"tolerances {json.dumps(dict(TOL, u=tol_u))}; overflowing chain rejected; "
+          f"B5 on the flagship shape agrees with B1")
+
+    fused = flc.make_fused_leapfrog(spec, img, prior, k, L)
+    ms = {"b5": _time_ms(lambda: fused(theta, p, eps, inv_mass, mask, grad=g0), 10),
+          "b5_plain": _time_ms(lambda: ref(theta, p, mask, L, g0), 2)}
+    print(f"B5 L={L} trajectory ({c} chains, K={k}): kernel {ms['b5']:.4f} ms, plain "
+          f"{ms['b5_plain']:.4f} ms, {c * L / (ms['b5'] * 1e-3):.4g} grad-evals/s")
+    return err, ms
+
+
+def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, dev):
+    """Phase 6: B4 against its plain version on the card at the cfg4
+    mutation shape (K = 64, 128x128, 6 steps x 4 sweeps, per-particle masks
+    with 30..64 stars alive, beta 1 and 0.3 from a device scalar), chain by
+    chain as for B6 with a float64 plain run as arbiter; the shared-mask
+    rhmc head's shape (K = 50); a chain that overflows; one trajectory at
+    the preset's 4096 particles timed, with the plain version over the same
+    particles in the preset's chunks of 256.  Returns the largest theta
+    error and the times."""
+    import torch
+
+    truth, image = cfg4.make_data()
+    img = image.to(dev)
+    spec, prior = cfg4.scene, cfg4.prior
+    n_steps, fpi = cfg4.smc.n_leapfrog, cfg4.smc.fixed_point_iters
+
+    def inputs(c, k, seed, per_chain):
+        theta, xi, eps = _crowded_inputs(truth, c, k, dev, seed)
+        eps = 0.05 * eps
+        if per_chain:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + 1)
+            n_alive = torch.randint(30, k + 1, (c,), generator=gen, device=dev)
+            order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+            mask = (order < n_alive[:, None]).to(torch.float32)
+        else:
+            mask = torch.ones(k, device=dev)
+        return theta, xi, eps, mask
+
+    err = 0.0
+    for i, (name, c, k, per_chain, beta) in enumerate((
+            ("cfg4", 128, 64, True, 1.0), ("cfg4 beta=0.3", 128, 64, True, 0.3),
+            ("rhmc K=50", 64, 50, False, 1.0))):
+        theta, xi, eps, mask = inputs(c, k, 40 + i, per_chain)
+        fused = frdc.make_fused_rhmc_diag(spec, img, prior, k, n_steps, fpi)
+        out = fused(theta, xi, eps, mask, torch.tensor(beta, device=dev))
+        ref = frd.fused_rhmc_diag_reference(spec, img, prior, theta, xi, eps, mask, beta,
+                                            n_steps, fpi)
+        ref64 = None
+        if i == 0:
+            ref64 = frd.fused_rhmc_diag_reference(spec, img.double(), prior, theta.double(),
+                                                  xi.double(), eps.double(), mask.double(),
+                                                  beta, n_steps, fpi)
+        err = max(err, _compare_chains(f"B4 {name}", out, ref, ref64, h_spacings=8,
+                                       p_rel=True))
+        if per_chain:
+            dead = (mask == 0) & (out[5] < SOLVER_TOL)[:, None]
+            if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+                raise AssertionError(f"B4 {name}: a dead slot moved")
+
+    # a chain that overflows: NaN residual, a solver failure, rejected
+    c = 64
+    theta, xi, eps, mask = inputs(c, 64, 47, True)
+    theta[0, :, 2] = 95.0
+    fused = frdc.make_fused_rhmc_diag(spec, img, prior, 64, n_steps, fpi)
+    out = fused(theta, xi, eps, mask)
+    u = torch.zeros(c, device=dev)
+    new, info = rhmc_mod.rhmc_transition(
+        rhmc_mod.ChainState(theta, u, torch.zeros_like(theta)), xi,
+        torch.full((c,), 0.5, device=dev), torch.full((c,), 0.01, device=dev),
+        fused, torch.tensor(0.05, device=dev), mask)
+    if not (bool(torch.isnan(out[5][0])) and bool(info.solver_fail[0])
+            and not bool(info.accepted[0]) and torch.equal(new.theta[0], theta[0])):
+        raise AssertionError(f"B4: the overflowing chain was not a solver failure "
+                             f"(resid {float(out[5][0])})")
+    if not bool(torch.isfinite(out[5][1:]).all()):
+        raise AssertionError("B4: the overflowing chain reached another chain")
+    torch.cuda.synchronize()
+    print(f"B4 overflowing chain: resid NaN -> solver failure, rejected; "
+          f"the other {c - 1} chains finite")
+
+    p_all = cfg4.smc.n_particles
+    theta, xi, eps, mask = inputs(p_all, 64, 48, True)
+    fused = frdc.make_fused_rhmc_diag(spec, img, prior, 64, n_steps, fpi)
+    chunk = cfg4.smc.mutation_chunk
+
+    def plain():
+        for j in range(0, p_all, chunk):
+            frd.fused_rhmc_diag_reference(spec, img, prior, theta[j:j + chunk], xi[j:j + chunk],
+                                          eps[j:j + chunk], mask[j:j + chunk], 1.0,
+                                          n_steps, fpi)
+
+    ms = {"b4": _time_ms(lambda: fused(theta, xi, eps, mask, 1.0), 2),
+          "b4_plain": _time_ms(plain, 1, warmup=0)}
+    print(f"B4 ({p_all} particles, K=64, {n_steps} steps x {fpi} sweeps): kernel "
+          f"{ms['b4']:.4f} ms, plain {ms['b4_plain']:.4f} ms per trajectory")
+    return err, ms
+
+
 def run_slice(api, cfg, dev):
-    """Phase 5: the fixed-K path at full width through the public API."""
+    """Phase 7: the fixed-K path at full width through the public API."""
     import dataclasses
 
     import numpy as np
@@ -445,7 +705,7 @@ REF_CFG1_DIAG = {"flux": (2140.3, 75.0)}
 
 
 def run_riemannian_slice(api, configs, dev):
-    """Phase 6: the diagonal Riemannian path at full width through the
+    """Phase 8: the diagonal Riemannian path at full width through the
     public API.
 
     Both runs are shortened (cfg5: the preset's 400 warmup transitions from
@@ -511,7 +771,7 @@ REF_CFG1_FULL = {"flux": (2129.1, 72.3)}
 
 
 def run_b6_slice(api, configs, dev):
-    """Phase 7: the full-metric path at full width through the public API:
+    """Phase 9: the full-metric path at full width through the public API:
     cfg3_transdim_smc as the preset stands (4096 particles, K_max 16,
     tempering to beta = 1, two trans-d sweeps and two B6 mutations per
     step), then cfg1_rhmc on the full metric shortened to 200 + 100
@@ -565,11 +825,123 @@ def run_b6_slice(api, configs, dev):
             raise AssertionError(f"{name}: total flux {tf['mean']} vs {mean} ± {band}")
 
 
+# cfg4_crowded's first three temperature steps in the JAX package's record
+# (runs/cfg4_full_r4_metrics.jsonl, P = 4096): beta 0.00289, 0.00674,
+# 0.01127; log Z 1964.2, 4587.9, 7670.2; mean star count 37.2, 34.4, 31.8.
+REF_CFG4_STEP3 = {"beta": 0.01127, "log_z": 7670.2, "mean_n": 31.8}
+
+
+def run_crowded_slice(api, configs, dev):
+    """Phase 10: the crowded field at full width through the public API:
+    cfg4_crowded (4096 particles, K_max 64, 128x128, twelve residual-birth
+    sweeps and two B4 mutations per step) for three temperature steps
+    (smc.max_steps cut from 250), then the HMC head on the same scene at
+    the true star count (head=hmc kmax=50, 1024 chains, B5) shortened to
+    100 + 50 transitions.  Checks that cfg4 ran through B4 with beta rising
+    and a finite log Z near the record's at step 3, and that the HMC head
+    ran through B5 with finite draws around the truth's total flux."""
+    import numpy as np
+
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(configs["cfg4_crowded"], {"smc.max_steps": 3})
+    out = api.sample(cfg, dev, seed=0)
+    st = out.stats
+    sc = api.summarize_output(out)["star_count"]
+    print(f"slice cfg4_crowded: {cfg.smc.n_particles} particles, K_max {cfg.kmax}, "
+          f"{st['n_temp_steps']} temperature steps in {st['wall_seconds']:.3f} s, kernel "
+          f"{st['kernel']} ({st['trajectory_kernel']}) x{st['kernel_launches']}, beta "
+          f"{st['beta']:.5f}, log Z {st['log_z']:.2f}, accept {st['accept']:.3f}, step "
+          f"{st['step_size']:.4g}, solver rejections {st['solver_rejections']}; star count "
+          f"mean {sc['mean']:.3f}; record at step 3: {json.dumps(REF_CFG4_STEP3)}")
+    if st["trajectory_kernel"] != "B4" or st["kernel_launches"] <= 0:
+        raise AssertionError(f"cfg4 did not run through B4: {st}")
+    if not (0.0 < st["beta"] < 1.0 and np.isfinite(st["log_z"])
+            and np.isfinite(out.thetas).all()):
+        raise AssertionError(f"cfg4: beta {st['beta']}, log Z {st['log_z']}")
+    if not 0.5 * REF_CFG4_STEP3["log_z"] <= st["log_z"] <= 2.0 * REF_CFG4_STEP3["log_z"]:
+        raise AssertionError(f"cfg4: log Z {st['log_z']} after 3 steps, record "
+                             f"{REF_CFG4_STEP3['log_z']}")
+
+    cfg = apply_overrides(configs["cfg4_crowded"], {
+        "head": "hmc", "kmax": 50, "n_chains": 1024, "n_warmup": 100, "n_samples": 50})
+    out = api.sample(cfg, dev, seed=1)
+    st = out.stats
+    tf = api.summarize_output(out)["total_flux"]
+    truth = float(np.sum(st["truth"]["f"]))
+    print(f"slice cfg4_crowded head=hmc kmax=50: {cfg.n_chains} chains, {cfg.n_warmup} "
+          f"warmup + {cfg.n_samples} draws in {st['wall_seconds']:.3f} s, kernel "
+          f"{st['kernel']} ({st['trajectory_kernel']}) x{st['kernel_launches']}, accept "
+          f"{st['accept']:.3f}, step {st['step_size']:.4g}; total flux {tf['mean']:.2f} ± "
+          f"{tf['sd']:.2f} (R-hat {tf['rhat']:.4f}), truth {truth:.2f}")
+    if st["trajectory_kernel"] != "B5" or st["kernel_launches"] <= 0:
+        raise AssertionError(f"the crowded HMC head did not run through B5: {st}")
+    if not np.isfinite(out.thetas).all() or not 0.5 <= st["accept"] <= 0.99:
+        raise AssertionError(f"crowded hmc: accept {st['accept']}, finite "
+                             f"{np.isfinite(out.thetas).all()}")
+    if not abs(tf["mean"] - truth) <= 4.0 * tf["sd"] + 0.02 * truth:
+        raise AssertionError(f"crowded hmc: total flux {tf['mean']} ± {tf['sd']} vs the "
+                             f"truth {truth}")
+
+
+# Bounds: the least time the card could take for a kernel's work, the larger
+# of its operations over the fp32 peak outside the tensor cores and its bytes
+# (each input read once, each output written once) over the memory rate
+# (NVIDIA's H100 SXM data sheet).  Operations are counted from the kernels'
+# inner loops, one multiply-add as two operations; the per-star work and the
+# profiles' exponentials are left out, so the bound is if anything low.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def leapfrog_ops(c, k, h, w, n_steps, grad_in):
+    """B1/B2/B5: the render (one FMA) and the contraction (two FMAs) per
+    star and pixel of every gradient evaluation."""
+    evals = n_steps + (0 if grad_in and n_steps > 0 else 1)
+    return c * evals * 6.0 * k * h * w
+
+
+def rhmc_diag_ops(c, k, h, w, n_steps, fpi):
+    """B3/B4: per star and pixel, a rebuild (render 3, build contraction 12,
+    q field and its contraction 13 operations), a momentum sweep 13, a
+    position sweep 7 (render, solve contraction)."""
+    return c * k * h * w * (28.0 + n_steps * (20.0 * fpi + 41.0))
+
+
+def rhmc_full_ops(c, k, h, w, n_steps, fpi):
+    """B6: per star pair and pixel, a rebuild's pair contractions (6 FMAs)
+    and q field (9 operations), a position sweep's Fisher pairs (i <= j, 4
+    FMAs); per star and pixel, a momentum sweep's phi field and psi
+    contractions (24 operations) and the renders."""
+    pairs = k * k * h * w * (21.0 + n_steps * (4.0 * fpi + 21.0))
+    single = k * h * w * (26.0 + n_steps * (26.0 * fpi + 50.0))
+    return c * (pairs + single)
+
+
+def bound_ms(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def leapfrog_bytes(c, k, h, w, grad_in):
+    """theta, p, eps, (grad), the mask and inv_mass in; theta, p, u, grad out."""
+    return 4 * (c * 3 * k * (2 + int(grad_in)) + c + k + 3 * k + h * w
+                + c * 3 * k * 3 + c)
+
+
+def rhmc_bytes(c, k, h, w, per_chain_mask):
+    """theta, xi, eps, the mask, beta and the image in; theta', p', h0, h1,
+    u1, resid out."""
+    return 4 * (c * 6 * k + c + (c * k if per_chain_mask else k) + 1 + h * w
+                + c * 6 * k + 4 * c)
+
+
 def _build_all(build):
     """nvcc on every kernel source at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("fused_leapfrog", "fused_rhmc_diag", "fused_rhmc")
+    names = ("fused_leapfrog", "fused_rhmc_diag", "fused_rhmc", "fused_leapfrog_crowded",
+             "fused_rhmc_diag_crowded")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build_kernel, names)))
@@ -588,10 +960,12 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from starcat_torch import api, build, fused_leapfrog as fl
+    from starcat_torch import api, build, hmc, rhmc
+    from starcat_torch import fused_leapfrog as fl
+    from starcat_torch import fused_leapfrog_crowded as flc
     from starcat_torch import fused_rhmc as fr
     from starcat_torch import fused_rhmc_diag as frd
-    from starcat_torch import rhmc
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
     from starcat_torch.configs import CONFIGS
 
     smi = subprocess.run(
@@ -604,9 +978,12 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     cfg = CONFIGS["cfg6_chees"]
+    cfg4 = CONFIGS["cfg4_crowded"]
     err, ms = check_kernel(fl, cfg, dev)
     err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
     err_b6, ms_b6 = check_rhmc_full_kernel(fr, rhmc, CONFIGS["cfg3_transdim_smc"], dev)
+    err_b5, ms_b5 = check_b5_kernel(flc, fl, hmc, cfg4, cfg, dev)
+    err_b4, ms_b4 = check_b4_kernel(frdc, frd, rhmc, cfg4, dev)
 
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -642,27 +1019,59 @@ def main() -> int:
     print(f"B6 at the cfg1 shape: kernel {ms_b6['cfg1']:.4f} ms, plain "
           f"{ms_b6['cfg1_plain']:.4f} ms per trajectory")
 
+    flc.reset_launch_counts()
+    frdc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run_crowded_slice(api, CONFIGS, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["b4"], launches["b5"] = frdc.LAUNCHES, flc.LAUNCHES
+    print(f"crowded path: {wall:.3f} s wall; B4 launches {launches['b4']}, B5 launches "
+          f"{launches['b5']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if launches["b4"] <= 0 or launches["b5"] <= 0:
+        raise AssertionError(f"a crowded-field kernel was never launched: {launches}")
+
+    # the timed shapes: B1/B2 C = 1024, K = 10, 32x32, L = 20, entry gradient
+    # in; B3 256 chains, K = 16, 32x32, 6 x 4, per-chain masks; B6 4096
+    # particles, K = 16, 32x32, 6 x 4, per-chain masks; B5 1024 chains, K =
+    # 50, 128x128, L = 10, entry gradient in; B4 4096 particles, K = 64,
+    # 128x128, 6 x 4, per-chain masks
+    b12 = bound_ms(leapfrog_ops(1024, 10, 32, 32, 20, True),
+                   leapfrog_bytes(1024, 10, 32, 32, True))
+    b3 = bound_ms(rhmc_diag_ops(256, 16, 32, 32, 6, 4), rhmc_bytes(256, 16, 32, 32, True))
+    b6 = bound_ms(rhmc_full_ops(4096, 16, 32, 32, 6, 4), rhmc_bytes(4096, 16, 32, 32, True))
+    b5 = bound_ms(leapfrog_ops(1024, 50, 128, 128, 10, True),
+                  leapfrog_bytes(1024, 50, 128, 128, True))
+    b4 = bound_ms(rhmc_diag_ops(4096, 64, 128, 128, 6, 4),
+                  rhmc_bytes(4096, 64, 128, 128, True))
+
+    def row(name, source, replaces, n, e, t, t_plain, bound):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": e, "ms": t, "plain_ms": t_plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
     src = "starcat_torch/csrc/fused_leapfrog.cu"
     rows = [
-        {"name": "fused_leapfrog (B1 contract, static L)", "route": "cuda",
-         "source": src, "replaces": "starcat/pallas_kernels.py:441",
-         "launches": launches["static"], "max_abs_err": err["static"],
-         "ms": ms["static"], "plain_ms": ms["plain"]},
-        {"name": "fused_leapfrog_dyn (B2 contract, runtime n_steps)",
-         "route": "cuda", "source": src,
-         "replaces": "starcat/pallas_kernels.py:317",
-         "launches": launches["dyn"], "max_abs_err": err["dyn"],
-         "ms": ms["dyn"], "plain_ms": ms["plain"]},
-        {"name": "fused_rhmc_diag (B3, diagonal-Fisher Riemannian trajectory)",
-         "route": "cuda", "source": "starcat_torch/csrc/fused_rhmc_diag.cu",
-         "replaces": "starcat/pallas_rhmc_diag.py:405",
-         "launches": launches["b3"], "max_abs_err": err_b3,
-         "ms": ms_b3["cfg5"], "plain_ms": ms_b3["cfg5_plain"]},
-        {"name": "fused_rhmc (B6, full-Fisher Riemannian trajectory)",
-         "route": "cuda", "source": "starcat_torch/csrc/fused_rhmc.cu",
-         "replaces": "starcat/pallas_rhmc.py:663",
-         "launches": launches["b6"], "max_abs_err": err_b6,
-         "ms": ms_b6["cfg3"], "plain_ms": ms_b6["cfg3_plain"]},
+        row("fused_leapfrog (B1 contract, static L)", src, "starcat/pallas_kernels.py:441",
+            launches["static"], err["static"], ms["static"], ms["plain"], b12),
+        row("fused_leapfrog_dyn (B2 contract, runtime n_steps)", src,
+            "starcat/pallas_kernels.py:317", launches["dyn"], err["dyn"], ms["dyn"],
+            ms["plain"], b12),
+        row("fused_rhmc_diag (B3, diagonal-Fisher Riemannian trajectory)",
+            "starcat_torch/csrc/fused_rhmc_diag.cu", "starcat/pallas_rhmc_diag.py:405",
+            launches["b3"], err_b3, ms_b3["cfg5"], ms_b3["cfg5_plain"], b3),
+        row("fused_rhmc_diag_crowded (B4, diagonal-Fisher trajectory on crowded fields)",
+            "starcat_torch/csrc/fused_rhmc_diag_crowded.cu",
+            "starcat/pallas_rhmc_diag.py:942", launches["b4"], err_b4, ms_b4["b4"],
+            ms_b4["b4_plain"], b4),
+        row("fused_leapfrog_crowded (B5, leapfrog on crowded fields)",
+            "starcat_torch/csrc/fused_leapfrog_crowded.cu", "starcat/pallas_mxu.py:310",
+            launches["b5"], err_b5, ms_b5["b5"], ms_b5["b5_plain"], b5),
+        row("fused_rhmc (B6, full-Fisher Riemannian trajectory)",
+            "starcat_torch/csrc/fused_rhmc.cu", "starcat/pallas_rhmc.py:663",
+            launches["b6"], err_b6, ms_b6["cfg3"], ms_b6["cfg3_plain"], b6),
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ port runs, so both packages sample the same image.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_scenes.py
 
-Entries: ``cfg0_single_star`` and ``flagship`` (the 10-star 32x32 scene
+Entries: ``cfg0_single_star``, ``flagship`` (the 10-star 32x32 scene
 that cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc, cfg5_transdim_mcmc and
-cfg6_chees share, with the same prior, star count and seeds).  Each
+cfg6_chees share, with the same prior, star count and seeds) and
+``crowded`` (cfg4_crowded's 50-star 128x128 field).  Each
 entry holds ``theta`` (n_stars, 3) and ``image`` (H, W) as float32, and
 ``meta`` = (height, width, psf_sigma, background, logf_mean, logf_sigma,
 n_stars, truth_seed, data_seed), which starcat_torch.configs matches.
@@ -20,7 +21,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "starcat_torch" / "data" / "scenes.npz"
-ENTRIES = {"cfg0_single_star": "cfg0_single_star", "flagship": "cfg6_chees"}
+ENTRIES = {"cfg0_single_star": "cfg0_single_star", "flagship": "cfg6_chees",
+           "crowded": "cfg4_crowded"}
 
 
 def _meta(cfg) -> np.ndarray:

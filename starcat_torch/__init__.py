@@ -4,13 +4,15 @@ The JAX package `starcat/` is the reference; every module here has its
 counterpart there under the same name.  This package imports torch and
 numpy only — never jax, never starcat — so it runs on a machine that has
 no JAX installed.  Its hand-written CUDA kernels, built by nvcc at first
-use (`build.py`), replace Pallas kernels of `starcat/`: the fused leapfrog
-trajectory (`fused_leapfrog.py`, `csrc/fused_leapfrog.cu`) the two of
-`starcat/pallas_kernels.py` (B1, B2), the diagonal-Fisher Riemannian
-trajectory (`fused_rhmc_diag.py`, `csrc/fused_rhmc_diag.cu`) the one of
-`starcat/pallas_rhmc_diag.py` that small scenes run (B3), and the
-full-Fisher Riemannian trajectory (`fused_rhmc.py`, `csrc/fused_rhmc.cu`)
-the one of `starcat/pallas_rhmc.py` (B6).
+use (`build.py`), replace the six Pallas kernels of `starcat/`: the fused
+leapfrog trajectory (`fused_leapfrog.py`, `csrc/fused_leapfrog.cu`) the
+two of `starcat/pallas_kernels.py` (B1, B2), and on crowded fields
+(`fused_leapfrog_crowded.py`) the one of `starcat/pallas_mxu.py` (B5); the
+diagonal-Fisher Riemannian trajectory (`fused_rhmc_diag.py`) the one of
+`starcat/pallas_rhmc_diag.py` that small scenes run (B3), and on crowded
+fields (`fused_rhmc_diag_crowded.py`) its MXU variant (B4); the full-Fisher
+Riemannian trajectory (`fused_rhmc.py`) the one of `starcat/pallas_rhmc.py`
+(B6).  `dispatch.py` picks the kernel of each pair by the scene's shape.
 """
 from .potential import (
     PriorSpec,

@@ -5,12 +5,13 @@ Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it), ``chees``,
 ``rhmc`` (full or diagonal Fisher metric), ``smc`` and ``transdim``.
 ``RunConfig.kernel`` picks the trajectory: the head's CUDA kernel or its
 plain torch version.  ``stats["kernel"]`` names what ran: ``cuda_fused`` /
-``torch`` for hmc and chees (kernel B1/B2), ``rhmc_full_cuda`` /
-``rhmc_full_torch`` (kernel B6) or ``rhmc_diag_cuda`` / ``rhmc_diag_torch``
-(kernel B3) for rhmc, and ``<mutation>_cuda`` / ``<mutation>_torch`` for
-smc and transdim (the smc ``hmc`` mutation has no kernel and is always
-``hmc_torch``); ``stats["kernel_launches"]`` counts the CUDA kernels'
-launches in the run.
+``torch`` for hmc and chees, ``rhmc_full_cuda`` / ``rhmc_full_torch`` or
+``rhmc_diag_cuda`` / ``rhmc_diag_torch`` for rhmc, and ``<mutation>_cuda``
+/ ``<mutation>_torch`` for smc and transdim (the smc ``hmc`` mutation has
+no kernel and is always ``hmc_torch``); ``stats["trajectory_kernel"]``
+names the CUDA kernel (B1, B2, B3, B4, B5 or B6, chosen by
+dispatch.trajectory_kernel from the scene's shape; "torch" on the plain
+path) and ``stats["kernel_launches"]`` counts the kernels' launches.
 The run draws every random number from one ``torch.Generator`` on the
 run's device, seeded from ``seed``.
 """
@@ -23,7 +24,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import diagnostics, fused_leapfrog, fused_rhmc, fused_rhmc_diag
+from . import (
+    diagnostics,
+    dispatch,
+    fused_leapfrog,
+    fused_leapfrog_crowded,
+    fused_rhmc,
+    fused_rhmc_diag,
+    fused_rhmc_diag_crowded,
+)
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
 from .hmc import run_hmc, run_hmc_fused
@@ -35,7 +44,8 @@ from .transdim_mcmc import TD_MUTATIONS, run_transdim
 PORTED_HEADS = ("hmc", "oracle", "chees", "rhmc", "smc", "transdim")
 # the ROADMAP.md items that port the reference's other heads
 UNPORTED_HEADS = {"nuts": "A11", "advi": "A11"}
-_KERNELS = (fused_leapfrog, fused_rhmc, fused_rhmc_diag)
+_KERNELS = (fused_leapfrog, fused_leapfrog_crowded, fused_rhmc, fused_rhmc_diag,
+            fused_rhmc_diag_crowded)
 
 
 @dataclass
@@ -64,7 +74,7 @@ def _check_head(cfg: RunConfig) -> None:
 
 def _metric_of(cfg: RunConfig) -> str | None:
     """The Riemannian metric the head's kernel runs ("full": B6, "diag":
-    B3), or None for the plain leapfrog (B1/B2; the smc hmc mutation)."""
+    B3/B4), or None for the plain leapfrog (B1/B2/B5; the smc hmc mutation)."""
     if cfg.head == "rhmc":
         return cfg.rhmc.metric
     if cfg.head == "smc":
@@ -90,12 +100,7 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     if no_kernel:
         raise ValueError("the smc hmc mutation has no CUDA kernel (the plain "
                          "tempered leapfrog); use kernel=auto or torch")
-    if metric == "full":
-        fused_rhmc.check_domain(cfg.scene, cfg.kmax)
-    elif metric == "diag":
-        fused_rhmc_diag.check_domain(cfg.scene, cfg.kmax)
-    else:
-        fused_leapfrog.check_domain(cfg.scene, cfg.kmax)
+    dispatch.trajectory_kernel(cfg.head, metric, cfg.scene, cfg.kmax)
     if device.type != "cuda":
         raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
     return "cuda"
@@ -118,7 +123,11 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
 
     _check_head(cfg)
     kernel = resolve_kernel(cfg.kernel, device, cfg)
-    stats: dict[str, Any] = {"kernel": "cuda_fused" if kernel == "cuda" else "torch"}
+    stats: dict[str, Any] = {
+        "kernel": "cuda_fused" if kernel == "cuda" else "torch",
+        "trajectory_kernel": (dispatch.trajectory_kernel(cfg.head, _metric_of(cfg),
+                                                         cfg.scene, cfg.kmax)
+                              if kernel == "cuda" else "torch")}
     launches0 = sum(k.LAUNCHES for k in _KERNELS)
     t_start = time.perf_counter()
     theta0 = (_init_chains(generator, cfg, truth_theta.to(device))

@@ -3,9 +3,10 @@ use into a shared library with a plain C interface under build/kernels/,
 keyed by a hash of the source and the flags, which the wrappers load with
 ctypes.  Nothing here runs on import, and nothing falls back: a missing
 toolkit or a failed compile raises.  :func:`check_tensor` is the wrappers'
-common check of what they pass a kernel; :func:`launch_riemannian` is the
-one launch of the two Riemannian trajectory kernels (B3, B6), which share
-their C interface.
+common check of what they pass a kernel; :func:`launch_leapfrog` is the
+one launch of the two leapfrog trajectory kernels (B1/B2, B5) and
+:func:`launch_riemannian` that of the three Riemannian trajectory kernels
+(B3, B4, B6): the kernels of each family share their C interface.
 """
 from __future__ import annotations
 
@@ -76,6 +77,77 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _error_strings(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.starcat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.starcat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _leapfrog_library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_kernel(name)[0]))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = getattr(lib, f"starcat_{name}")
+    fn.argtypes = [vp] * 6 + [ci] + [vp] * 6 + [ci] * 4 + [cf] * 6 + [vp]
+    fn.restype = ci
+    return _error_strings(lib)
+
+
+def leapfrog_scalars(spec, prior) -> tuple:
+    """The scene and prior constants the leapfrog kernels take."""
+    return riemannian_scalars(spec, prior, 0.0)[:6]
+
+
+def launch_leapfrog(name: str, image: torch.Tensor, kmax: int, scalars: tuple,
+                    theta: torch.Tensor, p: torch.Tensor, eps, inv_mass: torch.Tensor,
+                    mask: torch.Tensor, n_steps: torch.Tensor, grad):
+    """One launch of csrc/<name>.cu's leapfrog kernel on CUDA tensors, after
+    checking what it is given: theta, p and grad (None: evaluated first)
+    (C, K, 3), eps a scalar or (C,), inv_mass (K, 3), mask (K,) or (C, K),
+    n_steps one int32 on the device.  Returns (theta', p', u', grad');
+    raises if the launch fails."""
+    dev, k = theta.device, kmax
+    c = theta.shape[0]
+    if c < 1:
+        raise ValueError("the fused leapfrog needs at least one chain")
+    if image.device != dev:
+        raise ValueError(f"image is on {image.device}, theta on {dev}")
+    check_tensor("theta", theta, (c, k, 3), dev)
+    check_tensor("p", p, (c, k, 3), dev)
+    check_tensor("inv_mass", inv_mass, (k, 3), dev)
+    if grad is not None:
+        check_tensor("grad", grad, (c, k, 3), dev)
+    if mask.ndim == 1:
+        check_tensor("mask", mask, (k,), dev)
+        mask_stride = 0
+    else:
+        check_tensor("mask", mask, (c, k), dev)
+        mask_stride = k
+    eps_c = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    if eps_c.ndim > 1 or (eps_c.ndim == 1 and eps_c.shape[0] != c):
+        raise ValueError(f"eps must be a scalar or ({c},), got {tuple(eps_c.shape)}")
+    eps_c = eps_c.reshape(-1).expand(c).contiguous()
+    if n_steps.dtype != torch.int32 or n_steps.numel() != 1 or n_steps.device != dev:
+        raise ValueError("n_steps must be one int32 on the chains' device")
+    theta_out = torch.empty_like(theta)
+    p_out = torch.empty_like(p)
+    grad_out = torch.empty_like(theta)
+    u_out = torch.empty((c,), dtype=torch.float32, device=dev)
+    lib = _leapfrog_library(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"starcat_{name}")(
+            theta.data_ptr(), p.data_ptr(), None if grad is None else grad.data_ptr(),
+            eps_c.data_ptr(), inv_mass.data_ptr(), mask.data_ptr(), mask_stride,
+            image.data_ptr(), n_steps.data_ptr(), theta_out.data_ptr(), p_out.data_ptr(),
+            u_out.data_ptr(), grad_out.data_ptr(), c, k, image.shape[0], image.shape[1],
+            *scalars, stream)
+    if rc != 0:
+        msg = lib.starcat_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    return theta_out, p_out, u_out, grad_out
+
+
 @functools.cache
 def _riemannian_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernel(name)[0]))
@@ -83,9 +155,7 @@ def _riemannian_library(name: str) -> ctypes.CDLL:
     fn = getattr(lib, f"starcat_{name}")
     fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
     fn.restype = ci
-    lib.starcat_cuda_error_string.argtypes = [ci]
-    lib.starcat_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _error_strings(lib)
 
 
 def riemannian_scalars(spec, prior, jitter: float) -> tuple:

@@ -3,10 +3,12 @@ starcat/configs.py): ``cfg0_single_star`` (the oracle's single-star scene,
 sampled by the HMC head), ``cfg1_rhmc`` (the flagship 10-star 32x32 scene
 under RHMC on the full Fisher metric, kernel B6; ``rhmc.metric=diag`` runs
 its diagonal on B3), ``cfg3_transdim_smc`` (trans-dimensional SMC on the
-same scene, full-metric RHMC mutations on B6), ``cfg5_transdim_mcmc`` (the
-trans-dimensional MCMC chain on the same scene, diagonal-Fisher RHMC moves)
-and ``cfg6_chees`` (the same scene under ChEES).  Other presets join as
-their heads land.
+same scene, full-metric RHMC mutations on B6), ``cfg4_crowded`` (the
+50-star 128x128 crowded field under trans-dimensional SMC, diagonal-Fisher
+RHMC mutations on B4; ``head=hmc kmax=50`` samples the same scene at the
+true star count on B5), ``cfg5_transdim_mcmc`` (the trans-dimensional MCMC
+chain on the flagship scene, diagonal-Fisher RHMC moves) and ``cfg6_chees``
+(the flagship scene under ChEES).  Other presets join as their heads land.
 
 The mock data are the reference's own: ``data/scenes.npz`` holds the truth
 and image that ``starcat.configs.RunConfig.make_data`` draws at the default
@@ -128,6 +130,27 @@ cfg3_transdim_smc = _register(RunConfig(
         transdim=TransDimConfig(lam_count=8.0, split_sigma=1.0),
     ),
     notes="trans-d SMC, full-metric RHMC mutations on kernel B6",
+))
+
+# config 4: the crowded field, 50 stars on 128x128 at K_max 64, by
+# trans-dimensional SMC: 4096 particles, twelve birth/death (residual-driven
+# births) + split/merge sweeps and two diagonal-Fisher RHMC mutations per
+# temperature step (kernel B4), then plateau-stopped posterior rounds
+cfg4_crowded = _register(RunConfig(
+    name="cfg4_crowded",
+    scene=SceneSpec(128, 128, 1.5, 20.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=50, kmax=64,
+    head="smc",
+    smc=SMCConfig(
+        n_particles=4096, mutation="rhmc_diag", n_mutation_steps=2, n_leapfrog=6,
+        fixed_point_iters=4, n_transdim_sweeps=12, step_size0=0.2, max_steps=250,
+        plateau_window=50, plateau_tol=0.25, max_final_rounds=1500,
+        mutation_chunk=256,
+        transdim=TransDimConfig(lam_count=40.0, split_sigma=1.0,
+                                birth_proposal="residual"),
+    ),
+    notes="trans-d SMC on the crowded field, diagonal-Fisher mutations on kernel B4",
 ))
 
 # config 5: the reference's own sampler shape, a trans-dimensional MCMC

@@ -16,16 +16,14 @@ On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_leapfrog_reference`, only for tensors on the
 CPU.  The kernel is compiled with nvcc at first use into build/kernels/
 (build.build_kernel), keyed by a hash of its source, and loaded with ctypes.
+Scenes or catalogs beyond its domain go to the crowded-field kernel B5
+(fused_leapfrog_crowded.py), chosen by :func:`dispatch.leapfrog_module`.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import math
-
 import torch
 
-from .build import MAX_SMEM_BYTES, build_kernel, check_tensor as _check
+from .build import MAX_SMEM_BYTES, launch_leapfrog, leapfrog_scalars
 from .integrators import plain_trajectory
 from .potential import PriorSpec, make_potential_and_grad
 from .scene import SceneSpec
@@ -44,38 +42,32 @@ def reset_launch_counts() -> None:
     LAUNCHES = STATIC_LAUNCHES = DYN_LAUNCHES = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernel("fused_leapfrog")[0]))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.starcat_fused_leapfrog.argtypes = (
-        [vp] * 6 + [ci] + [vp] * 6 + [ci] * 4 + [cf] * 6 + [vp])
-    lib.starcat_fused_leapfrog.restype = ci
-    lib.starcat_cuda_error_string.argtypes = [ci]
-    lib.starcat_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def smem_bytes(kmax: int, height: int, width: int) -> int:
     """Shared memory one block needs (mirrors smem_floats in the source)."""
     return 4 * (19 * kmax + 8 + 1 + 2 * height * width
                 + kmax * (width + 2 * height))
 
 
-def check_domain(spec: SceneSpec, kmax: int) -> None:
-    """Raise unless the kernel takes this scene and catalog capacity."""
+def domain_error(spec: SceneSpec, kmax: int) -> str | None:
+    """Why the kernel does not take this scene and catalog, or None."""
     hw = spec.height * spec.width
     if hw > MAX_PIXELS or kmax > MAX_STARS or kmax < 1:
-        raise ValueError(
-            f"the fused CUDA leapfrog takes H*W <= {MAX_PIXELS} and "
-            f"1 <= K <= {MAX_STARS}, got {spec.height}x{spec.width} and "
-            f"K={kmax}; crowded fields wait for the port of kernel B5 "
-            "(ROADMAP.md queue B)")
+        return (f"the fused CUDA leapfrog (B1/B2) takes H*W <= {MAX_PIXELS} and "
+                f"1 <= K <= {MAX_STARS}, got {spec.height}x{spec.width} and "
+                f"K={kmax}; larger scenes and catalogs run on the crowded-field "
+                "kernel B5 (fused_leapfrog_crowded.py)")
     if smem_bytes(kmax, spec.height, spec.width) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a {spec.height}x{spec.width} scene with K={kmax} needs "
-            f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
-            f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+        return (f"a {spec.height}x{spec.width} scene with K={kmax} needs "
+                f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
+                f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+    return None
+
+
+def check_domain(spec: SceneSpec, kmax: int) -> None:
+    """Raise unless the kernel takes this scene and catalog capacity."""
+    err = domain_error(spec, kmax)
+    if err is not None:
+        raise ValueError(err)
 
 
 def fused_leapfrog_reference(spec: SceneSpec, image: torch.Tensor,
@@ -109,12 +101,7 @@ class _Launcher:
                              f"got {tuple(self.image.shape)}")
         if self.image.device.type == "cuda":
             check_domain(spec, kmax)
-        sig = float(spec.psf_sigma)
-        self.scalars = (
-            sig, 1.0 / (math.sqrt(2.0 * math.pi) * sig), float(spec.background),
-            float(prior.logf_mean), float(prior.logf_sigma),
-            -math.log(prior.logf_sigma) - 0.5 * math.log(2.0 * math.pi),
-        )
+        self.scalars = leapfrog_scalars(spec, prior)
 
     def __call__(self, theta, p, eps, inv_mass, mask, n_steps, grad):
         """n_steps: a Python int or a device int32 scalar tensor."""
@@ -130,56 +117,16 @@ class _Launcher:
 
     def _launch(self, theta, p, eps, inv_mass, mask, n_steps, grad):
         global LAUNCHES, STATIC_LAUNCHES, DYN_LAUNCHES
-        dev, k = theta.device, self.kmax
-        c = theta.shape[0]
-        if c < 1:
-            raise ValueError("the fused leapfrog needs at least one chain")
-        if self.image.device != dev:
-            raise ValueError(f"image is on {self.image.device}, theta on {dev}")
-        _check("theta", theta, (c, k, 3), dev)
-        _check("p", p, (c, k, 3), dev)
-        _check("inv_mass", inv_mass, (k, 3), dev)
-        if grad is not None:
-            _check("grad", grad, (c, k, 3), dev)
-        if mask.ndim == 1:
-            _check("mask", mask, (k,), dev)
-            mask_stride = 0
-        else:
-            _check("mask", mask, (c, k), dev)
-            mask_stride = k
-        eps_c = torch.as_tensor(eps, dtype=torch.float32, device=dev)
-        if eps_c.ndim > 1 or (eps_c.ndim == 1 and eps_c.shape[0] != c):
-            raise ValueError(f"eps must be a scalar or ({c},), got {tuple(eps_c.shape)}")
-        eps_c = eps_c.reshape(-1).expand(c).contiguous()
-        if isinstance(n_steps, torch.Tensor):
-            if n_steps.dtype != torch.int32 or n_steps.numel() != 1 or n_steps.device != dev:
-                raise ValueError("n_steps must be one int32 on the chains' device")
-            n_dev = n_steps
-        else:
-            n_dev = torch.full((1,), int(n_steps), dtype=torch.int32, device=dev)
-        theta_out = torch.empty_like(theta)
-        p_out = torch.empty_like(p)
-        grad_out = torch.empty_like(theta)
-        u_out = torch.empty((c,), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _library().starcat_fused_leapfrog(
-                theta.data_ptr(), p.data_ptr(),
-                None if grad is None else grad.data_ptr(),
-                eps_c.data_ptr(), inv_mass.data_ptr(), mask.data_ptr(),
-                mask_stride, self.image.data_ptr(), n_dev.data_ptr(),
-                theta_out.data_ptr(), p_out.data_ptr(), u_out.data_ptr(),
-                grad_out.data_ptr(), c, k, self.spec.height, self.spec.width,
-                *self.scalars, stream)
-        if rc != 0:
-            msg = _library().starcat_cuda_error_string(rc).decode()
-            raise RuntimeError(f"fused leapfrog launch failed: {msg} ({rc})")
+        if not isinstance(n_steps, torch.Tensor):
+            n_steps = torch.full((1,), int(n_steps), dtype=torch.int32, device=theta.device)
+        out = launch_leapfrog("fused_leapfrog", self.image, self.kmax, self.scalars,
+                              theta, p, eps, inv_mass, mask, n_steps, grad)
         LAUNCHES += 1
         if self.contract == "static":
             STATIC_LAUNCHES += 1
         else:
             DYN_LAUNCHES += 1
-        return theta_out, p_out, u_out, grad_out
+        return out
 
 
 def make_fused_leapfrog(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,

@@ -57,8 +57,8 @@ def check_domain(spec: SceneSpec, kmax: int) -> None:
         raise ValueError(
             f"the fused CUDA full-Fisher trajectory (B6) takes H*W <= "
             f"{MAX_PIXELS} and 1 <= K <= {MAX_STARS}, got "
-            f"{spec.height}x{spec.width} and K={kmax}; use rhmc.metric=diag "
-            "(crowded fields wait for kernel B4, ROADMAP.md queue B)")
+            f"{spec.height}x{spec.width} and K={kmax}; on crowded fields use "
+            "rhmc.metric=diag (kernels B3 and B4)")
     if smem_bytes(kmax, spec.height, spec.width) > MAX_SMEM_BYTES:
         raise ValueError(
             f"a {spec.height}x{spec.width} scene with K={kmax} needs "

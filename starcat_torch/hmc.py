@@ -8,7 +8,7 @@ The transition is a pure function of its random inputs (``p0``, ``u_jit``,
 The trajectory is pluggable with the fused kernel's dyn contract
 ``trajectory(theta, p, eps, inv_mass, mask, n_steps, grad) -> (theta, p,
 u, grad)``: the plain leapfrog over a batched ``grad_fn`` (:func:`run_hmc`)
-or the CUDA kernel (:func:`run_hmc_fused`).
+or the CUDA kernel, B1 or B5 by the scene's size (:func:`run_hmc_fused`).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .driver import ChainState, run_mcmc
-from .fused_leapfrog import make_fused_leapfrog
+from .dispatch import make_leapfrog
 from .integrators import kinetic_energy, plain_trajectory
 from .potential import make_potential_and_grad
 
@@ -99,11 +99,11 @@ def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
                   n_samples: int, n_warmup: int,
                   config: HMCConfig = HMCConfig(), thin: int = 1):
     """run_hmc with every trajectory in one launch of the fused leapfrog
-    kernel (B1's contract; the entry gradient comes from the chain state)."""
+    kernel that takes the scene, B1 or B5 (B1's contract; the entry
+    gradient comes from the chain state)."""
     pg = make_potential_and_grad(spec, image, prior)
     grad_fn = lambda th: pg(th, mask)  # noqa: E731
-    fused = make_fused_leapfrog(spec, image, prior, int(mask.shape[-1]),
-                                config.n_leapfrog)
+    fused = make_leapfrog(spec, image, prior, int(mask.shape[-1]), config.n_leapfrog)
     trajectory = lambda th, p, e, im, m, n, g: fused(th, p, e, im, m, grad=g)  # noqa: E731
     kernel = make_hmc_kernel(trajectory, mask, config, generator)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,

@@ -11,7 +11,7 @@ Per temperature step:
   4. ``n_transdim_sweeps`` birth/death + split/merge sweeps at the tempered
      log-likelihood beta * loglik, then ``n_mutation_steps`` within-model
      moves on the tempered target: ``rhmc`` (the dense Fisher metric,
-     kernel B6), ``rhmc_diag`` (its diagonal, kernel B3) or ``hmc`` (the
+     kernel B6), ``rhmc_diag`` (its diagonal, kernel B3 or B4) or ``hmc`` (the
      plain leapfrog at unit mass; it has no kernel, here or in the
      reference); the step size follows a Robbins-Monro controller on the
      mean acceptance, and the untempered log-likelihood is refreshed.
@@ -63,7 +63,7 @@ class SMCConfig(NamedTuple):
     n_particles: int = 1024
     ess_target_frac: float = 0.5
     max_steps: int = 60
-    mutation: str = "rhmc"   # "rhmc" (B6) | "rhmc_diag" (B3) | "hmc"
+    mutation: str = "rhmc"   # "rhmc" (B6) | "rhmc_diag" (B3/B4) | "hmc"
     n_mutation_steps: int = 2
     n_leapfrog: int = 8
     fixed_point_iters: int = 4
@@ -135,7 +135,7 @@ class StepDraws(NamedTuple):
 def check_mutation(mutation: str) -> None:
     if mutation not in MUTATIONS:
         raise ValueError(f"unknown SMC mutation {mutation!r}; ported: "
-                         "rhmc (B6), rhmc_diag (B3), hmc")
+                         "rhmc (B6), rhmc_diag (B3/B4), hmc")
 
 
 def ess_from_logw(logw: torch.Tensor) -> torch.Tensor:
@@ -258,7 +258,7 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                   kmax: int, cfg: SMCConfig, fused: bool = False):
     """One temperature step, step(state, draws) -> state: reweight,
     resample, sweep, mutate.  fused=True runs the Riemannian mutations on
-    their CUDA kernels (B6 for rhmc, B3 for rhmc_diag); the hmc mutation
+    their CUDA kernels (B6 for rhmc, B3 or B4 for rhmc_diag); the hmc mutation
     always runs the plain tempered leapfrog."""
     check_mutation(cfg.mutation)
     metric = MUTATIONS[cfg.mutation]
@@ -341,17 +341,21 @@ def _result(s: SMCState) -> SMCResult:
 
 def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
             prior: PriorSpec, kmax: int, cfg: SMCConfig,
-            fused: bool = False) -> SMCResult:
+            fused: bool = False, on_step=None) -> SMCResult:
     """A full pass: temperature steps until beta = 1 (or max_steps), then
     the posterior rounds (n_final_rounds, or plateau-stopped), with
-    final_n_leapfrog when set."""
+    final_n_leapfrog when set.  ``on_step(state)``, when given, sees the
+    state after every step (scripts/smc_trace.py records it)."""
     check_mutation(cfg.mutation)
     s = init_smc(generator, spec, image, prior, kmax, cfg)
     p, dev = cfg.n_particles, image.device
     step = make_smc_step(spec, image, prior, kmax, cfg, fused)
 
     def advance(st, fn):
-        return fn(st, draw_step(generator, p, kmax, spec, prior, cfg, dev))
+        st = fn(st, draw_step(generator, p, kmax, spec, prior, cfg, dev))
+        if on_step is not None:
+            on_step(st)
+        return st
 
     beta, n_steps, done = _host(s)
     while beta < 1.0 and n_steps < cfg.max_steps:

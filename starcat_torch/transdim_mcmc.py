@@ -7,9 +7,9 @@ transdim.py:
   1. ``n_transdim_sweeps`` birth/death + split/merge sweeps, which change
      each chain's alive mask;
   2. one within-model move at each chain's current mask, dead slots frozen:
-     ``hmc`` (kernel B1's trajectory), ``rhmc`` (kernel B6's full-Fisher
-     trajectory) or ``rhmc_diag`` (kernel B3's diagonal-Fisher trajectory),
-     all at per-chain masks.
+     ``hmc`` (kernel B1's or B5's trajectory), ``rhmc`` (kernel B6's
+     full-Fisher trajectory) or ``rhmc_diag`` (kernel B3's or B4's
+     diagonal-Fisher trajectory), all at per-chain masks.
 
 The mask is chain state here, so this head carries its own warmup (dual
 averaging on the step size only, with the divergence penalty) and sampling
@@ -32,7 +32,7 @@ import torch
 
 from .adapt import da_init, da_update
 from .driver import ChainState
-from .fused_leapfrog import make_fused_leapfrog
+from .dispatch import make_leapfrog
 from .hmc import hmc_transition
 from .integrators import plain_trajectory
 from .potential import (
@@ -53,8 +53,8 @@ TD_MUTATIONS = ("hmc", "rhmc", "rhmc_diag")
 
 class TransDimMCMCConfig(NamedTuple):
     step_size: float = 0.1
-    # within-model move: "hmc" (B1) | "rhmc" (the full metric, B6) |
-    # "rhmc_diag" (B3)
+    # within-model move: "hmc" (B1/B5) | "rhmc" (the full metric, B6) |
+    # "rhmc_diag" (B3/B4)
     mutation: str = "hmc"
     n_leapfrog: int = 10
     fixed_point_iters: int = 4
@@ -132,9 +132,9 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
     TDInfo), a pure function of its draws (drawn from ``generator`` by
     :func:`draw_transition` when not given).
 
-    fused=True runs the within-model trajectory in the CUDA kernel (B1 for
-    ``hmc``, B6 for ``rhmc``, B3 for ``rhmc_diag``); off it, the plain torch
-    trajectory."""
+    fused=True runs the within-model trajectory in the CUDA kernel (B1 or,
+    on crowded fields, B5 for ``hmc``; B6 for ``rhmc``; B3 or B4 for
+    ``rhmc_diag``); off it, the plain torch trajectory."""
     if cfg.mutation not in TD_MUTATIONS:
         raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: {', '.join(TD_MUTATIONS)}")
     if beta == 1.0:
@@ -151,7 +151,7 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
             # Riemannian kernel takes beta itself
             raise ValueError("tempered trans-d MCMC on the CUDA kernel: use "
                              "mutation=rhmc or rhmc_diag, or kernel=torch for hmc")
-        fused_traj = (make_fused_leapfrog(spec, image, prior, kmax, cfg.n_leapfrog)
+        fused_traj = (make_leapfrog(spec, image, prior, kmax, cfg.n_leapfrog)
                       if fused else None)
 
         def within_model(theta, mask, u, eps, p0, u_jit, u_acc):

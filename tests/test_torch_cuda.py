@@ -399,3 +399,113 @@ def test_full_metric_heads_run_through_b6(dev, name, over, kernel):
     if name.startswith("cfg3"):
         assert out.thetas.shape == (512, 1, cfg.kmax, 3) and out.masks.shape == (512, cfg.kmax)
         assert out.stats["n_temp_steps"] == 4 and 0.0 < out.stats["beta"] < 1.0
+
+
+# -- B5 and B4, the crowded-field kernels -------------------------------------
+
+def _crowded_inputs(c, k, dev, seed=0):
+    cfg = CONFIGS["cfg4_crowded"]
+    truth, img = cfg.make_data()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = min(50, k)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = truth[:n].to(dev)[None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    if k > n:
+        theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+        theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    p = torch.randn((c, k, 3), generator=gen, device=dev)
+    alive = torch.randint(30, k + 1, (c,), generator=gen, device=dev)
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < alive[:, None]).to(torch.float32)
+    return cfg, img.to(dev), theta, p, mask
+
+
+def _spacings(x, n=8):
+    return n * float(np.spacing(np.float32(x.abs().max().item())))
+
+
+@pytest.mark.parametrize("grad_in", [False, True])
+@pytest.mark.parametrize("n_steps", [0, 1])
+@pytest.mark.parametrize("per_chain", [False, True])
+def test_crowded_leapfrog_kernel_matches_plain(dev, per_chain, n_steps, grad_in):
+    """B5 at the crowded field (K = 50, 128x128) against its plain version;
+    U is a sum of order 7e5, so its bound adds eight float32 spacings."""
+    from starcat_torch import fused_leapfrog_crowded as flc
+
+    cfg, img, theta, p, mask_c = _crowded_inputs(64, 50, dev)
+    mask = mask_c if per_chain else torch.ones(50, device=dev)
+    p = p * mask[..., None] if per_chain else p
+    eps = torch.full((64,), 0.002, device=dev)
+    inv_mass = torch.full((50, 3), 0.9, device=dev)
+    ref = lambda n, g: fl.fused_leapfrog_reference(  # noqa: E731
+        cfg.scene, img, cfg.prior, theta, p, eps, inv_mass, mask, n, g)
+    grad = ref(0, None)[3] if grad_in else None
+    want = ref(n_steps, grad)
+    out = flc.make_fused_leapfrog(cfg.scene, img, cfg.prior, 50, n_steps)(
+        theta, p, eps, inv_mass, mask, grad=grad)
+    torch.cuda.synchronize()
+    assert float((out[0] - want[0]).abs().max()) <= TOL["theta"]
+    assert float((out[1] - want[1]).abs().max()) <= TOL["p"]
+    assert float((out[2] - want[2]).abs().max()) <= TOL["u"] + _spacings(want[2])
+    assert float(((out[3] - want[3]).abs() / (1 + want[3].abs())).max()) <= TOL["grad_rel"]
+    if per_chain:
+        dead = mask == 0
+        assert torch.equal(out[0][dead], theta[dead]) and bool((out[3][dead] == 0).all())
+
+
+@pytest.mark.parametrize("beta", [0.3, 1.0])
+def test_crowded_rhmc_kernel_matches_plain(dev, beta):
+    """B4 at the cfg4 mutation shape (K = 64, 128x128, 6 x 4, per-particle
+    masks) against its plain version on the chains whose fixed points
+    converged tightly in both; p relative to 1 + |p| (p = sqrt(g) xi
+    reaches 1e3 here), h with eight float32 spacings."""
+    from starcat_torch import fused_rhmc_diag as frd
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
+
+    cfg, img, theta, xi, mask = _crowded_inputs(32, 64, dev, seed=1)
+    eps = torch.full((32,), 0.05, device=dev)
+    out = frdc.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 64, 6, 4)(
+        theta, xi, eps, mask, torch.tensor(beta, device=dev))
+    ref = frd.fused_rhmc_diag_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
+                                        beta, 6, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= 0.8 * 32
+    o, r = [a[tight] for a in out], [b[tight] for b in ref]
+    assert float((o[0] - r[0]).abs().max()) <= RTOL["theta"]
+    assert float(((o[1] - r[1]).abs() / (1 + r[1].abs())).max()) <= RTOL["p"]
+    for a, b in zip(o[2:5], r[2:5]):
+        assert float((a - b).abs().max()) <= RTOL["h"] + _spacings(b)
+    dead = (mask == 0) & (out[5] < 0.05)[:, None]
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+
+
+def test_crowded_launch_counts(dev):
+    from starcat_torch import fused_leapfrog_crowded as flc
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
+
+    cfg, img, theta, p, mask = _crowded_inputs(8, 64, dev)
+    flc.reset_launch_counts()
+    frdc.reset_launch_counts()
+    flc.make_fused_leapfrog(cfg.scene, img, cfg.prior, 64, 2)(
+        theta, p, 0.001, torch.ones((64, 3), device=dev), mask)
+    traj = frdc.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 64, 1, 1)
+    traj(theta, p, 0.01, mask)
+    traj(theta, p, 0.01, mask, 0.5)
+    assert (flc.LAUNCHES, frdc.LAUNCHES) == (1, 2)
+
+
+@pytest.mark.parametrize("over,kernel,traj", [
+    ({"smc.n_particles": 256, "smc.max_steps": 2}, "rhmc_diag_cuda", "B4"),
+    ({"head": "hmc", "kmax": 50, "n_chains": 64, "n_warmup": 20, "n_samples": 10},
+     "cuda_fused", "B5"),
+    ({"head": "rhmc", "rhmc.metric": "diag", "kmax": 50, "n_chains": 32, "n_warmup": 10,
+      "n_samples": 5}, "rhmc_diag_cuda", "B4"),
+])
+def test_crowded_heads_run_through_b4_and_b5(dev, over, kernel, traj):
+    from starcat_torch.configs import apply_overrides
+
+    out = api.sample(apply_overrides(CONFIGS["cfg4_crowded"], over), dev, seed=1)
+    assert out.stats["kernel"] == kernel and out.stats["trajectory_kernel"] == traj
+    assert out.stats["kernel_launches"] > 0 and np.isfinite(out.thetas).all()

@@ -134,20 +134,28 @@ def test_kernel_selection():
         api.resolve_kernel("cuda", cpu, cfg)
     with pytest.raises(ValueError, match="kernel must be"):
         api.resolve_kernel("pallas", cpu, cfg)
+    # ChEES's runtime step count is B2's alone: a crowded field raises,
+    # pointing at the crowded-field kernel B5, which the hmc head runs
     crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128))
     with pytest.raises(ValueError, match="B5"):
         api.resolve_kernel("cuda", torch.device("cuda"), crowded)
-    # the Riemannian heads run kernel B3, whose domain names B4 off it
+    hmc_crowded = dataclasses.replace(crowded, head="hmc")
+    assert api.resolve_kernel("cuda", torch.device("cuda"), hmc_crowded) == "cuda"
+    # the Riemannian heads run kernel B3, and B4 beyond its domain; beyond
+    # both the error names both
+    huge = dict(scene=cfg.scene._replace(height=256, width=256), kmax=64)
     for name in ("cfg5_transdim_mcmc", "cfg1_rhmc"):
         big = dataclasses.replace(CONFIGS[name], kmax=64,
                                   rhmc=CONFIGS[name].rhmc._replace(metric="diag"))
-        with pytest.raises(ValueError, match="B4"):
-            api.resolve_kernel("cuda", torch.device("cuda"), big)
+        assert api.resolve_kernel("cuda", torch.device("cuda"), big) == "cuda"
+        with pytest.raises(ValueError, match="B3.*B4"):
+            api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(big, **huge))
         assert api.resolve_kernel("auto", cpu, CONFIGS[name]) == "torch"
     hmc_td = apply_overrides(CONFIGS["cfg5_transdim_mcmc"], {"tdm.mutation": "hmc"})
+    assert api.resolve_kernel("cuda", torch.device("cuda"),
+                              dataclasses.replace(hmc_td, kmax=64)) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", torch.device("cuda"),
-                           dataclasses.replace(hmc_td, kmax=64))
+        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(hmc_td, **huge))
 
 
 def test_unported_head_raises():
