@@ -25,12 +25,14 @@
    crowded bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
    per-chain masks, with and without an entry gradient, L = 0 and 1, long
    trajectories and the gradient against float64, a chain that overflows,
-   B5 against B1 on the flagship shape; times one trajectory of each;
+   B5 against B1 on the flagship shape; times one trajectory of each, and
+   B5 beside B1 at B1's timed shape;
 6. holds the crowded-field diagonal-Fisher kernel (B4) against its plain
    version chain by chain at the cfg4 mutation shape (K = 64, 6 x 4,
    per-particle masks, beta 1 and 0.3 from a device scalar, and against
    float64) and at K = 50 with a shared mask, checks a chain that
-   overflows, and times one trajectory at the preset's 4096 particles;
+   overflows, times one trajectory at the preset's 4096 particles, and
+   checks and times B4 beside B3 at B3's timed shape (cfg5);
 7-10. drive each path at full width through the public API, the launch
    counts set to 0 just before each and read just after: the fixed-K path
    (cfg6_chees, B2's contract, and the HMC head, B1's); the diagonal
@@ -447,9 +449,10 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
     per-chain masks, with and without an entry gradient, L = 0 and 1; the
     gradient against float64; a chain that overflows, rejected by the HMC
-    transition; B5 forced onto the flagship shape against B1; one L = 10
-    trajectory of kernel and plain timed in one call.  Returns the largest
-    theta error and the times."""
+    transition; B5 forced onto the flagship shape against B1, and both
+    timed there on one L = 20 trajectory; one L = 10 trajectory of kernel
+    and plain timed in one call.  Returns the largest theta error and the
+    times."""
     import torch
 
     truth, image = cfg4.make_data()
@@ -546,7 +549,9 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     if not bool(torch.isfinite(out[2][1:]).all()):
         raise AssertionError("B5: the overflowing chain reached another chain")
 
-    # B5 forced onto the flagship shape, where B1's domain holds too
+    # B5 forced onto the flagship shape, where B1's domain holds too: the
+    # two agree, and both are timed on one L = 20 trajectory (B1's timed
+    # shape), which decides the choice by shape
     t6, i6 = cfg6.make_data()
     i6 = i6.to(dev)
     th6, p6, e6 = _crowded_inputs(t6, c, cfg6.kmax, dev, 31)
@@ -556,30 +561,38 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     a = flc.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 5)(th6, p6, e6, im6, m6)
     b = fl.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 5)(th6, p6, e6, im6, m6)
     compare("flagship shape vs B1", a, b)
+    g6 = b[3]
+    b5_20 = flc.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 20)
+    b1_20 = fl.make_fused_leapfrog(cfg6.scene, i6, cfg6.prior, cfg6.kmax, 20)
+    flag = {"b1": _time_ms(lambda: b1_20(th6, p6, e6, im6, m6, grad=g6), 50),
+            "b5": _time_ms(lambda: b5_20(th6, p6, e6, im6, m6, grad=g6), 50)}
     torch.cuda.synchronize()
     print(f"B5 vs plain (C={c}, K={k}, {spec.height}x{spec.width}, L in 0, 1, {L}): "
           f"max theta err {err:.3g}; grad vs float64 (relative) {grad_f64:.3g}, the "
           f"plain version's {grad_f64_plain:.3g}; "
           f"tolerances {json.dumps(dict(TOL, u=tol_u))}; overflowing chain rejected; "
-          f"B5 on the flagship shape agrees with B1")
+          f"B5 on the flagship shape agrees with B1; there (C={c}, K={cfg6.kmax}, 32x32, "
+          f"L=20, gradient in) B1 {flag['b1']:.4f} ms, B5 {flag['b5']:.4f} ms")
 
     fused = flc.make_fused_leapfrog(spec, img, prior, k, L)
     ms = {"b5": _time_ms(lambda: fused(theta, p, eps, inv_mass, mask, grad=g0), 10),
-          "b5_plain": _time_ms(lambda: ref(theta, p, mask, L, g0), 2)}
+          "b5_plain": _time_ms(lambda: ref(theta, p, mask, L, g0), 2),
+          "flagship_b1": flag["b1"], "flagship_b5": flag["b5"]}
     print(f"B5 L={L} trajectory ({c} chains, K={k}): kernel {ms['b5']:.4f} ms, plain "
           f"{ms['b5_plain']:.4f} ms, {c * L / (ms['b5'] * 1e-3):.4g} grad-evals/s")
     return err, ms
 
 
-def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, dev):
+def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
     """Phase 6: B4 against its plain version on the card at the cfg4
     mutation shape (K = 64, 128x128, 6 steps x 4 sweeps, per-particle masks
     with 30..64 stars alive, beta 1 and 0.3 from a device scalar), chain by
     chain as for B6 with a float64 plain run as arbiter; the shared-mask
     rhmc head's shape (K = 50); a chain that overflows; one trajectory at
     the preset's 4096 particles timed, with the plain version over the same
-    particles in the preset's chunks of 256.  Returns the largest theta
-    error and the times."""
+    particles in the preset's chunks of 256; B4 forced onto B3's cfg5 shape,
+    checked and timed beside B3.  Returns the largest theta error and the
+    times."""
     import torch
 
     truth, image = cfg4.make_data()
@@ -657,6 +670,23 @@ def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, dev):
           "b4_plain": _time_ms(plain, 1, warmup=0)}
     print(f"B4 ({p_all} particles, K=64, {n_steps} steps x {fpi} sweeps): kernel "
           f"{ms['b4']:.4f} ms, plain {ms['b4_plain']:.4f} ms per trajectory")
+
+    # B4 forced onto B3's timed shape (cfg5: 256 chains, K = 16, 32x32, 6 x
+    # 4, per-chain masks), where B3's domain holds too: chain by chain
+    # against the plain version, then B3 and B4 timed on the same inputs,
+    # which decides the choice by shape
+    t5, i5 = cfg5.make_data()
+    i5 = i5.to(dev)
+    theta, xi, eps, mask = _rhmc_inputs(t5, 256, 16, dev, 0, True)
+    b4s = frdc.make_fused_rhmc_diag(cfg5.scene, i5, cfg5.prior, 16, 6, 4)
+    b3s = frd.make_fused_rhmc_diag(cfg5.scene, i5, cfg5.prior, 16, 6, 4)
+    ref = frd.fused_rhmc_diag_reference(cfg5.scene, i5, cfg5.prior, theta, xi, eps, mask, 1.0,
+                                        6, 4)
+    _compare_chains("B4 at the cfg5 shape", b4s(theta, xi, eps, mask), ref)
+    ms["flagship_b3"] = _time_ms(lambda: b3s(theta, xi, eps, mask, 1.0), 20)
+    ms["flagship_b4"] = _time_ms(lambda: b4s(theta, xi, eps, mask, 1.0), 20)
+    print(f"at the cfg5 shape (256 chains, K=16, 32x32, 6 x 4): B3 "
+          f"{ms['flagship_b3']:.4f} ms, B4 {ms['flagship_b4']:.4f} ms per trajectory")
     return err, ms
 
 
@@ -825,10 +855,17 @@ def run_b6_slice(api, configs, dev):
             raise AssertionError(f"{name}: total flux {tf['mean']} vs {mean} ± {band}")
 
 
-# cfg4_crowded's first three temperature steps in the JAX package's record
-# (runs/cfg4_full_r4_metrics.jsonl, P = 4096): beta 0.00289, 0.00674,
-# 0.01127; log Z 1964.2, 4587.9, 7670.2; mean star count 37.2, 34.4, 31.8.
-REF_CFG4_STEP3 = {"beta": 0.01127, "log_z": 7670.2, "mean_n": 31.8}
+# cfg4_crowded after three temperature steps in the JAX package's four
+# records at P = 4096 (runs/cfg4_full_r4_metrics.jsonl and
+# runs/cfg4_s{101,202,303}_metrics.jsonl): the mean and sd over the seeds of
+# beta (0.01029-0.01146), log Z (7007.3-7802.1) and the mean star count
+# (31.15-31.99).  The port's run must fall within 3 sd of each mean.
+REF_CFG4_STEP3 = {"beta": (0.0109508, 0.000522), "log_z": (7455.92, 355.69),
+                  "mean_n": (31.6735, 0.3660)}
+# The crowded HMC head (head=hmc kmax=50, 1024 chains): the posterior total
+# flux of a 300 + 500 run on the plain trajectory on the card (PERF.md, the
+# crowded HMC head); the shortened run must come within a quarter sd of it.
+REF_CROWDED_HMC_FLUX = (9616.29, 198.6)
 
 
 def run_crowded_slice(api, configs, dev):
@@ -837,9 +874,10 @@ def run_crowded_slice(api, configs, dev):
     sweeps and two B4 mutations per step) for three temperature steps
     (smc.max_steps cut from 250), then the HMC head on the same scene at
     the true star count (head=hmc kmax=50, 1024 chains, B5) shortened to
-    100 + 50 transitions.  Checks that cfg4 ran through B4 with beta rising
-    and a finite log Z near the record's at step 3, and that the HMC head
-    ran through B5 with finite draws around the truth's total flux."""
+    100 + 50 transitions.  Checks that cfg4 ran through B4 with beta, log Z
+    and the mean star count at step 3 within the records' spread over
+    seeds, and that the HMC head ran through B5 with finite draws whose
+    total flux is within a quarter sd of the plain trajectory's long run."""
     import numpy as np
 
     from starcat_torch.configs import apply_overrides
@@ -853,15 +891,17 @@ def run_crowded_slice(api, configs, dev):
           f"{st['kernel']} ({st['trajectory_kernel']}) x{st['kernel_launches']}, beta "
           f"{st['beta']:.5f}, log Z {st['log_z']:.2f}, accept {st['accept']:.3f}, step "
           f"{st['step_size']:.4g}, solver rejections {st['solver_rejections']}; star count "
-          f"mean {sc['mean']:.3f}; record at step 3: {json.dumps(REF_CFG4_STEP3)}")
+          f"mean {sc['mean']:.3f}; records at step 3 (mean, sd): "
+          f"{json.dumps(REF_CFG4_STEP3)}")
     if st["trajectory_kernel"] != "B4" or st["kernel_launches"] <= 0:
         raise AssertionError(f"cfg4 did not run through B4: {st}")
-    if not (0.0 < st["beta"] < 1.0 and np.isfinite(st["log_z"])
-            and np.isfinite(out.thetas).all()):
-        raise AssertionError(f"cfg4: beta {st['beta']}, log Z {st['log_z']}")
-    if not 0.5 * REF_CFG4_STEP3["log_z"] <= st["log_z"] <= 2.0 * REF_CFG4_STEP3["log_z"]:
-        raise AssertionError(f"cfg4: log Z {st['log_z']} after 3 steps, record "
-                             f"{REF_CFG4_STEP3['log_z']}")
+    if st["n_temp_steps"] != 3 or not np.isfinite(out.thetas).all():
+        raise AssertionError(f"cfg4: {st['n_temp_steps']} steps, finite "
+                             f"{np.isfinite(out.thetas).all()}")
+    for name, got in (("beta", st["beta"]), ("log_z", st["log_z"]), ("mean_n", sc["mean"])):
+        mean, sd = REF_CFG4_STEP3[name]
+        if not abs(got - mean) <= 3.0 * sd:
+            raise AssertionError(f"cfg4: {name} {got} after 3 steps, records {mean} ± {sd}")
 
     cfg = apply_overrides(configs["cfg4_crowded"], {
         "head": "hmc", "kmax": 50, "n_chains": 1024, "n_warmup": 100, "n_samples": 50})
@@ -879,17 +919,18 @@ def run_crowded_slice(api, configs, dev):
     if not np.isfinite(out.thetas).all() or not 0.5 <= st["accept"] <= 0.99:
         raise AssertionError(f"crowded hmc: accept {st['accept']}, finite "
                              f"{np.isfinite(out.thetas).all()}")
-    if not abs(tf["mean"] - truth) <= 4.0 * tf["sd"] + 0.02 * truth:
-        raise AssertionError(f"crowded hmc: total flux {tf['mean']} ± {tf['sd']} vs the "
-                             f"truth {truth}")
+    mean, sd = REF_CROWDED_HMC_FLUX
+    if not abs(tf["mean"] - mean) <= 0.25 * sd:
+        raise AssertionError(f"crowded hmc: total flux {tf['mean']} vs the plain "
+                             f"trajectory's {mean} ± {sd}")
 
 
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its operations over the fp32 peak outside the tensor cores and its bytes
 # (each input read once, each output written once) over the memory rate
-# (NVIDIA's H100 SXM data sheet).  Operations are counted from the kernels'
-# inner loops, one multiply-add as two operations; the per-star work and the
-# profiles' exponentials are left out, so the bound is if anything low.
+# (NVIDIA's H100 SXM data sheet).  Operations are the pixel work that the
+# function needs, one multiply-add as two operations; the per-star work and
+# the profiles' exponentials are left out, so the bound is if anything low.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -902,10 +943,15 @@ def leapfrog_ops(c, k, h, w, n_steps, grad_in):
 
 
 def rhmc_diag_ops(c, k, h, w, n_steps, fpi):
-    """B3/B4: per star and pixel, a rebuild (render 3, build contraction 12,
-    q field and its contraction 13 operations), a momentum sweep 13, a
-    position sweep 7 (render, solve contraction)."""
-    return c * k * h * w * (28.0 + n_steps * (20.0 * fpi + 41.0))
+    """B3/B4: what the function needs per star and pixel, counted from the
+    reference's crowded-field tile (starcat/pallas_rhmc_diag.py:660-870),
+    not from a kernel's recomputation: a build (lambda 2, the (H,W)@(W,4K)
+    bilinears 8, the rho contraction 4, the q field and its contraction 8:
+    22), a momentum sweep (q field and contraction, 8), a position sweep
+    (lambda and the (H,W)@(W,2K) metric contraction, 6); a step is fpi
+    momentum and fpi position sweeps, a build and the final momentum half
+    step, and the trajectory one build more."""
+    return c * k * h * w * (22.0 + n_steps * (30.0 + 14.0 * fpi))
 
 
 def rhmc_full_ops(c, k, h, w, n_steps, fpi):
@@ -983,7 +1029,7 @@ def main() -> int:
     err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
     err_b6, ms_b6 = check_rhmc_full_kernel(fr, rhmc, CONFIGS["cfg3_transdim_smc"], dev)
     err_b5, ms_b5 = check_b5_kernel(flc, fl, hmc, cfg4, cfg, dev)
-    err_b4, ms_b4 = check_b4_kernel(frdc, frd, rhmc, cfg4, dev)
+    err_b4, ms_b4 = check_b4_kernel(frdc, frd, rhmc, cfg4, CONFIGS["cfg5_transdim_mcmc"], dev)
 
     fl.reset_launch_counts()
     t0 = time.perf_counter()

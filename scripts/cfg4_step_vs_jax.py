@@ -9,7 +9,7 @@ interpret mode off the TPU); the port's step runs B4's plain version.  From
 the prior population, each step's beta, log Z, star counts, theta and
 log-likelihoods are compared; each next step starts both packages from
 the JAX state.  Prints one JSON line per step with the largest
-differences.  The JAX keys' draws are built by tests/test_torch_crowded.py's
+differences.  The JAX keys' draws are built by tests/jax_draws.py's
 ``jax_step_draws``.  About a minute per step on one CPU core.
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ def main() -> None:
         smc_state_from_numpy,
         spec_from_jax,
     )
-    from test_torch_crowded import jax_step_draws
+    from jax_draws import jax_step_draws
 
     jcfg = JAX_CONFIGS["cfg4_crowded"]
     k = jcfg.kmax

@@ -3,13 +3,11 @@
     python scripts/smc_trace.py --config cfg4_crowded [--seed 0]
                                 [--out chiprun_out/trace.jsonl] [key=value ...]
 
-Runs the preset's SMC pass as ``api.sample`` does (the preset's scene,
-prior and SMC settings, the CUDA kernel of its mutation, one generator on
-the device seeded from --seed) and writes one JSON line per temperature
-step: step, beta, log Z, mean star count, mean acceptance, step size,
-cumulative divergences and solver rejections, and the wall seconds since
-the start; then a last line with the run's totals and the peak device
-memory.  Comparable line by line with the JAX package's
+Runs the preset through ``api.sample`` and writes one JSON line per
+temperature step: step, beta, log Z, mean star count, mean acceptance,
+step size, cumulative divergences and solver rejections, and the wall
+seconds since the start; then a last line with the run's totals and the
+peak device memory.  Comparable line by line with the JAX package's
 ``runs/*_metrics.jsonl`` records.  Needs a CUDA device unless --device cpu.
 """
 from __future__ import annotations
@@ -32,26 +30,18 @@ def main() -> None:
 
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("smc_trace: CUDA is not available")
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from starcat_torch import api
     from starcat_torch.__main__ import _parse_overrides
-    from starcat_torch.api import resolve_kernel
     from starcat_torch.configs import CONFIGS, apply_overrides
-    from starcat_torch.smc import run_smc
 
     cfg = apply_overrides(CONFIGS[args.config], _parse_overrides(args.overrides))
     if cfg.head != "smc":
         raise SystemExit(f"{cfg.name} is not an smc preset")
     dev = torch.device(args.device)
-    kernel = resolve_kernel(cfg.kernel, dev, cfg)
-    _, image = cfg.make_data()
-    img = image.to(device=dev, dtype=torch.float32)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with out.open("w") as fh:
@@ -65,19 +55,15 @@ def main() -> None:
             fh.write(json.dumps({**dict(zip(keys, row)),
                                  "wall_s": time.perf_counter() - t0}) + "\n")
 
-        res = run_smc(gen, cfg.scene, img, cfg.prior, cfg.kmax, cfg.smc,
-                      fused=kernel == "cuda", on_step=on_step)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        counts = res.mask.sum(-1)
+        res = api.sample(cfg, dev, seed=args.seed, on_step=on_step)
+        st, summ = res.stats, api.summarize_output(res)
         summary = {
-            "config": cfg.name, "seed": args.seed, "kernel": kernel,
-            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-            "wall_s": time.perf_counter() - t0, "n_steps": int(res.n_steps),
-            "final_rounds": int(res.final_done), "beta": float(res.beta),
-            "log_z": float(res.log_z), "count_mean": float(counts.mean()),
-            "count_mode": int(torch.bincount(counts.long()).argmax()),
-            "total_flux": float((torch.exp(res.theta[..., 2]) * res.mask).sum(-1).mean()),
+            "config": cfg.name, "seed": args.seed, "kernel": st["kernel"],
+            "trajectory_kernel": st["trajectory_kernel"], "device": st["device"],
+            "wall_s": st["wall_seconds"], "n_steps": st["n_temp_steps"],
+            "final_rounds": st["final_rounds"], "beta": st["beta"], "log_z": st["log_z"],
+            "count_mean": summ["star_count"]["mean"], "count_mode": summ["star_count"]["mode"],
+            "total_flux": summ["total_flux"]["mean"],
             "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if dev.type == "cuda" else None)}
         fh.write(json.dumps(summary) + "\n")

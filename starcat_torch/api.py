@@ -106,8 +106,11 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     return "cuda"
 
 
-def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
-    """Run the configured head on the config's mock scene (or ``image``)."""
+def sample(cfg: RunConfig, device, seed: int = 0, image=None,
+           on_step=None) -> SampleOutput:
+    """Run the configured head on the config's mock scene (or ``image``).
+    ``on_step(state)``, when given, sees the SMC head's state after every
+    temperature step (scripts/smc_trace.py records it)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -170,7 +173,7 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None) -> SampleOutput:
                      solver_rejections=int(res.solver_fail.sum()))
     elif cfg.head == "smc":
         res = run_smc(generator, spec, img, prior, cfg.kmax, cfg.smc,
-                      fused=kernel == "cuda")
+                      fused=kernel == "cuda", on_step=on_step)
         beta = float(res.beta)
         stats.update(kernel=f"{cfg.smc.mutation.removesuffix('_pallas')}_{kernel}",
                      log_z=float(res.log_z), n_temp_steps=int(res.n_steps),

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from scipy import stats
 
 import starcat
 from starcat import smc as jsmc
@@ -19,6 +20,7 @@ from starcat.transdim import TransDimConfig as JTransDimConfig
 from starcat_torch import api, dispatch, smc
 from starcat_torch import fused_leapfrog_crowded as flc
 from starcat_torch import fused_rhmc_diag_crowded as frdc
+from starcat_torch import transdim as ttd
 from starcat_torch.build import MAX_SMEM_BYTES
 from starcat_torch.configs import CONFIGS, apply_overrides
 from starcat_torch.convert import (
@@ -27,8 +29,10 @@ from starcat_torch.convert import (
     smc_state_from_numpy,
     spec_from_jax,
 )
+from starcat_torch.potential import PriorSpec, sample_prior
 from starcat_torch.scene import SceneSpec
-from starcat_torch.transdim import SweepDraws
+
+from jax_draws import jax_step_draws
 
 torch.set_num_threads(1)
 
@@ -43,53 +47,6 @@ P, K = 16, 4
 SPEC_J = starcat.SceneSpec(16, 12, 1.5, 4.0)
 PRIOR_J = starcat.PriorSpec(4.0, 0.7)
 HW = SPEC_J.height * SPEC_J.width
-
-
-def _vmap_draw(fn, keys):
-    return _t(jax.vmap(fn)(keys))
-
-
-def jax_sweep_draws(keys, k=K, hw=HW):
-    """transdim_sweep's draws with residual births from its per-particle
-    keys (starcat/transdim.py:539 the sweep, :170 the residual birth/death,
-    :420 split/merge) as the port's SweepDraws, for k catalog slots and hw
-    pixels."""
-    sub = jax.vmap(lambda kk: jax.random.split(kk, 3))(keys)
-    bd = jax.vmap(lambda kk: jax.random.split(kk, 6))(sub[:, 1])
-    sm = jax.vmap(lambda kk: jax.random.split(kk, 6))(sub[:, 2])
-    return SweepDraws(
-        _vmap_draw(jax.random.uniform, sub[:, 0]),
-        (_vmap_draw(jax.random.uniform, bd[:, 0]),
-         _vmap_draw(lambda kk: jax.random.gumbel(kk, (k,)), bd[:, 1]),
-         _vmap_draw(lambda kk: jax.random.gumbel(kk, (hw,)), bd[:, 2]),
-         _vmap_draw(lambda kk: jax.random.uniform(kk, (2,)), bd[:, 3]),
-         _vmap_draw(jax.random.normal, bd[:, 4]),
-         _vmap_draw(jax.random.uniform, bd[:, 5])),
-        (_vmap_draw(jax.random.uniform, sm[:, 0]),
-         _vmap_draw(lambda kk: jax.random.gumbel(kk, (k,)), sm[:, 1]),
-         _vmap_draw(lambda kk: jax.random.gumbel(kk, (k,)), sm[:, 2]),
-         _vmap_draw(jax.random.uniform, sm[:, 3]),
-         _vmap_draw(lambda kk: jax.random.normal(kk, (2,)), sm[:, 4]),
-         _vmap_draw(jax.random.uniform, sm[:, 5])))
-
-
-def jax_step_draws(key, cfg_j, k=K, hw=HW):
-    """A temperature step's draws from the state key (starcat/smc.py:339-491;
-    the Pallas RHMC kernel's per-particle key, k_mom, k_acc, k_jit at
-    starcat/rhmc.py:304), for cfg_j.n_particles particles.  Also used by
-    scripts/cfg4_step_vs_jax.py at the full cfg4 scene."""
-    p = cfg_j.n_particles
-    _, k_res, k_mut, k_td, _ = jax.random.split(key, 5)
-    sweeps = tuple(jax_sweep_draws(jax.random.split(kk, p), k, hw)
-                   for kk in jax.random.split(k_td, cfg_j.n_transdim_sweeps))
-    keys, moves = jax.random.split(k_mut, p), []
-    for _ in range(cfg_j.n_mutation_steps):
-        sub = jax.vmap(lambda kk: jax.random.split(kk, 4))(keys)
-        moves.append((_vmap_draw(lambda kk: jax.random.normal(kk, (k, 3)), sub[:, 1]),
-                      _vmap_draw(jax.random.uniform, sub[:, 3]),
-                      _vmap_draw(jax.random.uniform, sub[:, 2])))
-        keys = sub[:, 0]
-    return smc.StepDraws(_t(jax.random.uniform(k_res)), sweeps, tuple(moves))
 
 
 def test_cfg4_shaped_temperature_step_matches_jax_on_its_draws():
@@ -114,7 +71,7 @@ def test_cfg4_shaped_temperature_step_matches_jax_on_its_draws():
     tst0 = smc_state_from_numpy(st0.theta, st0.mask, st0.loglik, st0.beta, st0.log_z,
                                 st0.eps, st0.n_steps, st0.mean_accept, st0.final_done, "cpu")
     step = smc.make_smc_step(spec_from_jax(SPEC_J), _t(img), prior_from_jax(PRIOR_J), K, cfg)
-    tst1 = step(tst0, jax_step_draws(st0.key, cfg_j))
+    tst1 = step(tst0, jax_step_draws(st0.key, cfg_j, K, HW))
     assert float(tst1.beta) == pytest.approx(float(st1.beta), rel=1e-5)
     assert 0.0 < float(tst1.beta) < 1.0
     assert float(tst1.log_z) == pytest.approx(float(st1.log_z), rel=1e-5, abs=1e-3)
@@ -126,6 +83,51 @@ def test_cfg4_shaped_temperature_step_matches_jax_on_its_draws():
     assert 0.0 < float(tst1.mean_accept) <= 1.0
     # the sweeps moved the star counts: births and deaths happened
     assert not np.array_equal(np.asarray(st1.mask).sum(-1), np.asarray(st0.mask).sum(-1))
+
+
+def test_residual_birth_sweeps_on_their_own_draws_recover_the_prior():
+    """The sweeps as run_smc runs them, on the port's own draws (draw_sweep:
+    the Gumbel over H*W that picks a residual birth's pixel), with a flat
+    likelihood and a residual proposal steered by a bright non-square
+    image: the proposal's density cancels in the acceptance only if pixel,
+    offset and reverse density agree, so n must stay ~ truncated
+    Poisson(Lambda) (pmf within 0.03, as tests/test_transdim.py:73-90),
+    the fluxes ~ the prior and the positions uniform over the image (KS
+    p > 1e-4), not drawn toward the stars."""
+    spec = SceneSpec(16, 12, 1.5, 4.0)
+    prior = PriorSpec(3.0, 0.8)
+    truth = starcat.sample_prior(jax.random.key(0), 3, starcat.PriorSpec(6.0, 0.2))
+    x, y, f = starcat.constrain(truth, SPEC_J)
+    img = _t(starcat.make_mock_image(jax.random.key(1), x, y, f, SPEC_J))
+    kmax, n_chains, n_sweeps, lam = 8, 256, 600, 2.5
+    cfg = ttd.TransDimConfig(lam_count=lam, split_sigma=1.0, birth_proposal="residual")
+    gen = torch.Generator().manual_seed(3)
+    theta = sample_prior(gen, n_chains * kmax, prior, "cpu").reshape(n_chains, kmax, 3)
+    mask = torch.zeros((n_chains, kmax))
+    mask[:, 0] = 1.0
+    ll = torch.zeros(n_chains)
+    flat = lambda t, m: torch.zeros(t.shape[0])  # noqa: E731
+    ns, pos = [], []
+    for i in range(n_sweeps):
+        draws = ttd.draw_sweep(gen, n_chains, kmax, spec, prior, cfg, "cpu")
+        theta, mask, ll, _ = ttd.transdim_sweep(theta, mask, ll, flat, prior, spec, cfg,
+                                                draws, img)
+        if i >= 300:
+            ns.append(mask.sum(-1))
+            if i % 100 == 99:  # snapshots far enough apart to be near independent
+                pos.append(theta[mask > 0])
+    counts = torch.stack(ns).reshape(-1).long().numpy()
+    pmf = stats.poisson.pmf(np.arange(kmax + 1), lam)
+    emp = np.bincount(counts, minlength=kmax + 1)[: kmax + 1] / counts.size
+    assert np.abs(emp - pmf / pmf.sum()).max() < 0.03, (emp, pmf / pmf.sum())
+    alive = torch.cat(pos)
+    assert alive.shape[0] > 1500
+    for col, args in ((0, ()), (1, ()), (2, (prior.logf_mean, prior.logf_sigma))):
+        v = alive[:, col].numpy()
+        # logit positions map to uniform on (0, 1) by the logistic function
+        sample = 1.0 / (1.0 + np.exp(-v)) if col < 2 else v
+        ks = stats.kstest(sample, "uniform" if col < 2 else "norm", args=args)
+        assert ks.pvalue > 1e-4, (col, ks)
 
 
 # -- the kernel choice ---------------------------------------------------------
