@@ -30,9 +30,10 @@
 6. holds the crowded-field diagonal-Fisher kernel (B4) against its plain
    version chain by chain at the cfg4 mutation shape (K = 64, 6 x 4,
    per-particle masks, beta 1 and 0.3 from a device scalar, and against
-   float64) and at K = 50 with a shared mask, checks a chain that
-   overflows, times one trajectory at the preset's 4096 particles, and
-   checks and times B4 beside B3 at B3's timed shape (cfg5);
+   float64), at K = 50 with a shared mask and at a ragged 96x128 scene
+   with K = 37 (against float64 too), checks a chain that overflows, times
+   one trajectory at the preset's 4096 particles, and checks and times B4
+   beside B3 at B3's timed shape (cfg5);
 7-10. drive each path at full width through the public API, the launch
    counts set to 0 just before each and read just after: the fixed-K path
    (cfg6_chees, B2's contract, and the HMC head, B1's); the diagonal
@@ -583,12 +584,49 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     return err, ms
 
 
+def b4_inputs(truth, c, k, dev, seed, per_chain):
+    """B4's inputs: theta near the crowded field's truth, standard-normal xi,
+    eps 0.04-0.06 and the mask: per particle with 30..k stars alive in
+    shuffled slots (cfg4's case), or shared and all alive."""
+    import torch
+
+    theta, xi, eps = _crowded_inputs(truth, c, k, dev, seed)
+    eps = 0.05 * eps
+    if per_chain:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        n_alive = torch.randint(min(30, k), k + 1, (c,), generator=gen, device=dev)
+        order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+        mask = (order < n_alive[:, None]).to(torch.float32)
+    else:
+        mask = torch.ones(k, device=dev)
+    return theta, xi, eps, mask
+
+
+def _ragged_scene(cfg4, dev):
+    """A scene that is neither square nor a multiple of B4's tiles: the
+    crowded image's first 96 rows, all 128 columns, and the crowded field's
+    true stars whose rows fall inside them (39; b4_inputs puts the first K
+    of them near their truth)."""
+    import torch
+
+    truth, image = cfg4.make_data()
+    spec = cfg4.scene._replace(height=96)
+    rows = cfg4.scene.height * torch.sigmoid(truth[:, 1])
+    inside = truth[rows < 94.0]
+    # the same row coordinate in the cut scene: logit(y / 96)
+    y = cfg4.scene.height * torch.sigmoid(inside[:, 1]) / 96.0
+    inside = torch.stack([inside[:, 0], torch.log(y / (1.0 - y)), inside[:, 2]], dim=1)
+    return spec, image[:96].contiguous().to(dev), inside
+
+
 def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
     """Phase 6: B4 against its plain version on the card at the cfg4
     mutation shape (K = 64, 128x128, 6 steps x 4 sweeps, per-particle masks
     with 30..64 stars alive, beta 1 and 0.3 from a device scalar), chain by
     chain as for B6 with a float64 plain run as arbiter; the shared-mask
-    rhmc head's shape (K = 50); a chain that overflows; one trajectory at
+    rhmc head's shape (K = 50); a ragged scene (96x128, K = 37, per-chain
+    masks, with the float64 arbiter); a chain that overflows; one trajectory at
     the preset's 4096 particles timed, with the plain version over the same
     particles in the preset's chunks of 256; B4 forced onto B3's cfg5 shape,
     checked and timed beside B3.  Returns the largest theta error and the
@@ -601,17 +639,7 @@ def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
     n_steps, fpi = cfg4.smc.n_leapfrog, cfg4.smc.fixed_point_iters
 
     def inputs(c, k, seed, per_chain):
-        theta, xi, eps = _crowded_inputs(truth, c, k, dev, seed)
-        eps = 0.05 * eps
-        if per_chain:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed + 1)
-            n_alive = torch.randint(30, k + 1, (c,), generator=gen, device=dev)
-            order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
-            mask = (order < n_alive[:, None]).to(torch.float32)
-        else:
-            mask = torch.ones(k, device=dev)
-        return theta, xi, eps, mask
+        return b4_inputs(truth, c, k, dev, seed, per_chain)
 
     err = 0.0
     for i, (name, c, k, per_chain, beta) in enumerate((
@@ -633,6 +661,24 @@ def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
             dead = (mask == 0) & (out[5] < SOLVER_TOL)[:, None]
             if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
                 raise AssertionError(f"B4 {name}: a dead slot moved")
+
+    # ragged edges: 96x128 (rows not a multiple of 128, columns split in
+    # halves), K = 37 (not a multiple of the 4- and 2-star tiles), per-chain
+    # masks whose live stars are not contiguous; against float64 too
+    r_spec, r_img, r_truth = _ragged_scene(cfg4, dev)
+    theta, xi, eps, mask = b4_inputs(r_truth, 128, 37, dev, 45, True)
+    out = frdc.make_fused_rhmc_diag(r_spec, r_img, prior, 37, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(1.0, device=dev))
+    ref = frd.fused_rhmc_diag_reference(r_spec, r_img, prior, theta, xi, eps, mask, 1.0,
+                                        n_steps, fpi)
+    ref64 = frd.fused_rhmc_diag_reference(r_spec, r_img.double(), prior, theta.double(),
+                                          xi.double(), eps.double(), mask.double(), 1.0,
+                                          n_steps, fpi)
+    err = max(err, _compare_chains("B4 ragged 96x128 K=37", out, ref, ref64, h_spacings=8,
+                                   p_rel=True))
+    dead = (mask == 0) & (out[5] < SOLVER_TOL)[:, None]
+    if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+        raise AssertionError("B4 ragged: a dead slot moved")
 
     # a chain that overflows: NaN residual, a solver failure, rejected
     c = 64
@@ -667,9 +713,11 @@ def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
                                           n_steps, fpi)
 
     ms = {"b4": _time_ms(lambda: fused(theta, xi, eps, mask, 1.0), 2),
-          "b4_plain": _time_ms(plain, 1, warmup=0)}
-    print(f"B4 ({p_all} particles, K=64, {n_steps} steps x {fpi} sweeps): kernel "
-          f"{ms['b4']:.4f} ms, plain {ms['b4_plain']:.4f} ms per trajectory")
+          "b4_plain": _time_ms(plain, 1, warmup=0),
+          "b4_live": int(mask.sum())}  # the kernel skips dead stars
+    print(f"B4 ({p_all} particles, K=64, {ms['b4_live']} live stars, {n_steps} steps x "
+          f"{fpi} sweeps): kernel {ms['b4']:.4f} ms, plain {ms['b4_plain']:.4f} ms per "
+          "trajectory")
 
     # B4 forced onto B3's timed shape (cfg5: 256 chains, K = 16, 32x32, 6 x
     # 4, per-chain masks), where B3's domain holds too: chain by chain
@@ -950,7 +998,8 @@ def rhmc_diag_ops(c, k, h, w, n_steps, fpi):
     22), a momentum sweep (q field and contraction, 8), a position sweep
     (lambda and the (H,W)@(W,2K) metric contraction, 6); a step is fpi
     momentum and fpi position sweeps, a build and the final momentum half
-    step, and the trajectory one build more."""
+    step, and the trajectory one build more.  c chains of k stars each; for
+    B4, which skips dead stars, c = 1 and k the live stars of all chains."""
     return c * k * h * w * (22.0 + n_steps * (30.0 + 14.0 * fpi))
 
 
@@ -1082,15 +1131,16 @@ def main() -> int:
     # the timed shapes: B1/B2 C = 1024, K = 10, 32x32, L = 20, entry gradient
     # in; B3 256 chains, K = 16, 32x32, 6 x 4, per-chain masks; B6 4096
     # particles, K = 16, 32x32, 6 x 4, per-chain masks; B5 1024 chains, K =
-    # 50, 128x128, L = 10, entry gradient in; B4 4096 particles, K = 64,
-    # 128x128, 6 x 4, per-chain masks
+    # 50, 128x128, L = 10, entry gradient in; B4 4096 particles, K = 64
+    # (30..64 live), 128x128, 6 x 4, per-chain masks
     b12 = bound_ms(leapfrog_ops(1024, 10, 32, 32, 20, True),
                    leapfrog_bytes(1024, 10, 32, 32, True))
     b3 = bound_ms(rhmc_diag_ops(256, 16, 32, 32, 6, 4), rhmc_bytes(256, 16, 32, 32, True))
     b6 = bound_ms(rhmc_full_ops(4096, 16, 32, 32, 6, 4), rhmc_bytes(4096, 16, 32, 32, True))
     b5 = bound_ms(leapfrog_ops(1024, 50, 128, 128, 10, True),
                   leapfrog_bytes(1024, 50, 128, 128, True))
-    b4 = bound_ms(rhmc_diag_ops(4096, 64, 128, 128, 6, 4),
+    # B4 skips dead stars: its work is that of the timed inputs' live ones
+    b4 = bound_ms(rhmc_diag_ops(1, ms_b4["b4_live"], 128, 128, 6, 4),
                   rhmc_bytes(4096, 64, 128, 128, True))
 
     def row(name, source, replaces, n, e, t, t_plain, bound):

@@ -1,0 +1,135 @@
+"""Time two builds of the crowded-field diagonal-Fisher kernel (B4) in turns
+on one card: an earlier source given by path, and the one in the checkout.
+
+    python scripts/b4_before_after.py --old PATH/fused_rhmc_diag_crowded.cu
+
+Both take B4's C interface (csrc/fused_rhmc_diag_crowded.cu).  At
+chip_smoke.py's cfg4 shape (4096 particles, K = 64, 128x128, 6 steps x 4
+sweeps, per-particle masks with 30..64 stars alive, beta 1) it prints the
+card's name and power limit, each build's ptxas report, how far the two
+kernels' outputs are apart on the chains whose fixed points converged
+tightly in both, and then the time of one trajectory with CUDA events in the
+order old, new, new, old, with the mean of each kernel and the ratio.  The
+last line is one JSON object with the times.  Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def build_source(source: Path, name: str) -> tuple[ctypes.CDLL, str]:
+    """nvcc on a B4 source outside csrc/, with the checkout's flags, into
+    build/kernels/variants/<name>.so; returns the library, with its B4
+    entry's argument types set, and the compiler's report."""
+    from starcat_torch import build
+
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"{name}.so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(source)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.starcat_fused_rhmc_diag_crowded
+    fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
+    fn.restype = ci
+    return lib, proc.stderr
+
+
+def launch(lib, image, kmax, n_steps, fpi, scalars, theta, xi, eps, mask, beta):
+    """One launch of such a build, as build.launch_riemannian launches the
+    checkout's (the inputs are the ones chip_smoke makes, already checked
+    there)."""
+    import torch
+
+    c = theta.shape[0]
+    theta_out, p_out = torch.empty_like(theta), torch.empty_like(theta)
+    outs = torch.empty((4, c), dtype=torch.float32, device=theta.device)
+    beta_dev = torch.full((1,), float(beta), dtype=torch.float32, device=theta.device)
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    rc = lib.starcat_fused_rhmc_diag_crowded(
+        theta.data_ptr(), xi.data_ptr(), eps.data_ptr(), mask.data_ptr(), kmax if mask.ndim == 2
+        else 0, beta_dev.data_ptr(), image.data_ptr(), theta_out.data_ptr(), p_out.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(), c, kmax,
+        image.shape[0], image.shape[1], n_steps, fpi, *scalars, stream)
+    if rc != 0:
+        raise RuntimeError(f"the B4 build failed to launch ({rc})")
+    return theta_out, p_out, outs[0], outs[1], outs[2], outs[3]
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", type=Path, required=True, help="the earlier B4 source")
+    ap.add_argument("--reps", type=int, default=3, help="trajectories per timed turn")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("b4_before_after: CUDA is not available", file=sys.stderr)
+        return 1
+
+    import chip_smoke
+    from starcat_torch import build
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
+    from starcat_torch.configs import CONFIGS
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    digest = hashlib.sha256(args.old.read_bytes()).hexdigest()[:16]
+    lib_old, report_old = build_source(args.old, f"b4_old_{digest}")
+    _, report_new, _ = build.build_kernel("fused_rhmc_diag_crowded")
+    for tag, report in (("old", report_old), ("new", report_new)):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas {tag}: {line.strip()}")
+
+    dev = torch.device("cuda:0")
+    cfg4 = CONFIGS["cfg4_crowded"]
+    truth, image = cfg4.make_data()
+    img = image.to(dev)
+    n_steps, fpi = cfg4.smc.n_leapfrog, cfg4.smc.fixed_point_iters
+    theta, xi, eps, mask = chip_smoke.b4_inputs(truth, cfg4.smc.n_particles, 64, dev, 48, True)
+    scalars = build.riemannian_scalars(cfg4.scene, cfg4.prior, 1e-3)
+    new = frdc.make_fused_rhmc_diag(cfg4.scene, img, cfg4.prior, 64, n_steps, fpi)
+    run = {"old": lambda: launch(lib_old, img, 64, n_steps, fpi, scalars, theta, xi, eps,
+                                 mask, 1.0),
+           "new": lambda: new(theta, xi, eps, mask, 1.0)}
+
+    a, b = run["old"](), run["new"]()
+    tight = (a[5] < chip_smoke.TIGHT) & (b[5] < chip_smoke.TIGHT)
+    apart = {nm: float(chip_smoke._per_chain((x - y).abs())[tight].max())
+             for nm, x, y in zip(("theta", "p", "h0", "h1", "u1"), a, b)}
+    print(f"old vs new on the {int(tight.sum())} of {theta.shape[0]} chains converged "
+          f"tightly in both: {json.dumps(apart)}")
+
+    times = []
+    for tag in ("old", "new", "new", "old"):
+        ms = chip_smoke._time_ms(run[tag], args.reps, warmup=1)
+        times.append((tag, ms))
+        print(f"{tag}: {ms:.4f} ms per trajectory")
+    mean = {tag: sum(t for g, t in times if g == tag) / 2 for tag in ("old", "new")}
+    live = int(mask.sum())
+    bound = chip_smoke.bound_ms(chip_smoke.rhmc_diag_ops(1, live, 128, 128, n_steps, fpi),
+                                chip_smoke.rhmc_bytes(theta.shape[0], 64, 128, 128, True))[0]
+    print(f"mean old {mean['old']:.4f} ms, new {mean['new']:.4f} ms, old / new "
+          f"{mean['old'] / mean['new']:.3f}; bound of the {live} live stars {bound:.4f} ms "
+          f"(new {100 * bound / mean['new']:.1f}%, old {100 * bound / mean['old']:.1f}%)")
+    print(json.dumps({"card": smi.splitlines()[0], "turns": times, "mean_ms": mean,
+                      "live_stars": live, "bound_ms": bound}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

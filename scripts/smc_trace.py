@@ -60,6 +60,7 @@ def main() -> None:
         summary = {
             "config": cfg.name, "seed": args.seed, "kernel": st["kernel"],
             "trajectory_kernel": st["trajectory_kernel"], "device": st["device"],
+            "kernel_launches": st["kernel_launches"],
             "wall_s": st["wall_seconds"], "n_steps": st["n_temp_steps"],
             "final_rounds": st["final_rounds"], "beta": st["beta"], "log_z": st["log_z"],
             "count_mean": summ["star_count"]["mean"], "count_mode": summ["star_count"]["mode"],

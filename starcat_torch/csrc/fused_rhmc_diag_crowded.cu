@@ -1,5 +1,6 @@
 // Diagonal-Fisher Riemannian trajectory for crowded fields on Hopper
-// (sm_90a), one thread block per chain.
+// (sm_90a), one thread block per chain, its pixel passes written as block
+// GEMMs in FP32 on the CUDA cores.
 //
 // Replaces the Pallas kernel B4 of starcat/pallas_rhmc_diag.py:
 //   make_pallas_rhmc_diag_mxu (_rhmc_diag_mxu_kernel -> rhmc_diag_trajectory_mxu)
@@ -17,30 +18,65 @@
 // with the same sweep order: fixed_point_iters momentum sweeps, then
 // fixed_point_iters position sweeps, then one rebuild at the new position.
 //
-// What differs is the layout, because a crowded field does not fit B3's.
-// B3 keeps the image, 1/lam, one working field and ten profile sets in
-// shared memory: at 128x128 and K = 64 that is 192 KB of fields and 640 KB
-// of profiles, against the 227 KB a block may hold.  Here a block holds
-//   * two fields: 1/lam (r1) and the working field (rho, then q / lam^2),
-//     64 KB each at 128x128;
-//   * two profile sets, gx (K, W) and gy (K, H), 32 KB each at K = 64;
-//     the derivative profiles g' = g z / sigma and g'' = g (z^2 - 1) /
-//     sigma^2 and their squares are recomputed from g and z = (c + 1/2 -
-//     x_k) / sigma where they are used, so each costs a few FMAs and no
-//     storage;
-//   * the (K, 3) state and the per-star scalars, 18 KB at K = 64;
-// 210 KB in all (smem_floats), one block per SM.  The image is read
-// through the read-only path (L2) in the render, the only place it is used.
+// What bounded it: shared-memory loads feeding the FP32 pipes.  A chain's
+// trajectory at 128x128, K = 64, 6 steps x 4 sweeps needs about 2.8e8 FMAs
+// (538 operations per star and pixel) against 1.5 KB of state in and out,
+// so it is bound by operations; but written as one star and one pixel at a
+// time, each pixel pass takes one to three shared loads per FMA, while the
+// SM serves one 32-lane load per clock against four warp FMAs.
 //
-// What bounds it on this card: operations.  Per chain and trajectory at
-// 128x128, K = 64, 6 steps x 4 sweeps there are about 3e8 FMAs (the rebuild
-// 6 K H W and each position sweep 3 K H W, each momentum sweep 5 K H W),
-// against 1.5 KB of state in and out.  The row contractions give one warp
-// to one star; each lane sums four columns down the rows, so the profile
-// values of a row, loaded once and expanded into the derivative products,
-// serve four columns.  The q field gives each thread one column of four
-// rows, so each star's column terms are computed once for four pixels.
-// 512 threads keep 16 warps in flight on the SM.
+// What the design does about it: every pixel pass is a block GEMM whose
+// threads keep a register tile of the output and load 128-bit vectors, so
+// one load feeds 4 to 16 FMAs, as the reference writes the passes as MXU
+// dots (pallas_rhmc_diag.py:592-617, 677-700, 790-799):
+//   * render, lam(H, W) = bg + (Gy w)^T Gx, depth the stars: 8 rows x 4
+//     columns a thread; 1/lam and, in a build, rho = beta (D/lam - 1) and
+//     the log-likelihood (double) are its epilogue;
+//   * q field, q(H, W) = Gy^2 @ [Gx^2 (a2 + a0 zx^2)] + [a1 Gy^2 zy^2] @
+//     Gx^2, depth 2 x the stars, with the per-star weights folded into the
+//     operands, which are written for a chunk of stars into the working
+//     field (free until the epilogue writes q / lam^2 there);
+//   * contractions over columns, M(H, nK) = field @ X(W, nK), with the
+//     x-side products (gx, gx'; gx'^2, gx^2; and in a build gx gx',
+//     gx'' gx') made in registers from gx as it is loaded: 8 rows x S stars
+//     x 2 products (S <= 4) or 8 rows x S stars x 4 products (S <= 2) a
+//     thread, S no larger than the live stars need; the columns are split
+//     in two halves over the block's two halves.  The epilogue is the sum
+//     over rows against the y-side products (gy, gy'; gy^2, gy'^2, gy gy',
+//     gy'' gy'): each thread's eight rows, then a shuffle over the 16 lanes
+//     that hold a star's rows, then the two column halves added in shared
+//     memory in a fixed order, so a run is deterministic.
+// Every stride is a compile-time constant, so a GEMM's inner loop walks its
+// operands with immediate offsets, and every star group runs the same loop
+// (the group that straddles the last live star reads zero profiles past
+// it), so no warp diverges into a second copy of a loop.  Only the live
+// stars (m != 0) are GEMM depth and output columns: the mask is fixed
+// along a trajectory, so the block lists them once; a dead star's
+// contraction sums stay 0, so its metric is 1 + jitter and its share of h
+// is 1/2 log(1 + jitter), as before.
+//
+// What bounds it now: the issue slots of the SM.  The GEMM loops are mostly
+// FFMA, the rest loads, the x-side products and the loop; the passes are
+// separated by block barriers and short per-star phases.  By SM cycles
+// (scripts/b4_pass_clocks.py on an H100 at cfg4's shape) the q field and
+// its contraction take about half, the metric solve's contraction and the
+// render a third, the profiles and a build's other two contractions the
+// rest.
+//
+// Shared memory (smem_floats, mirrored in fused_rhmc_diag_crowded.py):
+//   * 1/lam and the working field (rho, then q / lam^2), stored by column,
+//     pixel (h, w) at w kTile + h, 128 rows by W columns each (64 KB at
+//     128x128; rows past H are zero);
+//   * the profiles of the live stars, gx (K + 3, kGx = 132: stars one to
+//     three apart sit in other banks; three zero rows past the live stars)
+//     and gy (K, 128);
+//   * the (K, 3) state and the per-star scalars, 55 K floats (the nine
+//     contraction sums d1..d9 share storage with the C tensor built from
+//     them: the thread of a star reads its sums before it writes its C);
+// 210 KB at 128x128 and K = 64, one block per SM; K <= 78 at 128x128.  The
+// image is read through the read-only path (L2) in the render, the only
+// place it is used.  The passes take one tile of 128 x 128 pixels: H and W
+// are at most 128.
 //
 // Accuracy: no fast math (expf, logf, IEEE division and square root).  The
 // log-likelihood, the prior and the energies sum in double: at 128x128 the
@@ -51,16 +87,18 @@
 // an extreme theta in a dead slot cannot make NaN; its momentum is zero and
 // its theta comes back unchanged bit for bit.
 //
-// Domain (checked by the wrapper): 1 <= K <= 128 and the block's shared
-// memory (smem_floats) within the card's 227 KB: at 128x128, K <= 77.
+// Domain (checked by the wrapper): 1 <= K <= 128, H and W at most 128, and
+// the block's shared memory (smem_floats) within the card's 227 KB.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 4;  // columns per lane in the row contractions
-constexpr int kRows = 4;  // rows per thread in the q field
+constexpr int kTile = 128;        // H, W <= kTile; the fields' and gy's row stride
+constexpr int kGx = kTile + 4;    // gx's stride: stars 1..3 apart sit in other banks
+constexpr int kRecord = 4 * kTile;  // one star's q-field operands
+constexpr int kPartFloats = 288;  // column-half partial sums: 9 x 32 or 3 x 64
 
 struct Params {
   const float* theta;   // (C, K, 3)
@@ -81,54 +119,72 @@ struct Params {
   float logf_mean, logf_sigma, lp_flux_const, jitter;
 };
 
-// Per-star scalars, index k; per-element state, index a = 3 k + t.
-struct Smem {
-  // stars (K each); zx0, zy0: z at column / row 0, (1/2 - x) / sigma
-  float *su, *sv, *x, *y, *w, *wcx, *wcy, *wcx2, *wcy2, *wcxx, *wcyy, *wcxcy;
-  float *m, *zx0, *zy0;
-  // contraction results per star
-  float *dot, *dd;  // dot: (3, K); dd: (9, K)
-  // elements (3K each)
-  float *th_b, *p_b, *ph, *th, *base, *g, *gs, *t1, *infod, *wt, *grad_u;
-  float *cten;      // (3, 3, K): C[ta][tc][k]
-  float *aq;        // (3, K): the q field's per-star weights
-  float *scal;      // u, h, delta scratch
-  double* red;      // kWarps
-  // fields (H W each) and profiles
-  float *r1, *fld;
-  float *gx;        // (K, W)
-  float *gy;        // (K, H)
-};
-
-// mirrored by smem_bytes() in fused_rhmc_diag_crowded.py
-__host__ __device__ inline int smem_floats(int K, int H, int W) {
-  return 15 * K + 12 * K + 11 * 3 * K + 9 * K + 3 * K + 8 + 1 + 2 * kWarps
-         + 2 * H * W + K * W + K * H;
+// the working field, which also holds a chunk of the q field's operands
+__host__ __device__ inline int fld_floats(int W) {
+  return kTile * W > kRecord ? kTile * W : kRecord;
 }
 
-__device__ inline Smem carve(float* base, int K, int H, int W) {
+// mirrored by smem_bytes() in fused_rhmc_diag_crowded.py
+__host__ __device__ inline int smem_floats(int K, int W) {
+  return kTile * W + fld_floats(W) + (K + 3) * kGx + K * kTile + 2 * kWarps + 55 * K
+         + kPartFloats + 8;
+}
+
+// Shapes of one launch; nl is the number of live stars.
+struct Dims {
+  int K, H, W, nl;
+};
+
+// Per-slot scalars index k; compact (live-star) scalars index j, slot
+// live[j]; per-element state index a = 3 k + t.
+struct Smem {
+  float *r1, *fld;  // (W, kTile): pixel (h, w) at w kTile + h
+  float *gx;        // (K + 3, kGx), compact; zero past the live stars
+  float *gy;        // (K, kTile), compact
+  double* red;      // kWarps
+  float *su, *sv, *w, *wcx, *wcy, *m;  // per slot
+  float *cw, *czx0, *czy0;             // compact: w, (1/2 - x) / sigma, (1/2 - y) / sigma
+  float *ca;        // (3, K) compact: the q field's per-star weights
+  int* live;        // K
+  float *dot;       // per slot, (3, K)
+  float *dd;        // per slot, (9, K): d1..d9, read into registers by the
+  float *cten;      // thread of star k before it writes C[ta][tc][k] there
+  float *th_b, *p_b, *ph, *th, *base, *g, *gs, *t1, *infod, *wt;  // 3K each
+  float *part;      // kPartFloats
+  float *scal;      // u, h, delta scratch
+};
+
+__device__ inline Smem carve(float* base, int K, int W) {
   Smem s;
   float* q = base;
   auto take = [&q](int n) { float* r = q; q += n; return r; };
-  s.su = take(K); s.sv = take(K); s.x = take(K); s.y = take(K); s.w = take(K);
-  s.wcx = take(K); s.wcy = take(K); s.wcx2 = take(K); s.wcy2 = take(K);
-  s.wcxx = take(K); s.wcyy = take(K); s.wcxcy = take(K); s.m = take(K);
-  s.zx0 = take(K); s.zy0 = take(K);
-  s.dot = take(3 * K); s.dd = take(9 * K);
+  // the fields and profiles first: every float4 they are read by starts
+  // on a 16-byte boundary
+  s.r1 = take(kTile * W); s.fld = take(fld_floats(W));
+  s.gx = take((K + 3) * kGx); s.gy = take(K * kTile);
+  s.red = reinterpret_cast<double*>(take(2 * kWarps));
+  s.su = take(K); s.sv = take(K); s.w = take(K); s.wcx = take(K); s.wcy = take(K);
+  s.m = take(K);
+  s.cw = take(K); s.czx0 = take(K); s.czy0 = take(K); s.ca = take(3 * K);
+  s.live = reinterpret_cast<int*>(take(K));
+  s.dot = take(3 * K); s.cten = take(9 * K); s.dd = s.cten;
   s.th_b = take(3 * K); s.p_b = take(3 * K); s.ph = take(3 * K); s.th = take(3 * K);
   s.base = take(3 * K); s.g = take(3 * K); s.gs = take(3 * K); s.t1 = take(3 * K);
-  s.infod = take(3 * K); s.wt = take(3 * K); s.grad_u = take(3 * K);
-  s.cten = take(9 * K); s.aq = take(3 * K); s.scal = take(8);
-  // the doubles start on an 8-byte boundary (one float of slack)
-  if (reinterpret_cast<size_t>(q) & 7) q += 1;
-  s.red = reinterpret_cast<double*>(take(2 * kWarps));
-  s.r1 = take(H * W); s.fld = take(H * W);
-  s.gx = take(K * W); s.gy = take(K * H);
+  s.infod = take(3 * K); s.wt = take(3 * K);
+  s.part = take(kPartFloats); s.scal = take(8);
   return s;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ float warp_sum16(float v) {  // over the 16 lanes of a half warp
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -167,56 +223,133 @@ __device__ __forceinline__ float softplusf(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-// Per-star coefficients and the two stored profile sets at theta `th`
-// (3K).  Every thread of the block calls it; it ends synchronised.
-__device__ void profiles(const Params& P, const Smem& s, const float* th) {
+// Per-star coefficients at theta `th` (3K) for every slot, the live stars'
+// compact scalars and their profiles gx, gy, each kTile long (zero past W
+// and H).  Every thread of the block calls it; it ends synchronised.
+__device__ void profiles(const Params& P, const Smem& s, const Dims& D, const float* th) {
   const int tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W;
+  const int W = D.W, H = D.H;
   const float sig = P.psf_sigma;
-  if (tid < K) {
+  if (tid < D.K) {
     const int k = tid;
     const float su = sigmoidf(th[3 * k]), sv = sigmoidf(th[3 * k + 1]);
-    const float cx = W * su * (1.0f - su), cy = H * sv * (1.0f - sv);
-    const float cx2 = cx * (1.0f - 2.0f * su), cy2 = cy * (1.0f - 2.0f * sv);
     const float m = s.m[k];
     const float w = (m != 0.0f) ? expf(th[3 * k + 2]) * m : 0.0f;
-    s.su[k] = su; s.sv[k] = sv;
-    s.x[k] = W * su; s.y[k] = H * sv; s.w[k] = w;
-    s.zx0[k] = (0.5f - W * su) / sig; s.zy0[k] = (0.5f - H * sv) / sig;
-    s.wcx[k] = w * cx; s.wcy[k] = w * cy; s.wcx2[k] = w * cx2; s.wcy2[k] = w * cy2;
-    s.wcxx[k] = w * cx * cx; s.wcyy[k] = w * cy * cy; s.wcxcy[k] = w * cx * cy;
+    s.su[k] = su; s.sv[k] = sv; s.w[k] = w;
+    s.wcx[k] = w * (W * su * (1.0f - su));
+    s.wcy[k] = w * (H * sv * (1.0f - sv));
+  }
+  if (tid < D.nl) {
+    const int k = s.live[tid];
+    const float su = sigmoidf(th[3 * k]), sv = sigmoidf(th[3 * k + 1]);
+    s.cw[tid] = expf(th[3 * k + 2]) * s.m[k];
+    s.czx0[tid] = (0.5f - W * su) / sig;
+    s.czy0[tid] = (0.5f - H * sv) / sig;
   }
   __syncthreads();
-  for (int i = tid; i < K * W; i += kThreads) {
-    const int k = i / W, col = i - k * W;
-    const float z = ((col + 0.5f) - s.x[k]) / sig;
-    s.gx[i] = expf(-0.5f * z * z) * P.psf_norm;
+  // a thread per column (row) of kTile, kThreads / kTile stars at a time
+  const int pix = tid % kTile;
+  // gx also zero in the three rows past the live stars, which the
+  // contractions' last star group may read
+#pragma unroll 4
+  for (int j = tid / kTile; j < D.nl + 3; j += kThreads / kTile) {
+    float v = 0.0f;
+    if (j < D.nl && pix < W) {
+      const float z = ((pix + 0.5f) - W * s.su[s.live[j]]) / sig;
+      v = expf(-0.5f * z * z) * P.psf_norm;
+    }
+    s.gx[j * kGx + pix] = v;
   }
-  for (int i = tid; i < K * H; i += kThreads) {
-    const int k = i / H, row = i - k * H;
-    const float z = ((row + 0.5f) - s.y[k]) / sig;
-    s.gy[i] = expf(-0.5f * z * z) * P.psf_norm;
+#pragma unroll 4
+  for (int j = tid / kTile; j < D.nl; j += kThreads / kTile) {
+    const float y = H * s.sv[s.live[j]];
+    float v = 0.0f;
+    if (pix < H) {
+      const float z = ((pix + 0.5f) - y) / sig;
+      v = expf(-0.5f * z * z) * P.psf_norm;
+    }
+    s.gy[j * kTile + pix] = v;
   }
   __syncthreads();
 }
 
-// lam -> s.r1 = 1/lam.  With `full`, also s.fld = beta (D/lam - 1) and the
-// log-likelihood sum_p D log lam - lam (double), returned to every thread.
-// Ends synchronised.
-__device__ double render(const Params& P, const Smem& s, float beta, bool full) {
-  const int tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W;
+// The field passes' tiling: 8 rows x 4 columns a thread over the 128 x 128
+// tile; a warp holds 4 row groups x 8 column groups, so its loads of either
+// operand are one 128-byte line.  A thread past the columns does nothing; a
+// thread past the rows writes zeros.
+struct FieldTile {
+  int h0, c0;
+  bool active, rows;
+};
+
+__device__ __forceinline__ FieldTile field_tile(const Dims& D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FieldTile t;
+  t.h0 = 8 * ((lane & 3) + 4 * (warp & 3));
+  t.c0 = 4 * ((lane >> 2) + 8 * (warp >> 2));
+  t.active = t.c0 < D.W;
+  t.rows = t.h0 < D.H;
+  return t;
+}
+
+// lam = bg + (Gy w)^T Gx -> s.r1 = 1/lam.  With `full`, also s.fld = beta
+// (D/lam - 1) and the log-likelihood sum_p D log lam - lam (double),
+// returned to every thread.  Rows past H get 0.  Ends synchronised.
+__device__ double render(const Params& P, const Smem& s, const Dims& D, float beta,
+                         bool full) {
+  const FieldTile t = field_tile(D);
   double ll = 0.0;
-  for (int pix = tid; pix < H * W; pix += kThreads) {
-    const int h = pix / W, col = pix - h * W;
-    float lam = P.background;
-    for (int k = 0; k < K; ++k) lam = lam + (s.gy[k * H + h] * s.w[k]) * s.gx[k * W + col];
-    const float r1 = 1.0f / lam;
-    s.r1[pix] = r1;
-    if (full) {
-      const float d = __ldg(P.image + pix);
-      ll += static_cast<double>(d * logf(lam) - lam);
-      s.fld[pix] = beta * (d * r1 - 1.0f);
+  if (t.active) {
+    float acc[4][8];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[c][r] = P.background;
+    if (t.rows) {
+      const float* py = s.gy + t.h0;
+      const float* px = s.gx + t.c0;
+      for (int j = 0; j < D.nl; ++j) {
+        const float4 ya = ld4(py), yb = ld4(py + 4), xv = ld4(px);
+        const float wj = s.cw[j];
+        const float y[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
+        const float x[4] = {xv.x * wj, xv.y * wj, xv.z * wj, xv.w * wj};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 8; ++r) acc[c][r] = fmaf(y[r], x[c], acc[c][r]);
+        py += kTile;
+        px += kGx;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = t.c0 + c;
+      if (col < D.W) {
+        float r1[8], f[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int h = t.h0 + r;
+          r1[r] = 0.0f;
+          f[r] = 0.0f;
+          if (h < D.H) {
+            const float lam = acc[c][r];
+            r1[r] = 1.0f / lam;
+            if (full) {
+              const float d = __ldg(P.image + h * D.W + col);
+              ll += static_cast<double>(d * logf(lam) - lam);
+              f[r] = beta * (d * r1[r] - 1.0f);
+            }
+          }
+        }
+        float* o = s.r1 + col * kTile + t.h0;
+        st4(o, r1[0], r1[1], r1[2], r1[3]);
+        st4(o + 4, r1[4], r1[5], r1[6], r1[7]);
+        if (full) {
+          float* fo = s.fld + col * kTile + t.h0;
+          st4(fo, f[0], f[1], f[2], f[3]);
+          st4(fo + 4, f[4], f[5], f[6], f[7]);
+        }
+      }
     }
   }
   if (full) return block_sum_d(ll, s.red);  // synchronises
@@ -224,113 +357,167 @@ __device__ double render(const Params& P, const Smem& s, float beta, bool full) 
   return 0.0;
 }
 
-// Row contractions, one warp per star, lanes over columns (kCols each) and
-// a serial sum down the rows; y-side products from gy and z_y, x-side from
-// gx and z_x.  Modes:
-//   kBuild: s.fld (rho) against gy, gy' -> dot; 1/lam against gy^2, gy'^2,
+// Contractions over the columns, M(H, nK) = field @ X(W, nK), then the sum
+// over rows against the y-side products.  Modes:
+//   kField: s.fld (rho, or q / lam^2) @ [gx, gx'] against gy, gy' -> dot
+//   kSolve: 1/lam @ [gx'^2, gx^2] against gy^2, gy'^2 -> d1, d6, d9
+//   kBuild: 1/lam @ [gx'^2, gx gx', gx^2, gx'' gx'] against gy^2, gy'^2,
 //           gy' gy, gy'' gy' -> d1..d9
-//   kSolve: 1/lam against gy^2, gy'^2 -> d1, d6, d9
-//   kField: s.fld (q / lam^2) against gy, gy' -> dot
+// A thread holds 8 rows x S stars x kOps products over one half of the
+// columns: rows 4 rg..4 rg+3 and 64 + 4 rg..64 + 4 rg+3, so that the 16
+// lanes of a half warp read 256 contiguous bytes of a column; lanes 0-15
+// and 16-31 of a warp hold the 128 rows of two star groups of S consecutive
+// stars, and warps 0-7 and 8-15 the two column halves.  A pass takes 16 S
+// stars.
 enum { kBuild = 0, kSolve = 1, kField = 2 };
 
-template <int MODE>
-__device__ void contract(const Params& P, const Smem& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = P.K, H = P.H, W = P.W;
+// One column's products of S stars into the register tile.
+template <int MODE, int S, int kOps>
+__device__ __forceinline__ void contract_column(float (&acc)[S][kOps][8], const float (&av)[8],
+                                                const float (&gx)[S], const float (&zs)[S],
+                                                float inv_sig2) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    float op[kOps];
+    if (MODE == kField) {
+      op[0] = gx[i];
+      op[1] = gx[i] * zs[i];                          // gx'
+    } else if (MODE == kSolve) {
+      const float t = gx[i] * gx[i];
+      op[0] = (t * zs[i]) * zs[i];                    // gx'^2
+      op[1] = t;                                      // gx^2
+    } else {
+      const float t = gx[i] * gx[i];
+      const float u = t * zs[i];                      // gx gx'
+      op[0] = u * zs[i];                              // gx'^2
+      op[1] = u;
+      op[2] = t;                                      // gx^2
+      op[3] = u * fmaf(zs[i], zs[i], -inv_sig2);      // gx'' gx'
+    }
+#pragma unroll
+    for (int o = 0; o < kOps; ++o)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[i][o][r] = fmaf(av[r], op[o], acc[i][o][r]);
+  }
+}
+
+template <int MODE, int S>
+__device__ void contract_block(const Params& P, const Smem& s, const Dims& D, int sb) {
+  constexpr int kOps = MODE == kBuild ? 4 : 2;
+  constexpr int kBlock = 16 * S;
+  constexpr int kSums = MODE == kBuild ? 9 : 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane & 15;
+  const int sg = 2 * (warp & 7) + (lane >> 4);
+  const int half = warp >> 3;
+  const int lo = 4 * rg;  // the second quad is lo + 64
+  const int j0 = sb + S * sg;
+  const int wmid = (D.W + 1) / 2;
+  const int wbeg = half ? wmid : 0, wend = half ? D.W : wmid;
   const float inv_sig = 1.0f / P.psf_sigma;
   const float inv_sig2 = inv_sig * inv_sig;
-  for (int k = warp; k < K; k += kWarps) {
-    const float* gyk = s.gy + k * H;
-    const float zy0 = s.zy0[k], zx0 = s.zx0[k];
-    float du = 0.f, dv = 0.f, ds = 0.f;
-    float d1 = 0.f, d2 = 0.f, d3 = 0.f, d4 = 0.f, d5 = 0.f, d6 = 0.f,
-          d7 = 0.f, d8 = 0.f, d9 = 0.f;
-    for (int c0 = 0; c0 < W; c0 += 32 * kCols) {
-      float rg[kCols], rg1[kCols], ra[kCols], rb[kCols], rc[kCols], rd[kCols];
-      int col[kCols];
+  const float* A = MODE == kField ? s.fld : s.r1;
+  float* out = MODE == kField ? s.dot : s.dd;
+
+  float acc[S][kOps][8];
+  float zs0[S];  // z / sigma at column 0
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        rg[j] = rg1[j] = ra[j] = rb[j] = rc[j] = rd[j] = 0.f;
-        col[j] = c0 + lane + 32 * j;
+  for (int i = 0; i < S; ++i) {
+    zs0[i] = s.czx0[min(j0 + i, D.nl - 1)] * inv_sig;
+#pragma unroll
+    for (int o = 0; o < kOps; ++o)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[i][o][r] = 0.0f;
+  }
+  // rows past H are zero in the fields and in gy; a star group past the
+  // live stars skips the columns, and the stars past the last live one in
+  // the group that straddles it read zero profiles (their sums are never
+  // stored)
+  if (lo < D.H && j0 < D.nl) {
+    const float* a = A + wbeg * kTile + lo;
+    const float* g = s.gx + j0 * kGx + wbeg;
+    float wf = static_cast<float>(wbeg);
+#pragma unroll 1
+    for (int w = wbeg; w < wend; ++w) {
+      const float4 a0 = ld4(a), a1 = ld4(a + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float gx[S], zs[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        gx[i] = g[i * kGx];
+        zs[i] = fmaf(wf, inv_sig2, zs0[i]);  // z / sigma
       }
-      for (int h = 0; h < H; ++h) {
-        const float gy = gyk[h];
-        const float zy = fmaf(static_cast<float>(h), inv_sig, zy0);
-        const float gy1 = gy * zy * inv_sig;             // gy'
-        const float* frow = s.fld + h * W;
-        const float* rrow = s.r1 + h * W;
-        if (MODE != kSolve) {
+      contract_column<MODE, S, kOps>(acc, av, gx, zs, inv_sig2);
+      a += kTile;
+      ++g;
+      wf += 1.0f;
+    }
+  }
+  // the sum over rows against the y-side products
+  float sums[S][kSums];
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const float q = col[j] < W ? frow[col[j]] : 0.f;
-            rg[j] = fmaf(q, gy, rg[j]);
-            rg1[j] = fmaf(q, gy1, rg1[j]);
-          }
-        }
-        if (MODE != kField) {
-          const float gysq = gy * gy, gy1sq = gy1 * gy1;
-          float gy1gy = 0.f, gyd2gy1 = 0.f;
-          if (MODE == kBuild) {
-            gy1gy = gy1 * gy;
-            gyd2gy1 = gy1gy * (zy * zy - 1.0f) * inv_sig2;  // gy'' gy'
-          }
+  for (int i = 0; i < S; ++i) {
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const float r = col[j] < W ? rrow[col[j]] : 0.f;
-            ra[j] = fmaf(r, gysq, ra[j]);
-            rb[j] = fmaf(r, gy1sq, rb[j]);
-            if (MODE == kBuild) {
-              rc[j] = fmaf(r, gy1gy, rc[j]);
-              rd[j] = fmaf(r, gyd2gy1, rd[j]);
-            }
-          }
-        }
-      }
+    for (int q = 0; q < kSums; ++q) sums[i][q] = 0.0f;
+    if (lo < D.H && j0 < D.nl) {
+      const int j = min(j0 + i, D.nl - 1);
+      const float4 g0 = ld4(s.gy + j * kTile + lo), g1 = ld4(s.gy + j * kTile + lo + 64);
+      const float gyv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float zy0 = s.czy0[j];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (col[j] < W) {
-          const float gx = s.gx[k * W + col[j]];
-          const float zx = fmaf(static_cast<float>(col[j]), inv_sig, zx0);
-          const float gx1 = gx * zx * inv_sig;
-          if (MODE != kSolve) {
-            du += gx1 * rg[j];
-            dv += gx * rg1[j];
-            ds += gx * rg[j];
-          }
-          if (MODE != kField) {
-            const float gxsq = gx * gx, gx1sq = gx1 * gx1;
-            d1 += gx1sq * ra[j];
-            d6 += gxsq * rb[j];
-            d9 += gxsq * ra[j];
-            if (MODE == kBuild) {
-              const float gxx1 = gx * gx1;
-              const float gxd2 = gx * (zx * zx - 1.0f) * inv_sig2;
-              d2 += (gxd2 * gx1) * ra[j];
-              d3 += gxx1 * rb[j];
-              d4 += gxx1 * ra[j];
-              d5 += gx1sq * rc[j];
-              d7 += gxsq * rd[j];
-              d8 += gxsq * rc[j];
-            }
-          }
+      for (int r = 0; r < 8; ++r) {
+        const float gy = gyv[r];
+        const float zy = fmaf(static_cast<float>(lo + r + (r < 4 ? 0 : 60)), inv_sig, zy0);
+        const float gy1 = gy * zy * inv_sig;            // gy'
+        if (MODE == kField) {
+          sums[i][0] = fmaf(gy, acc[i][1][r], sums[i][0]);   // du
+          sums[i][1] = fmaf(gy1, acc[i][0][r], sums[i][1]);  // dv
+          sums[i][2] = fmaf(gy, acc[i][0][r], sums[i][2]);   // ds
+        } else if (MODE == kSolve) {
+          const float ya = gy * gy, yb = gy1 * gy1;
+          sums[i][0] = fmaf(ya, acc[i][0][r], sums[i][0]);   // d1
+          sums[i][1] = fmaf(yb, acc[i][1][r], sums[i][1]);   // d6
+          sums[i][2] = fmaf(ya, acc[i][1][r], sums[i][2]);   // d9
+        } else {
+          const float ya = gy * gy, yb = gy1 * gy1, yc = gy1 * gy;
+          const float yd = yc * (zy * zy - 1.0f) * inv_sig2;  // gy'' gy'
+          const float m1 = acc[i][0][r], m2 = acc[i][1][r], m3 = acc[i][2][r],
+                      m4 = acc[i][3][r];
+          sums[i][0] = fmaf(ya, m1, sums[i][0]);
+          sums[i][1] = fmaf(ya, m4, sums[i][1]);
+          sums[i][2] = fmaf(yb, m2, sums[i][2]);
+          sums[i][3] = fmaf(ya, m2, sums[i][3]);
+          sums[i][4] = fmaf(yc, m1, sums[i][4]);
+          sums[i][5] = fmaf(yb, m3, sums[i][5]);
+          sums[i][6] = fmaf(yd, m3, sums[i][6]);
+          sums[i][7] = fmaf(yc, m3, sums[i][7]);
+          sums[i][8] = fmaf(ya, m3, sums[i][8]);
         }
       }
     }
-    if (MODE != kSolve) {
-      du = warp_sum(du); dv = warp_sum(dv); ds = warp_sum(ds);
-      if (lane == 0) { s.dot[k] = du; s.dot[K + k] = dv; s.dot[2 * K + k] = ds; }
-    }
-    if (MODE != kField) {
-      d1 = warp_sum(d1); d6 = warp_sum(d6); d9 = warp_sum(d9);
-      if (MODE == kBuild) {
-        d2 = warp_sum(d2); d3 = warp_sum(d3); d4 = warp_sum(d4);
-        d5 = warp_sum(d5); d7 = warp_sum(d7); d8 = warp_sum(d8);
-      }
-      if (lane == 0) {
-        s.dd[k] = d1; s.dd[5 * K + k] = d6; s.dd[8 * K + k] = d9;
-        if (MODE == kBuild) {
-          s.dd[K + k] = d2; s.dd[2 * K + k] = d3; s.dd[3 * K + k] = d4;
-          s.dd[4 * K + k] = d5; s.dd[6 * K + k] = d7; s.dd[7 * K + k] = d8;
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) sums[i][q] = warp_sum16(sums[i][q]);
+  }
+  // the two column halves, added in a fixed order
+  if (half == 1 && rg == 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) s.part[q * kBlock + S * sg + i] = sums[i][q];
+  }
+  __syncthreads();
+  if (half == 0 && rg == 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int j = j0 + i;
+      if (j < D.nl) {
+        const int k = s.live[j];
+#pragma unroll
+        for (int q = 0; q < kSums; ++q) {
+          const float v = sums[i][q] + s.part[q * kBlock + S * sg + i];
+          // kSolve's three sums are d1, d6, d9
+          const int slot = MODE == kSolve ? (q == 0 ? 0 : (q == 1 ? 5 : 8)) : q;
+          out[slot * D.K + k] = v;
         }
       }
     }
@@ -338,15 +525,108 @@ __device__ void contract(const Params& P, const Smem& s) {
   __syncthreads();
 }
 
-// g = (beta F + info) m + (1 - m) + jitter for star k, from d1, d6, d9,
-// into out[3k..3k+2], and info' into infod when given.  Run by thread k.
+// All live stars, in passes of 16 S stars, S as large as the registers
+// allow (4 stars of 2 products, 2 of 4) and no larger than the stars left
+// need, so that a pass computes few columns past the live stars.
+template <int MODE>
+__device__ void contract(const Params& P, const Smem& s, const Dims& D) {
+  constexpr int kMaxS = MODE == kBuild ? 2 : 4;
+  for (int sb = 0; sb < D.nl;) {
+    const int S = min(kMaxS, (D.nl - sb + 15) / 16);
+    if (S == 1) contract_block<MODE, 1>(P, s, D, sb);
+    else if (S == 2) contract_block<MODE, 2>(P, s, D, sb);
+    else if (S == 3) contract_block<MODE, (kMaxS >= 3 ? 3 : 1)>(P, s, D, sb);
+    else contract_block<MODE, kMaxS>(P, s, D, sb);
+    sb += 16 * S;
+  }
+}
+
+// q = sum_k (gx gy)^2 (a2 + a0 zx^2 + a1 zy^2), with s.ca holding a0 /
+// sigma^2, a1 / sigma^2, a2 (compact), written as
+//   q = Gy^2 @ [Gx^2 (a2 + a0 zx^2)] + [a1 Gy^2 zy^2] @ Gx^2,
+// times (1/lam)^2 into s.fld.  The operands of a chunk of stars are written
+// into s.fld first, one kRecord per star: the rows Y0, Y1, then the columns
+// X0, X1, kTile each.  Every thread calls it; it ends synchronised.
+__device__ void q_field(const Params& P, const Smem& s, const Dims& D) {
+  const int tid = threadIdx.x;
+  const FieldTile t = field_tile(D);
+  const int chunk = fld_floats(D.W) / kRecord;
+  const float inv_sig = 1.0f / P.psf_sigma;
+  float acc[4][8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[c][r] = 0.0f;
+  for (int j0 = 0; j0 < D.nl; j0 += chunk) {
+    const int n = min(chunk, D.nl - j0);
+    __syncthreads();  // s.fld's earlier readers are done
+    // a thread per row and column of kTile, kThreads / kTile stars at a time
+    const int pix = tid % kTile;
+#pragma unroll 4
+    for (int jj = tid / kTile; jj < n; jj += kThreads / kTile) {
+      const int j = j0 + jj;
+      float* rec = s.fld + jj * kRecord + pix;
+      const float gy = s.gy[j * kTile + pix];
+      const float zy = fmaf(static_cast<float>(pix), inv_sig, s.czy0[j]);
+      const float ysq = gy * gy;
+      rec[0] = ysq;
+      rec[kTile] = s.ca[D.K + j] * (ysq * (zy * zy));
+      const float gx = s.gx[j * kGx + pix];
+      const float zx = fmaf(static_cast<float>(pix), inv_sig, s.czx0[j]);
+      const float xsq = gx * gx;
+      rec[2 * kTile] = xsq * fmaf(s.ca[j], zx * zx, s.ca[2 * D.K + j]);
+      rec[3 * kTile] = xsq;
+    }
+    __syncthreads();
+    if (t.active && t.rows) {
+      const float* py = s.fld + t.h0;
+      const float* px = s.fld + 2 * kTile + t.c0;
+      for (int jj = 0; jj < n; ++jj) {
+        const float4 p0 = ld4(py), p1 = ld4(py + 4);
+        const float4 q0 = ld4(py + kTile), q1 = ld4(py + kTile + 4);
+        const float4 u = ld4(px), v = ld4(px + kTile);
+        const float ya[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        const float yb[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+        const float xa[4] = {u.x, u.y, u.z, u.w};
+        const float xb[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            acc[c][r] = fmaf(yb[r], xb[c], fmaf(ya[r], xa[c], acc[c][r]));
+        py += kRecord;
+        px += kRecord;
+      }
+    }
+  }
+  __syncthreads();  // the operands are read
+  if (t.active) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = t.c0 + c;
+      if (col < D.W) {
+        // rows past H: acc is 0 there, and so is 1/lam
+        const float4 a = ld4(s.r1 + col * kTile + t.h0), b = ld4(s.r1 + col * kTile + t.h0 + 4);
+        float* o = s.fld + col * kTile + t.h0;
+        st4(o, acc[c][0] * (a.x * a.x), acc[c][1] * (a.y * a.y), acc[c][2] * (a.z * a.z),
+            acc[c][3] * (a.w * a.w));
+        st4(o + 4, acc[c][4] * (b.x * b.x), acc[c][5] * (b.y * b.y),
+            acc[c][6] * (b.z * b.z), acc[c][7] * (b.w * b.w));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// g = (beta F + info) m + (1 - m) + jitter for star k, from its d1, d6,
+// d9, into out[3k..3k+2], and info' into infod when given.  Run by thread k.
 __device__ void diag_metric_star(const Params& P, const Smem& s, int k, float beta,
-                                 float* out, float* infod) {
+                                 float d1, float d6, float d9, float* out, float* infod) {
   const float m = s.m[k];
   const float su = s.su[k], sv = s.sv[k];
-  const float f_u = s.wcx[k] * s.wcx[k] * s.dd[k];
-  const float f_v = s.wcy[k] * s.wcy[k] * s.dd[5 * P.K + k];
-  const float f_s = s.w[k] * s.w[k] * s.dd[8 * P.K + k];
+  const float f_u = s.wcx[k] * s.wcx[k] * d1;
+  const float f_v = s.wcy[k] * s.wcy[k] * d6;
+  const float f_s = s.w[k] * s.w[k] * d9;
   const float info_u = 2.0f * su * (1.0f - su) * m;
   const float info_v = 2.0f * sv * (1.0f - sv) * m;
   const float info_s = m / (P.logf_sigma * P.logf_sigma);
@@ -362,60 +642,21 @@ __device__ void diag_metric_star(const Params& P, const Smem& s, int k, float be
 
 // W(wt) of the comment at the top into out (3K), from s.wt at the structs'
 // theta: builds the q field into s.fld, contracts it, adds the C and info'
-// terms.  Every thread calls it; it ends synchronised.
-//   q = sum_k gy^2 (a0 gx'^2 + a2 gx^2) + gy'^2 a1 gx^2
-//     = sum_k (gx gy)^2 (a2 + a0 zx^2 / sigma^2 + a1 zy^2 / sigma^2)
-// with a_t = wt_t coef_t^2; s.aq holds a0 / sigma^2, a1 / sigma^2, a2.
-__device__ void wt_terms(const Params& P, const Smem& s, float beta, const float* add,
-                         float* out) {
+// terms (out may be add).  Every thread calls it; it ends synchronised.
+__device__ void wt_terms(const Params& P, const Smem& s, const Dims& D, float beta,
+                         const float* add, float* out) {
   const int tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W;
+  const int K = D.K;
   const float inv_sig = 1.0f / P.psf_sigma;
   const float inv_sig2 = inv_sig * inv_sig;
-  if (tid < K) {
-    const int k = tid;
-    s.aq[3 * k] = s.wt[3 * k] * (s.wcx[k] * s.wcx[k]) * inv_sig2;
-    s.aq[3 * k + 1] = s.wt[3 * k + 1] * (s.wcy[k] * s.wcy[k]) * inv_sig2;
-    s.aq[3 * k + 2] = s.wt[3 * k + 2] * (s.w[k] * s.w[k]);
+  if (tid < D.nl) {
+    const int k = s.live[tid];
+    s.ca[tid] = s.wt[3 * k] * (s.wcx[k] * s.wcx[k]) * inv_sig2;
+    s.ca[K + tid] = s.wt[3 * k + 1] * (s.wcy[k] * s.wcy[k]) * inv_sig2;
+    s.ca[2 * K + tid] = s.wt[3 * k + 2] * (s.w[k] * s.w[k]);
   }
-  __syncthreads();
-  // one column of kRows rows per thread: a warp shares its rows (gy loads
-  // are broadcasts) and reads consecutive columns of gx
-  const int row_groups = (H + kRows - 1) / kRows;
-  for (int item = tid; item < row_groups * W; item += kThreads) {
-    const int hg = item / W, col = item - hg * W;
-    const int h0 = hg * kRows;
-    float q[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) q[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float gx = s.gx[k * W + col];
-      const float zx = fmaf(static_cast<float>(col), inv_sig, s.zx0[k]);
-      const float gxsq = gx * gx;
-      const float a0 = s.aq[3 * k], a1 = s.aq[3 * k + 1], a2 = s.aq[3 * k + 2];
-      const float cx = fmaf(a0, zx * zx, a2);
-      const float zy0 = s.zy0[k];
-      const float* gyk = s.gy + k * H;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int h = min(h0 + r, H - 1);
-        const float gy = gyk[h];
-        const float zy = fmaf(static_cast<float>(h), inv_sig, zy0);
-        const float t = gxsq * (gy * gy);
-        q[r] = fmaf(t, fmaf(a1, zy * zy, cx), q[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int h = h0 + r;
-      if (h < H) {
-        const float r1 = s.r1[h * W + col];
-        s.fld[h * W + col] = q[r] * (r1 * r1);
-      }
-    }
-  }
-  __syncthreads();
-  contract<kField>(P, s);
+  q_field(P, s, D);  // synchronises before it reads s.ca
+  contract<kField>(P, s, D);
   if (tid < 3 * K) {
     const int k = tid / 3, tc = tid - 3 * k;
     const float coef = tc == 0 ? s.wcx[k] : (tc == 1 ? s.wcy[k] : s.w[k]);
@@ -430,12 +671,13 @@ __device__ void wt_terms(const Params& P, const Smem& s, float beta, const float
 
 // Everything theta-dependent at s.th_b: profiles, 1/lam, U_beta (s.scal[0]),
 // grad U_beta, the metric s.g, info' (s.infod), the C tensor and t1.
-__device__ void build_structs(const Params& P, const Smem& s, float beta) {
+__device__ void build_structs(const Params& P, const Smem& s, const Dims& D, float beta) {
   const int tid = threadIdx.x;
-  const int K = P.K;
-  profiles(P, s, s.th_b);
-  const double ll = render(P, s, beta, true);
-  contract<kBuild>(P, s);
+  const int K = D.K;
+  profiles(P, s, D, s.th_b);
+  const double ll = render(P, s, D, beta, true);
+  contract<kField>(P, s, D);  // rho -> dot
+  contract<kBuild>(P, s, D);  // 1/lam -> d1..d9
   double lp = 0.0;
   if (tid < K) {
     const int k = tid;
@@ -445,56 +687,64 @@ __device__ void build_structs(const Params& P, const Smem& s, float beta) {
     const float zf = (sl - P.logf_mean) / P.logf_sigma;
     const float lp_flux = -0.5f * zf * zf + P.lp_flux_const;
     lp = static_cast<double>((lp_pos + lp_flux) * m);
-    const float g_u = (1.0f - 2.0f * s.su[k]) * m;
-    const float g_v = (1.0f - 2.0f * s.sv[k]) * m;
+    const float su = s.su[k], sv = s.sv[k], w = s.w[k];
+    const float cx = D.W * su * (1.0f - su), cy = D.H * sv * (1.0f - sv);
+    const float g_u = (1.0f - 2.0f * su) * m;
+    const float g_v = (1.0f - 2.0f * sv) * m;
     const float g_s = -zf / P.logf_sigma * m;
     const float* dd = s.dd;
     const float d1 = dd[k], d2 = dd[K + k], d3 = dd[2 * K + k], d4 = dd[3 * K + k],
                 d5 = dd[4 * K + k], d6 = dd[5 * K + k], d7 = dd[6 * K + k],
                 d8 = dd[7 * K + k], d9 = dd[8 * K + k];
-    s.grad_u[3 * k] = -(s.wcx[k] * s.dot[k] + g_u);
-    s.grad_u[3 * k + 1] = -(s.wcy[k] * s.dot[K + k] + g_v);
-    s.grad_u[3 * k + 2] = -(s.w[k] * s.dot[2 * K + k] + g_s);
-    const float wcx = s.wcx[k], wcy = s.wcy[k], w = s.w[k];
+    const float wcx = s.wcx[k], wcy = s.wcy[k];
+    s.t1[3 * k] = -(wcx * s.dot[k] + g_u);  // grad U; t1 adds W(1/(2g)) below
+    s.t1[3 * k + 1] = -(wcy * s.dot[K + k] + g_v);
+    s.t1[3 * k + 2] = -(w * s.dot[2 * K + k] + g_s);
+    const float wcxcy = w * cx * cy;
     const float f_u = wcx * wcx * d1, f_v = wcy * wcy * d6, f_s = w * w * d9;
     float* c = s.cten;  // C[ta][tc][k] at ((ta * 3 + tc) * K + k)
-    c[(0 * 3 + 0) * K + k] = wcx * (s.wcx2[k] * d1 + s.wcxx[k] * d2);
-    c[(1 * 3 + 0) * K + k] = wcy * s.wcxcy[k] * d3;
+    c[(0 * 3 + 0) * K + k] = wcx * ((w * cx * (1.0f - 2.0f * su)) * d1 + (w * cx * cx) * d2);
+    c[(1 * 3 + 0) * K + k] = wcy * wcxcy * d3;
     c[(2 * 3 + 0) * K + k] = w * wcx * d4;
-    c[(0 * 3 + 1) * K + k] = wcx * s.wcxcy[k] * d5;
-    c[(1 * 3 + 1) * K + k] = wcy * (s.wcy2[k] * d6 + s.wcyy[k] * d7);
+    c[(0 * 3 + 1) * K + k] = wcx * wcxcy * d5;
+    c[(1 * 3 + 1) * K + k] = wcy * ((w * cy * (1.0f - 2.0f * sv)) * d6 + (w * cy * cy) * d7);
     c[(2 * 3 + 1) * K + k] = w * wcy * d8;
     c[(0 * 3 + 2) * K + k] = f_u;
     c[(1 * 3 + 2) * K + k] = f_v;
     c[(2 * 3 + 2) * K + k] = f_s;
-    diag_metric_star(P, s, k, beta, s.g, s.infod);
+    diag_metric_star(P, s, k, beta, d1, d6, d9, s.g, s.infod);
   }
   lp = block_sum_d(lp, s.red);  // synchronises
   if (tid == 0) s.scal[0] = static_cast<float>(-(static_cast<double>(beta) * ll + lp));
   if (tid < 3 * K) s.wt[tid] = 0.5f / s.g[tid];
   __syncthreads();
-  wt_terms(P, s, beta, s.grad_u, s.t1);
+  wt_terms(P, s, D, beta, s.t1, s.t1);
 }
 
 // dH/dtheta at the structs' theta and momentum p (3K) into out.
-__device__ void dh_dtheta(const Params& P, const Smem& s, float beta, const float* p,
-                          float* out) {
+__device__ void dh_dtheta(const Params& P, const Smem& s, const Dims& D, float beta,
+                          const float* p, float* out) {
   const int tid = threadIdx.x;
-  if (tid < 3 * P.K) {
+  if (tid < 3 * D.K) {
     const float a = p[tid] / s.g[tid];
     s.wt[tid] = -0.5f * a * a;
   }
   __syncthreads();
-  wt_terms(P, s, beta, s.t1, out);
+  wt_terms(P, s, D, beta, s.t1, out);
 }
 
 // The metric at theta `th` into s.gs (profiles, 1/lam and the Fisher
 // diagonal at th; no C tensor, no q field).
-__device__ void diag_solve(const Params& P, const Smem& s, float beta, const float* th) {
-  profiles(P, s, th);
-  render(P, s, beta, false);
-  contract<kSolve>(P, s);
-  if (threadIdx.x < P.K) diag_metric_star(P, s, threadIdx.x, beta, s.gs, nullptr);
+__device__ void diag_solve(const Params& P, const Smem& s, const Dims& D, float beta,
+                           const float* th) {
+  profiles(P, s, D, th);
+  render(P, s, D, beta, false);
+  contract<kSolve>(P, s, D);
+  if (threadIdx.x < D.K) {
+    const int k = threadIdx.x;
+    diag_metric_star(P, s, k, beta, s.dd[k], s.dd[5 * D.K + k], s.dd[8 * D.K + k], s.gs,
+                     nullptr);
+  }
   __syncthreads();
 }
 
@@ -539,10 +789,10 @@ __device__ float hamiltonian(const Smem& s, int d3, const float* p) {
 }
 
 __global__ void __launch_bounds__(kThreads) fused_rhmc_diag_crowded_kernel(Params P) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const int c = blockIdx.x, tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W, d3 = 3 * K;
-  const Smem s = carve(smem, K, H, W);
+  const int K = P.K, d3 = 3 * K;
+  const Smem s = carve(reinterpret_cast<float*>(smem4), K, P.W);
   const float eps = P.eps[c];
   const float half_eps = 0.5f * eps;
   const float beta = *P.beta;
@@ -552,9 +802,22 @@ __global__ void __launch_bounds__(kThreads) fused_rhmc_diag_crowded_kernel(Param
     s.th_b[tid] = P.theta[c * d3 + tid];
     s.ph[tid] = P.xi[c * d3 + tid];
   }
+  // a dead star's contraction sums stay 0 (and so does its C, which
+  // shares their storage)
+  for (int i = tid; i < 12 * K; i += kThreads) (i < 3 * K ? s.dot[i] : s.dd[i - 3 * K]) = 0.0f;
   __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int k = 0; k < K; ++k)
+      if (s.m[k] != 0.0f) s.live[n++] = k;
+    s.scal[7] = static_cast<float>(n);
+  }
+  __syncthreads();
+  Dims D;
+  D.K = K; D.H = P.H; D.W = P.W;
+  D.nl = static_cast<int>(s.scal[7]);
 
-  build_structs(P, s, beta);
+  build_structs(P, s, D, beta);
   if (tid < d3) s.p_b[tid] = sqrtf(s.g[tid]) * s.ph[tid] * s.m[tid / 3];
   __syncthreads();
   const float h0 = hamiltonian(s, d3, s.p_b);
@@ -566,7 +829,7 @@ __global__ void __launch_bounds__(kThreads) fused_rhmc_diag_crowded_kernel(Param
     __syncthreads();
     float d1 = 0.0f;
     for (int it = 0; it < P.fpi; ++it) {
-      dh_dtheta(P, s, beta, s.ph, s.base);  // s.base as scratch for dH
+      dh_dtheta(P, s, D, beta, s.ph, s.base);  // s.base as scratch for dH
       if (tid < d3) s.base[tid] = s.p_b[tid] - half_eps * s.base[tid];
       __syncthreads();
       d1 = fp_delta(s, d3, s.base, s.ph);
@@ -582,7 +845,7 @@ __global__ void __launch_bounds__(kThreads) fused_rhmc_diag_crowded_kernel(Param
     __syncthreads();
     float d2 = 0.0f;
     for (int it = 0; it < P.fpi; ++it) {
-      diag_solve(P, s, beta, s.th);
+      diag_solve(P, s, D, beta, s.th);
       if (tid < d3) s.gs[tid] = s.base[tid] + half_eps * (s.ph[tid] / s.gs[tid]);
       __syncthreads();
       d2 = fp_delta(s, d3, s.gs, s.th);
@@ -592,8 +855,8 @@ __global__ void __launch_bounds__(kThreads) fused_rhmc_diag_crowded_kernel(Param
     // rebuild at theta'; reused by the final half-step, h1 and the next step
     if (tid < d3) s.th_b[tid] = s.th[tid];
     __syncthreads();
-    build_structs(P, s, beta);
-    dh_dtheta(P, s, beta, s.ph, s.base);
+    build_structs(P, s, D, beta);
+    dh_dtheta(P, s, D, beta, s.ph, s.base);
     if (tid < d3) s.p_b[tid] = s.ph[tid] - half_eps * s.base[tid];
     __syncthreads();
     resid = nanmax(resid, nanmax(d1, d2));
@@ -651,7 +914,8 @@ int starcat_fused_rhmc_diag_crowded(
   P.lp_flux_const = lp_flux_const;
   P.jitter = jitter;
 
-  const size_t smem = static_cast<size_t>(smem_floats(K, H, W)) * sizeof(float);
+  if (H > kTile || W > kTile) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(smem_floats(K, W)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_rhmc_diag_crowded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -14,9 +14,9 @@ version.
 
 The crowded-field kernels also run small scenes, but more slowly, so the
 small-scene ones stay: on an H100 (chip_smoke.py) an L = 20 trajectory of
-1024 chains at K = 10 on 32x32 takes 0.327 ms on B1 and 0.523 ms on B5, and
-a 6 x 4 diagonal-Fisher trajectory of 256 chains at K = 16 takes 0.608 ms
-on B3 and 0.800 ms on B4.
+1024 chains at K = 10 on 32x32 takes 0.324 ms on B1 and 0.519 ms on B5, and
+a 6 x 4 diagonal-Fisher trajectory of 256 chains at K = 16 takes 0.610 ms
+on B3 and 0.975 ms on B4, whose GEMM tiles span 128 x 128 pixels.
 """
 from __future__ import annotations
 

@@ -14,9 +14,10 @@ chain; beta is a float or a device scalar tensor, which the kernel reads
 without a host sync.  resid is the per-chain solver residual, NaN when the
 trajectory blew up.
 
-The kernel takes the scenes and catalogs whose two fields and two profile
-sets fit one block's shared memory: 128x128 with K up to 77, cfg4's K = 64
-among them.  Smaller scenes run on B3 (fused_rhmc_diag.py);
+The kernel takes scenes of at most 128 x 128 pixels (its GEMM passes tile
+one such block of pixels) whose two fields and two profile sets fit one
+block's shared memory: at 128x128, K up to 78, cfg4's K = 64 among them.
+Smaller scenes run on B3 (fused_rhmc_diag.py);
 :func:`dispatch.rhmc_diag_module` chooses.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
@@ -34,7 +35,9 @@ from .potential import PriorSpec
 from .scene import SceneSpec
 
 MAX_STARS = 128   # one thread per element of the (K, 3) state
+MAX_SIDE = 128    # kTile in the source: H, W <= 128
 THREADS = 512     # kThreads in the source
+PART_FLOATS = 288  # kPartFloats in the source
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -46,9 +49,14 @@ def reset_launch_counts() -> None:
 
 
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source)."""
-    return 4 * (72 * kmax + 9 + 2 * (THREADS // 32) + 2 * height * width
-                + kmax * (width + height))
+    """Shared memory one block needs (mirrors smem_floats in the source):
+    1/lam and the working field, 128 rows by W columns each (the working
+    field at least one star's 512 q-field operands); the profiles gx (K +
+    3, 132) and gy (K, 128); the state and per-star scalars, 55 K floats.
+    The height does not enter: every field is 128 rows tall."""
+    field = MAX_SIDE * width
+    return 4 * (field + max(field, 4 * MAX_SIDE) + (kmax + 3) * (MAX_SIDE + 4)
+                + kmax * MAX_SIDE + 2 * (THREADS // 32) + 55 * kmax + PART_FLOATS + 8)
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
@@ -56,6 +64,10 @@ def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     if not 1 <= kmax <= MAX_STARS:
         return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes "
                 f"1 <= K <= {MAX_STARS}, got K={kmax}")
+    if spec.height > MAX_SIDE or spec.width > MAX_SIDE:
+        return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) tiles at most "
+                f"{MAX_SIDE}x{MAX_SIDE} pixels in one block's shared memory, got "
+                f"{spec.height}x{spec.width}")
     need = smem_bytes(kmax, spec.height, spec.width)
     if need > MAX_SMEM_BYTES:
         return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) holds two "

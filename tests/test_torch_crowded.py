@@ -160,17 +160,42 @@ def test_kernel_choice_raises_beyond_both_domains():
         dispatch.rhmc_diag_module(big, 64)
     with pytest.raises(ValueError, match=r"1 <= K <= 128"):
         dispatch.rhmc_diag_module(CROWDED, 129)
-    # B4's shared memory holds K <= 77 at 128x128; B5's K <= 103
-    assert frdc.smem_bytes(77, 128, 128) <= MAX_SMEM_BYTES < frdc.smem_bytes(78, 128, 128)
+    # B4's shared memory holds K <= 78 at 128x128; B5's K <= 103
+    assert frdc.smem_bytes(78, 128, 128) <= MAX_SMEM_BYTES < frdc.smem_bytes(79, 128, 128)
     assert flc.smem_bytes(103, 128, 128) <= MAX_SMEM_BYTES < flc.smem_bytes(104, 128, 128)
     with pytest.raises(ValueError, match="B4"):
-        dispatch.rhmc_diag_module(CROWDED, 78)
+        dispatch.rhmc_diag_module(CROWDED, 79)
     # the full metric (B6) and ChEES's runtime step count (B2) have no
     # crowded-field kernel: their domains raise, naming them
     with pytest.raises(ValueError, match="B6"):
         dispatch.trajectory_kernel("rhmc", "full", CROWDED, 64)
     with pytest.raises(ValueError, match="B2"):
         dispatch.trajectory_kernel("chees", None, CROWDED, 50)
+
+
+def test_b4_shared_memory_follows_its_gemm_layout():
+    """smem_bytes mirrors the source's layout: 1/lam and the working field,
+    128 rows by W columns each; the profiles gx (K + 3 rows of 132) and gy
+    (K, 128); 55 floats of state per star, the partial sums and scratch.
+    cfg4 (K = 64) and the crowded rhmc head (K = 50) fit at 128x128, K = 79
+    does not and is named; a side above 128 is refused."""
+    fields = 2 * 128 * 128
+    assert frdc.smem_bytes(64, 128, 128) == 4 * (fields + 67 * 132 + 64 * 128 + 32 + 55 * 64
+                                                 + 288 + 8) == 214608
+    # every field is 128 rows tall, whatever the height: 96x128 (chip_smoke's
+    # ragged case) holds as much as 128x128, 100x84 a field of 84 columns
+    assert frdc.smem_bytes(37, 96, 128) == frdc.smem_bytes(37, 128, 128)
+    assert frdc.smem_bytes(5, 100, 84) == 4 * (2 * 128 * 84 + 8 * 132 + 5 * 128 + 32
+                                               + 55 * 5 + 296)
+    # a field smaller than one star's 512 q-field operands is raised to it
+    assert frdc.smem_bytes(1, 2, 2) == 4 * (256 + 512 + 4 * 132 + 128 + 32 + 55 + 296)
+    for k in (50, 64, 78):
+        assert frdc.domain_error(CROWDED, k) is None
+    err = frdc.domain_error(CROWDED, 79)
+    assert "(B4)" in err and "K=79" in err and str(frdc.smem_bytes(79, 128, 128)) in err
+    err = frdc.domain_error(SceneSpec(136, 128, 1.5, 20.0), 8)
+    assert "(B4)" in err and "at most 128x128" in err
+    assert frdc.domain_error(SceneSpec(96, 128, 1.5, 20.0), 37) is None
 
 
 def test_api_resolves_the_crowded_kernels():

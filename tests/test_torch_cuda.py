@@ -459,26 +459,80 @@ def test_crowded_rhmc_kernel_matches_plain(dev, beta):
     masks) against its plain version on the chains whose fixed points
     converged tightly in both; p relative to 1 + |p| (p = sqrt(g) xi
     reaches 1e3 here), h with eight float32 spacings."""
+    cfg, img, theta, xi, mask = _crowded_inputs(32, 64, dev, seed=1)
+    eps = torch.full((32,), 0.05, device=dev)
+    _check_crowded_rhmc(cfg.scene, img, cfg.prior, theta, xi, eps, mask, beta)
+
+
+def _check_crowded_rhmc(spec, img, prior, theta, xi, eps, mask, beta):
+    """B4 (6 x 4) against its plain version: solver verdicts equal, and on
+    the chains converged tightly in both theta, p relative to 1 + |p| and
+    the energies with eight float32 spacings; dead slots frozen."""
     from starcat_torch import fused_rhmc_diag as frd
     from starcat_torch import fused_rhmc_diag_crowded as frdc
 
-    cfg, img, theta, xi, mask = _crowded_inputs(32, 64, dev, seed=1)
-    eps = torch.full((32,), 0.05, device=dev)
-    out = frdc.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 64, 6, 4)(
-        theta, xi, eps, mask, torch.tensor(beta, device=dev))
-    ref = frd.fused_rhmc_diag_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
-                                        beta, 6, 4)
+    k = theta.shape[1]
+    out = frdc.make_fused_rhmc_diag(spec, img, prior, k, 6, 4)(
+        theta, xi, eps, mask, torch.tensor(beta, device=img.device))
+    ref = frd.fused_rhmc_diag_reference(spec, img, prior, theta, xi, eps, mask, beta, 6, 4)
     torch.cuda.synchronize()
     assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
     tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
-    assert int(tight.sum()) >= 0.8 * 32
+    assert int(tight.sum()) >= 0.8 * theta.shape[0]
     o, r = [a[tight] for a in out], [b[tight] for b in ref]
     assert float((o[0] - r[0]).abs().max()) <= RTOL["theta"]
     assert float(((o[1] - r[1]).abs() / (1 + r[1].abs())).max()) <= RTOL["p"]
     for a, b in zip(o[2:5], r[2:5]):
         assert float((a - b).abs().max()) <= RTOL["h"] + _spacings(b)
-    dead = (mask == 0) & (out[5] < 0.05)[:, None]
+    live = mask if mask.ndim == 2 else mask.expand(theta.shape[:2])
+    dead = (live == 0) & (out[5] < 0.05)[:, None]
     assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+
+
+@pytest.mark.parametrize("h,w,k", [(96, 128, 37), (100, 84, 50)])
+def test_crowded_rhmc_kernel_on_ragged_scenes(dev, h, w, k):
+    """B4 on scenes that are neither square nor multiples of its tiles, with
+    catalog sizes that are not multiples of its star tiles: the crowded
+    image cut to h x w, its true stars inside the cut in the first slots,
+    per-chain masks with 30..k live stars in shuffled slots."""
+    cfg = CONFIGS["cfg4_crowded"]
+    truth, img = cfg.make_data()
+    spec = cfg.scene._replace(height=h, width=w)
+    x = cfg.scene.width * torch.sigmoid(truth[:, 0])
+    y = cfg.scene.height * torch.sigmoid(truth[:, 1])
+    inside = (x < w - 2.0) & (y < h - 2.0)
+    xs, ys = x[inside] / w, y[inside] / h
+    cut = torch.stack([torch.log(xs / (1 - xs)), torch.log(ys / (1 - ys)),
+                       truth[inside, 2]], dim=1)[:k].to(dev)
+    c, n = 32, min(k, cut.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = cut[:n][None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+    theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    alive = torch.randint(30, k + 1, (c,), generator=gen, device=dev)
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < alive[:, None]).to(torch.float32)
+    eps = torch.full((c,), 0.04, device=dev)
+    _check_crowded_rhmc(spec, img[:h, :w].contiguous().to(dev), cfg.prior, theta, xi, eps,
+                        mask, 1.0)
+
+
+@pytest.mark.parametrize("form", ["shared", "per_chain"])
+def test_crowded_rhmc_kernel_with_scattered_live_stars(dev, form):
+    """B4 at cfg4's shape when the live stars are not contiguous: a shared
+    mask alive on two slots of every three, or per-chain masks alive on
+    the even slots of even chains and the odd slots of odd chains."""
+    cfg, img, theta, xi, _ = _crowded_inputs(32, 64, dev, seed=2)
+    slot = torch.arange(64, device=dev)
+    if form == "shared":
+        mask = (slot % 3 != 1).to(torch.float32)
+    else:
+        chain = torch.arange(32, device=dev)[:, None]
+        mask = ((slot[None] + chain) % 2 == 0).to(torch.float32)
+    eps = torch.full((32,), 0.05, device=dev)
+    _check_crowded_rhmc(cfg.scene, img, cfg.prior, theta, xi, eps, mask, 1.0)
 
 
 def test_crowded_launch_counts(dev):
