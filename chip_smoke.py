@@ -18,12 +18,15 @@
 4. holds the full-Fisher Riemannian kernel (B6) against its plain version,
    chain by chain, at the cfg3 shape (512 particles, K = 16, per-chain
    masks with dead slots, beta 1 and 0.3, and against float64) and the cfg1
-   shape (64 chains, K = 10, shared mask), checks that a chain that
-   overflows comes back as a solver failure, and times one trajectory at
-   the cfg3 shape with 4096 particles and at the cfg1 shape;
+   shape (64 chains, K = 10, shared mask), and at the edges of its launch
+   layout (one chain, an odd count, K = 1, 300 chains, 48x48 with K = 16, a
+   non-square 40x48 scene), checks that a chain that overflows comes back
+   as a solver failure, and times one trajectory at the cfg3 shape with
+   4096 particles and at the cfg1 shape, printing the launch's layout;
 5. holds the crowded-field leapfrog (B5) against its plain version at the
    crowded bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
-   per-chain masks, with and without an entry gradient, L = 0 and 1, long
+   per-chain masks, with and without an entry gradient, L = 0 and 1, B2's
+   runtime step count on B5 (ChEES on crowded fields), long
    trajectories and the gradient against float64, a chain that overflows,
    B5 against B1 on the flagship shape; times one trajectory of each, and
    B5 beside B1 at B1's timed shape;
@@ -341,14 +344,53 @@ def _compare_chains(name, out, ref, ref64=None, h_spacings=4, p_rel=False):
     return errs["theta"]
 
 
+# B6's layout edges: (chains, K, H, W)
+B6_EDGES = ((1, 16, 32, 32), (7, 16, 32, 32), (33, 1, 32, 32), (300, 10, 32, 32),
+            (9, 16, 48, 48), (16, 12, 40, 48))
+
+
+def _cut_inputs(h, w, k, c, dev, seed):
+    """An h x w cut of the crowded image with the true stars inside it near
+    their truth in the first slots (prior-like draws in the rest),
+    standard-normal xi, eps 0.01 and per-chain masks with 1..k live stars."""
+    import torch
+
+    from starcat_torch.configs import CONFIGS
+
+    cfg4 = CONFIGS["cfg4_crowded"]
+    truth, image = cfg4.make_data()
+    spec = cfg4.scene._replace(height=h, width=w)
+    x = cfg4.scene.width * torch.sigmoid(truth[:, 0])
+    y = cfg4.scene.height * torch.sigmoid(truth[:, 1])
+    inside = (x < w - 2.0) & (y < h - 2.0)
+    xs, ys = x[inside] / w, y[inside] / h
+    cut = torch.stack([torch.log(xs / (1 - xs)), torch.log(ys / (1 - ys)),
+                       truth[inside, 2]], dim=1)[:k].to(dev)
+    n = min(k, cut.shape[0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = cut[:n][None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+    theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    alive = torch.randint(1, k + 1, (c,), generator=gen, device=dev)
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < alive[:, None]).to(torch.float32)
+    eps = torch.full((c,), 0.01, device=dev)
+    return spec, image[:h, :w].contiguous().to(dev), theta, xi, eps, mask
+
+
 def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
     """Phase 4: B6 against its plain version on the card at the cfg3 shape
     (512 particles, K = 16, per-chain masks with dead slots, beta 1 and 0.3;
     beta 1 also against float64) and the cfg1 shape (64 chains, K = 10,
     shared mask, 16 steps x 6 sweeps, at the step the cfg1 preset adapts
-    to), a chain that overflows, and one timed trajectory at the cfg3 shape
-    with the preset's 4096 particles and at the cfg1 shape.  Returns the
-    largest theta error and the times."""
+    to), at the edges of its launch layout (B6_EDGES, beta 0.7), a chain
+    that overflows, and one timed trajectory at the cfg3 shape with the
+    preset's 4096 particles and at the cfg1 shape, with the launch's layout
+    (threads a chain, blocks an SM, SMs filled).  Returns the largest theta
+    error and the times."""
     import torch
 
     truth, image = cfg.make_data()
@@ -381,6 +423,25 @@ def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
             if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
                 raise AssertionError(f"B6 {name}: a dead slot moved")
 
+    # where the launch layout is most at risk: one chain, an odd count, one
+    # star, the 256-thread layout at a moderate count, the shared-memory
+    # edge of the domain (48x48, K = 16) and a non-square scene
+    for i, (c, k, h, w) in enumerate(B6_EDGES):
+        if (h, w) == (32, 32):
+            e_spec, e_img = spec, img
+            theta, xi, eps, mask = _rhmc_inputs(truth, c, k, dev, 50 + i, k >= 6)
+            eps = eps / 3.0
+        else:
+            e_spec, e_img, theta, xi, eps, mask = _cut_inputs(h, w, k, c, dev, 50 + i)
+        out = fr.make_fused_rhmc(e_spec, e_img, prior, k, 6, 4)(
+            theta, xi, eps, mask, torch.tensor(0.7, device=dev))
+        ref = fr.fused_rhmc_reference(e_spec, e_img, prior, theta, xi, eps, mask, 0.7, 6, 4)
+        err = max(err, _compare_chains(f"B6 edge C={c} K={k} {h}x{w}", out, ref))
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = (live == 0) & (out[5] < SOLVER_TOL)[:, None]
+        if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+            raise AssertionError(f"B6 edge C={c} K={k} {h}x{w}: a dead slot moved")
+
     ms = {}
     for name, c, k, n_steps, fpi, per_chain, scale in (("cfg3", 4096, 16, 6, 4, True, 1.0),
                                                        ("cfg1", 64, 10, 16, 6, False, 1 / 3)):
@@ -390,8 +451,11 @@ def check_rhmc_full_kernel(fr, rhmc_mod, cfg, dev):
         ms[name] = _time_ms(lambda: fused(theta, xi, eps, mask, 1.0), 3)
         ms[name + "_plain"] = _time_ms(lambda: fr.fused_rhmc_reference(
             spec, img, prior, theta, xi, eps, mask, 1.0, n_steps, fpi), 1)
+        lay = fr.launch_layout(c, k, spec.height, spec.width)
         print(f"B6 {name} ({c} chains, K={k}, {n_steps} steps x {fpi} sweeps): kernel "
-              f"{ms[name]:.4f} ms, plain {ms[name + '_plain']:.4f} ms per trajectory")
+              f"{ms[name]:.4f} ms, plain {ms[name + '_plain']:.4f} ms per trajectory; "
+              f"{lay['threads']} threads a chain, {lay['blocks_per_sm']} blocks an SM, "
+              f"{lay['sms_filled']} SMs filled")
 
     # a chain that overflows (exp(95) > float32's range): NaN residual,
     # reported by the transition as a solver failure and rejected
@@ -448,7 +512,8 @@ def _crowded_inputs(truth, c, k, dev, seed):
 def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     """Phase 5: B5 against its plain version on the card at the crowded
     bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
-    per-chain masks, with and without an entry gradient, L = 0 and 1; the
+    per-chain masks, with and without an entry gradient, L = 0 and 1; B2's
+    runtime step count (ChEES) on B5 at two counts from the device; the
     gradient against float64; a chain that overflows, rejected by the HMC
     transition; B5 forced onto the flagship shape against B1, and both
     timed there on one L = 20 trajectory; one L = 10 trajectory of kernel
@@ -510,6 +575,14 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
             compare(tag, fused(theta, p, eps, inv_mass, mask, grad=grad),
                     ref(theta, p, mask, n, grad),
                     ref64(theta, p, mask, n, grad) if n == L else None)
+    # B2's contract on B5 (ChEES on crowded fields): the step count read from
+    # a device int32, two counts
+    dyn = flc.make_fused_leapfrog_dyn(spec, img, prior, k)
+    n_dev = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for n in (3, L):
+        n_dev.fill_(n)
+        compare(f"dyn n={n} grad=in", dyn(theta, p, eps, inv_mass, mask, n_dev, g0),
+                ref(theta, p, mask, n, g0), ref64(theta, p, mask, n, g0) if n == L else None)
     # per-chain masks: slots 47..49 dead on every odd chain, momentum zeroed
     mask_c = torch.ones((c, k), device=dev)
     mask_c[1::2, 47:] = 0.0

@@ -26,10 +26,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def build_source(source: Path, name: str) -> tuple[ctypes.CDLL, str]:
-    """nvcc on a B4 source outside csrc/, with the checkout's flags, into
-    build/kernels/variants/<name>.so; returns the library, with its B4
-    entry's argument types set, and the compiler's report."""
+B4_ENTRY = "starcat_fused_rhmc_diag_crowded"
+
+
+def build_source(source: Path, name: str, entry: str = B4_ENTRY) -> tuple[ctypes.CDLL, str]:
+    """nvcc on a Riemannian kernel's source outside csrc/ (B4's by default;
+    B3, B4 and B6 share one C interface), with the checkout's flags, into
+    build/kernels/variants/<name>.so; returns the library, with the entry's
+    argument types set, and the compiler's report."""
     from starcat_torch import build
 
     out_dir = build.BUILD_DIR / "variants"
@@ -41,13 +45,14 @@ def build_source(source: Path, name: str) -> tuple[ctypes.CDLL, str]:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.starcat_fused_rhmc_diag_crowded
+    fn = getattr(lib, entry)
     fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
     fn.restype = ci
     return lib, proc.stderr
 
 
-def launch(lib, image, kmax, n_steps, fpi, scalars, theta, xi, eps, mask, beta):
+def launch(lib, image, kmax, n_steps, fpi, scalars, theta, xi, eps, mask, beta,
+           entry: str = B4_ENTRY):
     """One launch of such a build, as build.launch_riemannian launches the
     checkout's (the inputs are the ones chip_smoke makes, already checked
     there)."""
@@ -58,13 +63,13 @@ def launch(lib, image, kmax, n_steps, fpi, scalars, theta, xi, eps, mask, beta):
     outs = torch.empty((4, c), dtype=torch.float32, device=theta.device)
     beta_dev = torch.full((1,), float(beta), dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = lib.starcat_fused_rhmc_diag_crowded(
+    rc = getattr(lib, entry)(
         theta.data_ptr(), xi.data_ptr(), eps.data_ptr(), mask.data_ptr(), kmax if mask.ndim == 2
         else 0, beta_dev.data_ptr(), image.data_ptr(), theta_out.data_ptr(), p_out.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(), c, kmax,
         image.shape[0], image.shape[1], n_steps, fpi, *scalars, stream)
     if rc != 0:
-        raise RuntimeError(f"the B4 build failed to launch ({rc})")
+        raise RuntimeError(f"the {entry} build failed to launch ({rc})")
     return theta_out, p_out, outs[0], outs[1], outs[2], outs[3]
 
 

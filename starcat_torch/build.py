@@ -4,7 +4,8 @@ keyed by a hash of the source and the flags, which the wrappers load with
 ctypes.  Nothing here runs on import, and nothing falls back: a missing
 toolkit or a failed compile raises.  :func:`check_tensor` is the wrappers'
 common check of what they pass a kernel; :func:`launch_leapfrog` is the
-one launch of the two leapfrog trajectory kernels (B1/B2, B5) and
+one launch of the two leapfrog trajectory kernels (B1/B2, B5), behind
+B1's and B2's contracts in :class:`LeapfrogKernel`, and
 :func:`launch_riemannian` that of the three Riemannian trajectory kernels
 (B3, B4, B6): the kernels of each family share their C interface.
 """
@@ -148,8 +149,65 @@ def launch_leapfrog(name: str, image: torch.Tensor, kmax: int, scalars: tuple,
     return theta_out, p_out, u_out, grad_out
 
 
+
+class LeapfrogKernel:
+    """csrc/<name>.cu's leapfrog trajectory bound to one scene, prior and
+    catalog capacity, behind B1's and B2's call contracts:
+
+        LeapfrogKernel(...).static(n_steps)
+            -> fused(theta, p, eps, inv_mass, mask, grad=None)
+        LeapfrogKernel(...)  (B2's contract itself)
+            -> fused(theta, p, eps, inv_mass, mask, n_steps, grad)
+
+    n_steps is an int or one device int32 that the kernel reads without a
+    host sync.  On CPU tensors a call returns ``reference`` (the plain
+    version, same arguments); on CUDA tensors it launches the kernel, one
+    launch a call, and calls ``count(contract)`` with "static" or "dyn"."""
+
+    def __init__(self, name: str, spec, image: torch.Tensor, prior, kmax: int,
+                 check_domain, reference, count):
+        self.name, self.spec, self.prior, self.kmax = name, spec, prior, kmax
+        self.reference, self.count = reference, count
+        self.image = image.to(torch.float32).contiguous()
+        if tuple(self.image.shape) != (spec.height, spec.width):
+            raise ValueError(f"image must be ({spec.height}, {spec.width}), "
+                             f"got {tuple(self.image.shape)}")
+        if self.image.device.type == "cuda":
+            check_domain(spec, kmax)
+        self.scalars = leapfrog_scalars(spec, prior)
+
+    def __call__(self, theta, p, eps, inv_mass, mask, n_steps, grad, contract="dyn"):
+        if not isinstance(n_steps, torch.Tensor) and int(n_steps) < 0:
+            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+        if theta.device.type == "cpu":
+            return self.reference(self.spec, self.image.to(theta.device), self.prior, theta,
+                                  p, eps, inv_mass, mask, n_steps, grad)
+        if theta.device.type != "cuda":
+            raise ValueError(f"no fused leapfrog for device {theta.device}")
+        if not isinstance(n_steps, torch.Tensor):
+            n_steps = torch.full((1,), int(n_steps), dtype=torch.int32, device=theta.device)
+        out = launch_leapfrog(self.name, self.image, self.kmax, self.scalars, theta, p, eps,
+                              inv_mass, mask, n_steps, grad)
+        self.count(contract)
+        return out
+
+    def static(self, n_steps: int):
+        """B1's contract: the static step count, written once into the
+        device scalar the kernel reads."""
+        if int(n_steps) < 0:
+            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+        n_dev = (torch.full((1,), int(n_steps), dtype=torch.int32, device=self.image.device)
+                 if self.image.device.type == "cuda" else int(n_steps))
+
+        def fused(theta, p, eps, inv_mass, mask, grad=None):
+            return self(theta, p, eps, inv_mass, mask, n_dev, grad, "static")
+
+        return fused
+
 @functools.cache
-def _riemannian_library(name: str) -> ctypes.CDLL:
+def riemannian_library(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu's library (built at first use), its trajectory entry
+    typed."""
     lib = ctypes.CDLL(str(build_kernel(name)[0]))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, f"starcat_{name}")
@@ -200,7 +258,7 @@ def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
     theta_out = torch.empty_like(theta)
     p_out = torch.empty_like(theta)
     outs = torch.empty((4, c), dtype=torch.float32, device=dev)
-    lib = _riemannian_library(name)
+    lib = riemannian_library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"starcat_{name}")(

@@ -32,7 +32,7 @@ from .adapt import (
     welford_variance,
 )
 from .driver import ChainState, SampleResult, init_chain_states
-from .fused_leapfrog import make_fused_leapfrog_dyn
+from .dispatch import make_leapfrog_dyn
 from .integrators import kinetic_energy, plain_trajectory
 from .potential import log_likelihood
 from .transdim import relocate_step
@@ -200,9 +200,10 @@ def make_chees_relocate(spec, image: torch.Tensor, prior,
 
 def make_fused_leapfrog_impl(spec, image: torch.Tensor, prior, kmax: int):
     """Trajectory impl for _chees_iteration on the fused CUDA kernel with a
-    runtime step count (B2's contract): the adapted n_steps stays a device
+    runtime step count (B2's contract, on B1's kernel or, on crowded fields,
+    on B5's: dispatch.make_leapfrog_dyn): the adapted n_steps stays a device
     int32 that the kernel reads, so one build serves every length."""
-    fused = make_fused_leapfrog_dyn(spec, image, prior, kmax)
+    fused = make_leapfrog_dyn(spec, image, prior, kmax)
 
     def impl(theta, p, u, grad, eps, n_steps, inv_mass, mask):
         return fused(theta, p, eps, inv_mass, mask, n_steps, grad)

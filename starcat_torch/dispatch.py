@@ -1,9 +1,10 @@
 """Which CUDA kernel runs a trajectory, chosen by the scene's shape and the
 catalog capacity alone.
 
-Two kernels share each of two call contracts: the plain leapfrog (B1 on
+Two kernels share each of three call contracts: the plain leapfrog (B1 on
 small scenes, fused_leapfrog.py; B5 on crowded fields,
-fused_leapfrog_crowded.py) and the diagonal-Fisher Riemannian trajectory
+fused_leapfrog_crowded.py), the same with a runtime step count for ChEES
+(B2, the B1 kernel; B5 again) and the diagonal-Fisher Riemannian trajectory
 (B3, fused_rhmc_diag.py; B4, fused_rhmc_diag_crowded.py).  The small-scene
 kernel takes what its domain holds, the crowded-field kernel what its own
 holds, and a scene beyond both raises naming both limits.  Each domain is
@@ -58,6 +59,12 @@ def make_leapfrog(spec, image, prior, kmax: int, n_steps: int):
                                                               n_steps)
 
 
+def make_leapfrog_dyn(spec, image, prior, kmax: int):
+    """B2's contract (a runtime step count) on the kernel that takes this
+    scene: B1's kernel inside its domain, B5 beyond it."""
+    return leapfrog_module(spec, kmax)[0].make_fused_leapfrog_dyn(spec, image, prior, kmax)
+
+
 def make_rhmc_diag(spec, image, prior, kmax: int, n_steps: int, fixed_point_iters: int,
                    jitter: float = 1e-3):
     """B3's contract on the kernel that takes this scene."""
@@ -68,14 +75,13 @@ def make_rhmc_diag(spec, image, prior, kmax: int, n_steps: int, fixed_point_iter
 def trajectory_kernel(head: str, metric: str | None, spec, kmax: int) -> str:
     """The name of the kernel a head's trajectory runs on ("B1".."B6"):
     ``metric`` "full" (B6) or "diag" (B3/B4) for the Riemannian heads and
-    mutations, None for the plain leapfrog (chees: B2's runtime step count;
-    otherwise B1/B5).  Raises off the kernel's domain."""
+    mutations, None for the plain leapfrog (chees: B2's runtime step count,
+    on B1's kernel ("B2") or on B5; otherwise B1/B5).  Raises off the
+    kernel's domain."""
     if metric == "full":
         fused_rhmc.check_domain(spec, kmax)
         return "B6"
     if metric == "diag":
         return rhmc_diag_module(spec, kmax)[1]
-    if head == "chees":
-        fused_leapfrog.check_domain(spec, kmax)
-        return "B2"
-    return leapfrog_module(spec, kmax)[1]
+    name = leapfrog_module(spec, kmax)[1]
+    return "B2" if head == "chees" and name == "B1" else name

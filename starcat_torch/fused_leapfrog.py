@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import MAX_SMEM_BYTES, launch_leapfrog, leapfrog_scalars
+from .build import MAX_SMEM_BYTES, LeapfrogKernel
 from .integrators import plain_trajectory
 from .potential import PriorSpec, make_potential_and_grad
 from .scene import SceneSpec
@@ -88,69 +88,28 @@ def fused_leapfrog_reference(spec: SceneSpec, image: torch.Tensor,
     return plain_trajectory(grad_fn)(theta, p, eps, inv_mass, mask, n_steps, grad)
 
 
-class _Launcher:
-    """The kernel bound to one scene, prior and catalog capacity."""
+def _count(contract: str) -> None:
+    global LAUNCHES, STATIC_LAUNCHES, DYN_LAUNCHES
+    LAUNCHES += 1
+    if contract == "static":
+        STATIC_LAUNCHES += 1
+    else:
+        DYN_LAUNCHES += 1
 
-    def __init__(self, spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
-                 kmax: int, contract: str):
-        self.spec, self.prior, self.kmax = spec, prior, kmax
-        self.contract = contract  # "static" (B1) or "dyn" (B2)
-        self.image = image.to(torch.float32).contiguous()
-        if tuple(self.image.shape) != (spec.height, spec.width):
-            raise ValueError(f"image must be ({spec.height}, {spec.width}), "
-                             f"got {tuple(self.image.shape)}")
-        if self.image.device.type == "cuda":
-            check_domain(spec, kmax)
-        self.scalars = leapfrog_scalars(spec, prior)
 
-    def __call__(self, theta, p, eps, inv_mass, mask, n_steps, grad):
-        """n_steps: a Python int or a device int32 scalar tensor."""
-        if not isinstance(n_steps, torch.Tensor) and int(n_steps) < 0:
-            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-        if theta.device.type == "cpu":
-            return fused_leapfrog_reference(
-                self.spec, self.image.to(theta.device), self.prior, theta, p,
-                eps, inv_mass, mask, n_steps, grad)
-        if theta.device.type != "cuda":
-            raise ValueError(f"no fused leapfrog for device {theta.device}")
-        return self._launch(theta, p, eps, inv_mass, mask, n_steps, grad)
-
-    def _launch(self, theta, p, eps, inv_mass, mask, n_steps, grad):
-        global LAUNCHES, STATIC_LAUNCHES, DYN_LAUNCHES
-        if not isinstance(n_steps, torch.Tensor):
-            n_steps = torch.full((1,), int(n_steps), dtype=torch.int32, device=theta.device)
-        out = launch_leapfrog("fused_leapfrog", self.image, self.kmax, self.scalars,
-                              theta, p, eps, inv_mass, mask, n_steps, grad)
-        LAUNCHES += 1
-        if self.contract == "static":
-            STATIC_LAUNCHES += 1
-        else:
-            DYN_LAUNCHES += 1
-        return out
+def _kernel(spec, image, prior, kmax) -> LeapfrogKernel:
+    return LeapfrogKernel("fused_leapfrog", spec, image, prior, kmax, check_domain,
+                          fused_leapfrog_reference, _count)
 
 
 def make_fused_leapfrog(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                         kmax: int, n_steps: int):
     """B1's contract: a static step count, the entry gradient optional."""
-    launcher = _Launcher(spec, image, prior, kmax, "static")
-    # the static L, written once into the device scalar the kernel reads
-    n_dev = (torch.full((1,), int(n_steps), dtype=torch.int32,
-                        device=launcher.image.device)
-             if launcher.image.device.type == "cuda" else int(n_steps))
-
-    def fused(theta, p, eps, inv_mass, mask, grad=None):
-        return launcher(theta, p, eps, inv_mass, mask, n_dev, grad)
-
-    return fused
+    return _kernel(spec, image, prior, kmax).static(n_steps)
 
 
 def make_fused_leapfrog_dyn(spec: SceneSpec, image: torch.Tensor,
                             prior: PriorSpec, kmax: int):
     """B2's contract: the step count is a runtime argument (an int, or a
     device int32 scalar the kernel reads without a host sync)."""
-    launcher = _Launcher(spec, image, prior, kmax, "dyn")
-
-    def fused(theta, p, eps, inv_mass, mask, n_steps, grad):
-        return launcher(theta, p, eps, inv_mass, mask, n_steps, grad)
-
-    return fused
+    return _kernel(spec, image, prior, kmax)

@@ -1,11 +1,15 @@
 """Fused leapfrog trajectory on crowded fields: the hand-written CUDA kernel
 (csrc/fused_leapfrog_crowded.cu) behind the call contract of the Pallas
 kernel it replaces, B5 (starcat/pallas_mxu.py: make_pallas_leapfrog_mxu),
-which is B1's contract:
+which is B1's contract, and under B2's contract (the runtime step count of
+ChEES) where B2's kernel does not take the scene:
 
     make_fused_leapfrog(spec, image, prior, kmax, n_steps)
         -> fused(theta, p, eps, inv_mass, mask, grad=None)
-        -> (theta', p', u' (C,), grad' (C, K, 3))
+    make_fused_leapfrog_dyn(spec, image, prior, kmax)
+        -> fused(theta, p, eps, inv_mass, mask, n_steps, grad)
+
+Both return (theta', p', u' (C,), grad' (C, K, 3)).
 
 theta, p and grad are (C, K, 3) float32; eps is a scalar or (C,); inv_mass
 is (K, 3); mask is (K,) shared or (C, K) per chain.  ``n_steps == 0``
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import MAX_SMEM_BYTES, launch_leapfrog, leapfrog_scalars
+from .build import MAX_SMEM_BYTES, LeapfrogKernel
 from .fused_leapfrog import fused_leapfrog_reference
 from .potential import PriorSpec
 from .scene import SceneSpec
@@ -34,7 +38,7 @@ from .scene import SceneSpec
 MAX_STARS = 128   # one thread per element of the (K, 3) state
 THREADS = 512     # kThreads in the source
 
-# Launch count of the CUDA kernel.
+# Launch count of the CUDA kernel, through either contract.
 LAUNCHES = 0
 
 
@@ -68,37 +72,27 @@ def check_domain(spec: SceneSpec, kmax: int) -> None:
         raise ValueError(err)
 
 
+def _count(contract: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+def _kernel(spec, image, prior, kmax) -> LeapfrogKernel:
+    return LeapfrogKernel("fused_leapfrog_crowded", spec, image, prior, kmax, check_domain,
+                          fused_leapfrog_reference, _count)
+
+
 def make_fused_leapfrog(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                         kmax: int, n_steps: int):
     """B5's contract (B1's): a static step count, the entry gradient
     optional; one launch per call on a CUDA device."""
-    if int(n_steps) < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    n_steps = int(n_steps)
-    image = image.to(torch.float32).contiguous()
-    if tuple(image.shape) != (spec.height, spec.width):
-        raise ValueError(f"image must be ({spec.height}, {spec.width}), "
-                         f"got {tuple(image.shape)}")
-    on_card = image.device.type == "cuda"
-    if on_card:
-        check_domain(spec, kmax)
-    scalars = leapfrog_scalars(spec, prior)
-    # the static L, written once into the device scalar the kernel reads
-    n_dev = (torch.full((1,), n_steps, dtype=torch.int32, device=image.device)
-             if on_card else None)
+    return _kernel(spec, image, prior, kmax).static(n_steps)
 
-    def fused(theta, p, eps, inv_mass, mask, grad=None):
-        global LAUNCHES
-        if theta.device.type == "cpu":
-            return fused_leapfrog_reference(spec, image.to(theta.device), prior, theta, p,
-                                            eps, inv_mass, mask, n_steps, grad)
-        if theta.device.type != "cuda":
-            raise ValueError(f"no fused leapfrog for device {theta.device}")
-        if n_dev is None:
-            raise ValueError(f"image is on {image.device}, theta on {theta.device}")
-        out = launch_leapfrog("fused_leapfrog_crowded", image, kmax, scalars, theta, p,
-                              eps, inv_mass, mask, n_dev, grad)
-        LAUNCHES += 1
-        return out
 
-    return fused
+def make_fused_leapfrog_dyn(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
+                            kmax: int):
+    """B2's contract on B5: the step count is a runtime argument, an int or
+    a device int32 scalar that the kernel reads without a host sync (a
+    negative device count acts as 0); one launch per call on a CUDA
+    device."""
+    return _kernel(spec, image, prior, kmax)

@@ -44,10 +44,29 @@ def reset_launch_counts() -> None:
     LAUNCHES = 0
 
 
+def matrix_stride(d: int) -> int:
+    """The odd row stride of the kernel's D x D matrices (mat_ld in the
+    source): a column's entries fall in distinct shared-memory banks."""
+    return (d + 1) | 1
+
+
+def profile_stride(n: int) -> int:
+    """The odd star stride of the kernel's profile sets (prof_ld in the
+    source): one row or column of different stars falls in distinct banks."""
+    return n | 1
+
+
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source)."""
-    return 4 * (45 * kmax * kmax + 61 * kmax + 3 * height * width
-                + 3 * kmax * (height + width) + 8)
+    """Shared memory one block needs (mirrors smem_floats in the source):
+    the per-star and per-parameter state, the image, 1/lam and a working
+    field, six profile sets at the odd star stride, the 18 K^2 pair
+    contractions, G^-1's 3x3 star blocks (12 K^2, padded for 16-byte loads),
+    and G / L with a right-hand-side row, L^-1 and G^-1 at the odd row
+    stride."""
+    d = 3 * kmax
+    return 4 * (30 * kmax * kmax + 58 * kmax + 3 * height * width
+                + 3 * kmax * (profile_stride(height) + profile_stride(width)) + 8
+                + (3 * d + 1) * matrix_stride(d))
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:
@@ -61,9 +80,30 @@ def check_domain(spec: SceneSpec, kmax: int) -> None:
             "rhmc.metric=diag (kernels B3 and B4)")
     if smem_bytes(kmax, spec.height, spec.width) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"a {spec.height}x{spec.width} scene with K={kmax} needs "
+            f"the fused CUDA full-Fisher trajectory (B6): a "
+            f"{spec.height}x{spec.width} scene with K={kmax} needs "
             f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
             f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+
+
+def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:
+    """How the kernel lays out a launch of c chains on the current card
+    (starcat_fused_rhmc_layout in the source, from the checkout's build):
+    threads per chain, the blocks an SM holds and the SMs the grid fills."""
+    import ctypes
+
+    from .build import riemannian_library
+
+    fn = riemannian_library("fused_rhmc").starcat_fused_rhmc_layout
+    ci = ctypes.c_int
+    fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+    fn.restype = ci
+    threads, per_sm, sms = ci(), ci(), ci()
+    rc = fn(c, kmax, height, width, ctypes.byref(threads), ctypes.byref(per_sm),
+            ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"starcat_fused_rhmc_layout failed ({rc})")
+    return {"threads": threads.value, "blocks_per_sm": per_sm.value, "sms_filled": sms.value}
 
 
 def type_major(x: torch.Tensor) -> torch.Tensor:

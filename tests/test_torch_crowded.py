@@ -165,12 +165,14 @@ def test_kernel_choice_raises_beyond_both_domains():
     assert flc.smem_bytes(103, 128, 128) <= MAX_SMEM_BYTES < flc.smem_bytes(104, 128, 128)
     with pytest.raises(ValueError, match="B4"):
         dispatch.rhmc_diag_module(CROWDED, 79)
-    # the full metric (B6) and ChEES's runtime step count (B2) have no
-    # crowded-field kernel: their domains raise, naming them
+    # the full metric (B6) has no crowded-field kernel: its domain raises,
+    # naming it; ChEES's runtime step count (B2's contract) runs on B5 there
+    # and raises only beyond both leapfrog kernels
     with pytest.raises(ValueError, match="B6"):
         dispatch.trajectory_kernel("rhmc", "full", CROWDED, 64)
-    with pytest.raises(ValueError, match="B2"):
-        dispatch.trajectory_kernel("chees", None, CROWDED, 50)
+    assert dispatch.trajectory_kernel("chees", None, CROWDED, 50) == "B5"
+    with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\)"):
+        dispatch.trajectory_kernel("chees", None, big, 64)
 
 
 def test_b4_shared_memory_follows_its_gemm_layout():

@@ -401,6 +401,106 @@ def test_full_metric_heads_run_through_b6(dev, name, over, kernel):
         assert out.stats["n_temp_steps"] == 4 and 0.0 < out.stats["beta"] < 1.0
 
 
+def _cut_scene(h, w, k, c, dev, seed):
+    """An h x w cut of the crowded image with the true stars inside it near
+    their truth in theta's first slots (prior-like draws in the rest),
+    standard-normal xi and per-chain masks with 1..k live stars."""
+    cfg = CONFIGS["cfg4_crowded"]
+    truth, img = cfg.make_data()
+    spec = cfg.scene._replace(height=h, width=w)
+    x = cfg.scene.width * torch.sigmoid(truth[:, 0])
+    y = cfg.scene.height * torch.sigmoid(truth[:, 1])
+    inside = (x < w - 2.0) & (y < h - 2.0)
+    xs, ys = x[inside] / w, y[inside] / h
+    cut = torch.stack([torch.log(xs / (1 - xs)), torch.log(ys / (1 - ys)),
+                       truth[inside, 2]], dim=1)[:k].to(dev)
+    n = min(k, cut.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :n] = cut[:n][None] + 0.02 * torch.randn((c, n, 3), generator=gen, device=dev)
+    theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
+    theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    alive = torch.randint(1, k + 1, (c,), generator=gen, device=dev)
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < alive[:, None]).to(torch.float32)
+    eps = torch.full((c,), 0.01, device=dev)
+    return spec, cfg.prior, img[:h, :w].contiguous().to(dev), theta, xi, eps, mask
+
+
+@pytest.mark.parametrize("c,k,h,w", [
+    (1, 16, 32, 32),     # one chain
+    (7, 16, 32, 32),     # an odd chain count
+    (33, 1, 32, 32),     # one star (D = 3)
+    (300, 10, 32, 32),   # enough chains for the 256-thread layout
+    (9, 16, 48, 48),     # the shared-memory edge of the domain
+    (16, 12, 40, 48),    # a non-square scene
+])
+def test_full_rhmc_kernel_at_the_edges_of_its_layout(dev, c, k, h, w):
+    """B6 against its plain version where its layout is most at risk, chain
+    by chain as test_full_rhmc_kernel_matches_plain; dead slots frozen."""
+    from starcat_torch import fused_rhmc as fr
+
+    if (h, w) == (32, 32):
+        cfg, img, theta, xi, eps, mask = _rhmc_inputs(c, k, dev, k >= 6, seed=4)
+        spec, prior, eps = cfg.scene, cfg.prior, eps / 3.0
+    else:
+        spec, prior, img, theta, xi, eps, mask = _cut_scene(h, w, k, c, dev, seed=4)
+    out = fr.make_fused_rhmc(spec, img, prior, k, 6, 4)(theta, xi, eps, mask,
+                                                        torch.tensor(0.7, device=dev))
+    ref = fr.fused_rhmc_reference(spec, img, prior, theta, xi, eps, mask, 0.7, 6, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= max(1, int(0.8 * c))
+    _assert_rhmc_close([o[tight] for o in out], [r[tight] for r in ref])
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    dead = (live == 0) & (out[5] < 0.05)[:, None]
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+
+
+def test_full_rhmc_kernel_result_does_not_depend_on_the_chain_count(dev):
+    """At the cfg1 shape (K = 10, 16 x 6, shared mask) a chain's outputs are
+    the same bits whether it runs alone, among 7 or among 64 in another
+    order, and on a second run: nothing leaks between chains."""
+    from starcat_torch import fused_rhmc as fr
+
+    def bits(t):  # NaN (a blown-up chain) equals itself bit for bit
+        return t.view(torch.int32)
+
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(64, 10, dev, False, seed=6)
+    eps = eps / 3.0
+    fused = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 10, 16, 6)
+    full = fused(theta, xi, eps, mask)
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(full, fused(theta, xi, eps, mask)))
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(63, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(), mask)
+        for a, b in zip(part, full):
+            assert torch.equal(bits(a), bits(b[sel]))
+
+
+def test_full_rhmc_kernel_across_its_layout_boundary(dev):
+    """A launch of as many chains as the card has SMs runs 512 threads a
+    chain, one more chain 256 threads: the sums run in another order, so a
+    chain agrees across the boundary within the tolerance that holds the
+    kernel to its plain version (RTOL), not bit for bit."""
+    from starcat_torch import fused_rhmc as fr
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fr.launch_layout(sms, 10, 32, 32)["threads"] == 512
+    assert fr.launch_layout(sms + 1, 10, 32, 32)["threads"] == 256
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(sms + 1, 10, dev, False, seed=7)
+    eps = eps / 3.0
+    fused = fr.make_fused_rhmc(cfg.scene, img, cfg.prior, 10, 16, 6)
+    wide = fused(theta[:sms].contiguous(), xi[:sms].contiguous(), eps[:sms].contiguous(), mask)
+    narrow = [o[:sms] for o in fused(theta, xi, eps, mask)]
+    torch.cuda.synchronize()
+    tight = (wide[5] < TIGHT) & (narrow[5] < TIGHT)
+    assert int(tight.sum()) >= int(0.8 * sms)
+    _assert_rhmc_close([o[tight] for o in wide], [o[tight] for o in narrow])
+
+
 # -- B5 and B4, the crowded-field kernels -------------------------------------
 
 def _crowded_inputs(c, k, dev, seed=0):
@@ -563,3 +663,45 @@ def test_crowded_heads_run_through_b4_and_b5(dev, over, kernel, traj):
     out = api.sample(apply_overrides(CONFIGS["cfg4_crowded"], over), dev, seed=1)
     assert out.stats["kernel"] == kernel and out.stats["trajectory_kernel"] == traj
     assert out.stats["kernel_launches"] > 0 and np.isfinite(out.thetas).all()
+
+
+def test_crowded_dyn_leapfrog_reads_the_device_step_count(dev):
+    """B2's contract on B5 (ChEES on crowded fields) at K = 50, 128x128: the
+    step count read from a device int32, two counts, against the plain
+    version; U with eight float32 spacings."""
+    from starcat_torch import fused_leapfrog_crowded as flc
+
+    cfg, img, theta, p, _ = _crowded_inputs(64, 50, dev, seed=3)
+    mask = torch.ones(50, device=dev)
+    eps = torch.full((64,), 0.002, device=dev)
+    inv_mass = torch.full((50, 3), 0.9, device=dev)
+    dyn = flc.make_fused_leapfrog_dyn(cfg.scene, img, cfg.prior, 50)
+    grad = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                       mask, 0)[3]
+    n_dev = torch.full((1,), 3, dtype=torch.int32, device=dev)
+    flc.reset_launch_counts()
+    for n in (3, 7):
+        n_dev.fill_(n)  # on the device, no host round trip
+        out = dyn(theta, p, eps, inv_mass, mask, n_dev, grad)
+        want = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps,
+                                           inv_mass, mask, n, grad)
+        torch.cuda.synchronize()
+        assert float((out[0] - want[0]).abs().max()) <= TOL["theta"]
+        assert float((out[1] - want[1]).abs().max()) <= TOL["p"]
+        assert float((out[2] - want[2]).abs().max()) <= TOL["u"] + _spacings(want[2])
+        assert float(((out[3] - want[3]).abs() / (1 + want[3].abs())).max()) <= TOL["grad_rel"]
+    assert flc.LAUNCHES == 2
+
+
+def test_chees_on_a_crowded_scene_runs_through_b5(dev):
+    from starcat_torch import fused_leapfrog_crowded as flc
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(CONFIGS["cfg4_crowded"], {
+        "head": "chees", "kmax": 50, "n_chains": 64, "n_warmup": 30, "n_samples": 10})
+    flc.reset_launch_counts()
+    out = api.sample(cfg, dev, seed=1)
+    st = out.stats
+    assert st["kernel"] == "cuda_fused" and st["trajectory_kernel"] == "B5"
+    assert st["kernel_launches"] > 0 and flc.LAUNCHES == st["kernel_launches"]
+    assert np.isfinite(out.thetas).all() and out.thetas.shape == (64, 10, 50, 3)

@@ -202,8 +202,12 @@ def test_make_trajectory_gives_b6_for_the_full_metric(scene):
 def test_kernel_domain_and_shared_memory(scene):
     from starcat_torch import build
 
-    # mirrors smem_floats in csrc/fused_rhmc.cu
-    assert fr.smem_bytes(16, 32, 32) == 4 * (45 * 256 + 61 * 16 + 3 * 1024 + 3 * 16 * 64 + 8)
+    # mirrors smem_floats in csrc/fused_rhmc.cu: the pair contractions and
+    # G^-1's padded 3x3 star blocks (30 K^2), the six profile sets at the odd
+    # star stride 33, G / L (D + 1 rows), L^-1 and G^-1 at the odd row stride
+    # 49 for D = 48
+    assert fr.smem_bytes(16, 32, 32) == 4 * (30 * 256 + 58 * 16 + 3 * 1024 + 3 * 16 * 66 + 8
+                                             + 145 * 49)
     assert fr.smem_bytes(16, 48, 48) <= build.MAX_SMEM_BYTES
     spec48 = scene["tspec"]._replace(height=48, width=48)
     fr.check_domain(spec48, 16)

@@ -134,11 +134,14 @@ def test_kernel_selection():
         api.resolve_kernel("cuda", cpu, cfg)
     with pytest.raises(ValueError, match="kernel must be"):
         api.resolve_kernel("pallas", cpu, cfg)
-    # ChEES's runtime step count is B2's alone: a crowded field raises,
-    # pointing at the crowded-field kernel B5, which the hmc head runs
+    # ChEES's runtime step count runs on B2 inside its domain and on the
+    # crowded-field kernel B5 beyond it, as the hmc head does; beyond both
+    # it raises, naming B5
     crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128))
+    assert api.resolve_kernel("cuda", torch.device("cuda"), crowded) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", torch.device("cuda"), crowded)
+        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(
+            crowded, scene=cfg.scene._replace(height=256, width=256), kmax=64))
     hmc_crowded = dataclasses.replace(crowded, head="hmc")
     assert api.resolve_kernel("cuda", torch.device("cuda"), hmc_crowded) == "cuda"
     # the Riemannian heads run kernel B3, and B4 beyond its domain; beyond
