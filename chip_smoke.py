@@ -14,7 +14,12 @@
    version at the cfg5 shape (256 chains, K = 16, per-chain masks with dead
    slots, beta 1 and 0.3) and the cfg1 shape (128 chains, K = 10, shared
    mask), checks that a chain that overflows comes back as a solver
-   failure, and times one trajectory of each shape;
+   failure, and times one trajectory of each shape; then, chain by chain,
+   at the edges of its layout and tiles (one chain, an odd count, one star,
+   the card's SM count of chains and one more, K = 16 at 48x48 and 40x48, a
+   96x24 scene held transposed, scattered dead slots), the same bits for a
+   chain in a launch of the SM count and of one more, on a rerun and alone
+   or among others, printing the layout at both timed shapes;
 4. holds the full-Fisher Riemannian kernel (B6) against its plain version,
    chain by chain, at the cfg3 shape (512 particles, K = 16, per-chain
    masks with dead slots, beta 1 and 0.3, and against float64) and the cfg1
@@ -29,7 +34,12 @@
    runtime step count on B5 (ChEES on crowded fields), long
    trajectories and the gradient against float64, a chain that overflows,
    B5 against B1 on the flagship shape; times one trajectory of each, and
-   B5 beside B1 at B1's timed shape;
+   B5 beside B1 at B1's timed shape; then ragged scenes (96x128 at K = 37,
+   100x84 at K = 50), the smaller tiles (64x64 at K = 30, 20x48 at K = 7,
+   32x32 at K = 20 and 128), K = 1, K = 128 at 128x128, scattered live
+   stars in both mask forms, all against float64 too, the same bits on a
+   rerun and for a chain alone or among others, printing the launch's
+   layout at each tile;
 6. holds the crowded-field diagonal-Fisher kernel (B4) against its plain
    version chain by chain at the cfg4 mutation shape (K = 64, 6 x 4,
    per-particle masks, beta 1 and 0.3 from a device scalar, and against
@@ -509,6 +519,36 @@ def _crowded_inputs(truth, c, k, dev, seed):
     return theta, p, eps
 
 
+def _b5_errors(out, want):
+    th, pp, u, g = (o.double() for o in out)
+    return {"theta": _max_err(th, want[0]), "p": _max_err(pp, want[1]),
+            "u": _max_err(u, want[2]),
+            "grad_rel": float(((g - want[3]).abs() / (1.0 + want[3].abs())).max())}
+
+
+def _b5_compare(case, out, want, want64=None):
+    """B5 within TOL of its plain version (U with eight float32 spacings at
+    its magnitude); on a long trajectory, where the field's stiffness
+    amplifies float32 rounding in both versions, a quantity off TOL passes
+    if the kernel is no farther from a float64 run of the plain version
+    than the float32 plain version is, plus TOL.  Returns the theta error
+    and the bound on U."""
+    tol = dict(TOL, u=TOL["u"] + _spacings(want[2], 8))
+    errs = _b5_errors(out, want)
+    far = _b5_errors(out, want64) if want64 is not None else None
+    near = _b5_errors(want, want64) if want64 is not None else None
+    for name, e in errs.items():
+        if e <= tol[name]:
+            continue
+        if far is None or not far[name] <= near[name] + tol[name]:
+            raise AssertionError(f"B5 {case}: {name} error {e} > {tol[name]}"
+                                 + (f"; from float64 {far[name]}, the plain version "
+                                    f"{near[name]}" if far else ""))
+        print(f"B5 {case}: {name} {e:.3g} from the plain version; from float64 the "
+              f"kernel {far[name]:.3g}, the plain version {near[name]:.3g}")
+    return errs["theta"], tol["u"]
+
+
 def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     """Phase 5: B5 against its plain version on the card at the crowded
     bench shape (1024 chains, K = 50, L = 10, 128x128): shared and
@@ -535,33 +575,10 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     err = 0.0
     tol_u = 0.0
 
-    def errors(out, want):
-        th, pp, u, g = (o.double() for o in out)
-        return {"theta": _max_err(th, want[0]), "p": _max_err(pp, want[1]),
-                "u": _max_err(u, want[2]),
-                "grad_rel": float(((g - want[3]).abs() / (1.0 + want[3].abs())).max())}
-
     def compare(case, out, want, want64=None):
-        """Within TOL of the plain version; on a long trajectory, where the
-        field's stiffness amplifies float32 rounding in both versions, a
-        quantity off TOL passes if the kernel is no farther from a float64
-        run of the plain version than the float32 plain version is, plus TOL."""
         nonlocal err, tol_u
-        tol = dict(TOL, u=TOL["u"] + _spacings(want[2], 8))
-        tol_u = max(tol_u, tol["u"])
-        errs = errors(out, want)
-        far = errors(out, want64) if want64 is not None else None
-        near = errors(want, want64) if want64 is not None else None
-        for name, e in errs.items():
-            if e <= tol[name]:
-                continue
-            if far is None or not far[name] <= near[name] + tol[name]:
-                raise AssertionError(f"B5 {case}: {name} error {e} > {tol[name]}"
-                                     + (f"; from float64 {far[name]}, the plain version "
-                                        f"{near[name]}" if far else ""))
-            print(f"B5 {case}: {name} {e:.3g} from the plain version; from float64 the "
-                  f"kernel {far[name]:.3g}, the plain version {near[name]:.3g}")
-        err = max(err, errs["theta"])
+        e, t = _b5_compare(case, out, want, want64)
+        err, tol_u = max(err, e), max(tol_u, t)
 
     def ref64(th, pp, m, n, g):
         return fl.fused_leapfrog_reference(
@@ -625,7 +642,7 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
 
     # B5 forced onto the flagship shape, where B1's domain holds too: the
     # two agree, and both are timed on one L = 20 trajectory (B1's timed
-    # shape), which decides the choice by shape
+    # shape), the measure for the choice between them by shape
     t6, i6 = cfg6.make_data()
     i6 = i6.to(dev)
     th6, p6, e6 = _crowded_inputs(t6, c, cfg6.kmax, dev, 31)
@@ -655,6 +672,158 @@ def check_b5_kernel(flc, fl, hmc_mod, cfg4, cfg6, dev):
     print(f"B5 L={L} trajectory ({c} chains, K={k}): kernel {ms['b5']:.4f} ms, plain "
           f"{ms['b5_plain']:.4f} ms, {c * L / (ms['b5'] * 1e-3):.4g} grad-evals/s")
     return err, ms
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two sequences of float32 tensors hold the same bits (a NaN
+    equal to itself)."""
+    import torch
+
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+def check_b5_edges(flc, fl, cfg4, dev):
+    """Phase 5b: B5's block GEMMs where they are most at risk, each case an
+    L = 10 trajectory of 64 chains against the plain version (float64 as
+    arbiter, _b5_compare), dead slots frozen with zero gradient: ragged
+    scenes (96x128 at K = 37 and 100x84 at K = 50, per-chain masks with
+    1..K live stars), its two smaller tiles (64x64 at K = 30, a ragged
+    20x48 at K = 7, 32x32 at K = 20, and 32x32 at K = 128, more state than
+    the one-warp tile has threads), one star, the largest K (128 at
+    128x128), scattered live stars in both mask forms; then the same bits
+    on a rerun and for a chain alone or among others; and the launch's
+    layout at each tile's timed shape.  Returns the largest theta error."""
+    import torch
+
+    truth, image = cfg4.make_data()
+    img = image.to(dev)
+    spec, prior = cfg4.scene, cfg4.prior
+    c, L = 64, 10
+    err = 0.0
+
+    def check(name, e_spec, e_img, theta, p, mask):
+        k = theta.shape[1]
+        live = mask if mask.ndim == 2 else mask.expand(theta.shape[0], k)
+        p = p * live[..., None]
+        eps = torch.full((theta.shape[0],), 0.002, device=dev)
+        inv_mass = torch.full((k, 3), 0.9, device=dev)
+        fused = flc.make_fused_leapfrog(e_spec, e_img, prior, k, L)
+        out = fused(theta, p, eps, inv_mass, mask)
+        want = fl.fused_leapfrog_reference(e_spec, e_img, prior, theta, p, eps, inv_mass, mask,
+                                           L, None)
+        want64 = fl.fused_leapfrog_reference(
+            e_spec, e_img.double(), prior, theta.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), L, None)
+        e, _ = _b5_compare(name, out, want, want64)
+        dead = live == 0
+        if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
+            raise AssertionError(f"B5 {name}: a dead slot moved or has a gradient")
+        return e, fused, (theta, p, eps, inv_mass, mask)
+
+    for h, w, k in ((96, 128, 37), (100, 84, 50), (64, 64, 30), (20, 48, 7), (32, 32, 20),
+                    (32, 32, 128)):
+        e_spec, e_img, theta, xi, _, mask = _cut_inputs(h, w, k, c, dev, 70 + k)
+        err = max(err, check(f"ragged {h}x{w} K={k}", e_spec, e_img, theta, xi, mask)[0])
+    for k in (1, 128):
+        theta, p, _ = _crowded_inputs(truth, c, k, dev, 72 + k)
+        err = max(err, check(f"K={k}", spec, img, theta, p, torch.ones(k, device=dev))[0])
+    theta, p, _ = _crowded_inputs(truth, c, 50, dev, 75)
+    slot = torch.arange(50, device=dev)
+    shared = (slot % 3 != 1).to(torch.float32)
+    per_chain = ((slot[None] + torch.arange(c, device=dev)[:, None]) % 2 == 0).to(torch.float32)
+    err = max(err, check("scattered, shared mask", spec, img, theta, p, shared)[0])
+    e, fused, args = check("scattered, per-chain masks", spec, img, theta, p, per_chain)
+    err = max(err, e)
+
+    full = fused(*args)
+    if not _same_bits(full, fused(*args)):
+        raise AssertionError("B5: a rerun on the same inputs gave other bits")
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(63, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        th, pp, eps, im, m = args
+        part = fused(th[sel].contiguous(), pp[sel].contiguous(), eps[sel].contiguous(), im,
+                     m[sel].contiguous())
+        if not _same_bits(part, [o[sel] for o in full]):
+            raise AssertionError(f"B5: chains {idx[:3]}... gave other bits among other chains")
+    lay = {f"{h}x{w} K={k}": flc.launch_layout(1024, k, h, w)
+           for h, w, k in ((128, 128, 50), (64, 64, 30), (32, 32, 10))}
+    torch.cuda.synchronize()
+    print(f"B5 edges (ragged 96x128 K=37 and 100x84 K=50, 64x64 K=30, 20x48 K=7, 32x32 K=20 "
+          f"and K=128, K=1, K=128, scattered live stars in both mask forms; {c} chains, "
+          f"L={L}): max theta err {err:.3g}; the same bits on a rerun and for a chain alone "
+          f"or among others; layout at 1024 chains (threads a chain, blocks an SM, SMs "
+          f"filled): {json.dumps(lay)}")
+    return err
+
+
+def check_b3_edges(frd, cfg, dev):
+    """Phase 3b: B3 where its layout and tiles are most at risk, chain by
+    chain against its plain version (_compare_chains, beta 0.7, 6 x 4):
+    one chain, an odd count, one star, the card's SM count of chains and
+    one more, K = 16 at 48x48 and at 40x48, a scene taller than 48 rows
+    (96x24, held transposed) and scattered dead slots; a chain gives the
+    same bits in a launch of the SM count and of one more (one layout,
+    256 threads a chain, at every chain count), on a rerun and alone or
+    among others; and the launch's layout at both timed shapes.  Returns
+    the largest theta error."""
+    import torch
+
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    spec, prior = cfg.scene, cfg.prior
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edges = ((1, 16, 32, 32), (7, 16, 32, 32), (33, 1, 32, 32), (sms, 10, 32, 32),
+             (sms + 1, 10, 32, 32), (9, 16, 48, 48), (16, 16, 40, 48), (16, 10, 96, 24))
+    err = 0.0
+
+    def check(name, e_spec, e_img, theta, xi, eps, mask):
+        c, k = theta.shape[:2]
+        fused = frd.make_fused_rhmc_diag(e_spec, e_img, prior, k, 6, 4)
+        out = fused(theta, xi, eps, mask, torch.tensor(0.7, device=dev))
+        ref = frd.fused_rhmc_diag_reference(e_spec, e_img, prior, theta, xi, eps, mask, 0.7, 6, 4)
+        e = _compare_chains(f"B3 {name}", out, ref)
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = (live == 0) & (out[5] < SOLVER_TOL)[:, None]
+        if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+            raise AssertionError(f"B3 {name}: a dead slot moved")
+        return e, fused, out
+
+    for i, (c, k, h, w) in enumerate(edges):
+        if (h, w) == (32, 32):
+            e_spec, e_img = spec, img
+            theta, xi, eps, mask = _rhmc_inputs(truth, c, k, dev, 60 + i, k >= 6)
+        else:
+            e_spec, e_img, theta, xi, eps, mask = _cut_inputs(h, w, k, c, dev, 60 + i)
+        err = max(err, check(f"edge C={c} K={k} {h}x{w}", e_spec, e_img, theta, xi, eps,
+                             mask)[0])
+    # scattered dead slots: the even slots of even chains, the odd of odd ones
+    theta, xi, eps, _ = _rhmc_inputs(truth, 64, 16, dev, 68, True)
+    slot = torch.arange(16, device=dev)
+    mask = ((slot[None] + torch.arange(64, device=dev)[:, None]) % 2 == 0).to(torch.float32)
+    err = max(err, check("scattered dead slots", spec, img, theta, xi, eps, mask)[0])
+
+    # the same bits at the SM count and one more, on a rerun, alone or among others
+    theta, xi, eps, mask = _rhmc_inputs(truth, sms + 1, 10, dev, 69, False)
+    fused = frd.make_fused_rhmc_diag(spec, img, prior, 10, 16, 6)
+    wide = fused(theta[:sms].contiguous(), xi[:sms].contiguous(), eps[:sms].contiguous(), mask)
+    narrow = fused(theta, xi, eps, mask)
+    if not _same_bits(wide, [o[:sms] for o in narrow]):
+        raise AssertionError(f"B3: a chain gave other bits among {sms} and {sms + 1} chains")
+    if not _same_bits(narrow, fused(theta, xi, eps, mask)):
+        raise AssertionError("B3: a rerun on the same inputs gave other bits")
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(sms - 1, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(), mask)
+        if not _same_bits(part, [o[sel] for o in wide]):
+            raise AssertionError(f"B3: chains {idx[:3]}... gave other bits among other chains")
+    lay = {name: frd.launch_layout(c, k, spec.height, spec.width)
+           for name, c, k in (("cfg5", 256, 16), ("cfg1 diag", 128, 10))}
+    torch.cuda.synchronize()
+    print(f"B3 edges ({', '.join(f'C={c} K={k} {h}x{w}' for c, k, h, w in edges)}, scattered "
+          f"dead slots): max theta err {err:.3g}; the same bits among {sms} and {sms + 1} "
+          f"chains, on a rerun and alone or among others; "
+          f"layout {json.dumps(lay)}")
+    return err
 
 
 def b4_inputs(truth, c, k, dev, seed, per_chain):
@@ -1149,8 +1318,10 @@ def main() -> int:
     cfg4 = CONFIGS["cfg4_crowded"]
     err, ms = check_kernel(fl, cfg, dev)
     err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
+    err_b3 = max(err_b3, check_b3_edges(frd, CONFIGS["cfg5_transdim_mcmc"], dev))
     err_b6, ms_b6 = check_rhmc_full_kernel(fr, rhmc, CONFIGS["cfg3_transdim_smc"], dev)
     err_b5, ms_b5 = check_b5_kernel(flc, fl, hmc, cfg4, cfg, dev)
+    err_b5 = max(err_b5, check_b5_edges(flc, fl, cfg4, dev))
     err_b4, ms_b4 = check_b4_kernel(frdc, frd, rhmc, cfg4, CONFIGS["cfg5_transdim_mcmc"], dev)
 
     fl.reset_launch_counts()

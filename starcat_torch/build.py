@@ -85,7 +85,9 @@ def _error_strings(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _leapfrog_library(name: str) -> ctypes.CDLL:
+def leapfrog_library(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu's library (built at first use), its leapfrog entry
+    typed."""
     lib = ctypes.CDLL(str(build_kernel(name)[0]))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, f"starcat_{name}")
@@ -134,7 +136,7 @@ def launch_leapfrog(name: str, image: torch.Tensor, kmax: int, scalars: tuple,
     p_out = torch.empty_like(p)
     grad_out = torch.empty_like(theta)
     u_out = torch.empty((c,), dtype=torch.float32, device=dev)
-    lib = _leapfrog_library(name)
+    lib = leapfrog_library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"starcat_{name}")(
@@ -214,6 +216,21 @@ def riemannian_library(name: str) -> ctypes.CDLL:
     fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
     fn.restype = ci
     return _error_strings(lib)
+
+
+def query_layout(lib: ctypes.CDLL, entry: str, c: int, kmax: int, height: int,
+                 width: int) -> dict:
+    """A build's launch layout for c chains from its ``entry`` (threads per
+    block, the blocks an SM holds, the SMs the grid fills)."""
+    fn = getattr(lib, entry)
+    ci = ctypes.c_int
+    fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+    fn.restype = ci
+    out = [ci() for _ in range(3)]
+    rc = fn(c, kmax, height, width, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed ({rc})")
+    return dict(zip(("threads", "blocks_per_sm", "sms_filled"), (x.value for x in out)))
 
 
 def riemannian_scalars(spec, prior, jitter: float) -> tuple:

@@ -1,5 +1,6 @@
 // Diagonal-Fisher Riemannian trajectory on Hopper (sm_90a), one thread
-// block per chain.
+// block per chain, its pixel passes written as register-tiled block GEMMs
+// in FP32 on the CUDA cores.
 //
 // Replaces the Pallas kernel B3 of starcat/pallas_rhmc_diag.py:
 //   make_pallas_rhmc_diag_leapfrog (_rhmc_diag_kernel -> rhmc_diag_trajectory_tile)
@@ -21,21 +22,56 @@
 // at the iterate), then one rebuild of everything theta-dependent, reused by
 // the step's last momentum half-step and the next step's sweeps.
 //
-// Layout: the chain's image, 1/lam and one working field (rho, then
-// q / lam^2), the ten per-star profile sets (gx, gx', gx'', gx^2, gx'^2 and
-// the same in y) and the small (K, 3) state all stay in shared memory:
-// 4 (3 H W + 5 K (H + W) + 70 K + 8) bytes, 37 KB at 32x32 with K = 16.
-// Device memory sees theta, xi and the outputs once.  Pixel loops spread over
-// the block's 256 threads; the row contractions give one warp to one star
-// (lanes over columns, a serial sum down the rows), then W-length dots by
-// warp shuffles.
+// What bounded it: latency, not work.  A 6 x 4 trajectory at 32x32 and
+// K = 16 is about 4.4 M FMAs a chain, some 70 K clocks of FP32 work an SM at
+// 256 chains, against 1.2 M clocks measured: each pass took one pixel or
+// one star a thread with a serial loop over the other, one to three shared
+// loads an FMA, runtime integer division and IEEE divisions in every
+// profile element, ten stored profile sets, dead slots computed everywhere
+// and, at 256 threads a chain, two blocks (16 warps) an SM to hide it.
 //
-// What bounds it on this card: work and latency, not bytes.  Per sweep and
-// chain the q field and its contraction cost about 5 K H W FMAs and a
-// position sweep about 3 K H W plus K (H + W) expf; the rebuild about 10 K H W.
-// With one block per chain, 256 chains (the cfg5 preset) fill only about two
-// blocks per SM of the 132, and the warp-per-star contraction leaves warps
-// idle when K is not a multiple of 8: latency, not the FMA rate, bounds it.
+// What the design does about it:
+//   * the scene's rows sit in a compile-time tile of TR = 4, 16, 32 or 48
+//     rows (the scene is transposed when its height exceeds 48, so its rows
+//     are at most 48 and H W <= 48^2 is covered); every field and y-side
+//     set is stored by column at the immediate stride TR, rows past H zero;
+//   * only the live stars (m != 0) are passes' depth and output: the mask
+//     is fixed along a trajectory, so the block lists them once at entry;
+//     a dead slot keeps zero sums, metric 1 + jitter and zero momentum, and
+//     its theta comes back bit for bit;
+//   * the render and the q field are (Gy a)^T Gx register tiles, R rows x
+//     one column a thread (R = TR 32 / threads, at least 1), with 1/lam,
+//     rho = beta (D/lam - 1) and the log-likelihood (double), or q / lam^2,
+//     as epilogues; the q field's operands are gy^2, gy'^2 (built once per
+//     position) and gx^2 (a0 zs^2 + a2), a1 gx^2 (once per sweep);
+//   * the contractions are field @ X(W, n nl): a thread holds TR / 8 rows
+//     of one star's n column products, made in registers from gx as it is
+//     loaded (gx, gx'; gx'^2, gx^2; and in a build gx gx', gx'' gx'), over
+//     a run of columns; the epilogue forms the y-side products from gy and
+//     sums over its rows, then a butterfly over the lanes that hold a
+//     star's rows and the column runs added in shared memory in a fixed
+//     order;
+//     the star slots are 4, 8 or 16, the fewest that hold the live stars,
+//     and the threads they leave take more column runs;
+//   * only gx and gy are stored profile sets (and the q field's four
+//     operand sets); the derivative profiles are made in registers;
+//   * each sweep's per-element update (the momentum or position iterate,
+//     the Picard delta's partial maxima by warp shuffles, the next sweep's
+//     weights, written into a second buffer while the first is still read)
+//     is the epilogue of the phase that computes it, not phases and block
+//     barriers of its own;
+//   * the render's, the q field's and the contractions' depth loops are
+//     unrolled by two, so that a warp has two iterations' loads in flight;
+//   * 256 threads a chain at every C, two blocks an SM (512 threads at one
+//     chain an SM, cfg1's diagonal metric, measured no faster);
+//     starcat_fused_rhmc_diag_layout reports the layout.
+// Reductions run in a fixed order, so two runs on the same inputs give the
+// same bits, and a chain the same bits alone or among others.
+//
+// What bounds it now: still latency.  Each pass costs 1.5-3 K cycles for
+// 100-200 FMAs a thread (scripts/b3_pass_clocks.py), the rebuild's per-star
+// phase runs in one warp, and cfg5's 256 chains give two 8-warp blocks an
+// SM.
 //
 // Accuracy: no fast math (expf, logf, IEEE division and square root).  The
 // log-likelihood and the energies sum in double, so h0 and h1 carry no
@@ -43,8 +79,7 @@
 // residual is a NaN-propagating max (fmaxf would drop it), so a chain that
 // blows up reports NaN and the head rejects it as a solver failure.  A dead
 // slot (m = 0) gets flux 0 by selection, not by multiplying exp(s) by 0, so
-// an extreme theta in a dead slot cannot make NaN; its momentum is zero and
-// its theta comes back unchanged bit for bit.
+// an extreme theta in a dead slot cannot make NaN.
 //
 // Domain (checked by the wrapper): H*W <= 48*48, 1 <= K <= 16, and the
 // block's shared memory (smem_floats) within the card's 227 KB.
@@ -52,8 +87,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxStars = 16;
+constexpr int kS = kMaxStars;  // stride of the per-star result arrays
+constexpr int kMaxRows = 48;   // the largest tile
+constexpr int kThreads = 256;  // a chain's block: two blocks (16 warps) an SM
 
 struct Params {
   const float* theta;   // (C, K, 3)
@@ -74,58 +111,145 @@ struct Params {
   float logf_mean, logf_sigma, lp_flux_const, jitter;
 };
 
-// Per-star scalars, index k; per-element state, index a = 3 k + t.
-struct Smem {
-  // stars (K each)
-  float *su, *sv, *x, *y, *w, *wcx, *wcy, *wcx2, *wcy2, *wcxx, *wcyy, *wcxcy;
-  float *m;
-  // contraction results per star: Sum gx'*rg, gx*rg1, gx*rg and d1..d9
-  float *dot, *dd;  // dot: (3, K); dd: (9, K)
-  // elements (3K each)
-  float *th_b, *p_b, *ph, *th, *base, *g, *gs, *t1, *infod, *wt, *grad_u;
-  float *cten;      // (3, 3, K): C[ta][tc][k]
-  float *aq;        // (3, K): wt_a * coef_a^2 per star for the q field
-  float *scal;      // u, h, delta scratch
-  // fields (H W each) and profiles
-  float *img, *r1, *fld;
-  float *gx, *gx1, *gxd2, *gxsq, *gx1sq;  // (K, W)
-  float *gy, *gy1, *gyd2, *gysq, *gy1sq;  // (K, H)
+// How a block of kThreads threads tiles TR rows.
+template <int TR>
+struct Tile {
+  static constexpr int kR = TR * 32 / kThreads > 1 ? TR * 32 / kThreads : 1;  // render rows
+  static constexpr int kG = TR / kR;             // render row groups
+  static constexpr int kCols = kThreads / kG;    // render columns a round
+  static constexpr int kGc = TR < 8 ? TR : 8;    // contraction lanes over a star's rows
+  static constexpr int kRc = TR / kGc;           // contraction rows a thread
+  static constexpr int kSW = 32 / kGc;           // contraction stars a warp
 };
+
+// The scene as the block holds it: rows (at most 48) and columns, the
+// scene transposed when its height exceeds 48.
+__host__ __device__ inline void scene_tile(int H, int W, int* rows, int* cols, int* tr,
+                                           bool* swap) {
+  *swap = H > kMaxRows;
+  *rows = *swap ? W : H;
+  *cols = *swap ? H : W;
+  *tr = *rows <= 4 ? 4 : (*rows <= 16 ? 16 : (*rows <= 32 ? 32 : 48));
+}
+
+// Star slots a contraction's rows hold for n stars: 4, 8 or 16, at least a
+// warp's stars.
+__host__ __device__ inline int star_slots(int n, int tr) {
+  const int sw = 32 / (tr < 8 ? tr : 8);
+  const int ns = n <= 4 ? 4 : (n <= 8 ? 8 : 16);
+  return ns > sw ? ns : sw;
+}
 
 // mirrored by smem_bytes() in fused_rhmc_diag.py, which checks the domain
 __host__ __device__ inline int smem_floats(int K, int H, int W) {
-  return 13 * K + 12 * K + 11 * 3 * K + 9 * K + 3 * K + 8
-         + 3 * H * W + 5 * K * W + 5 * K * H;
+  int rows, cols, tr;
+  bool swap;
+  scene_tile(H, W, &rows, &cols, &tr, &swap);
+  const int ldx = cols | 1;
+  return 2 * tr * cols + 3 * K * (tr + ldx) + kThreads / 16 + 3 * kThreads
+         + 9 * kS + kS + 21 * kS + 30 * kS + 12;
 }
 
-__device__ inline Smem carve(float* base, int K, int H, int W) {
+// Shapes of one launch in the block's orientation.
+struct Dims {
+  int K, H, W;   // H rows (<= TR), W columns
+  int ldx;       // the x-side sets' row stride, W | 1
+  int nl, ns;    // live stars; a contraction's star slots
+  bool swap;     // the scene's rows are the block's columns
+};
+
+// Per-slot arrays index k (stride kS); compact (live-star) arrays index j,
+// slot live[j]; per-element state index a = 3 k + t.
+struct Smem {
+  float *r1, *fld;                // (W, TR): pixel (h, w) at w TR + h
+  float *gy, *qy0, *qy1;          // (K, TR), compact: gy, gy^2, gy'^2
+  float *gx, *qx0, *qx1;          // (K, ldx), compact: gx and the q field's operands
+  double* red;                    // kThreads / 32
+  float *part;                    // 3 kThreads: the column runs' partial sums
+  float *su, *sv, *w, *wcx, *wcy, *m;  // per slot
+  float *cx, *cy, *cw;            // compact: x, y, flux
+  int* live;                      // kS
+  float *dot, *dd, *cten;         // per slot: (3, kS), (9, kS), (9, kS)
+  float *th_b, *p_b, *ph, *th, *base, *g, *t1, *infod;  // 3 kS each
+  float *wt, *wt2;                // 3 kS each: a sweep's weights and the next's
+  float *scal;                    // u, h, the sweeps' delta partials, the live count
+};
+
+template <int TR>
+__device__ inline Smem carve(float* base, const Dims& D) {
   Smem s;
   float* q = base;
   auto take = [&q](int n) { float* r = q; q += n; return r; };
-  s.su = take(K); s.sv = take(K); s.x = take(K); s.y = take(K); s.w = take(K);
-  s.wcx = take(K); s.wcy = take(K); s.wcx2 = take(K); s.wcy2 = take(K);
-  s.wcxx = take(K); s.wcyy = take(K); s.wcxcy = take(K); s.m = take(K);
-  s.dot = take(3 * K); s.dd = take(9 * K);
-  s.th_b = take(3 * K); s.p_b = take(3 * K); s.ph = take(3 * K); s.th = take(3 * K);
-  s.base = take(3 * K); s.g = take(3 * K); s.gs = take(3 * K); s.t1 = take(3 * K);
-  s.infod = take(3 * K); s.wt = take(3 * K); s.grad_u = take(3 * K);
-  s.cten = take(9 * K); s.aq = take(3 * K); s.scal = take(8);
-  s.img = take(H * W); s.r1 = take(H * W); s.fld = take(H * W);
-  s.gx = take(K * W); s.gx1 = take(K * W); s.gxd2 = take(K * W);
-  s.gxsq = take(K * W); s.gx1sq = take(K * W);
-  s.gy = take(K * H); s.gy1 = take(K * H); s.gyd2 = take(K * H);
-  s.gysq = take(K * H); s.gy1sq = take(K * H);
+  // the fields and y-side sets first (multiples of 4 floats each): every
+  // vector they are read by is aligned, and so are the doubles after them
+  s.r1 = take(TR * D.W); s.fld = take(TR * D.W);
+  s.gy = take(D.K * TR); s.qy0 = take(D.K * TR); s.qy1 = take(D.K * TR);
+  s.red = reinterpret_cast<double*>(take(kThreads / 16));
+  s.gx = take(D.K * D.ldx); s.qx0 = take(D.K * D.ldx); s.qx1 = take(D.K * D.ldx);
+  s.part = take(3 * kThreads);
+  s.su = take(kS); s.sv = take(kS); s.w = take(kS); s.wcx = take(kS); s.wcy = take(kS);
+  s.m = take(kS); s.cx = take(kS); s.cy = take(kS); s.cw = take(kS);
+  s.live = reinterpret_cast<int*>(take(kS));
+  s.dot = take(3 * kS); s.dd = take(9 * kS); s.cten = take(9 * kS);
+  s.th_b = take(3 * kS); s.p_b = take(3 * kS); s.ph = take(3 * kS); s.th = take(3 * kS);
+  s.base = take(3 * kS); s.g = take(3 * kS); s.t1 = take(3 * kS);
+  s.infod = take(3 * kS); s.wt = take(3 * kS); s.wt2 = take(3 * kS);
+  s.scal = take(12);
   return s;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// R consecutive floats, in the widest aligned vectors (p is a multiple of
+// R floats from an aligned base).
+template <int R>
+__device__ __forceinline__ void ld_rows(const float* p, float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
+    }
+  } else if constexpr (R % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i);
+      v[i] = t.x; v[i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] = p[i];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void st_rows(float* p, const float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (R % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 2) *reinterpret_cast<float2*>(p + i) = make_float2(v[i], v[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = v[i];
+  }
 }
 
 __device__ __forceinline__ double warp_sum_d(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sum over the block, in a fixed order; every thread gets the total.
+__device__ double block_sum_d(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum_d(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double tot = 0.0;
+  for (int i = 0; i < kThreads / 32; ++i) tot += red[i];
+  __syncthreads();
+  return tot;
 }
 
 // max that propagates NaN from either side (fmaxf drops it)
@@ -146,227 +270,404 @@ __device__ __forceinline__ float softplusf(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-// Per-star coefficients and the ten profile sets at theta `th` (3K).
-// Every thread of the block calls it; it ends synchronised.
-__device__ void profiles(const Params& P, const Smem& s, const float* th) {
-  const int tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W;
-  const float sig = P.psf_sigma;
-  if (tid < K) {
+// Per-slot coefficients at theta `th` (3K), the live stars' positions and
+// fluxes, and their profiles gx, gy (and with `build` the q field's y-side
+// operands gy^2, gy'^2), zero past W and H.  Every thread of the block
+// calls it; it ends synchronised.
+template <int TR>
+__device__ void profiles(const Params& P, const Smem& s, const Dims& D, const float* th,
+                         const int* ci, bool build) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float sig = P.psf_sigma, inv_sig = 1.0f / sig;
+  if (tid < D.K) {
     const int k = tid;
     const float su = sigmoidf(th[3 * k]), sv = sigmoidf(th[3 * k + 1]);
-    const float cx = W * su * (1.0f - su), cy = H * sv * (1.0f - sv);
-    const float cx2 = cx * (1.0f - 2.0f * su), cy2 = cy * (1.0f - 2.0f * sv);
     const float m = s.m[k];
     const float w = (m != 0.0f) ? expf(th[3 * k + 2]) * m : 0.0f;
-    s.su[k] = su; s.sv[k] = sv;
-    s.x[k] = W * su; s.y[k] = H * sv; s.w[k] = w;
-    s.wcx[k] = w * cx; s.wcy[k] = w * cy; s.wcx2[k] = w * cx2; s.wcy2[k] = w * cy2;
-    s.wcxx[k] = w * cx * cx; s.wcyy[k] = w * cy * cy; s.wcxcy[k] = w * cx * cy;
-  }
-  __syncthreads();
-  const float sig2 = sig * sig;
-  for (int i = tid; i < K * W; i += kThreads) {
-    const int k = i / W, col = i - k * W;
-    const float z = ((col + 0.5f) - s.x[k]) / sig;
-    const float g = expf(-0.5f * z * z) * P.psf_norm;
-    const float g1 = g * z / sig;
-    s.gx[i] = g; s.gx1[i] = g1; s.gxd2[i] = g * (z * z - 1.0f) / sig2;
-    s.gxsq[i] = g * g; s.gx1sq[i] = g1 * g1;
-  }
-  for (int i = tid; i < K * H; i += kThreads) {
-    const int k = i / H, row = i - k * H;
-    const float z = ((row + 0.5f) - s.y[k]) / sig;
-    const float g = expf(-0.5f * z * z) * P.psf_norm;
-    const float g1 = g * z / sig;
-    s.gy[i] = g; s.gy1[i] = g1; s.gyd2[i] = g * (z * z - 1.0f) / sig2;
-    s.gysq[i] = g * g; s.gy1sq[i] = g1 * g1;
-  }
-  __syncthreads();
-}
-
-// lam -> s.r1 = 1/lam.  With `full`, also s.fld = beta (D/lam - 1) and the
-// log-likelihood sum_p D log lam - lam (double), returned to every thread.
-__device__ double render(const Params& P, const Smem& s, float beta, bool full) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = P.K, H = P.H, W = P.W;
-  __shared__ double red[kWarps];
-  double ll = 0.0;
-  for (int pix = tid; pix < H * W; pix += kThreads) {
-    const int h = pix / W, col = pix - h * W;
-    float lam = P.background;
-    for (int k = 0; k < K; ++k) lam = lam + (s.gy[k * H + h] * s.w[k]) * s.gx[k * W + col];
-    const float r1 = 1.0f / lam;
-    s.r1[pix] = r1;
-    if (full) {
-      const float d = s.img[pix];
-      ll += static_cast<double>(d * logf(lam) - lam);
-      s.fld[pix] = beta * (d * r1 - 1.0f);
+    s.su[k] = su; s.sv[k] = sv; s.w[k] = w;
+    s.wcx[k] = w * (D.W * su * (1.0f - su));
+    s.wcy[k] = w * (D.H * sv * (1.0f - sv));
+    const int j = ci[k];
+    if (j >= 0) {
+      s.cx[j] = D.W * su; s.cy[j] = D.H * sv; s.cw[j] = w;
     }
   }
-  if (full) {
-    ll = warp_sum_d(ll);
-    if (lane == 0) red[warp] = ll;
+  __syncthreads();
+  // a warp per star, its lanes over the columns and the tile's rows
+  for (int j = warp; j < D.nl; j += kThreads / 32) {
+    const float x = s.cx[j], y = s.cy[j];
+    for (int col = lane; col < D.W; col += 32) {
+      const float z = ((col + 0.5f) - x) / sig;
+      s.gx[j * D.ldx + col] = expf(-0.5f * z * z) * P.psf_norm;
+    }
+    for (int h = lane; h < TR; h += 32) {
+      float g = 0.0f, g1 = 0.0f;
+      if (h < D.H) {
+        const float z = ((h + 0.5f) - y) / sig;
+        g = expf(-0.5f * z * z) * P.psf_norm;
+        g1 = g * z * inv_sig;
+      }
+      s.gy[j * TR + h] = g;
+      if (build) {
+        s.qy0[j * TR + h] = g * g;
+        s.qy1[j * TR + h] = g1 * g1;
+      }
+    }
   }
   __syncthreads();
-  double tot = 0.0;
-  if (full) {
-    for (int i = 0; i < kWarps; ++i) tot += red[i];
-  }
-  return tot;
 }
 
-// Row contractions, one warp per star.  Modes:
-//   kBuild: s.fld (rho) against gy, gy' -> dot; 1/lam against gy^2, gy'^2,
-//           gy' gy, gy'' gy' -> d1..d9
-//   kSolve: 1/lam against gy^2, gy'^2 -> d1, d6, d9
-//   kField: s.fld (q / lam^2) against gy, gy' -> dot
+// lam = bg + (Gy w)^T Gx -> s.r1 = 1/lam.  With `full`, also s.fld = beta
+// (D/lam - 1) and the log-likelihood sum_p D log lam - lam (double),
+// returned to every thread.  Rows past H get 0.  Ends synchronised.
+template <int TR>
+__device__ double render(const Params& P, const Smem& s, const Dims& D, float beta,
+                         bool full) {
+  using T = Tile<TR>;
+  constexpr int R = T::kR;
+  const int tid = threadIdx.x;
+  const int h0 = (tid % T::kG) * R;
+  double ll = 0.0;
+  for (int col = tid / T::kG; col < D.W; col += T::kCols) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = P.background;
+    const float* py = s.gy + h0;
+    const float* px = s.gx + col;
+#pragma unroll 2
+    for (int j = 0; j < D.nl; ++j) {
+      float y[R];
+      ld_rows<R>(py, y);
+      const float x = *px * s.cw[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(y[r], x, acc[r]);
+      py += TR;
+      px += D.ldx;
+    }
+    float r1[R], f[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int h = h0 + r;
+      r1[r] = 0.0f;
+      f[r] = 0.0f;
+      if (h < D.H) {
+        const float lam = acc[r];
+        r1[r] = 1.0f / lam;
+        if (full) {  // the image through the read-only path, in the block's orientation
+          const float d = __ldg(P.image + (D.swap ? col * D.H + h : h * D.W + col));
+          ll += static_cast<double>(d * logf(lam) - lam);
+          f[r] = beta * (d * r1[r] - 1.0f);
+        }
+      }
+    }
+    st_rows<R>(s.r1 + col * TR + h0, r1);
+    if (full) st_rows<R>(s.fld + col * TR + h0, f);
+  }
+  if (full) return block_sum_d(ll, s.red);  // synchronises
+  __syncthreads();
+  return 0.0;
+}
+
+// Contractions over the columns, M(H, n nl) = field @ X(W, n nl), then the
+// sum over rows against the y-side products.  Modes:
+//   kBuild: s.fld (rho) @ [gx, gx'] against gy, gy' -> dot; 1/lam @ [gx'^2,
+//           gx gx', gx^2, gx'' gx'] against gy^2, gy'^2, gy' gy, gy'' gy'
+//           -> d1..d9
+//   kSolve: 1/lam @ [gx'^2, gx^2] against gy^2, gy'^2 -> d1, d6, d9
+//   kField: s.fld (q / lam^2) @ [gx, gx'] against gy, gy' -> dot
+// A thread holds TR / 8 rows (kRc) of one star's products over one run of
+// columns; the kGc lanes of a star hold its rows, a warp kSW stars, ns / kSW
+// warps a run's star slots, and the rest of the block further runs.  Ends
+// synchronised.
 enum { kBuild = 0, kSolve = 1, kField = 2 };
 
-template <int MODE>
-__device__ void contract(const Params& P, const Smem& s) {
+template <int TR, int MODE>
+__device__ void contract(const Params& P, const Smem& s, const Dims& D) {
+  using T = Tile<TR>;
+  constexpr int kRc = T::kRc, kGc = T::kGc, kSW = T::kSW;
+  constexpr int kF = MODE == kSolve ? 0 : 2;                          // field products
+  constexpr int kL = MODE == kField ? 0 : (MODE == kBuild ? 4 : 2);   // 1/lam products
+  constexpr int kSums = (kF ? 3 : 0) + (MODE == kBuild ? 9 : (MODE == kSolve ? 3 : 0));
+  if (D.nl == 0) return;  // every sum stays 0
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = P.K, H = P.H, W = P.W;
-  for (int k = warp; k < K; k += kWarps) {
-    const float *gy = s.gy + k * H, *gy1 = s.gy1 + k * H, *gyd2 = s.gyd2 + k * H;
-    const float *gysq = s.gysq + k * H, *gy1sq = s.gy1sq + k * H;
-    float du = 0.f, dv = 0.f, ds = 0.f;
-    float d1 = 0.f, d2 = 0.f, d3 = 0.f, d4 = 0.f, d5 = 0.f, d6 = 0.f,
-          d7 = 0.f, d8 = 0.f, d9 = 0.f;
-    for (int col = lane; col < W; col += 32) {
-      float rg = 0.f, rg1 = 0.f, ra = 0.f, rb = 0.f, rc = 0.f, rd = 0.f;
-      for (int h = 0; h < H; ++h) {
-        const int pix = h * W + col;
-        if (MODE != kSolve) {
-          const float q = s.fld[pix];
-          rg += q * gy[h];
-          rg1 += q * gy1[h];
-        }
-        if (MODE != kField) {
-          const float r = s.r1[pix];
-          ra += r * gysq[h];
-          rb += r * gy1sq[h];
-          if (MODE == kBuild) {
-            rc += r * (gy1[h] * gy[h]);
-            rd += r * (gyd2[h] * gy1[h]);
-          }
-        }
+  const int rg = lane % kGc;
+  const int nsw = D.ns / kSW;
+  const int j = kSW * (warp % nsw) + lane / kGc;  // star slot, compact
+  const int run = warp / nsw, runs = (kThreads / 32) / nsw;
+  const int wbeg = run * D.W / runs, wend = (run + 1) * D.W / runs;
+  const int h0 = rg * kRc;
+  // a slot past the live stars computes the last live star's sums again,
+  // which are never stored
+  const int jc = min(j, D.nl - 1);
+  const float sig = P.psf_sigma, inv_sig = 1.0f / sig, inv_sig2 = inv_sig * inv_sig;
+
+  float aF[kF > 0 ? kF : 1][kRc], aL[kL > 0 ? kL : 1][kRc];
+#pragma unroll
+  for (int r = 0; r < kRc; ++r) {
+#pragma unroll
+    for (int o = 0; o < kF; ++o) aF[o][r] = 0.0f;
+#pragma unroll
+    for (int o = 0; o < kL; ++o) aL[o][r] = 0.0f;
+  }
+  const float xh = s.cx[jc] - 0.5f;  // z sigma = w - xh, exact near the star
+  const float* pf = s.fld + wbeg * TR + h0;
+  const float* pl = s.r1 + wbeg * TR + h0;
+  const float* pg = s.gx + jc * D.ldx;
+#pragma unroll 2
+  for (int w = wbeg; w < wend; ++w) {
+    const float gx = pg[w];
+    const float zs = (static_cast<float>(w) - xh) * inv_sig2;  // z / sigma
+    if constexpr (kF > 0) {
+      float v[kRc];
+      ld_rows<kRc>(pf, v);
+      const float g1 = gx * zs;  // gx'
+#pragma unroll
+      for (int r = 0; r < kRc; ++r) {
+        aF[0][r] = fmaf(v[r], gx, aF[0][r]);
+        aF[1][r] = fmaf(v[r], g1, aF[1][r]);
       }
-      const int i = k * W + col;
-      const float gx = s.gx[i], gx1 = s.gx1[i];
-      if (MODE != kSolve) {
-        du += gx1 * rg;
-        dv += gx * rg1;
-        ds += gx * rg;
+      pf += TR;
+    }
+    if constexpr (kL > 0) {
+      float v[kRc], op[kL];
+      ld_rows<kRc>(pl, v);
+      const float t = gx * gx;
+      if (MODE == kSolve) {
+        op[0] = (t * zs) * zs;                          // gx'^2
+        op[1] = t;                                      // gx^2
+      } else {
+        const float u = t * zs;                         // gx gx'
+        op[0] = u * zs;                                 // gx'^2
+        op[1] = u;
+        op[2] = t;                                      // gx^2
+        op[3] = u * fmaf(zs, zs, -inv_sig2);            // gx'' gx'
       }
-      if (MODE != kField) {
-        const float gxsq = s.gxsq[i], gx1sq = s.gx1sq[i];
-        d1 += gx1sq * ra;
-        d6 += gxsq * rb;
-        d9 += gxsq * ra;
-        if (MODE == kBuild) {
-          const float gxx1 = gx * gx1;
-          d2 += (s.gxd2[i] * gx1) * ra;
-          d3 += gxx1 * rb;
-          d4 += gxx1 * ra;
-          d5 += gx1sq * rc;
-          d7 += gxsq * rd;
-          d8 += gxsq * rc;
-        }
+#pragma unroll
+      for (int o = 0; o < kL; ++o)
+#pragma unroll
+        for (int r = 0; r < kRc; ++r) aL[o][r] = fmaf(v[r], op[o], aL[o][r]);
+      pl += TR;
+    }
+  }
+  // the sum over rows against the y-side products
+  float sums[kSums];
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) sums[q] = 0.0f;
+  {
+    float gyv[kRc];
+    ld_rows<kRc>(s.gy + jc * TR + h0, gyv);
+    const float yh = s.cy[jc] - 0.5f;
+#pragma unroll
+    for (int r = 0; r < kRc; ++r) {
+      const float gy = gyv[r];
+      const float dy = static_cast<float>(h0 + r) - yh;  // z sigma
+      const float zy = dy * inv_sig;
+      const float gy1 = gy * (dy * inv_sig2);           // gy'
+      if constexpr (kF > 0) {
+        sums[0] = fmaf(gy, aF[1][r], sums[0]);          // du
+        sums[1] = fmaf(gy1, aF[0][r], sums[1]);         // dv
+        sums[2] = fmaf(gy, aF[0][r], sums[2]);          // ds
+      }
+      constexpr int o = kF ? 3 : 0;
+      if constexpr (MODE == kSolve) {
+        const float ya = gy * gy, yb = gy1 * gy1;
+        sums[o] = fmaf(ya, aL[0][r], sums[o]);          // d1
+        sums[o + 1] = fmaf(yb, aL[1][r], sums[o + 1]);  // d6
+        sums[o + 2] = fmaf(ya, aL[1][r], sums[o + 2]);  // d9
+      } else if constexpr (MODE == kBuild) {
+        const float ya = gy * gy, yb = gy1 * gy1, yc = gy1 * gy;
+        const float yd = yc * (zy * zy - 1.0f) * inv_sig2;  // gy'' gy'
+        const float m1 = aL[0][r], m2 = aL[1][r], m3 = aL[2][r], m4 = aL[3][r];
+        sums[o] = fmaf(ya, m1, sums[o]);
+        sums[o + 1] = fmaf(ya, m4, sums[o + 1]);
+        sums[o + 2] = fmaf(yb, m2, sums[o + 2]);
+        sums[o + 3] = fmaf(ya, m2, sums[o + 3]);
+        sums[o + 4] = fmaf(yc, m1, sums[o + 4]);
+        sums[o + 5] = fmaf(yb, m3, sums[o + 5]);
+        sums[o + 6] = fmaf(yd, m3, sums[o + 6]);
+        sums[o + 7] = fmaf(yc, m3, sums[o + 7]);
+        sums[o + 8] = fmaf(ya, m3, sums[o + 8]);
       }
     }
-    if (MODE != kSolve) {
-      du = warp_sum(du); dv = warp_sum(dv); ds = warp_sum(ds);
-      if (lane == 0) { s.dot[k] = du; s.dot[K + k] = dv; s.dot[2 * K + k] = ds; }
+  }
+  // a butterfly over the star's kGc lanes, then the runs in a fixed order
+#pragma unroll
+  for (int q = 0; q < kSums; ++q)
+#pragma unroll
+    for (int o = 1; o < kGc; o <<= 1) sums[q] += __shfl_xor_sync(0xffffffffu, sums[q], o);
+  if (runs > 1) {
+    if (run > 0 && rg == 0) {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) s.part[((run - 1) * kSums + q) * D.ns + j] = sums[q];
     }
-    if (MODE != kField) {
-      d1 = warp_sum(d1); d6 = warp_sum(d6); d9 = warp_sum(d9);
-      if (MODE == kBuild) {
-        d2 = warp_sum(d2); d3 = warp_sum(d3); d4 = warp_sum(d4);
-        d5 = warp_sum(d5); d7 = warp_sum(d7); d8 = warp_sum(d8);
-      }
-      if (lane == 0) {
-        s.dd[k] = d1; s.dd[5 * K + k] = d6; s.dd[8 * K + k] = d9;
-        if (MODE == kBuild) {
-          s.dd[K + k] = d2; s.dd[2 * K + k] = d3; s.dd[3 * K + k] = d4;
-          s.dd[4 * K + k] = d5; s.dd[6 * K + k] = d7; s.dd[7 * K + k] = d8;
-        }
+    __syncthreads();
+  }
+  if (run == 0 && rg == 0 && j < D.nl) {
+    const int k = s.live[j];
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) {
+      float v = sums[q];
+      for (int i = 1; i < runs; ++i) v += s.part[((i - 1) * kSums + q) * D.ns + j];
+      if (kF > 0 && q < 3) {
+        s.dot[q * kS + k] = v;
+      } else {
+        const int e = q - (kF ? 3 : 0);
+        // kSolve's three sums are d1, d6, d9
+        const int slot = MODE == kSolve ? (e == 0 ? 0 : (e == 1 ? 5 : 8)) : e;
+        s.dd[slot * kS + k] = v;
       }
     }
   }
   __syncthreads();
 }
 
-// g = (beta F + info) m + (1 - m) + jitter for star k, from d1, d6, d9,
-// into out[3k..3k+2], and info' into infod when given.  Run by thread k.
-__device__ void diag_metric_star(const Params& P, const Smem& s, int k, float beta,
-                                 float* out, float* infod) {
+// g_a = (beta F_a + info_a) m + (1 - m) + jitter for element a = 3 k + t
+// of star k, from d1, d6 or d9, and info'_a into *infod when given.
+__device__ float metric_element(const Params& P, const Smem& s, int k, int t, float beta,
+                                float* infod) {
   const float m = s.m[k];
-  const float su = s.su[k], sv = s.sv[k];
-  const float f_u = s.wcx[k] * s.wcx[k] * s.dd[k];
-  const float f_v = s.wcy[k] * s.wcy[k] * s.dd[5 * P.K + k];
-  const float f_s = s.w[k] * s.w[k] * s.dd[8 * P.K + k];
-  const float info_u = 2.0f * su * (1.0f - su) * m;
-  const float info_v = 2.0f * sv * (1.0f - sv) * m;
-  const float info_s = m / (P.logf_sigma * P.logf_sigma);
-  out[3 * k] = (beta * f_u + info_u) * m + (1.0f - m) + P.jitter;
-  out[3 * k + 1] = (beta * f_v + info_v) * m + (1.0f - m) + P.jitter;
-  out[3 * k + 2] = (beta * f_s + info_s) * m + (1.0f - m) + P.jitter;
-  if (infod != nullptr) {
-    infod[3 * k] = info_u * (1.0f - 2.0f * su);
-    infod[3 * k + 1] = info_v * (1.0f - 2.0f * sv);
-    infod[3 * k + 2] = 0.0f;
+  float f, info, dinfo;
+  if (t == 0) {
+    const float su = s.su[k];
+    f = s.wcx[k] * s.wcx[k] * s.dd[k];
+    info = 2.0f * su * (1.0f - su) * m;
+    dinfo = info * (1.0f - 2.0f * su);
+  } else if (t == 1) {
+    const float sv = s.sv[k];
+    f = s.wcy[k] * s.wcy[k] * s.dd[5 * kS + k];
+    info = 2.0f * sv * (1.0f - sv) * m;
+    dinfo = info * (1.0f - 2.0f * sv);
+  } else {
+    f = s.w[k] * s.w[k] * s.dd[8 * kS + k];
+    info = m / (P.logf_sigma * P.logf_sigma);
+    dinfo = 0.0f;
   }
+  if (infod != nullptr) *infod = dinfo;
+  return (beta * f + info) * m + (1.0f - m) + P.jitter;
 }
 
-// W(wt) of the module comment into out (3K), from s.wt at the structs'
-// theta: builds the q field into s.fld, contracts it, adds the C and info'
-// terms.  Every thread calls it; it ends synchronised.
-__device__ void wt_terms(const Params& P, const Smem& s, float beta, const float* add,
-                         float* out) {
-  const int tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W;
-  if (tid < K) {
-    const int k = tid;
-    s.aq[3 * k] = s.wt[3 * k] * (s.wcx[k] * s.wcx[k]);
-    s.aq[3 * k + 1] = s.wt[3 * k + 1] * (s.wcy[k] * s.wcy[k]);
-    s.aq[3 * k + 2] = s.wt[3 * k + 2] * (s.w[k] * s.w[k]);
-  }
-  __syncthreads();
-  for (int pix = tid; pix < H * W; pix += kThreads) {
-    const int h = pix / W, col = pix - h * W;
-    float q = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float tx = s.aq[3 * k] * s.gx1sq[k * W + col] + s.aq[3 * k + 2] * s.gxsq[k * W + col];
-      q = q + s.gysq[k * H + h] * tx;
-      const float tx2 = s.aq[3 * k + 1] * s.gxsq[k * W + col];
-      q = q + s.gy1sq[k * H + h] * tx2;
+// q = Qy0^T X0 + Qy1^T X1 times (1/lam)^2 into s.fld, with Qy0 = gy^2,
+// Qy1 = gy'^2 (built with the profiles) and, from wt, X0 = gx^2 (a0 zs^2
+// + a2), X1 = a1 gx^2, a = wt (w cx, w cy, w)^2: the old field's
+// sum_k (gx gy)^2 (a0 zx^2 + a1 zy^2 + a2) / sigma^2-scaled.  Every thread
+// calls it; it ends synchronised.
+template <int TR>
+__device__ void q_field(const Params& P, const Smem& s, const Dims& D, const float* wt) {
+  using T = Tile<TR>;
+  constexpr int R = T::kR;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float sig = P.psf_sigma, inv_sig = 1.0f / sig, inv_sig2 = inv_sig * inv_sig;
+  for (int j = warp; j < D.nl; j += kThreads / 32) {
+    const int k = s.live[j];
+    const float a0 = wt[3 * k] * (s.wcx[k] * s.wcx[k]);
+    const float a1 = wt[3 * k + 1] * (s.wcy[k] * s.wcy[k]);
+    const float a2 = wt[3 * k + 2] * (s.w[k] * s.w[k]);
+    const float xh = s.cx[j] - 0.5f;
+    for (int col = lane; col < D.W; col += 32) {
+      const float gx = s.gx[j * D.ldx + col];
+      const float t = gx * gx;
+      const float zs = (static_cast<float>(col) - xh) * inv_sig2;
+      s.qx0[j * D.ldx + col] = t * fmaf(a0, zs * zs, a2);
+      s.qx1[j * D.ldx + col] = a1 * t;
     }
-    const float r1 = s.r1[pix];
-    s.fld[pix] = q * (r1 * r1);
   }
   __syncthreads();
-  contract<kField>(P, s);
-  if (tid < 3 * K) {
+  const int h0 = (tid % T::kG) * R;
+  for (int col = tid / T::kG; col < D.W; col += T::kCols) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    const float* py0 = s.qy0 + h0;
+    const float* py1 = s.qy1 + h0;
+    const float* px0 = s.qx0 + col;
+    const float* px1 = s.qx1 + col;
+#pragma unroll 2
+    for (int j = 0; j < D.nl; ++j) {
+      float y0[R], y1[R];
+      ld_rows<R>(py0, y0);
+      ld_rows<R>(py1, y1);
+      const float x0 = *px0, x1 = *px1;
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(y1[r], x1, fmaf(y0[r], x0, acc[r]));
+      py0 += TR; py1 += TR;
+      px0 += D.ldx; px1 += D.ldx;
+    }
+    float r1[R];
+    ld_rows<R>(s.r1 + col * TR + h0, r1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = acc[r] * (r1[r] * r1[r]);
+    st_rows<R>(s.fld + col * TR + h0, acc);
+  }
+  __syncthreads();
+}
+
+// What the thread of element a does with dH_a = t1_a + W(wt)_a:
+//   kToT1      t1 = dH (a rebuild: t1 = dU + W(1/(2g)));
+//   kSweep     a momentum sweep: p_h = p - eps/2 dH, and the Picard delta's
+//              partial maxima into s.scal[2..5];
+//   kHalfStep  the step's last half-step: p = p_h - eps/2 dH, p_h = p.
+// Each then writes the next momentum sweep's weights, -(p_h / g)^2 / 2,
+// into wt_next: the weights wt are read by the other elements of a star
+// in the same phase.
+enum { kToT1 = 0, kSweep = 1, kHalfStep = 2 };
+
+// W(wt) of the module comment at the structs' theta (the q field into
+// s.fld, its contraction, the C and info' terms) and the update UPD of
+// each element, in one phase.  Every thread calls it; it ends synchronised.
+template <int TR, int UPD>
+__device__ void wt_terms(const Params& P, const Smem& s, const Dims& D, float beta,
+                         float half_eps, const float* wt, float* wt_next) {
+  const int tid = threadIdx.x;
+  q_field<TR>(P, s, D, wt);
+  contract<TR, kField>(P, s, D);
+  float num = 0.0f, den = 0.0f;
+  if (tid < 3 * D.K) {
     const int k = tid / 3, tc = tid - 3 * k;
     const float coef = tc == 0 ? s.wcx[k] : (tc == 1 ? s.wcy[k] : s.w[k]);
-    const float cq = coef * s.dot[tc * K + k];
-    const float cterm = s.wt[3 * k] * s.cten[(0 * 3 + tc) * K + k]
-                        + s.wt[3 * k + 1] * s.cten[(1 * 3 + tc) * K + k]
-                        + s.wt[3 * k + 2] * s.cten[(2 * 3 + tc) * K + k];
-    out[tid] = add[tid] + (beta * (2.0f * cterm - cq) + s.wt[tid] * s.infod[tid]);
+    const float cq = coef * s.dot[tc * kS + k];
+    const float cterm = wt[3 * k] * s.cten[(0 * 3 + tc) * kS + k]
+                        + wt[3 * k + 1] * s.cten[(1 * 3 + tc) * kS + k]
+                        + wt[3 * k + 2] * s.cten[(2 * 3 + tc) * kS + k];
+    const float dh = s.t1[tid] + (beta * (2.0f * cterm - cq) + wt[tid] * s.infod[tid]);
+    float ph = s.ph[tid];
+    if (UPD == kToT1) {
+      s.t1[tid] = dh;
+    } else if (UPD == kSweep) {
+      const float pn = s.p_b[tid] - half_eps * dh;
+      num = fabsf(pn - ph);
+      den = fabsf(pn);
+      ph = pn;
+    } else {
+      ph = ph - half_eps * dh;
+      s.p_b[tid] = ph;
+    }
+    s.ph[tid] = ph;
+    const float a = ph / s.g[tid];
+    wt_next[tid] = -0.5f * a * a;
+  }
+  if (UPD == kSweep && tid < 64) {  // 3K <= 48: warps 0 and 1
+    num = warp_nanmax(num);
+    den = warp_nanmax(den);
+    if ((tid & 31) == 0) {
+      s.scal[2 + 2 * (tid >> 5)] = num;
+      s.scal[3 + 2 * (tid >> 5)] = den;
+    }
   }
   __syncthreads();
 }
 
 // Everything theta-dependent at s.th_b: profiles, 1/lam, U_beta (s.scal[0]),
-// grad U_beta, the metric s.g, info' (s.infod), the C tensor and t1.
-__device__ void build_structs(const Params& P, const Smem& s, float beta) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = P.K;
-  profiles(P, s, s.th_b);
-  const double ll = render(P, s, beta, true);
-  contract<kBuild>(P, s);
+// grad U_beta (into s.t1), the metric s.g, info' (s.infod), the C tensor,
+// then t1 = grad U_beta + W(1/(2g)) (the weights 1/(2g) in wt) and the next
+// momentum sweep's weights in wt_next.
+template <int TR>
+__device__ void build_structs(const Params& P, const Smem& s, const Dims& D, const int* ci,
+                              float beta, float* wt, float* wt_next) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int K = D.K;
+  profiles<TR>(P, s, D, s.th_b, ci, true);
+  const double ll = render<TR>(P, s, D, beta, true);
+  contract<TR, kBuild>(P, s, D);
   if (warp == 0) {
     double lp = 0.0;
     if (lane < K) {
@@ -377,79 +678,76 @@ __device__ void build_structs(const Params& P, const Smem& s, float beta) {
       const float zf = (sl - P.logf_mean) / P.logf_sigma;
       const float lp_flux = -0.5f * zf * zf + P.lp_flux_const;
       lp = static_cast<double>((lp_pos + lp_flux) * m);
-      const float g_u = (1.0f - 2.0f * s.su[k]) * m;
-      const float g_v = (1.0f - 2.0f * s.sv[k]) * m;
+      const float su = s.su[k], sv = s.sv[k], w = s.w[k];
+      const float cx = D.W * su * (1.0f - su), cy = D.H * sv * (1.0f - sv);
+      const float g_u = (1.0f - 2.0f * su) * m;
+      const float g_v = (1.0f - 2.0f * sv) * m;
       const float g_s = -zf / P.logf_sigma * m;
-      const float *dd = s.dd;
-      const float d1 = dd[k], d2 = dd[K + k], d3 = dd[2 * K + k], d4 = dd[3 * K + k],
-                  d5 = dd[4 * K + k], d6 = dd[5 * K + k], d7 = dd[6 * K + k],
-                  d8 = dd[7 * K + k], d9 = dd[8 * K + k];
-      s.grad_u[3 * k] = -(s.wcx[k] * s.dot[k] + g_u);
-      s.grad_u[3 * k + 1] = -(s.wcy[k] * s.dot[K + k] + g_v);
-      s.grad_u[3 * k + 2] = -(s.w[k] * s.dot[2 * K + k] + g_s);
-      const float wcx = s.wcx[k], wcy = s.wcy[k], w = s.w[k];
+      const float* dd = s.dd;
+      const float d1 = dd[k], d2 = dd[kS + k], d3 = dd[2 * kS + k], d4 = dd[3 * kS + k],
+                  d5 = dd[4 * kS + k], d6 = dd[5 * kS + k], d7 = dd[6 * kS + k],
+                  d8 = dd[7 * kS + k], d9 = dd[8 * kS + k];
+      const float wcx = s.wcx[k], wcy = s.wcy[k];
+      s.t1[3 * k] = -(wcx * s.dot[k] + g_u);  // grad U; t1 adds W(1/(2g)) below
+      s.t1[3 * k + 1] = -(wcy * s.dot[kS + k] + g_v);
+      s.t1[3 * k + 2] = -(w * s.dot[2 * kS + k] + g_s);
+      const float wcxcy = w * cx * cy;
       const float f_u = wcx * wcx * d1, f_v = wcy * wcy * d6, f_s = w * w * d9;
-      float* c = s.cten;  // C[ta][tc][k] at ((ta * 3 + tc) * K + k)
-      c[(0 * 3 + 0) * K + k] = wcx * (s.wcx2[k] * d1 + s.wcxx[k] * d2);
-      c[(1 * 3 + 0) * K + k] = wcy * s.wcxcy[k] * d3;
-      c[(2 * 3 + 0) * K + k] = w * wcx * d4;
-      c[(0 * 3 + 1) * K + k] = wcx * s.wcxcy[k] * d5;
-      c[(1 * 3 + 1) * K + k] = wcy * (s.wcy2[k] * d6 + s.wcyy[k] * d7);
-      c[(2 * 3 + 1) * K + k] = w * wcy * d8;
-      c[(0 * 3 + 2) * K + k] = f_u;
-      c[(1 * 3 + 2) * K + k] = f_v;
-      c[(2 * 3 + 2) * K + k] = f_s;
-      diag_metric_star(P, s, k, beta, s.g, s.infod);
+      float* c = s.cten;  // C[ta][tc][k] at ((ta * 3 + tc) * kS + k)
+      c[(0 * 3 + 0) * kS + k] = wcx * ((w * cx * (1.0f - 2.0f * su)) * d1 + (w * cx * cx) * d2);
+      c[(1 * 3 + 0) * kS + k] = wcy * wcxcy * d3;
+      c[(2 * 3 + 0) * kS + k] = w * wcx * d4;
+      c[(0 * 3 + 1) * kS + k] = wcx * wcxcy * d5;
+      c[(1 * 3 + 1) * kS + k] = wcy * ((w * cy * (1.0f - 2.0f * sv)) * d6 + (w * cy * cy) * d7);
+      c[(2 * 3 + 1) * kS + k] = w * wcy * d8;
+      c[(0 * 3 + 2) * kS + k] = f_u;
+      c[(1 * 3 + 2) * kS + k] = f_v;
+      c[(2 * 3 + 2) * kS + k] = f_s;
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const float g = metric_element(P, s, k, t, beta, s.infod + 3 * k + t);
+        s.g[3 * k + t] = g;
+        wt[3 * k + t] = 0.5f / g;
+      }
     }
     lp = warp_sum_d(lp);
     if (lane == 0) s.scal[0] = static_cast<float>(-(static_cast<double>(beta) * ll + lp));
   }
   __syncthreads();
-  if (tid < 3 * K) s.wt[tid] = 0.5f / s.g[tid];
-  __syncthreads();
-  wt_terms(P, s, beta, s.grad_u, s.t1);
+  wt_terms<TR, kToT1>(P, s, D, beta, 0.0f, wt, wt_next);
 }
 
-// dH/dtheta at the structs' theta and momentum p (3K) into out.
-__device__ void dh_dtheta(const Params& P, const Smem& s, float beta, const float* p,
-                          float* out) {
+// A position sweep: the metric g(theta') at the iterate s.th (profiles,
+// 1/lam and the Fisher diagonal; no C tensor, no q field), then, by the
+// thread of each element a, g_a, theta'_a = base_a + eps/2 p_h,a / g_a
+// (into s.th_b too on the last sweep) and the Picard delta's partial
+// maxima into s.scal[6..9].  Every thread calls it; it ends synchronised.
+template <int TR>
+__device__ void position_sweep(const Params& P, const Smem& s, const Dims& D, const int* ci,
+                               float beta, float half_eps, bool last) {
   const int tid = threadIdx.x;
-  if (tid < 3 * P.K) {
-    const float a = p[tid] / s.g[tid];
-    s.wt[tid] = -0.5f * a * a;
+  profiles<TR>(P, s, D, s.th, ci, false);
+  render<TR>(P, s, D, beta, false);
+  contract<TR, kSolve>(P, s, D);
+  float num = 0.0f, den = 0.0f;
+  if (tid < 3 * D.K) {
+    const int k = tid / 3;
+    const float g = metric_element(P, s, k, tid - 3 * k, beta, nullptr);
+    const float tn = s.base[tid] + half_eps * (s.ph[tid] / g);
+    num = fabsf(tn - s.th[tid]);
+    den = fabsf(tn);
+    s.th[tid] = tn;
+    if (last) s.th_b[tid] = tn;
   }
-  __syncthreads();
-  wt_terms(P, s, beta, s.t1, out);
-}
-
-// The metric at theta `th` into s.gs (profiles, 1/lam and the Fisher
-// diagonal at th; no C tensor, no q field).
-__device__ void diag_solve(const Params& P, const Smem& s, float beta, const float* th) {
-  profiles(P, s, th);
-  render(P, s, beta, false);
-  contract<kSolve>(P, s);
-  if (threadIdx.x < P.K) diag_metric_star(P, s, threadIdx.x, beta, s.gs, nullptr);
-  __syncthreads();
-}
-
-// Relative sup-norm Picard delta max|x_new - x_old| / (1 + max|x_new|) over
-// the 3K entries, NaN-propagating; returned to every thread.
-__device__ float fp_delta(const Smem& s, int d3, const float* x_new, const float* x_old) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (tid < 32) {
-    float num = 0.0f, den = 0.0f;
-    for (int a = lane; a < d3; a += 32) {
-      num = nanmax(num, fabsf(x_new[a] - x_old[a]));
-      den = nanmax(den, fabsf(x_new[a]));
-    }
+  if (tid < 64) {  // 3K <= 48: warps 0 and 1
     num = warp_nanmax(num);
     den = warp_nanmax(den);
-    if (lane == 0) s.scal[2] = num / (1.0f + den);
+    if ((tid & 31) == 0) {
+      s.scal[6 + 2 * (tid >> 5)] = num;
+      s.scal[7 + 2 * (tid >> 5)] = den;
+    }
   }
   __syncthreads();
-  const float d = s.scal[2];
-  __syncthreads();
-  return d;
 }
 
 // H = U + 1/2 sum log g + 1/2 sum p^2 / g at the structs' theta, momentum p.
@@ -472,78 +770,148 @@ __device__ float hamiltonian(const Smem& s, int d3, const float* p) {
   return h;
 }
 
-__global__ void __launch_bounds__(kThreads) fused_rhmc_diag_kernel(Params P) {
-  extern __shared__ float smem[];
+// Element a of the (K, 3) state in the block's orientation: the scene's
+// x and y swap when it is transposed.
+__device__ __forceinline__ int oriented(int a, bool swap) {
+  const int t = a % 3;
+  return swap && t < 2 ? a + 1 - 2 * t : a;
+}
+
+template <int TR>
+__global__ void __launch_bounds__(kThreads, 2) fused_rhmc_diag_kernel(Params P) {
+  extern __shared__ float4 smem4[];
   const int c = blockIdx.x, tid = threadIdx.x;
-  const int K = P.K, H = P.H, W = P.W, d3 = 3 * K;
-  const Smem s = carve(smem, K, H, W);
+  const int K = P.K, d3 = 3 * K;
+  Dims D;
+  int rows, cols, tr;
+  scene_tile(P.H, P.W, &rows, &cols, &tr, &D.swap);
+  D.K = K; D.H = rows; D.W = cols; D.ldx = cols | 1;
+  const Smem s = carve<TR>(reinterpret_cast<float*>(smem4), D);
   const float eps = P.eps[c];
   const float half_eps = 0.5f * eps;
   const float beta = *P.beta;
+  __shared__ int ci[kMaxStars];  // a slot's compact index, -1 when dead
 
-  for (int i = tid; i < H * W; i += kThreads) s.img[i] = P.image[i];
+  // zero sums for the dead stars
+  for (int i = tid; i < 12 * kS; i += kThreads) (i < 3 * kS ? s.dot[i] : s.dd[i - 3 * kS]) = 0.0f;
   if (tid < K) s.m[tid] = P.mask[c * P.mask_stride + tid];
   if (tid < d3) {
-    s.th_b[tid] = P.theta[c * d3 + tid];
-    s.ph[tid] = P.xi[c * d3 + tid];
+    const int a = oriented(tid, D.swap);
+    s.th_b[a] = P.theta[c * d3 + tid];
+    s.ph[a] = P.xi[c * d3 + tid];
   }
   __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int k = 0; k < K; ++k) {
+      ci[k] = s.m[k] != 0.0f ? n : -1;
+      if (s.m[k] != 0.0f) s.live[n++] = k;
+    }
+    s.scal[10] = static_cast<float>(n);
+  }
+  __syncthreads();
+  D.nl = static_cast<int>(s.scal[10]);
+  D.ns = star_slots(D.nl, TR);
 
-  build_structs(P, s, beta);
-  if (tid < d3) s.p_b[tid] = sqrtf(s.g[tid]) * s.ph[tid] * s.m[tid / 3];
+  // the weights of a phase and of the next, swapped after each W(wt) phase
+  float* wt = s.wt;
+  float* wt_next = s.wt2;
+  auto swap = [&wt, &wt_next]() { float* t = wt; wt = wt_next; wt_next = t; };
+  build_structs<TR>(P, s, D, ci, beta, wt, wt_next);
+  swap();
+  if (tid < d3) {  // p0 = sqrt(g) xi m; the first sweep's p_h and weights
+    const float p0 = sqrtf(s.g[tid]) * s.ph[tid] * s.m[tid / 3];
+    const float a = p0 / s.g[tid];
+    s.p_b[tid] = p0;
+    s.ph[tid] = p0;
+    wt[tid] = -0.5f * a * a;
+  }
   __syncthreads();
   const float h0 = hamiltonian(s, d3, s.p_b);
 
   float resid = 0.0f;
   for (int step = 0; step < P.n_steps; ++step) {
     // implicit momentum half-step: p_h = p - eps/2 dH/dtheta(theta, p_h)
-    if (tid < d3) s.ph[tid] = s.p_b[tid];
-    __syncthreads();
     float d1 = 0.0f;
     for (int it = 0; it < P.fpi; ++it) {
-      dh_dtheta(P, s, beta, s.ph, s.base);  // s.base as scratch for dH
-      if (tid < d3) s.base[tid] = s.p_b[tid] - half_eps * s.base[tid];
-      __syncthreads();
-      d1 = fp_delta(s, d3, s.base, s.ph);
-      if (tid < d3) s.ph[tid] = s.base[tid];
-      __syncthreads();
+      wt_terms<TR, kSweep>(P, s, D, beta, half_eps, wt, wt_next);
+      swap();
     }
+    if (P.fpi > 0) d1 = nanmax(s.scal[2], s.scal[4]) / (1.0f + nanmax(s.scal[3], s.scal[5]));
     // implicit position step: theta' = theta + eps/2 [g(theta)^-1 + g(theta')^-1] p_h
     if (tid < d3) {
       const float v0 = s.ph[tid] / s.g[tid];
       s.base[tid] = s.th_b[tid] + half_eps * v0;
       s.th[tid] = s.th_b[tid] + eps * v0;
+      if (P.fpi == 0) s.th_b[tid] = s.th[tid];
     }
     __syncthreads();
     float d2 = 0.0f;
-    for (int it = 0; it < P.fpi; ++it) {
-      diag_solve(P, s, beta, s.th);
-      if (tid < d3) s.gs[tid] = s.base[tid] + half_eps * (s.ph[tid] / s.gs[tid]);
-      __syncthreads();
-      d2 = fp_delta(s, d3, s.gs, s.th);
-      if (tid < d3) s.th[tid] = s.gs[tid];
-      __syncthreads();
-    }
-    // rebuild at theta'; reused by the final half-step, h1 and the next step
-    if (tid < d3) s.th_b[tid] = s.th[tid];
-    __syncthreads();
-    build_structs(P, s, beta);
-    dh_dtheta(P, s, beta, s.ph, s.base);
-    if (tid < d3) s.p_b[tid] = s.ph[tid] - half_eps * s.base[tid];
-    __syncthreads();
+    for (int it = 0; it < P.fpi; ++it)
+      position_sweep<TR>(P, s, D, ci, beta, half_eps, it == P.fpi - 1);
+    if (P.fpi > 0) d2 = nanmax(s.scal[6], s.scal[8]) / (1.0f + nanmax(s.scal[7], s.scal[9]));
+    // rebuild at theta' (s.th_b, written by the last sweep); reused by the
+    // final half-step, h1 and the next step
+    build_structs<TR>(P, s, D, ci, beta, wt, wt_next);
+    swap();
+    wt_terms<TR, kHalfStep>(P, s, D, beta, half_eps, wt, wt_next);
+    swap();
     resid = nanmax(resid, nanmax(d1, d2));
   }
   const float h1 = hamiltonian(s, d3, s.p_b);
 
   if (tid < d3) {
-    P.theta_out[c * d3 + tid] = s.th_b[tid];
-    P.p_out[c * d3 + tid] = s.p_b[tid];
+    const int a = oriented(tid, D.swap);
+    P.theta_out[c * d3 + tid] = s.th_b[a];
+    P.p_out[c * d3 + tid] = s.p_b[a];
   }
   if (tid == 0) {
     P.h0_out[c] = h0;
     P.h1_out[c] = h1;
     P.u1_out[c] = s.scal[0];
     P.resid_out[c] = resid;
+  }
+}
+
+cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+template <int TR>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fused_rhmc_diag_kernel<TR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Launch (or, with blocks_per_sm, report the occupancy of) the kernel for
+// the scene's tile.
+template <int TR>
+cudaError_t run(const Params& P, int C, size_t smem, cudaStream_t st, int* blocks_per_sm) {
+  cudaError_t e = prepare<TR>(smem);
+  if (e != cudaSuccess) return e;
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_rhmc_diag_kernel<TR>, kThreads, smem);
+  fused_rhmc_diag_kernel<TR><<<C, kThreads, smem, st>>>(P);
+  return cudaGetLastError();
+}
+
+// The launch of C chains (or its occupancy), the tile from the scene.
+cudaError_t dispatch(const Params& P, int C, cudaStream_t st, int* blocks_per_sm) {
+  int rows, cols, tr;
+  bool swap;
+  scene_tile(P.H, P.W, &rows, &cols, &tr, &swap);
+  const size_t smem = static_cast<size_t>(smem_floats(P.K, P.H, P.W)) * sizeof(float);
+  switch (tr) {
+    case 4: return run<4>(P, C, smem, st, blocks_per_sm);
+    case 16: return run<16>(P, C, smem, st, blocks_per_sm);
+    case 32: return run<32>(P, C, smem, st, blocks_per_sm);
+    default: return run<48>(P, C, smem, st, blocks_per_sm);
   }
 }
 
@@ -585,16 +953,27 @@ int starcat_fused_rhmc_diag(
   P.logf_sigma = logf_sigma;
   P.lp_flux_const = lp_flux_const;
   P.jitter = jitter;
+  if (K < 1 || K > kMaxStars || H * W > kMaxRows * kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(P, C, static_cast<cudaStream_t>(stream), nullptr));
+}
 
-  const size_t smem = static_cast<size_t>(smem_floats(K, H, W)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_rhmc_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  fused_rhmc_diag_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+// The layout a launch of C chains takes: threads per block, the blocks an SM
+// holds and the SMs the grid fills.  Returns a CUDA error code (0 on
+// success).
+int starcat_fused_rhmc_diag_layout(int C, int K, int H, int W, int* threads,
+                                   int* blocks_per_sm, int* sms_filled) {
+  Params P{};
+  P.K = K;
+  P.H = H;
+  P.W = W;
+  int sms = 0;
+  cudaError_t e = device_sms(&sms);
+  if (e == cudaSuccess) e = dispatch(P, C, nullptr, blocks_per_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *threads = kThreads;
+  *sms_filled = C < sms ? C : sms;
+  return 0;
 }
 
 const char* starcat_cuda_error_string(int code) {

@@ -13,11 +13,13 @@ VMEM gates.  The heads do not care which kernel of a pair runs: the
 contracts are the same, and on the CPU both wrappers run the same plain
 version.
 
-The crowded-field kernels also run small scenes, but more slowly, so the
-small-scene ones stay: on an H100 (chip_smoke.py) an L = 20 trajectory of
-1024 chains at K = 10 on 32x32 takes 0.324 ms on B1 and 0.519 ms on B5, and
-a 6 x 4 diagonal-Fisher trajectory of 256 chains at K = 16 takes 0.610 ms
-on B3 and 0.975 ms on B4, whose GEMM tiles span 128 x 128 pixels.
+The crowded-field kernels also run small scenes.  On an H100
+(chip_smoke.py) a 6 x 4 diagonal-Fisher trajectory of 256 chains at K = 16
+on 32x32 takes 0.295 ms on B3 and 0.971 ms on B4, whose GEMM tiles span
+128 x 128 pixels, so B3 stays.  An L = 20 leapfrog of 1024 chains at
+K = 10 on 32x32 takes 0.324 ms on B1 and 0.199 ms on B5, whose tile
+follows the scene; the choice by shape is kept all the same: whether B1
+is retired is for the redesign of B1/B2, which weighs it end to end.
 """
 from __future__ import annotations
 

@@ -16,10 +16,16 @@ is (K, 3); mask is (K,) shared or (C, K) per chain.  ``n_steps == 0``
 returns (U, grad U) at theta; without an entry gradient the trajectory
 evaluates it first.
 
-The kernel takes the scenes and catalogs whose working set (the residual
-field and three profile sets) fits one block's shared memory: 128x128 with
-K up to 103, the crowded field's K = 50 and 64 among them.  Smaller scenes
-run on B1 (fused_leapfrog.py); :func:`dispatch.leapfrog_module` chooses.
+The kernel takes scenes of at most 128 x 128 pixels and 1 <= K <= 128:
+its GEMM passes tile the scene in the smallest square of 32, 64 or 128
+pixels a side that holds it (:func:`tile_side`), with a block of 32, 128
+or 512 threads a chain, and the residual field and the live stars' two
+profile sets fit one block's shared memory at every such K (206 KB at
+128x128 with K = 128), the crowded field's K = 50 and 64 among them.  A
+scene with a side above 128 pixels, which the kernel's first design took
+while its field fitted, is refused.  Scenes and catalogs inside B1's
+domain run on B1 (fused_leapfrog.py); :func:`dispatch.leapfrog_module`
+chooses.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_leapfrog.fused_leapfrog_reference` (the same
@@ -35,8 +41,8 @@ from .fused_leapfrog import fused_leapfrog_reference
 from .potential import PriorSpec
 from .scene import SceneSpec
 
-MAX_STARS = 128   # one thread per element of the (K, 3) state
-THREADS = 512     # kThreads in the source
+MAX_STARS = 128   # the state's slots
+MAX_SIDE = 128    # kMaxSide in the source: H, W <= 128
 
 # Launch count of the CUDA kernel, through either contract.
 LAUNCHES = 0
@@ -47,22 +53,60 @@ def reset_launch_counts() -> None:
     LAUNCHES = 0
 
 
+def tile_side(height: int, width: int) -> int:
+    """The side T of the launch's pixel tile (tile_side in the source): 32,
+    64 or 128, the smallest that holds the scene."""
+    side = max(height, width)
+    return 32 if side <= 32 else 64 if side <= 64 else 128
+
+
+def tile_threads(side: int) -> int:
+    """Threads a block at tile side T (Tile<T>::kThreads in the source):
+    8 x 4 render pixels a thread, so 32, 128 or 512."""
+    return side * side // 32
+
+
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source)."""
-    return 4 * (19 * kmax + 2 + 2 * (THREADS // 32) + height * width
-                + kmax * (width + 2 * height))
+    """Shared memory one block needs (mirrors smem_floats in the source):
+    the residual field, T rows by W columns; the profiles gx (K + 3 rows
+    of T + 4) and gyw (K, T); the block sum's doubles (two floats a warp),
+    the column halves' partial sums (3 sums of 4 stars for each of the
+    pass's star groups: T / 8 lanes hold a group's rows, the warps hold
+    32 / (T / 8) groups each and, from two warps up, split the columns in
+    halves), 20 K floats of state and per-star scalars, 4 of scratch.  The
+    height enters only through T."""
+    side = tile_side(height, width)
+    warps = tile_threads(side) // 32
+    halves = 2 if warps >= 2 else 1
+    groups = (32 // (side // 8)) * warps // halves
+    return 4 * (side * width + (kmax + 3) * (side + 4) + kmax * side + 2 * warps
+                + 3 * 4 * groups + 20 * kmax + 4)
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     """Why the kernel does not take this scene and catalog, or None."""
     if not 1 <= kmax <= MAX_STARS:
         return f"the crowded-field CUDA leapfrog (B5) takes 1 <= K <= {MAX_STARS}, got K={kmax}"
+    if spec.height > MAX_SIDE or spec.width > MAX_SIDE:
+        return (f"the crowded-field CUDA leapfrog (B5) tiles at most {MAX_SIDE}x{MAX_SIDE} "
+                f"pixels in one block's shared memory, got {spec.height}x{spec.width}")
     need = smem_bytes(kmax, spec.height, spec.width)
     if need > MAX_SMEM_BYTES:
         return (f"the crowded-field CUDA leapfrog (B5) holds a {spec.height}x{spec.width} "
                 f"field and K={kmax} profiles in {need} bytes of shared memory per "
                 f"block, more than the card's {MAX_SMEM_BYTES}")
     return None
+
+
+def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:
+    """How the kernel lays out a launch of c chains on the current card
+    (starcat_fused_leapfrog_crowded_layout in the source, from the
+    checkout's build): threads per chain, the blocks an SM holds and the
+    SMs the grid fills."""
+    from .build import leapfrog_library, query_layout
+
+    return query_layout(leapfrog_library("fused_leapfrog_crowded"),
+                        "starcat_fused_leapfrog_crowded_layout", c, kmax, height, width)
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:

@@ -90,20 +90,10 @@ def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:
     """How the kernel lays out a launch of c chains on the current card
     (starcat_fused_rhmc_layout in the source, from the checkout's build):
     threads per chain, the blocks an SM holds and the SMs the grid fills."""
-    import ctypes
+    from .build import query_layout, riemannian_library
 
-    from .build import riemannian_library
-
-    fn = riemannian_library("fused_rhmc").starcat_fused_rhmc_layout
-    ci = ctypes.c_int
-    fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
-    fn.restype = ci
-    threads, per_sm, sms = ci(), ci(), ci()
-    rc = fn(c, kmax, height, width, ctypes.byref(threads), ctypes.byref(per_sm),
-            ctypes.byref(sms))
-    if rc != 0:
-        raise RuntimeError(f"starcat_fused_rhmc_layout failed ({rc})")
-    return {"threads": threads.value, "blocks_per_sm": per_sm.value, "sms_filled": sms.value}
+    return query_layout(riemannian_library("fused_rhmc"), "starcat_fused_rhmc_layout", c,
+                        kmax, height, width)
 
 
 def type_major(x: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,9 @@ from .scene import SceneSpec
 
 MAX_PIXELS = 48 * 48      # the kernel's domain: H * W <= 48^2 and K <= 16
 MAX_STARS = 16
+MAX_ROWS = 48             # the largest row tile (kMaxRows in the source)
+PER_STAR = 16             # kS in the source: the per-star arrays' stride
+THREADS = 256             # kThreads in the source: a chain's block
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -43,10 +46,30 @@ def reset_launch_counts() -> None:
     LAUNCHES = 0
 
 
+def scene_tile(height: int, width: int) -> tuple[int, int, int, bool]:
+    """(rows, columns, row tile, transposed) of the scene as one block holds
+    it (scene_tile in the source): a scene taller than 48 rows is
+    transposed, and the rows sit in the smallest of the 4-, 16-, 32- and
+    48-row tiles that holds them."""
+    swap = height > MAX_ROWS
+    rows, cols = (width, height) if swap else (height, width)
+    tile = 4 if rows <= 4 else 16 if rows <= 16 else 32 if rows <= 32 else 48
+    return rows, cols, tile, swap
+
+
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source)."""
-    return 4 * (70 * kmax + 8 + 3 * height * width
-                + 5 * kmax * (width + height))
+    """Shared memory one block needs (mirrors smem_floats in the source):
+    1/lam and the working field at the tile's row stride (the image is
+    read through L2); the y-side sets gy, gy^2, gy'^2 and the x-side sets
+    gx and the q field's two operands, a row per star (x-side rows W | 1
+    long); the block sum's doubles and the column runs' partial sums (3
+    floats a thread of the 256); nine per-star arrays, the live list, the
+    contraction sums and C tensor (21), ten (K, 3) state arrays (two of
+    them a sweep's weights and the next's), all at a stride of 16 stars,
+    and 12 of scratch."""
+    _, cols, tile, _ = scene_tile(height, width)
+    return 4 * (2 * tile * cols + 3 * kmax * (tile + (cols | 1))
+                + THREADS // 16 + 3 * THREADS + (9 + 1 + 21 + 30) * PER_STAR + 12)
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
@@ -63,6 +86,17 @@ def domain_error(spec: SceneSpec, kmax: int) -> str | None:
                 f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
                 f"memory per block, more than the card's {MAX_SMEM_BYTES}")
     return None
+
+
+def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:
+    """How the kernel lays out a launch of c chains on the current card
+    (starcat_fused_rhmc_diag_layout in the source, from the checkout's
+    build): threads per chain (256 at every chain count), the blocks an SM
+    holds and the SMs the grid fills."""
+    from .build import query_layout, riemannian_library
+
+    return query_layout(riemannian_library("fused_rhmc_diag"),
+                        "starcat_fused_rhmc_diag_layout", c, kmax, height, width)
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:

@@ -160,9 +160,13 @@ def test_kernel_choice_raises_beyond_both_domains():
         dispatch.rhmc_diag_module(big, 64)
     with pytest.raises(ValueError, match=r"1 <= K <= 128"):
         dispatch.rhmc_diag_module(CROWDED, 129)
-    # B4's shared memory holds K <= 78 at 128x128; B5's K <= 103
+    # B4's shared memory holds K <= 78 at 128x128; B5's every K it takes
+    # (K <= 128)
     assert frdc.smem_bytes(78, 128, 128) <= MAX_SMEM_BYTES < frdc.smem_bytes(79, 128, 128)
-    assert flc.smem_bytes(103, 128, 128) <= MAX_SMEM_BYTES < flc.smem_bytes(104, 128, 128)
+    assert flc.smem_bytes(128, 128, 128) <= MAX_SMEM_BYTES
+    assert dispatch.leapfrog_module(CROWDED, 128)[1] == "B5"
+    with pytest.raises(ValueError, match=r"1 <= K <= 128"):
+        dispatch.leapfrog_module(CROWDED, 129)
     with pytest.raises(ValueError, match="B4"):
         dispatch.rhmc_diag_module(CROWDED, 79)
     # the full metric (B6) has no crowded-field kernel: its domain raises,

@@ -514,7 +514,7 @@ def _crowded_inputs(c, k, dev, seed=0):
         theta[:, n:, :2] = 2.0 * torch.randn((c, k - n, 2), generator=gen, device=dev)
         theta[:, n:, 2] = 5.0 + 0.7 * torch.randn((c, k - n), generator=gen, device=dev)
     p = torch.randn((c, k, 3), generator=gen, device=dev)
-    alive = torch.randint(30, k + 1, (c,), generator=gen, device=dev)
+    alive = torch.randint(min(30, k), k + 1, (c,), generator=gen, device=dev)
     order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
     mask = (order < alive[:, None]).to(torch.float32)
     return cfg, img.to(dev), theta, p, mask
@@ -705,3 +705,177 @@ def test_chees_on_a_crowded_scene_runs_through_b5(dev):
     assert st["kernel"] == "cuda_fused" and st["trajectory_kernel"] == "B5"
     assert st["kernel_launches"] > 0 and flc.LAUNCHES == st["kernel_launches"]
     assert np.isfinite(out.thetas).all() and out.thetas.shape == (64, 10, 50, 3)
+
+
+# -- B5's block GEMMs and B3's tiles at their edges ----------------------------
+
+def _b5_errors(out, want):
+    th, p, u, g = (o.double() for o in out)
+    return {"theta": float((th - want[0]).abs().max()), "p": float((p - want[1]).abs().max()),
+            "u": float((u - want[2]).abs().max()),
+            "grad_rel": float(((g - want[3]).abs() / (1 + want[3].abs())).max())}
+
+
+def _check_b5(spec, img, prior, theta, p, mask, n_steps=3):
+    """B5 against its plain version: within TOL (U with eight float32
+    spacings), or, where float32 rounding grows along the trajectory, no
+    farther from a float64 run of the plain version than the float32 plain
+    version is, plus TOL; dead slots frozen with zero gradient."""
+    from starcat_torch import fused_leapfrog_crowded as flc
+
+    c, k = theta.shape[:2]
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    p = p * live[..., None]
+    eps = torch.full((c,), 0.002, device=theta.device)
+    inv_mass = torch.full((k, 3), 0.9, device=theta.device)
+    fused = flc.make_fused_leapfrog(spec, img, prior, k, n_steps)
+    out = fused(theta, p, eps, inv_mass, mask)
+    want = fl.fused_leapfrog_reference(spec, img, prior, theta, p, eps, inv_mass, mask,
+                                       n_steps, None)
+    want64 = fl.fused_leapfrog_reference(spec, img.double(), prior, theta.double(), p.double(),
+                                         eps.double(), inv_mass.double(), mask.double(),
+                                         n_steps, None)
+    torch.cuda.synchronize()
+    tol = dict(TOL, u=TOL["u"] + _spacings(want[2]))
+    errs, far, near = _b5_errors(out, want), _b5_errors(out, want64), _b5_errors(want, want64)
+    for name, e in errs.items():
+        assert e <= tol[name] or far[name] <= near[name] + tol[name], (name, e, far, near)
+    dead = live == 0
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[3][dead] == 0).all())
+    return fused, (theta, p, eps, inv_mass, mask), out
+
+
+@pytest.mark.parametrize("h,w,k", [(96, 128, 37), (100, 84, 50), (64, 64, 30), (20, 48, 7),
+                                   (32, 32, 20), (32, 32, 128), (5, 3, 2)])
+def test_crowded_leapfrog_kernel_on_ragged_scenes(dev, h, w, k):
+    """B5 on scenes that are neither square nor multiples of its tiles,
+    with catalog sizes that are not multiples of its star groups, per-chain
+    masks with 1..K live stars in shuffled slots, in each of its three
+    tiles (one warp a chain at 32 pixels a side, with K = 128 more state
+    than it has threads; four at 64; sixteen at 128): the layout the tile
+    gives, and the same bits on a rerun and for a chain alone."""
+    from starcat_torch import fused_leapfrog_crowded as flc
+
+    spec, prior, img, theta, xi, _, mask = _cut_scene(h, w, k, 32, dev, seed=8)
+    fused, args, full = _check_b5(spec, img, prior, theta, xi, mask)
+    side = 32 if max(h, w) <= 32 else 64 if max(h, w) <= 64 else 128
+    assert flc.launch_layout(1024, k, h, w)["threads"] == side * side // 32
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(full, fused(*args)))
+    th, pp, eps, im, m = args
+    sel = torch.tensor([7], device=dev)
+    part = fused(th[sel].contiguous(), pp[sel].contiguous(), eps[sel].contiguous(), im,
+                 m[sel].contiguous())
+    assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
+
+
+@pytest.mark.parametrize("k", [1, 128])
+def test_crowded_leapfrog_kernel_at_one_star_and_the_domain_edge(dev, k):
+    """One star, and the largest catalog B5 takes (K = 128 at 128x128,
+    every star of the tile's shared memory)."""
+    cfg, img, theta, p, _ = _crowded_inputs(32, k, dev, seed=9)
+    _check_b5(cfg.scene, img, cfg.prior, theta, p, torch.ones(k, device=dev))
+
+
+@pytest.mark.parametrize("form", ["shared", "per_chain"])
+def test_crowded_leapfrog_kernel_with_scattered_live_stars(dev, form):
+    """B5 at the crowded field when the live stars are not contiguous: a
+    shared mask alive on two slots of every three, or per-chain masks alive
+    on the even slots of even chains and the odd slots of odd chains."""
+    cfg, img, theta, p, _ = _crowded_inputs(32, 50, dev, seed=10)
+    slot = torch.arange(50, device=dev)
+    if form == "shared":
+        mask = (slot % 3 != 1).to(torch.float32)
+    else:
+        mask = ((slot[None] + torch.arange(32, device=dev)[:, None]) % 2 == 0).to(torch.float32)
+    _check_b5(cfg.scene, img, cfg.prior, theta, p, mask)
+
+
+def _bits(t):  # NaN (a blown-up chain) equals itself bit for bit
+    return t.view(torch.int32)
+
+
+def test_crowded_leapfrog_kernel_is_deterministic(dev):
+    """B5 gives the same bits on a rerun, and a chain the same bits alone,
+    among 7 others or among all 32 in another order: its sums run in a
+    fixed order, and a block holds one chain."""
+    cfg, img, theta, p, mask = _crowded_inputs(32, 50, dev, seed=11)
+    fused, args, full = _check_b5(cfg.scene, img, cfg.prior, theta, p, mask, n_steps=5)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(full, fused(*args)))
+    th, pp, eps, im, m = args
+    for idx in ([5], [0, 3, 9, 14, 20, 25, 31], list(range(31, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(th[sel].contiguous(), pp[sel].contiguous(), eps[sel].contiguous(), im,
+                     m[sel].contiguous())
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
+
+
+def _check_b3(spec, prior, img, theta, xi, eps, mask, beta=0.7, n_steps=6, fpi=4):
+    """B3 against its plain version chain by chain: solver verdicts equal,
+    and on the chains whose fixed points converged tightly in both every
+    output within RTOL (h with four float32 spacings); dead slots frozen."""
+    from starcat_torch import fused_rhmc_diag as frd
+
+    c, k = theta.shape[:2]
+    fused = frd.make_fused_rhmc_diag(spec, img, prior, k, n_steps, fpi)
+    out = fused(theta, xi, eps, mask, torch.tensor(beta, device=img.device))
+    ref = frd.fused_rhmc_diag_reference(spec, img, prior, theta, xi, eps, mask, beta, n_steps,
+                                        fpi)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= max(1, int(0.8 * c))
+    _assert_rhmc_close([o[tight] for o in out], [r[tight] for r in ref])
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    dead = (live == 0) & (out[5] < 0.05)[:, None]
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+    return fused, out
+
+
+@pytest.mark.parametrize("c,k,h,w", [
+    (1, 16, 32, 32),     # one chain
+    (7, 16, 32, 32),     # an odd chain count
+    (33, 1, 32, 32),     # one star
+    (9, 16, 48, 48),     # the 48-row tile at the edge of the domain
+    (16, 16, 40, 48),    # a non-square scene in the 48-row tile
+    (16, 10, 24, 96),    # a wide scene in the 32-row tile
+    (16, 10, 96, 24),    # a tall scene, held transposed
+])
+def test_rhmc_kernel_at_the_edges_of_its_tiles(dev, c, k, h, w):
+    """B3 where its layout and tiles are most at risk, chain by chain."""
+    if (h, w) == (32, 32):
+        cfg, img, theta, xi, eps, mask = _rhmc_inputs(c, k, dev, k >= 6, seed=12)
+        spec, prior = cfg.scene, cfg.prior
+    else:
+        spec, prior, img, theta, xi, eps, mask = _cut_scene(h, w, k, c, dev, seed=12)
+    _check_b3(spec, prior, img, theta, xi, eps, mask)
+
+
+def test_rhmc_kernel_with_scattered_dead_slots(dev):
+    """Per-chain masks alive on the even slots of even chains and the odd
+    slots of odd chains."""
+    cfg, img, theta, xi, eps, _ = _rhmc_inputs(32, 16, dev, True, seed=13)
+    slot = torch.arange(16, device=dev)
+    mask = ((slot[None] + torch.arange(32, device=dev)[:, None]) % 2 == 0).to(torch.float32)
+    _check_b3(cfg.scene, cfg.prior, img, theta, xi, eps, mask, beta=1.0)
+
+
+def test_rhmc_kernel_gives_a_chain_the_same_bits_at_any_chain_count(dev):
+    """One layout, 256 threads a chain, at every chain count: a launch of
+    as many chains as the card has SMs and one of one more give a chain the
+    same bits, and so do a rerun and a chain alone or among others."""
+    from starcat_torch import fused_rhmc_diag as frd
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert frd.launch_layout(sms, 10, 32, 32)["threads"] == 256
+    assert frd.launch_layout(sms + 1, 10, 32, 32)["threads"] == 256
+    cfg, img, theta, xi, eps, mask = _rhmc_inputs(sms + 1, 10, dev, False, seed=14)
+    fused = frd.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, 10, 16, 6)
+    wide = fused(theta[:sms].contiguous(), xi[:sms].contiguous(), eps[:sms].contiguous(), mask)
+    narrow = fused(theta, xi, eps, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b[:sms])) for a, b in zip(wide, narrow))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(narrow, fused(theta, xi, eps, mask)))
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(sms - 1, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(), mask)
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, wide))

@@ -271,7 +271,11 @@ def test_kernel_domain_and_shared_memory(scene):
     from starcat_torch import build
     from starcat_torch import fused_rhmc_diag as frd
 
-    assert frd.smem_bytes(16, 32, 32) == 4 * (70 * 16 + 8 + 3 * 1024 + 5 * 16 * 64)
+    # the tiled layout: 1/lam and a working field in the 32-row tile,
+    # three y-side and three x-side sets of K rows, the 256-thread block's
+    # block sum and partial sums, 61 arrays of 16 floats and 12 of scratch
+    assert frd.smem_bytes(16, 32, 32) == 4 * (2 * 1024 + 48 * (32 + 33) + 16 + 768
+                                              + 61 * 16 + 12)
     assert frd.smem_bytes(16, 48, 48) <= build.MAX_SMEM_BYTES
     frd.check_domain(scene["tspec"]._replace(height=48, width=48), 16)
     for spec, k in ((scene["tspec"]._replace(height=128, width=128), 16),
