@@ -9,7 +9,16 @@
    on the card at the flagship shape (1024 chains, K = 10, 32x32): both
    call contracts, n_steps in {0, 1, 5} with and without an entry gradient,
    per-chain eps, a per-chain mask with a dead slot, and the gradient
-   against float64; then times one L = 20 trajectory of each;
+   against float64; then times one L = 20 trajectory of each; then (2b),
+   against float64 too, at the edges of its layout and tiles (one chain, an
+   odd count, the card's SM count of chains and one more, K = 1 at 16x16,
+   K = 16 at 48x48, 40x48 and 20x48, a 24x96 scene held transposed, a 96x24
+   one taller than a chunk of row profiles, scattered dead slots in both
+   mask forms, B2's count from the device at 0, 1 and 512), the same bits
+   on a rerun and for a chain at any chain count, alone or among others,
+   the launch layout (tile, warps a chain, chains a block, blocks an SM) at
+   each preset shape, and B1 beside B5 at cfg0's, the trans-d hmc move's
+   and the 48x48 shape (kernel time from the profiler);
 3. holds the diagonal-Fisher Riemannian kernel (B3) against its plain
    version at the cfg5 shape (256 chains, K = 16, per-chain masks with dead
    slots, beta 1 and 0.3) and the cfg1 shape (128 chains, K = 10, shared
@@ -115,6 +124,30 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _kernel_ms(fn, reps: int, name: str) -> float:
+    """The device time of the kernels whose name holds ``name``, per call of
+    fn, from torch.profiler (CUPTI): at small launches the host's own time
+    per call exceeds the kernel's, and CUDA events around a run of calls
+    would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if name in e.key:
+            total += float(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0.0))
+    if total <= 0.0:
+        raise AssertionError(f"the profiler saw no kernel named {name!r}")
+    return total / reps / 1e3
 
 
 def check_kernel(fl, cfg, dev):
@@ -526,7 +559,7 @@ def _b5_errors(out, want):
             "grad_rel": float(((g - want[3]).abs() / (1.0 + want[3].abs())).max())}
 
 
-def _b5_compare(case, out, want, want64=None):
+def _b5_compare(case, out, want, want64=None, kernel="B5"):
     """B5 within TOL of its plain version (U with eight float32 spacings at
     its magnitude); on a long trajectory, where the field's stiffness
     amplifies float32 rounding in both versions, a quantity off TOL passes
@@ -541,10 +574,10 @@ def _b5_compare(case, out, want, want64=None):
         if e <= tol[name]:
             continue
         if far is None or not far[name] <= near[name] + tol[name]:
-            raise AssertionError(f"B5 {case}: {name} error {e} > {tol[name]}"
+            raise AssertionError(f"{kernel} {case}: {name} error {e} > {tol[name]}"
                                  + (f"; from float64 {far[name]}, the plain version "
                                     f"{near[name]}" if far else ""))
-        print(f"B5 {case}: {name} {e:.3g} from the plain version; from float64 the "
+        print(f"{kernel} {case}: {name} {e:.3g} from the plain version; from float64 the "
               f"kernel {far[name]:.3g}, the plain version {near[name]:.3g}")
     return errs["theta"], tol["u"]
 
@@ -754,6 +787,159 @@ def check_b5_edges(flc, fl, cfg4, dev):
           f"or among others; layout at 1024 chains (threads a chain, blocks an SM, SMs "
           f"filled): {json.dumps(lay)}")
     return err
+
+
+def check_b1_edges(fl, flc, configs, dev):
+    """Phase 2b: B1/B2 where its layout and tiles are most at risk, each case
+    a trajectory against the plain version (float64 as arbiter,
+    _b5_compare), dead slots frozen with zero gradient: one chain, an odd
+    count, the card's SM count of chains and one more (the flagship scene,
+    K = 10); K = 1 at 16x16 (cfg0's scene); K = 16 at 48x48, 40x48 and
+    20x48 (cuts of the crowded image, per-chain masks with 1..16 live
+    stars), a 24x96 scene held transposed and a 96x24 one taller than a
+    chunk of row profiles; scattered dead slots in both mask forms; B2's
+    step count from a device int32 at 0 and 1 (per-chain masks) and 512
+    (the whole catalog).  Then the same bits on a rerun, for a chain in a
+    launch of the SM count and of one more, and alone or among others; the
+    launch layout (warps a chain, chains a block, blocks an SM) at each
+    preset shape; and B1 beside B5 in kernel time at each preset shape in
+    B1's domain: cfg0 (4 chains, K = 1, 16x16, L = 15), the trans-d hmc
+    move (256 chains, K = 16, 32x32, per-chain masks, L = 6) and 48x48 at
+    K = 16 (1024 chains, L = 20).  Returns the largest theta error of each
+    contract and the times."""
+    import torch
+
+    cfg = configs["cfg6_chees"]
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    spec, prior = cfg.scene, cfg.prior
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def inputs(e_truth, c, k, seed):
+        theta, p, eps = _crowded_inputs(e_truth, c, k, dev, seed)
+        return theta, p, 0.002 * eps
+
+    def check(name, e_spec, e_img, theta, p, eps, mask, n, dyn=False):
+        k = theta.shape[1]
+        live = mask if mask.ndim == 2 else mask.expand(theta.shape[0], k)
+        p = p * live[..., None]
+        inv_mass = torch.full((k, 3), 0.9, device=dev)
+        if dyn:
+            fused = fl.make_fused_leapfrog_dyn(e_spec, e_img, prior, k)
+            n_dev = torch.full((1,), n, dtype=torch.int32, device=dev)
+            out = fused(theta, p, eps, inv_mass, mask, n_dev, None)
+        else:
+            fused = fl.make_fused_leapfrog(e_spec, e_img, prior, k, n)
+            out = fused(theta, p, eps, inv_mass, mask)
+        want = fl.fused_leapfrog_reference(e_spec, e_img, prior, theta, p, eps, inv_mass, mask,
+                                           n, None)
+        want64 = fl.fused_leapfrog_reference(
+            e_spec, e_img.double(), prior, theta.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), n, None)
+        e, _ = _b5_compare(name, out, want, want64, kernel="B1")
+        dead = live == 0
+        if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
+            raise AssertionError(f"B1 {name}: a dead slot moved or has a gradient")
+        contract = "dyn" if dyn else "static"
+        err[contract] = max(err[contract], e)
+
+    L = 10
+    names = []
+    err = {"static": 0.0, "dyn": 0.0}
+    for c in (1, 7, sms, sms + 1):
+        theta, p, eps = inputs(truth, c, cfg.kmax, 80 + c % 97)
+        names.append(f"C={c} K=10 32x32")
+        check(names[-1], spec, img, theta, p, eps, torch.ones(cfg.kmax, device=dev), L)
+    cfg0 = configs["cfg0_single_star"]
+    t0, i0 = cfg0.make_data()
+    theta, p, eps = inputs(t0, 4, 1, 81)
+    names.append("C=4 K=1 16x16")
+    check(names[-1], cfg0.scene, i0.to(dev), theta, p, eps, torch.ones(1, device=dev), 15)
+    for i, (h, w) in enumerate(((48, 48), (40, 48), (20, 48), (24, 96), (96, 24))):
+        e_spec, e_img, theta, xi, _, mask = _cut_inputs(h, w, 16, 64, dev, 82 + i)
+        names.append(f"C=64 K=16 {h}x{w}" + (" (transposed)" if w > fl.MAX_COLS else ""))
+        check(names[-1], e_spec, e_img, theta, xi, torch.full((64,), 0.002, device=dev),
+              mask, L)
+    theta, p, eps = inputs(truth, 64, cfg.kmax, 88)
+    slot = torch.arange(cfg.kmax, device=dev)
+    shared = (slot % 3 != 1).to(torch.float32)
+    per_chain = ((slot[None] + torch.arange(64, device=dev)[:, None]) % 2 == 0).to(
+        torch.float32)
+    names += ["scattered dead slots, shared mask", "scattered dead slots, per-chain masks"]
+    check(names[-2], spec, img, theta, p, eps, shared, L)
+    check(names[-1], spec, img, theta, p, eps, per_chain, L)
+    for n in (0, 1):
+        names.append(f"B2 n={n} from the device, per-chain masks")
+        check(names[-1], spec, img, theta, p, eps, per_chain, n, dyn=True)
+    # a long count on the whole catalog, as ChEES runs it: with half the
+    # stars dead the live ones are driven far, and at 512 steps float32
+    # rounding grows there in every version alike (p 0.14-0.23 from float64
+    # for the plain version and both B1 designs, against 1e-4 here)
+    names.append("B2 n=512 from the device")
+    check(names[-1], spec, img, theta, p, eps, torch.ones(cfg.kmax, device=dev), 512, dyn=True)
+
+    # the same bits at the SM count and one more, on a rerun, alone or among others
+    theta, p, eps = inputs(truth, sms + 1, cfg.kmax, 89)
+    inv_mass = torch.full((cfg.kmax, 3), 0.9, device=dev)
+    mask = torch.ones(cfg.kmax, device=dev)
+    fused = fl.make_fused_leapfrog(spec, img, prior, cfg.kmax, L)
+    narrow = fused(theta, p, eps, inv_mass, mask)
+    wide = fused(theta[:sms].contiguous(), p[:sms].contiguous(), eps[:sms].contiguous(),
+                 inv_mass, mask)
+    if not _same_bits(wide, [o[:sms] for o in narrow]):
+        raise AssertionError(f"B1: a chain gave other bits among {sms} and {sms + 1} chains")
+    if not _same_bits(narrow, fused(theta, p, eps, inv_mass, mask)):
+        raise AssertionError("B1: a rerun on the same inputs gave other bits")
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(sms, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), p[sel].contiguous(), eps[sel].contiguous(),
+                     inv_mass, mask)
+        if not _same_bits(part, [o[sel] for o in narrow]):
+            raise AssertionError(f"B1: chains {idx[:3]}... gave other bits among other chains")
+
+    # B1 beside B5 at the preset shapes in B1's domain (the flagship's in phase 5)
+    cfg5 = configs["cfg5_transdim_mcmc"]
+    t5, i5 = cfg5.make_data()
+    cut_spec, cut_img, cut_theta, cut_xi, _, _ = _cut_inputs(48, 48, 16, 1024, dev, 90)
+    shapes = []
+    theta, p, eps = inputs(t0, 4, 1, 91)
+    shapes.append(("cfg0", cfg0.scene, i0.to(dev), theta, p, eps, torch.ones(1, device=dev),
+                   15))
+    theta, xi, _, mask = _rhmc_inputs(t5, 256, 16, dev, 92, True)
+    shapes.append(("trans-d hmc", cfg5.scene, i5.to(dev), theta, xi * mask[..., None],
+                   torch.full((256,), 0.002, device=dev), mask, 6))
+    shapes.append(("48x48 K=16", cut_spec, cut_img, cut_theta, cut_xi,
+                   torch.full((1024,), 0.002, device=dev), torch.ones(16, device=dev), 20))
+    times, lay = {}, {}
+    for name, e_spec, e_img, theta, p, eps, mask, n in shapes:
+        c, k = theta.shape[:2]
+        inv_mass = torch.full((k, 3), 0.9, device=dev)
+        g = fl.fused_leapfrog_reference(e_spec, e_img, prior, theta, p, eps, inv_mass, mask, 0,
+                                        None)[3]
+        b1 = fl.make_fused_leapfrog(e_spec, e_img, prior, k, n)
+        b5 = flc.make_fused_leapfrog(e_spec, e_img, prior, k, n)
+        _b5_compare(f"{name} vs B5", b1(theta, p, eps, inv_mass, mask, grad=g),
+                    b5(theta, p, eps, inv_mass, mask, grad=g), kernel="B1")
+        times[name] = {
+            "chains": c, "K": k, "L": n,
+            "b1": _kernel_ms(lambda: b1(theta, p, eps, inv_mass, mask, grad=g), 50,
+                             "fused_leapfrog_kernel"),
+            "b5": _kernel_ms(lambda: b5(theta, p, eps, inv_mass, mask, grad=g), 50,
+                             "fused_leapfrog_crowded_kernel")}
+        lay[name] = dict(fl.launch_tile(e_spec.height, e_spec.width, k),
+                         **fl.launch_layout(c, k, e_spec.height, e_spec.width))
+    lay["flagship"] = dict(fl.launch_tile(32, 32, cfg.kmax),
+                           **fl.launch_layout(1024, cfg.kmax, 32, 32))
+    torch.cuda.synchronize()
+    print(f"B1 edges ({'; '.join(names)}; L={L} but cfg0's 15 and B2's counts): max theta "
+          f"err {json.dumps(err)}; the same bits among {sms} and {sms + 1} chains, on a rerun and "
+          f"alone or among others")
+    for name, t in times.items():
+        print(f"B1 beside B5 at {name} ({t['chains']} chains, K={t['K']}, L={t['L']}, gradient "
+              f"in): B1 {t['b1']:.4f} ms, B5 {t['b5']:.4f} ms of kernel time per trajectory")
+    print(f"B1 layout (tile, warps a chain, chains a block, threads, blocks an SM, SMs "
+          f"filled): {json.dumps(lay)}")
+    return err, times
 
 
 def check_b3_edges(frd, cfg, dev):
@@ -1317,6 +1503,8 @@ def main() -> int:
     cfg = CONFIGS["cfg6_chees"]
     cfg4 = CONFIGS["cfg4_crowded"]
     err, ms = check_kernel(fl, cfg, dev)
+    err_edges, ms_b1_b5 = check_b1_edges(fl, flc, CONFIGS, dev)
+    err = {nm: max(e, err_edges[nm]) for nm, e in err.items()}
     err_b3, ms_b3 = check_rhmc_kernel(frd, rhmc, CONFIGS["cfg5_transdim_mcmc"], dev)
     err_b3 = max(err_b3, check_b3_edges(frd, CONFIGS["cfg5_transdim_mcmc"], dev))
     err_b6, ms_b6 = check_rhmc_full_kernel(fr, rhmc, CONFIGS["cfg3_transdim_smc"], dev)

@@ -13,13 +13,16 @@ VMEM gates.  The heads do not care which kernel of a pair runs: the
 contracts are the same, and on the CPU both wrappers run the same plain
 version.
 
-The crowded-field kernels also run small scenes.  On an H100
-(chip_smoke.py) a 6 x 4 diagonal-Fisher trajectory of 256 chains at K = 16
-on 32x32 takes 0.295 ms on B3 and 0.971 ms on B4, whose GEMM tiles span
-128 x 128 pixels, so B3 stays.  An L = 20 leapfrog of 1024 chains at
-K = 10 on 32x32 takes 0.324 ms on B1 and 0.199 ms on B5, whose tile
-follows the scene; the choice by shape is kept all the same: whether B1
-is retired is for the redesign of B1/B2, which weighs it end to end.
+The crowded-field kernels also run small scenes.  On an NVIDIA H100 80GB
+HBM3 at 700 W (chip_smoke.py) a 6 x 4 diagonal-Fisher trajectory of 256
+chains at K = 16 on 32x32 takes 0.295 ms on B3 and 0.971 ms on B4, whose
+GEMM tiles span 128 x 128 pixels, so B3 stays.  On the same card
+(scripts/b1_before_after.py, kernel time in turns) an L = 20 leapfrog of
+1024 chains at K = 10 on 32x32 takes 0.122 ms on B1 and 0.198 ms on B5,
+whose tile follows the scene, and ChEES's adapted 1024 steps 6.04 ms
+against 9.87; cfg0's 4 chains (K = 1, 16x16), the trans-d hmc move's 256
+(K = 16, per-chain masks) and 1024 chains at K = 16 on 48x48 run faster on
+B1 than on B5 too, the last by 2%: B1 stays in its domain.
 """
 from __future__ import annotations
 

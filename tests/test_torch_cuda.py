@@ -879,3 +879,124 @@ def test_rhmc_kernel_gives_a_chain_the_same_bits_at_any_chain_count(dev):
         sel = torch.tensor(idx, device=dev)
         part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(), mask)
         assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, wide))
+
+
+# -- B1/B2: a chain a warp (two at the 32-column tile), compile-time tiles ----
+
+def _check_b1(spec, img, prior, theta, p, mask, n_steps=10, dyn=False):
+    """B1 (B2 with ``dyn``: the count from a device int32) against its plain
+    version: within TOL (U with eight float32 spacings) or, where float32
+    rounding grows along the trajectory, no farther from a float64 run of
+    the plain version than the float32 plain version is, plus TOL; dead
+    slots frozen with zero gradient.  Returns the call and its output."""
+    c, k = theta.shape[:2]
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    p = p * live[..., None]
+    eps = torch.full((c,), 0.002, device=theta.device)
+    inv_mass = torch.full((k, 3), 0.9, device=theta.device)
+    if dyn:
+        n_dev = torch.full((1,), n_steps, dtype=torch.int32, device=theta.device)
+        kern = fl.make_fused_leapfrog_dyn(spec, img, prior, k)
+        fused = lambda th, pp, e, im, m: kern(th, pp, e, im, m, n_dev, None)  # noqa: E731
+    else:
+        fused = fl.make_fused_leapfrog(spec, img, prior, k, n_steps)
+    out = fused(theta, p, eps, inv_mass, mask)
+    want = fl.fused_leapfrog_reference(spec, img, prior, theta, p, eps, inv_mass, mask,
+                                       n_steps, None)
+    want64 = fl.fused_leapfrog_reference(spec, img.double(), prior, theta.double(), p.double(),
+                                         eps.double(), inv_mass.double(), mask.double(),
+                                         n_steps, None)
+    torch.cuda.synchronize()
+    tol = dict(TOL, u=TOL["u"] + _spacings(want[2]))
+    errs, far, near = _b5_errors(out, want), _b5_errors(out, want64), _b5_errors(want, want64)
+    for name, e in errs.items():
+        assert e <= tol[name] or far[name] <= near[name] + tol[name], (name, e, far, near)
+    dead = live == 0
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[3][dead] == 0).all())
+    return fused, (theta, p, eps, inv_mass, mask), out
+
+
+@pytest.mark.parametrize("c", ["1", "7", "sms", "sms+1"])
+def test_b1_kernel_at_the_edges_of_its_layout(dev, c):
+    """One chain, an odd count (a block of four chains part empty), the
+    card's SM count of chains and one more, on the flagship scene."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"1": 1, "7": 7, "sms": sms, "sms+1": sms + 1}[c]
+    cfg, img, theta, p, _, _ = _inputs("cfg6_chees", n, dev, seed=15)
+    _check_b1(cfg.scene, img, cfg.prior, theta, p, torch.ones(cfg.kmax, device=dev))
+
+
+@pytest.mark.parametrize("h,w,k", [
+    (16, 16, 1),     # cfg0's shape: the 16-column tile, one star (a pad of 4)
+    (48, 48, 16),    # the 48-column tile at the edge of the domain
+    (40, 48, 16),    # a non-square scene in the 48-column tile
+    (20, 48, 16),    # rows not a multiple of the register tile
+    (24, 96, 16),    # wider than 48 columns: held transposed, two chunks of rows
+    (96, 24, 16),    # taller than a chunk of row profiles
+    (9, 13, 5),      # ragged everywhere, a pad of 8
+])
+def test_b1_kernel_at_the_edges_of_its_tiles(dev, h, w, k):
+    """B1 where its tiles are most at risk, per-chain masks with 1..K live
+    stars in shuffled slots."""
+    spec, prior, img, theta, xi, _, mask = _cut_scene(h, w, k, 24, dev, seed=16)
+    assert fl.launch_tile(h, w, k)["transposed"] == (w > 48)
+    _check_b1(spec, img, prior, theta, xi, mask)
+
+
+@pytest.mark.parametrize("form", ["shared", "per_chain"])
+def test_b1_kernel_with_scattered_dead_slots(dev, form):
+    """A shared mask alive on two slots of every three, or per-chain masks
+    alive on the even slots of even chains and the odd of odd ones."""
+    cfg, img, theta, p, _, _ = _inputs("cfg6_chees", 32, dev, seed=17)
+    slot = torch.arange(cfg.kmax, device=dev)
+    if form == "shared":
+        mask = (slot % 3 != 1).to(torch.float32)
+    else:
+        mask = ((slot[None] + torch.arange(32, device=dev)[:, None]) % 2 == 0).to(torch.float32)
+    _check_b1(cfg.scene, img, cfg.prior, theta, p, mask)
+
+
+@pytest.mark.parametrize("n", [0, 512])
+def test_b2_kernel_reads_zero_and_a_long_count_from_the_device(dev, n):
+    """B2's step count from a device int32: 0 returns (U, grad U) at theta;
+    512 steps on the flagship's whole catalog, as ChEES runs it."""
+    cfg, img, theta, p, _, _ = _inputs("cfg6_chees", 64, dev, seed=18)
+    _, _, out = _check_b1(cfg.scene, img, cfg.prior, theta, p,
+                          torch.ones(cfg.kmax, device=dev), n_steps=n, dyn=True)
+    if n == 0:
+        assert torch.equal(out[0], theta)
+
+
+def test_b1_kernel_gives_a_chain_the_same_bits_at_any_chain_count(dev):
+    """A chain's bits do not depend on the chain count (the SM count and
+    one more), a rerun, or its place among other chains (alone, among 7,
+    or all in reverse order)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg, img, theta, p, eps, inv_mass = _inputs("cfg6_chees", sms + 1, dev, seed=19)
+    mask = torch.ones(cfg.kmax, device=dev)
+    fused = fl.make_fused_leapfrog(cfg.scene, img, cfg.prior, cfg.kmax, 10)
+    narrow = fused(theta, p, eps, inv_mass, mask)
+    wide = fused(theta[:sms].contiguous(), p[:sms].contiguous(), eps[:sms].contiguous(),
+                 inv_mass, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b[:sms])) for a, b in zip(wide, narrow))
+    assert all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(narrow, fused(theta, p, eps, inv_mass, mask)))
+    for idx in ([5], [0, 9, 17, 30, 41, 52, 63], list(range(sms, -1, -1))):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), p[sel].contiguous(), eps[sel].contiguous(),
+                     inv_mass, mask)
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, narrow))
+
+
+@pytest.mark.parametrize("h,w,k", [(32, 32, 10), (16, 16, 1), (48, 48, 16), (24, 96, 16)])
+def test_b1_launch_layout_follows_the_tile(dev, h, w, k):
+    """The build's layout is the one the wrapper mirrors: warps a chain by
+    the column tile, CHAINS_PER_BLOCK chains a block, and at 1024 chains
+    every SM holds its share of the chains at once."""
+    lay = fl.launch_layout(1024, k, h, w)
+    tile = fl.launch_tile(h, w, k)
+    assert lay["warps_per_chain"] == tile["warps_per_chain"]
+    assert lay["threads"] == 32 * tile["warps_per_chain"] * fl.CHAINS_PER_BLOCK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lay["blocks_per_sm"] * sms * fl.CHAINS_PER_BLOCK >= 1024

@@ -11,6 +11,7 @@ import torch
 from starcat.configs import CONFIGS
 from starcat.pallas_kernels import make_pallas_leapfrog, make_pallas_leapfrog_dyn
 from starcat_torch import fused_leapfrog as fl
+from starcat_torch.build import MAX_SMEM_BYTES
 from starcat_torch.convert import prior_from_jax, spec_from_jax
 
 torch.set_num_threads(1)
@@ -162,5 +163,7 @@ def test_domain_check_accepts_the_presets():
         cfg = CONFIGS[name]
         fl.check_domain(spec_from_jax(cfg.scene), cfg.kmax)
     # the largest square scene of the domain fits one block's shared memory
-    assert fl.smem_bytes(16, 48, 48) <= fl.MAX_SMEM_BYTES
-    assert fl.smem_bytes(10, 32, 32) == 4 * (19 * 10 + 9 + 2 * 1024 + 10 * 96)
+    assert fl.smem_bytes(16, 48, 48) <= MAX_SMEM_BYTES
+    # the image at a row stride of 34, four chains' row profiles (K = 10,
+    # 48 rows), their two warps' exchange slots
+    assert fl.smem_bytes(10, 32, 32) == 4 * (32 * 34 + 4 * 2 * 10 * 48 + 4 * 2 * 2 * 50)
