@@ -64,7 +64,16 @@
    stands, cfg1_rhmc shortened, B6); the crowded path (cfg4_crowded at 4096
    particles for three temperature steps, B4, and head=hmc kmax=50 at 1024
    chains, 100 + 50, B5), each checked against the records' bands;
-11. prints one JSON line with a row per kernel (launches on its path, the
+11. holds B1 as the NUTS head's leaf and ADVI's gradient at cfg2's shape
+   (1024 chains, K = 10, 32x32) against its plain version: one step with
+   the entry gradient and every other chain stepping backward (a negative
+   per-chain eps), against float64 too, and n_steps = 0 on 1024 chains and
+   on ADVI's 8 draws; times one leaf and one 8-draw gradient;
+12. drives the NUTS and ADVI path through the public API, the launch counts
+   set to 0 just before and read just after: cfg2_nuts at full width (1024
+   chains, max_depth 8) cut to 100 + 50 transitions and cfg7_advi as the
+   preset stands (3000 steps), both on B1, checked against the records;
+13. prints one JSON line with a row per kernel (launches on its path, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work).
 
@@ -1401,6 +1410,121 @@ def run_crowded_slice(api, configs, dev):
                              f"trajectory's {mean} ± {sd}")
 
 
+def check_nuts_advi_kernel(fl, cfg, dev):
+    """Phase 11: B1 as the NUTS leaf (one step, entry gradient in, eps signed
+    per chain) and as ADVI's gradient (n_steps = 0) at cfg2's shape, against
+    the plain version and the leaf against float64; returns the largest
+    theta error and the times of a leaf and an 8-draw gradient."""
+    import torch
+
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    spec, prior, k, c = cfg.scene, cfg.prior, cfg.kmax, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    theta = truth.to(dev)[None] + 0.02 * torch.randn((c, k, 3), generator=gen, device=dev)
+    p = torch.randn((c, k, 3), generator=gen, device=dev)
+    eps = 0.0135 * (0.8 + 0.4 * torch.rand((c,), generator=gen, device=dev))
+    eps[1::2] *= -1.0        # every other chain builds a backward subtree
+    inv_mass = torch.full((k, 3), 0.02, device=dev)
+    mask = torch.ones(k, device=dev)
+    ref = lambda th, pp, e, n, g: fl.fused_leapfrog_reference(  # noqa: E731
+        spec, img, prior, th, pp, e, inv_mass, mask, n, g)
+    g0 = ref(theta, p, eps, 0, None)[3]
+    leaf = fl.make_fused_leapfrog(spec, img, prior, k, 1)
+    out = leaf(theta, p, eps, inv_mass, mask, grad=g0)
+    want = ref(theta, p, eps, 1, g0)
+    err = _compare("leaf, signed eps", out, want)
+    want64 = fl.fused_leapfrog_reference(spec, img.double(), prior, theta.double(),
+                                         p.double(), eps.double(), inv_mass.double(),
+                                         mask.double(), 1, g0.double())
+    far, near = (_max_err(x[0].double(), want64[0]) for x in (out, want))
+    if not far <= near + TOL["theta"]:
+        raise AssertionError(f"leaf vs float64: theta {far}, the plain version's {near}")
+    if not float(((out[0] - theta)[1::2] * p[1::2]).sum()) < 0:
+        raise AssertionError("the backward chains did not step against their momentum")
+    zero = fl.make_fused_leapfrog(spec, img, prior, k, 0)
+    for n in (c, 8):
+        got = zero(theta[:n], p[:n], eps[:n], inv_mass, mask)
+        err = max(err, _compare(f"n_steps=0, {n} chains", got,
+                                ref(theta[:n], p[:n], eps[:n], 0, None)))
+        if not (torch.equal(got[0], theta[:n]) and torch.equal(got[1], p[:n])):
+            raise AssertionError("n_steps=0 changed theta or p")
+    draws = (theta[:8].contiguous(), torch.zeros_like(theta[:8]))
+    ms = {"leaf": _kernel_ms(lambda: leaf(theta, p, eps, inv_mass, mask, grad=g0), 200,
+                             "fused_leapfrog_kernel"),
+          "leaf_plain": _time_ms(lambda: ref(theta, p, eps, 1, g0), 20),
+          "grad8": _kernel_ms(lambda: zero(*draws, 0.0, inv_mass, mask), 200,
+                              "fused_leapfrog_kernel"),
+          "grad8_plain": _time_ms(lambda: ref(*draws, 0.0, 0, None), 20)}
+    torch.cuda.synchronize()
+    print(f"B1 as the NUTS leaf (C={c}, K={k}, {spec.height}x{spec.width}, L=1, eps signed "
+          f"per chain) and ADVI's gradient (n_steps=0, {c} and 8 chains): max theta err "
+          f"{err:.3g}; leaf theta vs float64 {far:.3g} (plain {near:.3g}); leaf {ms['leaf']:.5f} "
+          f"ms of kernel time, plain {ms['leaf_plain']:.4f} ms; 8-draw gradient "
+          f"{ms['grad8']:.5f} ms, plain {ms['grad8_plain']:.4f} ms")
+    return err, ms
+
+
+# Posterior references on the flagship image: cfg2_nuts from the JAX
+# package's full-length record (runs/cfg2_full_r4.json): total flux 2170.1
+# +- 79.0; cfg7_advi's band from the JAX package's seeds 0-3 (PERF.md §2):
+# the mean +- 3 sd over seeds of the total flux and of the ELBO.
+REF_CFG2_FLUX = (2170.1, 79.0)
+ADVI_BAND = {"total_flux": (1995.7, 2283.5), "elbo": (19021.9, 19056.4)}
+
+
+def run_nuts_advi_slice(api, configs, dev):
+    """Phase 12: cfg2_nuts at full width (1024 chains, max_depth 8), cut to
+    100 + 50 transitions, and cfg7_advi as the preset stands, through the
+    public API.  Checks that each ran through B1 with finite draws, NUTS's
+    accept in 0.5-0.95 and total flux within one sd of the record, ADVI's
+    total flux and ELBO inside the band; returns the leaves per transition."""
+    import numpy as np
+
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(configs["cfg2_nuts"], {"n_warmup": 100, "n_samples": 50})
+    out = api.sample(cfg, dev, seed=1)
+    st = out.stats
+    tf = api.summarize_output(out)["total_flux"]
+    leaves = st["kernel_launches"] / (cfg.n_warmup + cfg.n_samples)
+    print(f"slice cfg2_nuts: {cfg.n_chains} chains, max depth {cfg.nuts.max_depth}, "
+          f"{cfg.n_warmup} warmup + {cfg.n_samples} draws in {st['wall_seconds']:.3f} s, kernel "
+          f"{st['kernel']} ({st['trajectory_kernel']}) x{st['kernel_launches']} ({leaves:.1f} "
+          f"leaves a transition), accept {st['accept']:.3f}, step {st['step_size']:.4g}, "
+          f"divergences {st['divergences']}; total flux {tf['mean']:.2f} ± {tf['sd']:.2f} "
+          f"(R-hat {tf['rhat']:.4f}); record {REF_CFG2_FLUX}")
+    if st["trajectory_kernel"] != "B1" or st["kernel_launches"] <= 0:
+        raise AssertionError(f"nuts did not run through B1: {st}")
+    want = (cfg.n_chains, cfg.n_samples, cfg.kmax, 3)
+    if out.thetas.shape != want or not np.isfinite(out.thetas).all():
+        raise AssertionError(f"nuts: draws of shape {out.thetas.shape}, finite "
+                             f"{np.isfinite(out.thetas).all()}")
+    if not 0.5 <= st["accept"] <= 0.95:
+        raise AssertionError(f"nuts: mean accept {st['accept']}")
+    mean, sd = REF_CFG2_FLUX
+    if not abs(tf["mean"] - mean) <= sd:
+        raise AssertionError(f"nuts: total flux {tf['mean']} vs the record {mean} ± {sd}")
+
+    cfg = configs["cfg7_advi"]
+    out = api.sample(cfg, dev, seed=0)
+    st = out.stats
+    got = {"total_flux": api.summarize_output(out)["total_flux"]["mean"], "elbo": st["elbo"]}
+    print(f"slice cfg7_advi: {st['family']}, {cfg.advi.n_steps} steps of {cfg.advi.n_mc} draws "
+          f"in {st['wall_seconds']:.3f} s, kernel {st['kernel']} ({st['trajectory_kernel']}) "
+          f"x{st['kernel_launches']}; total flux {got['total_flux']:.2f}, ELBO "
+          f"{got['elbo']:.2f}; band {json.dumps(ADVI_BAND)}")
+    if st["trajectory_kernel"] != "B1" or st["kernel_launches"] != cfg.advi.n_steps:
+        raise AssertionError(f"advi did not take its gradients from B1: {st}")
+    if out.thetas.shape != (api.ADVI_DRAWS, 1, cfg.kmax, 3) or not np.isfinite(out.thetas).all():
+        raise AssertionError(f"advi: draws of shape {out.thetas.shape}")
+    for name, (lo, hi) in ADVI_BAND.items():
+        if not lo <= got[name] <= hi:
+            raise AssertionError(f"advi: {name} {got[name]} outside [{lo}, {hi}]")
+    return leaves
+
+
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its operations over the fp32 peak outside the tensor cores and its bytes
 # (each input read once, each output written once) over the memory rate
@@ -1559,6 +1683,25 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     if launches["b4"] <= 0 or launches["b5"] <= 0:
         raise AssertionError(f"a crowded-field kernel was never launched: {launches}")
+
+    err_leaf, ms_leaf = check_nuts_advi_kernel(fl, CONFIGS["cfg2_nuts"], dev)
+    err["static"] = max(err["static"], err_leaf)
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    leaves = run_nuts_advi_slice(api, CONFIGS, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"NUTS and ADVI path: {wall:.3f} s wall; B1 launches {fl.STATIC_LAUNCHES} "
+          f"({leaves:.1f} NUTS leaves a transition)")
+    if fl.STATIC_LAUNCHES <= 0:
+        raise AssertionError("B1 was never launched on the NUTS and ADVI path")
+    launches["static"] += fl.STATIC_LAUNCHES
+    # a leaf and an 8-draw gradient at the shapes of this path, against their
+    # own bounds (one evaluation each; the leaf's entry gradient is in)
+    for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
+        b = bound_ms(leapfrog_ops(c, 10, 32, 32, n, True), leapfrog_bytes(c, 10, 32, 32, n > 0))
+        print(f"B1 {name}: {ms_leaf[name]:.5f} ms kernel, {ms_leaf[name + '_plain']:.4f} ms "
+              f"plain, bound {b[0]:.6f} ms ({b[1]})")
 
     # the timed shapes: B1/B2 C = 1024, K = 10, 32x32, L = 20, entry gradient
     # in; B3 256 chains, K = 16, 32x32, 6 x 4, per-chain masks; B6 4096

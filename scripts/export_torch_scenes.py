@@ -5,8 +5,8 @@ port runs, so both packages sample the same image.
     JAX_PLATFORMS=cpu python scripts/export_torch_scenes.py
 
 Entries: ``cfg0_single_star``, ``flagship`` (the 10-star 32x32 scene
-that cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc, cfg5_transdim_mcmc and
-cfg6_chees share, with the same prior, star count and seeds) and
+that cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc, cfg5_transdim_mcmc,
+cfg6_chees and cfg7_advi share, with the same prior, star count and seeds) and
 ``crowded`` (cfg4_crowded's 50-star 128x128 field).  Each
 entry holds ``theta`` (n_stars, 3) and ``image`` (H, W) as float32, and
 ``meta`` = (height, width, psf_sigma, background, logf_mean, logf_sigma,
@@ -48,7 +48,8 @@ def main() -> None:
         arrays[f"{entry}/meta"] = _meta(cfg)
     # the flagship entry stands for these presets too: same scene, prior,
     # star count and seeds
-    for name in ("cfg1_rhmc", "cfg2_nuts", "cfg3_transdim_smc", "cfg5_transdim_mcmc"):
+    for name in ("cfg1_rhmc", "cfg2_nuts", "cfg3_transdim_smc", "cfg5_transdim_mcmc",
+                 "cfg7_advi"):
         if not np.array_equal(_meta(CONFIGS[name]), arrays["flagship/meta"]):
             raise SystemExit(f"{name} no longer shares the flagship scene")
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -10,7 +10,8 @@ share (device time / wall), the device time by kernel name, largest first,
 and the number of aten operator calls made on the host (nested calls
 included), in all and per transition (per temperature step for the smc
 head, e.g. --config cfg3_transdim_smc, whose length --n-warmup and
---n-samples do not set).  Needs a CUDA device.
+--n-samples do not set, and per step for the advi head); for the nuts head (--config cfg2_nuts) also per
+leaf, a leaf being one launch of the fused leapfrog.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def main() -> None:
 
     cfg = CONFIGS[args.config]
     over = _parse_overrides(args.overrides)
-    if cfg.head != "smc":
+    if cfg.head not in ("smc", "advi"):
         over = {"n_warmup": args.n_warmup, "n_samples": args.n_samples, **over}
     cfg = apply_overrides(cfg, over)
     sample(cfg, "cuda", seed=0)  # build + warm up
@@ -73,6 +74,8 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
     if cfg.head == "smc":
         unit, n_units = "temperature step", out.stats["n_temp_steps"]
+    elif cfg.head == "advi":
+        unit, n_units = "ADVI step", cfg.advi.n_steps
     else:
         unit, n_units = "transition", cfg.n_warmup + cfg.n_samples * cfg.thin
     print(json.dumps({
@@ -87,6 +90,9 @@ def main() -> None:
         "aten_calls": aten_calls,
         "unit": unit, "aten_calls_per_unit": aten_calls / max(n_units, 1),
         "device_s_per_unit": total / 1e6 / max(n_units, 1),
+        **({"leaves_per_transition": out.stats["kernel_launches"] / max(n_units, 1),
+            "aten_calls_per_leaf": aten_calls / max(out.stats["kernel_launches"], 1)}
+           if cfg.head == "nuts" else {}),
         "top_device_s": {k: v / 1e6 for k, v in top},
     }))
 

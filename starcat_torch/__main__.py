@@ -4,7 +4,11 @@ Commands:
   list                                                list presets
   run       --config cfg6_chees [--device cuda] [key=value ...]
   validate  [--config cfg0_single_star]
-            [--heads hmc,chees,rhmc,rhmc_diag,smc,transdim] [--device cuda]
+            [--heads hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim]
+            [--device cuda]
+
+The presets: cfg0_single_star, cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc,
+cfg4_crowded, cfg5_transdim_mcmc, cfg6_chees and cfg7_advi.
 
 ``--device`` defaults to cuda, and a run raises when CUDA is not available;
 pass ``--device cpu`` to run the plain torch path on the CPU.
@@ -56,16 +60,18 @@ def cmd_run(args):
 
 def cmd_validate(args):
     """Gate each head against the NumPy oracle on the single-star scene:
-    the posterior means of ux, uy and log f must agree within z < 4.
+    the posterior means of ux, uy and log f must agree within z < 4, and
+    within z < 6 for advi, whose mean-field family is an approximation
+    (its variances are biased low by construction).
 
     ``rhmc`` runs the reference's default full metric (kernel B6) and
     ``rhmc_diag`` the rhmc head on the diagonal metric (B3).  ``smc`` runs
     as the reference's validate configures it (2048 particles, three HMC
     mutations of 15 steps per temperature); its particles are the draws of
-    one series.  ``transdim`` is gated on the alive-slot marginal:
-    conditional on slot 0 being alive, its posterior equals the oracle's
-    fixed-K=1 posterior, so dead draws are dropped and each chain is
-    trimmed to the smallest alive count."""
+    one series, as are advi's 1000 draws from its fitted q.  ``transdim``
+    is gated on the alive-slot marginal: conditional on slot 0 being alive,
+    its posterior equals the oracle's fixed-K=1 posterior, so dead draws
+    are dropped and each chain is trimmed to the smallest alive count."""
     import numpy as np
 
     from oracle.numpy_sampler import run_oracle
@@ -112,13 +118,14 @@ def cmd_validate(args):
                 continue
             draws = np.stack([draws[c][alive[c]][:n_keep] for c in range(draws.shape[0])])
         hok = True
+        zmax = 6.0 if head == "advi" else 4.0
         for j, nm in enumerate(["ux", "uy", "log_flux"]):
             cmp = diagnostics.compare_moments(
                 draws[:, :, 0, j], orc_draws[:, :, 0, j], nm)
             hrep[nm] = {"z": round(cmp["z"], 2),
                         "head": round(cmp["a"]["mean"], 4),
                         "oracle": round(cmp["b"]["mean"], 4)}
-            hok &= cmp["z"] < 4.0
+            hok &= cmp["z"] < zmax
         report[head] = {"validated": bool(hok), "kernel": out.stats["kernel"],
                         "moments": hrep}
         ok &= hok
@@ -143,8 +150,9 @@ def main(argv=None):
 
     p_val = sub.add_parser("validate", help="oracle vs port validation")
     p_val.add_argument("--config", default="cfg0_single_star")
-    p_val.add_argument("--heads", default="hmc,chees,rhmc,rhmc_diag,smc,transdim",
-                       help="comma-separated heads to gate against the oracle")
+    p_val.add_argument("--heads", default="hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim",
+                       help="comma-separated heads to gate against the oracle "
+                            "(default: %(default)s)")
     p_val.add_argument("--device", default="cuda")
     p_val.set_defaults(fn=cmd_validate)
 

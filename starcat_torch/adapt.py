@@ -1,6 +1,8 @@
 """Warmup adaptation (port of starcat/adapt.py): dual-averaging step size
 (Hoffman & Gelman 2014, §3.2) and a pooled Welford estimate of the
-posterior variance over all chains x warmup draws.
+posterior variance over all chains x warmup draws; and the Adam update
+that ChEES's trajectory length and ADVI's variational parameters follow
+(optax.adam's arithmetic).
 
 Every state field is a tensor on the run's device, so an update launches a
 few tiny kernels and never waits for the host.
@@ -92,3 +94,19 @@ def welford_variance(state: WelfordState, reg: float = 1e-3) -> torch.Tensor:
     var = state.m2 / (n - 1.0)
     w = n / (n + 5.0)
     return w * var + (1.0 - w) * reg
+
+
+class AdamState(NamedTuple):
+    m: torch.Tensor   # first moment, param-shaped
+    v: torch.Tensor   # second moment
+    t: torch.Tensor   # update count (float), 0 before the first
+
+
+def adam_update(st: AdamState, g, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """One Adam step on gradient g: (new state, the step to subtract)."""
+    t = st.t + 1.0
+    m = b1 * st.m + (1 - b1) * g
+    v = b2 * st.v + (1 - b2) * g * g
+    mh = m / (1 - b1 ** t)
+    vh = v / (1 - b2 ** t)
+    return AdamState(m, v, t), lr * mh / (torch.sqrt(vh) + eps)

@@ -1,14 +1,16 @@
 """High-level API (port of starcat/api.py): build the scene and potential
 from a RunConfig and run one head on it, on an explicitly named device.
 
-Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it), ``chees``,
-``rhmc`` (full or diagonal Fisher metric), ``smc`` and ``transdim``.
-``RunConfig.kernel`` picks the trajectory: the head's CUDA kernel or its
-plain torch version.  ``stats["kernel"]`` names what ran: ``cuda_fused`` /
-``torch`` for hmc and chees, ``rhmc_full_cuda`` / ``rhmc_full_torch`` or
-``rhmc_diag_cuda`` / ``rhmc_diag_torch`` for rhmc, and ``<mutation>_cuda``
-/ ``<mutation>_torch`` for smc and transdim (the smc ``hmc`` mutation has
-no kernel and is always ``hmc_torch``); ``stats["trajectory_kernel"]``
+Heads: ``hmc`` (and ``oracle``, the cfg0 preset's name for it), ``nuts``,
+``chees``, ``rhmc`` (full or diagonal Fisher metric), ``smc``, ``advi`` and
+``transdim``.  ``RunConfig.kernel`` picks the trajectory: the head's CUDA
+kernel or its plain torch version.  ``stats["kernel"]`` names what ran:
+``cuda_fused`` / ``torch`` for hmc, nuts, chees and advi (nuts's leaves and
+advi's gradients are the plain leapfrog kernel's), ``rhmc_full_cuda`` /
+``rhmc_full_torch`` or ``rhmc_diag_cuda`` / ``rhmc_diag_torch`` for rhmc,
+and ``<mutation>_cuda`` / ``<mutation>_torch`` for smc and transdim (the
+smc ``hmc`` mutation has no kernel and is always ``hmc_torch``);
+``stats["trajectory_kernel"]``
 names the CUDA kernel (B1, B2, B3, B4, B5 or B6, chosen by
 dispatch.trajectory_kernel from the scene's shape; "torch" on the plain
 path) and ``stats["kernel_launches"]`` counts the kernels' launches.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from . import (
+    advi,
     diagnostics,
     dispatch,
     fused_leapfrog,
@@ -36,14 +39,16 @@ from . import (
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
 from .hmc import run_hmc, run_hmc_fused
-from .potential import constrain, make_potential_and_grad
+from .nuts import run_nuts
+from .potential import constrain, make_potential_and_grad, sample_prior
 from .rhmc import check_metric, run_rhmc, run_rhmc_fused
 from .smc import MUTATIONS, check_mutation, run_smc
 from .transdim_mcmc import TD_MUTATIONS, run_transdim
 
-PORTED_HEADS = ("hmc", "oracle", "chees", "rhmc", "smc", "transdim")
-# the ROADMAP.md items that port the reference's other heads
-UNPORTED_HEADS = {"nuts": "A11", "advi": "A11"}
+PORTED_HEADS = ("hmc", "oracle", "nuts", "chees", "rhmc", "smc", "advi", "transdim")
+# the ROADMAP.md items that port the reference's other heads: none left
+UNPORTED_HEADS: dict[str, str] = {}
+ADVI_DRAWS = 1000   # iid draws from the fitted q, as the reference's record
 _KERNELS = (fused_leapfrog, fused_leapfrog_crowded, fused_rhmc, fused_rhmc_diag,
             fused_rhmc_diag_crowded)
 
@@ -62,7 +67,7 @@ def _check_head(cfg: RunConfig) -> None:
     if cfg.head not in PORTED_HEADS:
         item = UNPORTED_HEADS.get(cfg.head, "queue A")
         raise ValueError(f"head {cfg.head!r} is not ported yet (ROADMAP.md "
-                         f"{item}); ported heads: hmc, chees, rhmc, smc, transdim")
+                         f"{item}); ported heads: {', '.join(PORTED_HEADS)}")
     if cfg.head == "rhmc":
         check_metric(cfg.rhmc.metric)
     if cfg.head == "smc":
@@ -134,7 +139,7 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
     launches0 = sum(k.LAUNCHES for k in _KERNELS)
     t_start = time.perf_counter()
     theta0 = (_init_chains(generator, cfg, truth_theta.to(device))
-              if cfg.head not in ("smc", "transdim") else None)
+              if cfg.head not in ("smc", "advi", "transdim") else None)
     masks = mask.cpu().numpy()
 
     if cfg.head in ("hmc", "oracle"):
@@ -145,6 +150,13 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
         else:
             res, wr = run_hmc(generator, grad_fn, theta0, mask, cfg.n_samples,
                               cfg.n_warmup, cfg.hmc, thin=cfg.thin)
+        stats.update(step_size=float(wr.step_size))
+    elif cfg.head == "nuts":
+        # every leaf is one step of the fused leapfrog, eps signed per chain
+        leaf = (dispatch.make_leapfrog(spec, img, prior, cfg.kmax, 1)
+                if kernel == "cuda" else None)
+        res, wr = run_nuts(generator, grad_fn, theta0, mask, cfg.n_samples, cfg.n_warmup,
+                           cfg.nuts, thin=cfg.thin, leaf=leaf)
         stats.update(step_size=float(wr.step_size))
     elif cfg.head == "chees":
         impl = (make_fused_leapfrog_impl(spec, img, prior, cfg.kmax)
@@ -188,6 +200,27 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
                                 f"(max_steps={cfg.smc.max_steps}); raise smc.max_steps")
         thetas = res.theta.cpu().numpy()[:, None]     # (P, 1, K, 3)
         masks = res.mask.cpu().numpy()                # (P, K)
+    elif cfg.head == "advi":
+        # the draws are iid from q in smc's (P, 1, K, 3) layout
+        # (summarize_output moves them onto the draw axis)
+        agrad = (dispatch.make_grad_fn(spec, img, prior, mask) if kernel == "cuda"
+                 else grad_fn)
+        mu0 = sample_prior(generator, cfg.kmax, prior, device)
+        n_mc = cfg.advi.n_mc
+        if cfg.advi.full_rank:
+            xi = torch.randn((cfg.advi.n_steps, n_mc, mu0.numel()), generator=generator,
+                             device=device)
+            res = advi.fit_advi_fullrank(agrad, mu0, xi, cfg.advi)
+            draws = advi.advi_sample_fullrank(generator, res, ADVI_DRAWS)
+            stats["family"] = "full_rank"
+        else:
+            xi = torch.randn((cfg.advi.n_steps, n_mc) + tuple(mu0.shape),
+                             generator=generator, device=device)
+            res = advi.fit_advi(agrad, mu0, mask, xi, cfg.advi)
+            draws = advi.advi_sample(generator, res, mask, ADVI_DRAWS)
+            stats["family"] = "mean_field"
+        thetas = draws.cpu().numpy()[:, None]
+        stats["elbo"] = float(res.elbo_trace[-50:].mean())
     else:  # transdim
         res, eps = run_transdim(generator, spec, img, prior, cfg.kmax,
                                 cfg.n_chains, cfg.n_samples, cfg.n_warmup,
@@ -196,7 +229,7 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
         stats.update(kernel=f"{cfg.tdm.mutation}_{kernel}",
                      step_size=float(eps), td_accept=float(res.td_accept.mean()),
                      solver_rejections=int(res.solver_fail.sum()))
-    if cfg.head != "smc":
+    if cfg.head not in ("smc", "advi"):
         thetas = res.thetas.cpu().numpy()
         stats.update(accept=float(res.accept_prob.mean()),
                      divergences=int(res.diverged.sum()))

@@ -24,6 +24,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from .adapt import (
+    AdamState,
+    adam_update,
     da_init,
     da_restart,
     da_update,
@@ -67,12 +69,6 @@ class ChEESInfo(NamedTuple):
     traj_length: torch.Tensor
 
 
-class _AdamState(NamedTuple):
-    m: torch.Tensor
-    v: torch.Tensor
-    t: torch.Tensor
-
-
 # log T confined to T in [1e-3, 1e3] so a run of bad Adam steps cannot push
 # n_steps = ceil(u T / eps) into absurd territory
 _LOG_T_MIN, _LOG_T_MAX = -6.9, 6.9
@@ -81,15 +77,6 @@ _LOG_T_MIN, _LOG_T_MAX = -6.9, 6.9
 def _halton2(i: int) -> float:
     """Base-2 radical inverse of i (16 bits) in (0, 1)."""
     return sum(((i >> b) & 1) * 0.5 ** (b + 1.0) for b in range(16)) + 2.0 ** -17
-
-
-def _adam_update(st: _AdamState, g, lr, b1=0.9, b2=0.999, eps=1e-8):
-    t = st.t + 1.0
-    m = b1 * st.m + (1 - b1) * g
-    v = b2 * st.v + (1 - b2) * g * g
-    mh = m / (1 - b1 ** t)
-    vh = v / (1 - b2 ** t)
-    return _AdamState(m, v, t), lr * mh / (torch.sqrt(vh) + eps)
 
 
 def resolve_adam_lr(n_chains: int) -> float:
@@ -218,7 +205,7 @@ class ChEESWarmupResult(NamedTuple):
     n_divergent: torch.Tensor  # () warmup divergences
     traj_drift: torch.Tensor   # () |mean log T (2nd half) - (1st half)|
     log_T: torch.Tensor        # () adapted log trajectory length
-    adam: _AdamState
+    adam: AdamState
 
 
 def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
@@ -245,7 +232,7 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
                 _halton2(i), torch.exp(log_T), config.max_leapfrog,
                 config.divergence_threshold, p0, u_acc, leapfrog_impl)
             da = da_update(da, info.accept_prob.mean(), target=config.target_accept)
-            adam, delta = _adam_update(adam, g_logT, config.adam_lr)
+            adam, delta = adam_update(adam, g_logT, config.adam_lr)
             log_T = torch.clamp(log_T + delta, _LOG_T_MIN, _LOG_T_MAX)
             if accumulate:
                 wf = welford_update_batch(wf, st.theta)
@@ -258,7 +245,7 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
     carry = (states, da_init(config.step_size, dev),
              welford_init(states.theta.shape[1:], dev),
              torch.ones(states.theta.shape[1:], dtype=torch.float32, device=dev),
-             log_T, _AdamState(z, z, z), torch.zeros((), dtype=torch.int64, device=dev))
+             log_T, AdamState(z, z, z), torch.zeros((), dtype=torch.int64, device=dev))
 
     carry, _ = phase(carry, False, n1, 0)
     carry, _ = phase(carry, True, n2, n1)
@@ -274,7 +261,7 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
 
 
 def _chees_extend(states: ChainState, grad_fn: Callable, mask, n_steps: int,
-                  config: ChEESConfig, eps, inv_mass, log_T, adam: _AdamState,
+                  config: ChEESConfig, eps, inv_mass, log_T, adam: AdamState,
                   generator: torch.Generator, leapfrog_impl=None):
     """Extra T-adaptation block at fixed (eps, inv_mass), run as two halves
     so the new drift falls out.  Halton indices restart from 0.
@@ -291,7 +278,7 @@ def _chees_extend(states: ChainState, grad_fn: Callable, mask, n_steps: int,
                 st, grad_fn, eps, inv_mass, mask, _halton2(i),
                 torch.exp(log_T), config.max_leapfrog,
                 config.divergence_threshold, p0, u_acc, leapfrog_impl)
-            adam, delta = _adam_update(adam, g_logT, config.adam_lr)
+            adam, delta = adam_update(adam, g_logT, config.adam_lr)
             log_T = torch.clamp(log_T + delta, _LOG_T_MIN, _LOG_T_MAX)
             lt = lt + log_T
             ndiv = ndiv + info.diverged.sum()

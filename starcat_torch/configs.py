@@ -1,14 +1,17 @@
-"""Typed run configs and the presets whose heads are ported (port of
+"""Typed run configs and the reference's presets (port of
 starcat/configs.py): ``cfg0_single_star`` (the oracle's single-star scene,
 sampled by the HMC head), ``cfg1_rhmc`` (the flagship 10-star 32x32 scene
 under RHMC on the full Fisher metric, kernel B6; ``rhmc.metric=diag`` runs
-its diagonal on B3), ``cfg3_transdim_smc`` (trans-dimensional SMC on the
+its diagonal on B3), ``cfg2_nuts`` (the flagship scene under NUTS, 1024
+chains, every leaf one step of kernel B1), ``cfg3_transdim_smc`` (trans-dimensional SMC on the
 same scene, full-metric RHMC mutations on B6), ``cfg4_crowded`` (the
 50-star 128x128 crowded field under trans-dimensional SMC, diagonal-Fisher
 RHMC mutations on B4; ``head=hmc kmax=50`` samples the same scene at the
 true star count on B5), ``cfg5_transdim_mcmc`` (the trans-dimensional MCMC
-chain on the flagship scene, diagonal-Fisher RHMC moves) and ``cfg6_chees``
-(the flagship scene under ChEES).  Other presets join as their heads land.
+chain on the flagship scene, diagonal-Fisher RHMC moves), ``cfg6_chees``
+(the flagship scene under ChEES) and ``cfg7_advi`` (the flagship scene
+under mean-field ADVI, its gradients from B1 at n_steps = 0;
+``advi.full_rank=true`` fits the full-rank family).
 
 The mock data are the reference's own: ``data/scenes.npz`` holds the truth
 and image that ``starcat.configs.RunConfig.make_data`` draws at the default
@@ -25,8 +28,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from .advi import ADVIConfig
 from .chees import ChEESConfig
 from .hmc import HMCConfig
+from .nuts import NUTSConfig
 from .potential import PriorSpec
 from .rhmc import RHMCConfig
 from .scene import SceneSpec
@@ -44,7 +49,8 @@ class RunConfig:
     prior: PriorSpec
     n_stars: int            # true star count of the mock scene
     kmax: int               # catalog capacity (== n_stars for fixed-K heads)
-    head: str               # "hmc" | "chees" | "rhmc" | "smc" | "transdim" | "oracle" (-> hmc)
+    head: str               # "hmc" | "nuts" | "chees" | "rhmc" | "smc" | "advi" | "transdim"
+    #                         | "oracle" (-> hmc)
     n_chains: int = 64
     n_samples: int = 1000   # recorded draws
     n_warmup: int = 500
@@ -53,14 +59,16 @@ class RunConfig:
     #   "cuda"  — the CUDA kernel; raises off its domain or device
     #   "torch" — the plain torch trajectory (an explicit request, for measuring)
     kernel: str = "auto"
-    thin: int = 1           # transitions per recorded draw (hmc and rhmc heads)
+    thin: int = 1           # transitions per recorded draw (hmc, nuts and rhmc heads)
     truth_seed: int = 11
     data_seed: int = 12
     hmc: HMCConfig = HMCConfig()
+    nuts: NUTSConfig = NUTSConfig()
     rhmc: RHMCConfig = RHMCConfig()
     smc: SMCConfig = SMCConfig()
     tdm: TransDimMCMCConfig = TransDimMCMCConfig()
     chees: ChEESConfig = ChEESConfig()
+    advi: ADVIConfig = ADVIConfig()
     notes: str = ""
 
     def make_data(self):
@@ -113,6 +121,19 @@ cfg1_rhmc = _register(RunConfig(
     n_chains=64, n_samples=1000, n_warmup=400,
     rhmc=RHMCConfig(step_size=0.3, n_leapfrog=16, fixed_point_iters=6),
     notes="RHMC on the full Fisher metric (kernel B6); record run: thin=4",
+))
+
+# config 2: the flagship scene under NUTS with dual-averaging step-size
+# adaptation, 1024 chains; every leaf is one step of the fused leapfrog
+cfg2_nuts = _register(RunConfig(
+    name="cfg2_nuts",
+    scene=SceneSpec(32, 32, 1.5, 10.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=10, kmax=10,
+    head="nuts",
+    n_chains=1024, n_samples=1000, n_warmup=500,
+    nuts=NUTSConfig(step_size=0.05, max_depth=8),
+    notes="NUTS, each leaf one step of kernel B1 with a signed per-chain eps",
 ))
 
 # config 3: trans-dimensional cataloging by SMC on the flagship scene:
@@ -182,6 +203,19 @@ cfg6_chees = _register(RunConfig(
     n_chains=1024, n_samples=1000, n_warmup=500,
     chees=ChEESConfig(step_size=0.05),
     notes="ChEES on the fused CUDA leapfrog with a runtime step count",
+))
+
+# config 7: ADVI on the flagship scene, the variational baseline.  Mean-field
+# by default (advi.full_rank=true fits N(mu, L L^T)); n_chains and n_samples
+# are unused, and the output is 1000 iid draws from the fitted q.
+cfg7_advi = _register(RunConfig(
+    name="cfg7_advi",
+    scene=SceneSpec(32, 32, 1.5, 10.0),
+    prior=PriorSpec(5.0, 0.7),
+    n_stars=10, kmax=10,
+    head="advi",
+    advi=ADVIConfig(n_steps=3000),
+    notes="variational baseline, gradients from kernel B1 at n_steps = 0",
 ))
 
 

@@ -26,6 +26,8 @@ B1 than on B5 too, the last by 2%: B1 stays in its domain.
 """
 from __future__ import annotations
 
+import torch
+
 from . import (
     fused_leapfrog,
     fused_leapfrog_crowded,
@@ -64,6 +66,16 @@ def make_leapfrog(spec, image, prior, kmax: int, n_steps: int):
                                                               n_steps)
 
 
+def make_grad_fn(spec, image, prior, mask):
+    """A batched (U (N,), grad U (N, K, 3)) at theta (N, K, 3) with the
+    catalog ``mask``, one launch of B1's contract at n_steps = 0 (the kernel
+    that takes this scene; its plain version on the CPU)."""
+    kmax = int(mask.shape[-1])
+    fused = make_leapfrog(spec, image, prior, kmax, 0)
+    unit = torch.ones((kmax, 3), dtype=torch.float32, device=image.device)
+    return lambda theta: fused(theta, torch.zeros_like(theta), 0.0, unit, mask)[2:]  # noqa: E731
+
+
 def make_leapfrog_dyn(spec, image, prior, kmax: int):
     """B2's contract (a runtime step count) on the kernel that takes this
     scene: B1's kernel inside its domain, B5 beyond it."""
@@ -81,8 +93,9 @@ def trajectory_kernel(head: str, metric: str | None, spec, kmax: int) -> str:
     """The name of the kernel a head's trajectory runs on ("B1".."B6"):
     ``metric`` "full" (B6) or "diag" (B3/B4) for the Riemannian heads and
     mutations, None for the plain leapfrog (chees: B2's runtime step count,
-    on B1's kernel ("B2") or on B5; otherwise B1/B5).  Raises off the
-    kernel's domain."""
+    on B1's kernel ("B2") or on B5; otherwise, hmc's trajectories, nuts's
+    one-step leaves and advi's gradients at n_steps = 0, B1/B5).  Raises off
+    the kernel's domain."""
     if metric == "full":
         fused_rhmc.check_domain(spec, kmax)
         return "B6"

@@ -1,12 +1,14 @@
-"""A crowded-field SMC temperature step's random draws, made from the JAX
-package's keys and handed to starcat_torch as its injected draws, so both
-packages take the same step.  Shared by tests/test_torch_crowded.py and
-scripts/cfg4_step_vs_jax.py."""
+"""Random draws made from the JAX package's keys and handed to starcat_torch
+as its injected draws, so both packages take the same step: a crowded-field
+SMC temperature step's (shared by tests/test_torch_crowded.py and
+scripts/cfg4_step_vs_jax.py) and a NUTS transition's
+(tests/test_torch_nuts.py)."""
 import jax
 import numpy as np
 import torch
 
 from starcat_torch import smc
+from starcat_torch.nuts import NUTSDraws
 from starcat_torch.transdim import SweepDraws
 
 
@@ -59,3 +61,33 @@ def jax_step_draws(key, cfg_j, k, hw):
                       _vmap_draw(jax.random.uniform, sub[:, 2])))
         keys = sub[:, 0]
     return smc.StepDraws(_t(jax.random.uniform(k_res)), sweeps, tuple(moves))
+
+
+def jax_nuts_draws(keys, shape, max_depth):
+    """nuts_step's draws from its per-chain state keys (starcat/nuts.py:151:
+    k_mom gives p0; each doubling splits its key into kd, ks, km, draws the
+    direction bernoulli(kd) and the merge uniform from km, and each leaf
+    takes key, ku = split(key) from ks) as the port's NUTSDraws for theta
+    of ``shape`` (K, 3) per chain.  Every doubling gets 2^(max_depth - 1)
+    leaf uniforms; the first 2^d are the ones doubling d uses."""
+    n_leaf = 1 << (max_depth - 1)
+
+    def one(key):
+        key, k_mom = jax.random.split(key)
+        p0 = jax.random.normal(k_mom, shape)
+
+        def doubling(key, _):
+            key, kd, ks, km = jax.random.split(key, 4)
+
+            def leaf(k, _):
+                k, ku = jax.random.split(k)
+                return k, jax.random.uniform(ku)
+
+            _, u_leaf = jax.lax.scan(leaf, ks, None, length=n_leaf)
+            return key, (jax.random.bernoulli(kd), u_leaf, jax.random.uniform(km))
+
+        _, (right, u_leaf, u_merge) = jax.lax.scan(doubling, key, None, length=max_depth)
+        return p0, right, u_leaf, u_merge
+
+    p0, right, u_leaf, u_merge = jax.vmap(one)(keys)
+    return NUTSDraws(_t(p0), torch.from_numpy(np.array(right)), _t(u_leaf), _t(u_merge))

@@ -1000,3 +1000,84 @@ def test_b1_launch_layout_follows_the_tile(dev, h, w, k):
     assert lay["threads"] == 32 * tile["warps_per_chain"] * fl.CHAINS_PER_BLOCK
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert lay["blocks_per_sm"] * sms * fl.CHAINS_PER_BLOCK >= 1024
+
+
+# -- the NUTS and ADVI heads on B1: one step with a signed eps, and n_steps = 0 --
+
+def test_b1_leaf_with_signed_per_chain_eps(dev):
+    """A NUTS leaf: one step of B1 at cfg2's shape (1024 chains), half the
+    chains stepping backward, against the plain version (TOL, U with eight
+    float32 spacings) and against float64 (no farther than the float32 plain
+    version, plus TOL)."""
+    cfg, img, theta, p, eps, inv_mass = _inputs("cfg2_nuts", 1024, dev, seed=21)
+    eps = torch.where(torch.arange(1024, device=dev) % 2 == 0, eps, -eps)
+    mask = torch.ones(cfg.kmax, device=dev)
+    grad = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                       mask, 0)[3]
+    fl.reset_launch_counts()
+    out = fl.make_fused_leapfrog(cfg.scene, img, cfg.prior, cfg.kmax, 1)(
+        theta, p, eps, inv_mass, mask, grad=grad)
+    want = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                       mask, 1, grad)
+    want64 = fl.fused_leapfrog_reference(cfg.scene, img.double(), cfg.prior, theta.double(),
+                                         p.double(), eps.double(), inv_mass.double(),
+                                         mask.double(), 1, grad.double())
+    torch.cuda.synchronize()
+    assert fl.STATIC_LAUNCHES == 1
+    tol = dict(TOL, u=TOL["u"] + _spacings(want[2]))
+    assert float((out[0] - want[0]).abs().max()) <= tol["theta"]
+    assert float((out[1] - want[1]).abs().max()) <= tol["p"]
+    assert float((out[2] - want[2]).abs().max()) <= tol["u"]
+    assert float(((out[3] - want[3]).abs() / (1 + want[3].abs())).max()) <= tol["grad_rel"]
+    far, near = _b5_errors(out, want64), _b5_errors(want, want64)
+    for name, f in far.items():
+        assert f <= near[name] + tol[name], (name, f, near)
+    # the backward chains moved against their momentum
+    back = eps < 0
+    step = (out[0] - theta)[back]
+    assert float((step * p[back]).sum()) < 0
+
+
+def test_b1_at_zero_steps_is_advis_gradient(dev):
+    """ADVI's gradient: B1 at n_steps = 0 on an 8-draw batch at cfg7's shape
+    returns theta and p unchanged and (U, grad U) of the plain potential."""
+    from starcat_torch import dispatch
+
+    cfg, img, theta, p, eps, inv_mass = _inputs("cfg7_advi", 8, dev, seed=22)
+    mask = torch.ones(cfg.kmax, device=dev)
+    fl.reset_launch_counts()
+    u, g = dispatch.make_grad_fn(cfg.scene, img, cfg.prior, mask)(theta)
+    out = fl.make_fused_leapfrog(cfg.scene, img, cfg.prior, cfg.kmax, 0)(
+        theta, p, eps, inv_mass, mask)
+    want = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                       mask, 0)
+    torch.cuda.synchronize()
+    assert fl.STATIC_LAUNCHES == 2
+    assert torch.equal(out[0], theta) and torch.equal(out[1], p)
+    assert torch.equal(u, out[2]) and torch.equal(g, out[3])
+    assert float((u - want[2]).abs().max()) <= TOL["u"] + _spacings(want[2])
+    assert float(((g - want[3]).abs() / (1 + want[3].abs())).max()) <= TOL["grad_rel"]
+
+
+@pytest.mark.parametrize("name,over", [
+    ("cfg2_nuts", {"n_chains": 64, "n_warmup": 20, "n_samples": 10, "nuts.max_depth": 6}),
+    ("cfg7_advi", {"advi.n_steps": 200}),
+    ("cfg7_advi", {"advi.n_steps": 100, "advi.full_rank": True}),
+])
+def test_nuts_and_advi_run_through_b1(dev, name, over):
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(CONFIGS[name], over)
+    fl.reset_launch_counts()
+    out = api.sample(cfg, dev, seed=1)
+    st = out.stats
+    assert st["kernel"] == "cuda_fused" and st["trajectory_kernel"] == "B1"
+    assert st["kernel_launches"] > 0 and fl.STATIC_LAUNCHES == st["kernel_launches"]
+    assert np.isfinite(out.thetas).all()
+    if cfg.head == "advi":
+        calls = 2 if cfg.advi.full_rank else 1   # the full-rank trace evaluates again
+        assert st["kernel_launches"] == calls * cfg.advi.n_steps
+        assert out.thetas.shape == (api.ADVI_DRAWS, 1, cfg.kmax, 3)
+    else:
+        assert out.thetas.shape == (cfg.n_chains, cfg.n_samples, cfg.kmax, 3)
+        assert 0.3 < st["accept"] <= 1.0

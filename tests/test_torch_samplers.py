@@ -190,10 +190,10 @@ def test_halton_adam_and_lr_match_jax():
     z = jnp.zeros(())
     a_j = jchees._AdamState(z, z, z)
     zt = torch.zeros(())
-    a_t = tchees._AdamState(zt, zt, zt)
+    a_t = tadapt.AdamState(zt, zt, zt)
     for g in [0.5, -2.0, 10.0, 0.0, -0.01]:
         a_j, d_j = jchees._adam_update(a_j, jnp.float32(g), 0.05)
-        a_t, d_t = tchees._adam_update(a_t, torch.tensor(g), 0.05)
+        a_t, d_t = tadapt.adam_update(a_t, torch.tensor(g), 0.05)
         np.testing.assert_allclose(float(d_t), float(d_j), rtol=1e-6)
     for n in [1, 64, 256, 300, 1024, 4096, 100000]:
         assert tchees.resolve_adam_lr(n) == pytest.approx(jchees.resolve_adam_lr(n), rel=1e-6)

@@ -1,5 +1,6 @@
-"""The starcat_torch slice end to end on the CPU: both heads against the
-NumPy oracle, the CLI, the committed scenes, kernel selection, and the
+"""The starcat_torch slice end to end on the CPU: the fixed-K heads against
+the NumPy oracle, short runs of the cfg2 (NUTS), cfg6 (ChEES) and cfg7
+(ADVI) presets, the CLI, the committed scenes, kernel selection, and the
 package's independence from JAX."""
 import dataclasses
 import json
@@ -66,8 +67,8 @@ def test_cli_run_prints_its_json_line():
 def test_cli_list_names_the_ported_presets():
     res = _cli("list")
     assert res.returncode == 0, res.stderr
-    for name in ("cfg0_single_star", "cfg1_rhmc", "cfg3_transdim_smc",
-                 "cfg5_transdim_mcmc", "cfg6_chees"):
+    for name in ("cfg0_single_star", "cfg1_rhmc", "cfg2_nuts", "cfg3_transdim_smc",
+                 "cfg4_crowded", "cfg5_transdim_mcmc", "cfg6_chees", "cfg7_advi"):
         assert name in res.stdout
 
 
@@ -97,7 +98,8 @@ def test_port_imports_no_jax():
             "starcat_torch.chees, starcat_torch.convert, starcat_torch.fused_leapfrog, "
             "starcat_torch.build, starcat_torch.metric, starcat_torch.rhmc, "
             "starcat_torch.fused_rhmc_diag, starcat_torch.fused_rhmc, "
-            "starcat_torch.smc, starcat_torch.transdim, starcat_torch.transdim_mcmc; "
+            "starcat_torch.smc, starcat_torch.transdim, starcat_torch.transdim_mcmc, "
+            "starcat_torch.nuts, starcat_torch.advi; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'starcat')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -108,6 +110,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("name,jax_name", [("cfg0_single_star", "cfg0_single_star"),
                                            ("cfg6_chees", "cfg6_chees"),
                                            ("cfg6_chees", "cfg2_nuts"),
+                                           ("cfg2_nuts", "cfg2_nuts"),
+                                           ("cfg7_advi", "cfg7_advi"),
                                            ("cfg1_rhmc", "cfg1_rhmc"),
                                            ("cfg3_transdim_smc", "cfg3_transdim_smc"),
                                            ("cfg5_transdim_mcmc", "cfg5_transdim_mcmc")])
@@ -162,10 +166,70 @@ def test_kernel_selection():
 
 
 def test_unported_head_raises():
-    cfg = dataclasses.replace(CONFIGS["cfg0_single_star"], head="nuts", n_chains=2,
+    """Every head of the reference is ported: nuts and advi pass the check,
+    and a head the reference does not have raises, naming the ported ones."""
+    assert api.UNPORTED_HEADS == {}
+    for head in ("nuts", "advi"):
+        api._check_head(dataclasses.replace(CONFIGS["cfg0_single_star"], head=head))
+    cfg = dataclasses.replace(CONFIGS["cfg0_single_star"], head="mala", n_chains=2,
                               n_samples=2, n_warmup=2)
-    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP.md A11\)"):
+    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP.md queue A\).*nuts.*advi"):
         api.sample(cfg, "cpu")
+
+
+def test_short_cfg2_nuts_run_on_the_plain_path():
+    cfg = apply_overrides(CONFIGS["cfg2_nuts"], {
+        "n_chains": 4, "n_warmup": 12, "n_samples": 6, "thin": 2, "nuts.max_depth": 5})
+    out = api.sample(cfg, "cpu", seed=0)
+    st = out.stats
+    assert st["kernel"] == "torch" and st["trajectory_kernel"] == "torch"
+    assert st["kernel_launches"] == 0
+    assert out.thetas.shape == (4, 6, 10, 3) and np.isfinite(out.thetas).all()
+    assert {"step_size", "accept", "divergences", "wall_seconds"} <= set(st)
+    assert 0.0 < st["accept"] <= 1.0 and st["step_size"] > 0
+    assert np.isfinite(api.summarize_output(out)["total_flux"]["mean"])
+
+
+@pytest.mark.parametrize("full_rank", [False, True])
+def test_short_cfg7_advi_run_on_the_plain_path(full_rank):
+    cfg = apply_overrides(CONFIGS["cfg7_advi"], {"advi.n_steps": 60,
+                                                 "advi.full_rank": full_rank})
+    out = api.sample(cfg, "cpu", seed=0)
+    st = out.stats
+    assert st["kernel"] == "torch" and st["kernel_launches"] == 0
+    assert st["family"] == ("full_rank" if full_rank else "mean_field")
+    assert out.thetas.shape == (api.ADVI_DRAWS, 1, 10, 3) and np.isfinite(out.thetas).all()
+    assert np.isfinite(st["elbo"]) and "accept" not in st
+    summ = api.summarize_output(out)["total_flux"]
+    assert np.isfinite(summ["mean"]) and summ["sd"] > 0
+
+
+@pytest.mark.parametrize("name", ["cfg2_nuts", "cfg7_advi"])
+def test_nuts_and_advi_run_on_the_plain_leapfrog_kernels(name):
+    """NUTS leaves and ADVI gradients take B1 on the flagship scene and B5 on
+    a crowded one; kernel=cuda beyond both, or off a card, raises."""
+    from starcat_torch import dispatch
+
+    cfg = CONFIGS[name]
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert dispatch.trajectory_kernel(cfg.head, None, cfg.scene, cfg.kmax) == "B1"
+    assert api.resolve_kernel("cuda", cuda, cfg) == "cuda"
+    assert api.resolve_kernel("auto", cpu, cfg) == "torch"
+    with pytest.raises(ValueError, match="CUDA device"):
+        api.resolve_kernel("cuda", cpu, cfg)
+    crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128),
+                                  kmax=50)
+    assert dispatch.trajectory_kernel(cfg.head, None, crowded.scene, 50) == "B5"
+    assert api.resolve_kernel("cuda", cuda, crowded) == "cuda"
+    with pytest.raises(ValueError, match="B5"):
+        api.resolve_kernel("cuda", cuda, dataclasses.replace(
+            crowded, scene=cfg.scene._replace(height=256, width=256)))
+
+
+def test_cli_validate_gates_all_eight_heads():
+    res = _cli("validate", "--help")
+    assert res.returncode == 0, res.stderr
+    assert "hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim" in "".join(res.stdout.split())
 
 
 def test_overrides_reach_nested_configs():
