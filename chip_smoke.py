@@ -73,7 +73,20 @@
    set to 0 just before and read just after: cfg2_nuts at full width (1024
    chains, max_depth 8) cut to 100 + 50 transitions and cfg7_advi as the
    preset stands (3000 steps), both on B1, checked against the records;
-13. prints one JSON line with a row per kernel (launches on its path, the
+13. durability: each of three runs at full width through the public API,
+   the launch counts set to 0 just before and read just after: cfg6_chees
+   (1024 chains, K = 10, 32x32, on B2) cut to 150 + 300 draws in four
+   blocks, cfg3_transdim_smc as the preset stands (4096 particles, B6) and
+   cfg5_transdim_mcmc (256 chains, B3) cut to 60 + 40 in four blocks.  Each
+   runs uninterrupted with a metrics stream and checkpoints, again with
+   neither (unblocked), then in a process of its own that SIGKILLs itself
+   from its logger (after two blocks' checkpoints; cfg3 after three
+   temperature steps'), and is resumed here from that checkpoint.  The
+   unblocked run and the resumed draws must equal the uninterrupted run's
+   bit for bit (cfg3: beta, log Z and the final population), the killed
+   process must return -9, and the streams must hold the reference's
+   records; prints each leg's wall and the checkpoint's size and save time;
+14. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work).
 
@@ -83,6 +96,9 @@ outside a checkout.  The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1525,6 +1541,185 @@ def run_nuts_advi_slice(api, configs, dev):
     return leaves
 
 
+# Phase 13.  Each case: the preset, its cut, the seed, and the record at
+# which the killed process SIGKILLs itself (a head logs a block or step
+# before it checkpoints it, so the third block's record leaves two blocks
+# saved and the fourth step's record three steps).
+DURABILITY = {
+    "cfg6_chees": ({"n_warmup": 150, "n_samples": 300}, 1, "sampling_block", 3),
+    "cfg3_transdim_smc": ({}, 0, "smc_temperature_step", 4),
+    "cfg5_transdim_mcmc": ({"n_warmup": 60, "n_samples": 40}, 1, "sampling_block", 3),
+}
+# the records each uninterrupted stream must hold: (event, count); None
+# counts the temperature steps the run took
+DURABILITY_EVENTS = {
+    "cfg6_chees": (("warmup_phase", 3), ("warmup_complete", 1), ("sampling_block", 4),
+                   ("run_complete", 1)),
+    "cfg3_transdim_smc": (("smc_temperature_step", None), ("run_complete", 1)),
+    "cfg5_transdim_mcmc": (("warmup_window", 4), ("warmup_complete", 1),
+                           ("sampling_block", 4), ("run_complete", 1)),
+}
+DURABILITY_DIR = Path(__file__).resolve().parent / "build" / "durability"
+
+
+def _durability_cfg(configs, case):
+    from starcat_torch.configs import apply_overrides
+
+    over, seed, _, _ = DURABILITY[case]
+    return apply_overrides(configs[case], over), seed
+
+
+def durability_worker(case: str, ckpt: str, metrics: str, device: str) -> int:
+    """The killed leg of phase 13, in a process of its own: the case's run
+    with checkpoints and a metrics stream whose logger SIGKILLs the process
+    at the case's record."""
+    from starcat_torch import api
+    from starcat_torch import metrics as tm
+    from starcat_torch.configs import CONFIGS
+
+    cfg, seed = _durability_cfg(CONFIGS, case)
+    _, _, event, n = DURABILITY[case]
+    log, seen = tm.MetricsLogger.log, []
+
+    def log_then_die(self, ev, **kw):
+        log(self, ev, **kw)
+        seen.append(ev)
+        if seen.count(event) == n:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    tm.MetricsLogger.log = log_then_die
+    api.sample(cfg, device, seed=seed, metrics_path=metrics, checkpoint_path=ckpt)
+    print(f"durability worker {case}: not killed", file=sys.stderr)
+    return 3
+
+
+def timed_saves(modules):
+    """Wrap each module's save_state so that every save is timed; returns
+    the list the times (ms) go into and a function that undoes the wrap."""
+    times, saved = [], {m: m.save_state for m in modules}
+
+    def wrap(save):
+        def timed(path, payload):
+            t0 = time.perf_counter()
+            save(path, payload)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return timed
+
+    for m, save in saved.items():
+        m.save_state = wrap(save)
+
+    def undo():
+        for m, save in saved.items():
+            m.save_state = save
+    return times, undo
+
+
+def _outputs(out):
+    """The arrays a resumed run must reproduce: the draws (and per-draw
+    masks), or SMC's final population, beta and log Z."""
+    import numpy as np
+
+    if out.config.head == "smc":
+        return {"theta": out.thetas, "mask": out.masks,
+                "beta": np.float32(out.stats["beta"]), "log_z": np.float32(out.stats["log_z"])}
+    got = {"thetas": out.thetas}
+    if out.masks.ndim == 3:
+        got["masks"] = out.masks
+    return got
+
+
+def _same_bits_or_raise(case, what, got, want):
+    import numpy as np
+
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or not np.array_equal(g, w):
+            diff = (float(np.nanmax(np.abs(g.astype(np.float64) - w)))
+                    if g.shape == w.shape else None)
+            raise AssertionError(f"durability {case}: {what}: {key} differs from the "
+                                 f"uninterrupted run ({g.shape} vs {w.shape}, max |diff| {diff})")
+
+
+def run_durability(api, configs, dev):
+    """Phase 13 (see the module docstring).  Returns the launches of each
+    kernel counter over the phase's in-process runs."""
+    import numpy as np
+    import torch
+
+    from starcat_torch import chees, driver, smc, transdim_mcmc
+    from starcat_torch import fused_leapfrog as fl
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch import fused_rhmc_diag as frd
+
+    shutil.rmtree(DURABILITY_DIR, ignore_errors=True)
+    DURABILITY_DIR.mkdir(parents=True)
+    fl.reset_launch_counts()
+    frd.reset_launch_counts()
+    fr.reset_launch_counts()
+    for case in DURABILITY:
+        cfg, seed = _durability_cfg(configs, case)
+        _, _, event, n_kill = DURABILITY[case]
+        ck_a, mp_a = DURABILITY_DIR / f"{case}.ck", DURABILITY_DIR / f"{case}.jsonl"
+        ck_k, mp_k = DURABILITY_DIR / f"{case}_killed.ck", DURABILITY_DIR / f"{case}_killed.jsonl"
+
+        times, undo = timed_saves((driver, chees, transdim_mcmc, smc))
+        t0 = time.perf_counter()
+        full = api.sample(cfg, dev, seed=seed, metrics_path=str(mp_a), checkpoint_path=str(ck_a))
+        wall_full = time.perf_counter() - t0
+        undo()
+        want = _outputs(full)
+        t0 = time.perf_counter()
+        plain = api.sample(cfg, dev, seed=seed)
+        wall_plain = time.perf_counter() - t0
+        _same_bits_or_raise(case, "the unblocked run without checkpoints", _outputs(plain), want)
+
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--durability-worker",
+                            case, str(ck_k), str(mp_k), str(dev)], capture_output=True, text=True,
+                           timeout=900)
+        wall_killed = time.perf_counter() - t0
+        if r.returncode != -signal.SIGKILL:
+            raise AssertionError(f"durability {case}: the killed process returned "
+                                 f"{r.returncode}, not -9:\n{r.stderr[-3000:]}")
+        saved = torch.load(ck_k, weights_only=True)
+        done = int(saved["state.n_steps"]) if cfg.head == "smc" else saved["done"]
+        t0 = time.perf_counter()
+        resumed = api.sample(cfg, dev, seed=seed, checkpoint_path=str(ck_k), resume=True)
+        wall_resumed = time.perf_counter() - t0
+        if cfg.head == "smc":
+            expect_done, rest = n_kill - 1, want
+        else:
+            expect_done = 2 * (cfg.n_samples // 4)
+            rest = {k: v[:, done:] for k, v in want.items()}
+        if done != expect_done:
+            raise AssertionError(f"durability {case}: the killed run's checkpoint holds "
+                                 f"{done}, not {expect_done}")
+        _same_bits_or_raise(case, f"the run resumed at {done}", _outputs(resumed), rest)
+
+        events = [json.loads(line)["event"] for line in mp_a.read_text().splitlines()]
+        for ev, count in DURABILITY_EVENTS[case]:
+            count = full.stats["n_temp_steps"] if count is None else count
+            if events.count(ev) != count:
+                raise AssertionError(f"durability {case}: {events.count(ev)} {ev} records, "
+                                     f"not {count}: {events}")
+        if events[-1] != "run_complete":
+            raise AssertionError(f"durability {case}: the stream ends with {events[-1]}")
+        if not np.isfinite(full.thetas).all():
+            raise AssertionError(f"durability {case}: non-finite draws")
+        tf = api.summarize_output(full)["total_flux"]
+        print(f"durability {case}: {cfg.n_chains if cfg.head != 'smc' else cfg.smc.n_particles} "
+              f"{'particles' if cfg.head == 'smc' else 'chains'}, kernel {full.stats['kernel']} "
+              f"({full.stats['trajectory_kernel']}); uninterrupted with checkpoints and "
+              f"metrics {wall_full:.3f} s ({len(times)} saves, {len(events)} records), "
+              f"unblocked without {wall_plain:.3f} s (same bits), killed process "
+              f"{wall_killed:.3f} s (returned {r.returncode} at {event} {n_kill}, checkpoint "
+              f"at {done}), resumed {wall_resumed:.3f} s (same bits); checkpoint "
+              f"{os.path.getsize(ck_a)} bytes, save median {float(np.median(times)):.3f} ms, "
+              f"max {max(times):.3f} ms; total flux {tf['mean']:.2f} ± {tf['sd']:.2f}")
+    return {"dyn": fl.DYN_LAUNCHES, "static": fl.STATIC_LAUNCHES, "b3": frd.LAUNCHES,
+            "b6": fr.LAUNCHES}
+
+
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its operations over the fp32 peak outside the tensor cores and its bytes
 # (each input read once, each output written once) over the memory rate
@@ -1603,6 +1798,9 @@ def _build_all(build):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--durability-worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return durability_worker(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1696,6 +1894,14 @@ def main() -> int:
     if fl.STATIC_LAUNCHES <= 0:
         raise AssertionError("B1 was never launched on the NUTS and ADVI path")
     launches["static"] += fl.STATIC_LAUNCHES
+    t0 = time.perf_counter()
+    dur = run_durability(api, CONFIGS, dev)
+    print(f"durability path: {time.perf_counter() - t0:.3f} s wall; launches {dur}")
+    for name in ("dyn", "b3", "b6"):
+        if dur[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the durability path: {dur}")
+        launches[name] += dur[name]
+    launches["static"] += dur["static"]
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):

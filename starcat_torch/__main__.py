@@ -2,7 +2,8 @@
 
 Commands:
   list                                                list presets
-  run       --config cfg6_chees [--device cuda] [key=value ...]
+  run       --config cfg6_chees [--device cuda] [--checkpoint PATH]
+            [--metrics PATH] [--resume] [key=value ...]
   validate  [--config cfg0_single_star]
             [--heads hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim]
             [--device cuda]
@@ -12,6 +13,12 @@ cfg4_crowded, cfg5_transdim_mcmc, cfg6_chees and cfg7_advi.
 
 ``--device`` defaults to cuda, and a run raises when CUDA is not available;
 pass ``--device cpu`` to run the plain torch path on the CPU.
+
+``run --metrics PATH`` appends the run's JSONL records (warmup phases,
+sampling blocks, SMC temperature steps, ADVI windows, the end of the run)
+to PATH; ``--checkpoint PATH`` writes a checkpoint after every sampling
+block (SMC: every temperature step), and ``--resume`` continues a killed
+run from it, printing the summary of the remaining draws only.
 """
 from __future__ import annotations
 
@@ -48,7 +55,8 @@ def cmd_run(args):
     cfg = apply_overrides(CONFIGS[args.config], _parse_overrides(args.overrides))
     if cfg.head == "oracle":
         cfg = apply_overrides(cfg, {"head": "hmc"})  # oracle preset -> HMC head
-    out = sample(cfg, args.device, seed=args.seed)
+    out = sample(cfg, args.device, seed=args.seed, metrics_path=args.metrics,
+                 checkpoint_path=args.checkpoint, resume=args.resume)
     record = {
         "config": cfg.name,
         "head": cfg.head,
@@ -145,6 +153,11 @@ def main(argv=None):
     p_run.add_argument("--config", required=True)
     p_run.add_argument("--seed", type=int, default=0)
     p_run.add_argument("--device", default="cuda")
+    p_run.add_argument("--checkpoint", default=None,
+                       help="checkpoint path, written after every block or SMC step")
+    p_run.add_argument("--metrics", default=None, help="JSONL metrics sink")
+    p_run.add_argument("--resume", action="store_true",
+                       help="continue a killed run from --checkpoint")
     p_run.add_argument("overrides", nargs="*", help="key=value overrides")
     p_run.set_defaults(fn=cmd_run)
 

@@ -16,6 +16,12 @@ dispatch.trajectory_kernel from the scene's shape; "torch" on the plain
 path) and ``stats["kernel_launches"]`` counts the kernels' launches.
 The run draws every random number from one ``torch.Generator`` on the
 run's device, seeded from ``seed``.
+
+``metrics_path`` streams the run's JSONL records (metrics.MetricsLogger);
+``checkpoint_path`` writes a checkpoint after every sampling block (SMC:
+every temperature step), and ``resume=True`` continues a killed run from it
+and returns only the remaining draws, the same bits as the uninterrupted
+run's.  ADVI, a seconds-scale fit, takes no checkpoint.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from . import (
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
 from .hmc import run_hmc, run_hmc_fused
+from .metrics import MetricsLogger
 from .nuts import run_nuts
 from .potential import constrain, make_potential_and_grad, sample_prior
 from .rhmc import check_metric, run_rhmc, run_rhmc_fused
@@ -49,6 +56,7 @@ PORTED_HEADS = ("hmc", "oracle", "nuts", "chees", "rhmc", "smc", "advi", "transd
 # the ROADMAP.md items that port the reference's other heads: none left
 UNPORTED_HEADS: dict[str, str] = {}
 ADVI_DRAWS = 1000   # iid draws from the fitted q, as the reference's record
+ADVI_WINDOWS = 5    # advi_window records of the ELBO trace
 _KERNELS = (fused_leapfrog, fused_leapfrog_crowded, fused_rhmc, fused_rhmc_diag,
             fused_rhmc_diag_crowded)
 
@@ -112,13 +120,30 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
 
 
 def sample(cfg: RunConfig, device, seed: int = 0, image=None,
-           on_step=None) -> SampleOutput:
+           on_step=None, metrics_path: str | None = None,
+           checkpoint_path: str | None = None, resume: bool = False) -> SampleOutput:
     """Run the configured head on the config's mock scene (or ``image``).
     ``on_step(state)``, when given, sees the SMC head's state after every
-    temperature step (scripts/smc_trace.py records it)."""
+    temperature step (scripts/smc_trace.py records it).
+
+    metrics_path: JSONL sink for the run's records.  checkpoint_path /
+    resume: block checkpoints (SMC: step checkpoints); with resume=True a
+    killed run continues from its last completed block and the output holds
+    only the remaining draws."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    logger = MetricsLogger(metrics_path, cfg.name) if metrics_path is not None else None
+    try:
+        out = _sample(cfg, device, seed, image, on_step, logger, checkpoint_path, resume)
+    finally:
+        if logger is not None:
+            logger.close()
+    return out
+
+
+def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, logger,
+            checkpoint_path: str | None, resume: bool) -> SampleOutput:
     truth_theta, mock_img = cfg.make_data()
     img = (mock_img if image is None else torch.as_tensor(image)).to(
         device=device, dtype=torch.float32)
@@ -136,6 +161,15 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
         "trajectory_kernel": (dispatch.trajectory_kernel(cfg.head, _metric_of(cfg),
                                                          cfg.scene, cfg.kmax)
                               if kernel == "cuda" else "torch")}
+    # long runs sample in blocks of 250 draws (the same bits as one loop); a
+    # checkpoint implies blocks
+    block = 250 if cfg.n_samples > 300 else None
+    if checkpoint_path is not None and block is None:
+        block = max(1, cfg.n_samples // 4)
+    ck = dict(block_size=block, checkpoint_path=checkpoint_path, resume=resume,
+              logger=logger)
+    if cfg.head in ("hmc", "oracle", "nuts", "rhmc"):
+        ck["thin"] = cfg.thin
     launches0 = sum(k.LAUNCHES for k in _KERNELS)
     t_start = time.perf_counter()
     theta0 = (_init_chains(generator, cfg, truth_theta.to(device))
@@ -145,18 +179,17 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
     if cfg.head in ("hmc", "oracle"):
         if kernel == "cuda":
             res, wr = run_hmc_fused(generator, spec, img, prior, theta0, mask,
-                                    cfg.n_samples, cfg.n_warmup, cfg.hmc,
-                                    thin=cfg.thin)
+                                    cfg.n_samples, cfg.n_warmup, cfg.hmc, **ck)
         else:
             res, wr = run_hmc(generator, grad_fn, theta0, mask, cfg.n_samples,
-                              cfg.n_warmup, cfg.hmc, thin=cfg.thin)
+                              cfg.n_warmup, cfg.hmc, **ck)
         stats.update(step_size=float(wr.step_size))
     elif cfg.head == "nuts":
         # every leaf is one step of the fused leapfrog, eps signed per chain
         leaf = (dispatch.make_leapfrog(spec, img, prior, cfg.kmax, 1)
                 if kernel == "cuda" else None)
         res, wr = run_nuts(generator, grad_fn, theta0, mask, cfg.n_samples, cfg.n_warmup,
-                           cfg.nuts, thin=cfg.thin, leaf=leaf)
+                           cfg.nuts, leaf=leaf, **ck)
         stats.update(step_size=float(wr.step_size))
     elif cfg.head == "chees":
         impl = (make_fused_leapfrog_impl(spec, img, prior, cfg.kmax)
@@ -167,25 +200,28 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
                  if cfg.chees.relocate_every > 0 else None)
         res, ad = run_chees(generator, grad_fn, theta0, mask, cfg.n_samples,
                             cfg.n_warmup, cfg.chees, leapfrog_impl=impl,
-                            relocate_fn=reloc)
+                            relocate_fn=reloc, **ck)
         stats.update(step_size=float(ad["step_size"]),
                      traj_length=float(ad["traj_length"]),
-                     warmup_divergences=ad["warmup_divergences"],
-                     traj_drift=ad["traj_drift"],
-                     traj_converged=ad["traj_converged"],
-                     warmup_extensions=ad["warmup_extensions"],
-                     eq_stages=ad["eq_stages"],
-                     eq_disagreement=ad["eq_disagreement"])
+                     warmup_divergences=ad["warmup_divergences"])
+        if "traj_converged" in ad:
+            # a resumed run restores T from its checkpoint: no warmup to report
+            stats.update(traj_drift=ad["traj_drift"],
+                         traj_converged=ad["traj_converged"],
+                         warmup_extensions=ad["warmup_extensions"],
+                         eq_stages=ad["eq_stages"],
+                         eq_disagreement=ad["eq_disagreement"])
     elif cfg.head == "rhmc":
         run = run_rhmc_fused if kernel == "cuda" else run_rhmc
         res, wr = run(generator, spec, img, prior, theta0, mask, cfg.n_samples,
-                      cfg.n_warmup, cfg.rhmc, thin=cfg.thin)
+                      cfg.n_warmup, cfg.rhmc, **ck)
         stats.update(kernel=f"rhmc_{cfg.rhmc.metric}_{kernel}",
                      step_size=float(wr.step_size),
                      solver_rejections=int(res.solver_fail.sum()))
     elif cfg.head == "smc":
         res = run_smc(generator, spec, img, prior, cfg.kmax, cfg.smc,
-                      fused=kernel == "cuda", on_step=on_step)
+                      fused=kernel == "cuda", on_step=on_step,
+                      checkpoint_path=checkpoint_path, resume=resume, logger=logger)
         beta = float(res.beta)
         stats.update(kernel=f"{cfg.smc.mutation.removesuffix('_pallas')}_{kernel}",
                      log_z=float(res.log_z), n_temp_steps=int(res.n_steps),
@@ -221,10 +257,17 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
             stats["family"] = "mean_field"
         thetas = draws.cpu().numpy()[:, None]
         stats["elbo"] = float(res.elbo_trace[-50:].mean())
+        if logger is not None:
+            trace = res.elbo_trace.cpu()
+            for i in range(ADVI_WINDOWS):
+                lo, hi = i * len(trace) // ADVI_WINDOWS, (i + 1) * len(trace) // ADVI_WINDOWS
+                if lo < hi:
+                    logger.log("advi_window", window=i, step_lo=lo, step_hi=hi,
+                               elbo=float(trace[lo:hi].mean()))
     else:  # transdim
         res, eps = run_transdim(generator, spec, img, prior, cfg.kmax,
                                 cfg.n_chains, cfg.n_samples, cfg.n_warmup,
-                                cfg.tdm, fused=kernel == "cuda")
+                                cfg.tdm, fused=kernel == "cuda", **ck)
         masks = res.masks.cpu().numpy()  # (C, N, K) per-draw alive masks
         stats.update(kernel=f"{cfg.tdm.mutation}_{kernel}",
                      step_size=float(eps), td_accept=float(res.td_accept.mean()),
@@ -235,6 +278,9 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
                      divergences=int(res.diverged.sum()))
     stats["wall_seconds"] = time.perf_counter() - t_start
     stats["kernel_launches"] = sum(k.LAUNCHES for k in _KERNELS) - launches0
+    if logger is not None:
+        logger.log("run_complete", head=cfg.head,
+                   **{k: v for k, v in stats.items() if isinstance(v, (int, float))})
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else str(device))
     stats["truth"] = {k: v.numpy() for k, v in zip("xyf", constrain(truth_theta, spec))}

@@ -15,10 +15,17 @@ One iteration is a pure function of its random inputs (``p0``, ``u_acc``;
 :func:`_chees_iteration`).  The adapted step count is a device int32 that
 the fused kernel reads (:func:`make_fused_leapfrog_impl`), so the kernel
 path never waits for the host inside warmup or sampling.
+
+Durability and records follow the reference: a ChEESBlockCheckpoint after
+warmup and its gates and after every sampling block (chees_sample_blocked),
+a resume that restores eps, mass, T, the warmup divergences and the
+generator, and the warmup's records (T extensions, equilibration stages,
+three phases, its end) and one a block for ``logger``.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple
 
 import torch
@@ -33,7 +40,15 @@ from .adapt import (
     welford_update_batch,
     welford_variance,
 )
-from .driver import ChainState, SampleResult, init_chain_states
+from .checkpoint import restore_state, save_state
+from .driver import (
+    ChainState,
+    SampleResult,
+    block_sizes,
+    concat_blocks,
+    init_chain_states,
+    log_warmup_phases,
+)
 from .dispatch import make_leapfrog_dyn
 from .integrators import kinetic_energy, plain_trajectory
 from .potential import log_likelihood
@@ -206,6 +221,8 @@ class ChEESWarmupResult(NamedTuple):
     traj_drift: torch.Tensor   # () |mean log T (2nd half) - (1st half)|
     log_T: torch.Tensor        # () adapted log trajectory length
     adam: AdamState
+    phase_accept: torch.Tensor  # (3,) mean acceptance of each phase
+    phase_eps: torch.Tensor     # (3,) dual-averaging eps at each phase's end
 
 
 def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
@@ -222,23 +239,27 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
     n2 = max(n_warmup - n1 - n3, 1)
 
     def phase(carry, accumulate: bool, n: int, offset: int):
-        """n iterations from Halton index offset; returns (carry, mean log T)."""
+        """n iterations from Halton index offset; returns (carry, mean log
+        T, mean acceptance)."""
         st, da, wf, inv_mass, log_T, adam, ndiv = carry
         lt = torch.zeros((), device=dev)
+        acc = torch.zeros((), device=dev)
         for i in range(offset, offset + n):
             p0, u_acc = _draw(generator, st.theta)
             st, info, g_logT = _chees_iteration(
                 st, grad_fn, torch.exp(da.log_eps), inv_mass, mask,
                 _halton2(i), torch.exp(log_T), config.max_leapfrog,
                 config.divergence_threshold, p0, u_acc, leapfrog_impl)
-            da = da_update(da, info.accept_prob.mean(), target=config.target_accept)
+            a = info.accept_prob.mean()
+            acc = acc + a
+            da = da_update(da, a, target=config.target_accept)
             adam, delta = adam_update(adam, g_logT, config.adam_lr)
             log_T = torch.clamp(log_T + delta, _LOG_T_MIN, _LOG_T_MAX)
             if accumulate:
                 wf = welford_update_batch(wf, st.theta)
             lt = lt + log_T
             ndiv = ndiv + info.diverged.sum()
-        return (st, da, wf, inv_mass, log_T, adam, ndiv), lt / n
+        return (st, da, wf, inv_mass, log_T, adam, ndiv), lt / n, acc / n
 
     z = torch.zeros((), device=dev)
     log_T = torch.clamp(z + math.log(config.traj_length), _LOG_T_MIN, _LOG_T_MAX)
@@ -247,17 +268,22 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
              torch.ones(states.theta.shape[1:], dtype=torch.float32, device=dev),
              log_T, AdamState(z, z, z), torch.zeros((), dtype=torch.int64, device=dev))
 
-    carry, _ = phase(carry, False, n1, 0)
-    carry, _ = phase(carry, True, n2, n1)
+    carry, _, a1 = phase(carry, False, n1, 0)
+    e1 = torch.exp(carry[1].log_eps)
+    carry, _, a2 = phase(carry, True, n2, n1)
     st, da, wf, _, log_T, adam, ndiv = carry
+    e2 = torch.exp(da.log_eps)
     carry = (st, da_restart(da), wf, welford_variance(wf), log_T, adam, ndiv)
     n3a = max(n3 // 2, 1)
     n3b = max(n3 - n3a, 1)
-    carry, lt_a = phase(carry, False, n3a, n1 + n2)
-    carry, lt_b = phase(carry, False, n3b, n1 + n2 + n3a)
+    carry, lt_a, a3a = phase(carry, False, n3a, n1 + n2)
+    carry, lt_b, a3b = phase(carry, False, n3b, n1 + n2 + n3a)
     st, da, _, inv_mass, log_T, adam, ndiv = carry
+    a3 = (a3a * n3a + a3b * n3b) / (n3a + n3b)
     return ChEESWarmupResult(st, torch.exp(da.log_eps_bar), inv_mass, ndiv,
-                             torch.abs(lt_b - lt_a), log_T, adam)
+                             torch.abs(lt_b - lt_a), log_T, adam,
+                             torch.stack([a1, a2, a3]),
+                             torch.stack([e1, e2, torch.exp(da.log_eps)]))
 
 
 def _chees_extend(states: ChainState, grad_fn: Callable, mask, n_steps: int,
@@ -366,14 +392,96 @@ def chees_sample(states: ChainState, grad_fn: Callable, mask, n_samples: int,
     return SampleResult(thetas, aprob, div, st)
 
 
+class ChEESBlockCheckpoint(NamedTuple):
+    """Written after warmup and its gates (done = 0) and after every
+    sampling block: the chains, the draws done, the fixed adapted eps, mass
+    and trajectory length, the warmup's divergences (so a resumed run
+    reports the same count) and the run generator's state.  The Halton
+    index of the next iteration is n_warmup + done."""
+
+    states: ChainState
+    done: int
+    step_size: torch.Tensor  # ()
+    inv_mass: torch.Tensor   # param-shaped
+    traj: torch.Tensor       # () adapted trajectory length T
+    warmup_ndiv: int
+    generator: torch.Generator
+
+
+def chees_checkpoint_like(states: ChainState,
+                          generator: torch.Generator) -> ChEESBlockCheckpoint:
+    """Structure donor for restore_state on a ChEESBlockCheckpoint."""
+    dev = states.theta.device
+    z = torch.zeros((), device=dev)
+    return ChEESBlockCheckpoint(states, 0, z, torch.ones(states.theta.shape[1:], device=dev),
+                                z, 0, generator)
+
+
+def chees_sample_blocked(states: ChainState, grad_fn: Callable, mask, n_samples: int,
+                         eps, inv_mass, traj, config: ChEESConfig,
+                         generator: torch.Generator, leapfrog_impl=None,
+                         n_warmup: int = 0, block_size: int = 250,
+                         checkpoint_path: str | None = None, start_done: int = 0,
+                         logger=None, warmup_ndiv: int = 0,
+                         relocate_fn=None) -> SampleResult:
+    """chees_sample in blocks, the same bits as one call (block b starts at
+    Halton index n_warmup + done): after each block one sync reads its
+    summary, ``logger`` gets a ``sampling_block`` record and then, with
+    ``checkpoint_path``, a ChEESBlockCheckpoint is written.  start_done:
+    draws completed by an earlier process."""
+    parts = []
+    done = start_done
+    for n in block_sizes(n_samples, block_size, start_done):
+        res = chees_sample(states, grad_fn, mask, n, eps, inv_mass, traj, config,
+                           generator, leapfrog_impl, start=n_warmup + done,
+                           relocate_fn=relocate_fn)
+        states = res.final_states
+        parts.append((res.thetas, res.accept_prob, res.diverged))
+        done += n
+        if logger is not None:
+            acc, ndiv, t = torch.stack([res.accept_prob.mean(), res.diverged.sum().float(),
+                                        torch.as_tensor(traj, dtype=torch.float32)]).tolist()
+            logger.log("sampling_block", done=done, n_total=n_samples, accept=acc,
+                       divergences=int(ndiv), traj_length=t)
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, ChEESBlockCheckpoint(
+                states, done, eps, inv_mass, traj, warmup_ndiv, generator))
+    c, dev = states.theta.shape[0], states.theta.device
+    empty = (torch.zeros((c, 0) + tuple(states.theta.shape[1:]), device=dev),
+             torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev))
+    thetas, aprob, div = concat_blocks(parts, empty)
+    return SampleResult(thetas, aprob, div, states)
+
+
 def run_chees(generator: torch.Generator, grad_fn: Callable,
               theta0: torch.Tensor, mask, n_samples: int, n_warmup: int,
               config: ChEESConfig = ChEESConfig(), leapfrog_impl=None,
-              relocate_fn=None):
+              relocate_fn=None, block_size: int | None = None,
+              checkpoint_path: str | None = None, resume: bool = False,
+              logger=None):
     """init -> warmup (eps, mass, T) -> T-drift gate -> equilibration gate
-    -> jittered sampling.  Returns (SampleResult, adaptation dict)."""
+    -> jittered sampling.  Returns (SampleResult, adaptation dict).
+
+    block_size, checkpoint_path, resume and logger give ChEES the durability
+    of the other MCMC heads (driver.run_mcmc): blocked sampling with a
+    checkpoint after warmup and after every block, per-window records, and
+    a resume from the last completed block with the same bits as an
+    uninterrupted run.  A resumed run's dict holds only the restored eps,
+    mass, T and warmup divergences."""
     if config.adam_lr is None:
         config = config._replace(adam_lr=resolve_adam_lr(theta0.shape[0]))
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        like = chees_checkpoint_like(ChainState(
+            theta0, theta0.new_zeros(theta0.shape[0]), torch.zeros_like(theta0)), generator)
+        ck = restore_state(checkpoint_path, like, theta0.device)
+        res = chees_sample_blocked(
+            ck.states, grad_fn, mask, n_samples, ck.step_size, ck.inv_mass, ck.traj,
+            config, generator, leapfrog_impl, n_warmup=n_warmup,
+            block_size=block_size or 250, checkpoint_path=checkpoint_path,
+            start_done=ck.done, logger=logger, warmup_ndiv=ck.warmup_ndiv,
+            relocate_fn=relocate_fn)
+        return res, {"step_size": ck.step_size, "inv_mass": ck.inv_mass,
+                     "traj_length": ck.traj, "warmup_divergences": ck.warmup_ndiv}
     states = init_chain_states(theta0, grad_fn)
     wu = _chees_warmup(states, grad_fn, mask, n_warmup, config, generator,
                        leapfrog_impl)
@@ -389,6 +497,9 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
             generator, leapfrog_impl)
         ndiv = ndiv + ndiv_ext
         n_ext += 1
+        if logger is not None:
+            t, d = torch.stack([torch.exp(log_T), drift]).tolist()
+            logger.log("warmup_t_extension", extension=n_ext, traj_length=t, traj_drift=d)
     traj = torch.exp(log_T)
     converged = bool(float(drift) <= config.t_drift_tol)
 
@@ -409,14 +520,43 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
             eq_stages += 1
             eq_disagreement = float(torch.maximum(_eq_disagreement(u1, u2),
                                                   _eq_disagreement(f1, f2)))
+            if logger is not None:
+                logger.log("warmup_eq_stage", stage=eq_stages,
+                           disagreement=eq_disagreement, traj_factor=eq_factor)
             if eq_disagreement <= config.eq_tol:
                 break
             eq_factor = min(eq_factor * 2.0, 4.0)
+        if logger is not None and eq_disagreement > config.eq_tol:
+            logger.log("warning", kind="equilibration_unconverged",
+                       eq_disagreement=eq_disagreement, tol=config.eq_tol,
+                       msg="chains still disagree on pooled summaries after the "
+                           "equilibration budget; raise max_eq_stages or n_warmup")
 
-    res = chees_sample(st, grad_fn, mask, n_samples, eps, inv_mass, traj,
-                       config, generator, leapfrog_impl, start=n_warmup,
-                       relocate_fn=relocate_fn)
+    n_div = int(ndiv)
+    if logger is not None:
+        log_warmup_phases(logger, wu.phase_accept, wu.phase_eps)
+        e, t, d = torch.stack([eps, traj, drift]).tolist()
+        logger.log("warmup_complete", step_size=e, traj_length=t, divergences=n_div,
+                   traj_drift=d, traj_converged=converged, warmup_extensions=n_ext)
+        if not converged:
+            logger.log("warning", kind="traj_adaptation_unconverged", traj_drift=d,
+                       tol=config.t_drift_tol,
+                       msg="ChEES trajectory-length ascent still moving after warmup "
+                           "+ extensions; raise n_warmup or max_warmup_extensions")
+    if checkpoint_path is not None:  # warmup is the expensive leg: save it
+        save_state(checkpoint_path, ChEESBlockCheckpoint(
+            st, 0, eps, inv_mass, traj, n_div, generator))
+    if block_size is not None:
+        res = chees_sample_blocked(
+            st, grad_fn, mask, n_samples, eps, inv_mass, traj, config, generator,
+            leapfrog_impl, n_warmup=n_warmup, block_size=block_size,
+            checkpoint_path=checkpoint_path, logger=logger, warmup_ndiv=n_div,
+            relocate_fn=relocate_fn)
+    else:
+        res = chees_sample(st, grad_fn, mask, n_samples, eps, inv_mass, traj,
+                           config, generator, leapfrog_impl, start=n_warmup,
+                           relocate_fn=relocate_fn)
     return res, {"step_size": eps, "inv_mass": inv_mass, "traj_length": traj,
-                 "warmup_divergences": int(ndiv), "traj_drift": float(drift),
+                 "warmup_divergences": n_div, "traj_drift": float(drift),
                  "traj_converged": converged, "warmup_extensions": n_ext,
                  "eq_stages": eq_stages, "eq_disagreement": eq_disagreement}

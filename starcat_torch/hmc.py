@@ -86,18 +86,25 @@ def make_hmc_kernel(trajectory: Callable, mask: torch.Tensor,
 
 def run_hmc(generator: torch.Generator, grad_fn: Callable,
             theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
-            n_warmup: int, config: HMCConfig = HMCConfig(), thin: int = 1):
-    """init -> warmup -> sample on the plain leapfrog (batched grad_fn)."""
+            n_warmup: int, config: HMCConfig = HMCConfig(), thin: int = 1,
+            block_size: int | None = None, checkpoint_path: str | None = None,
+            resume: bool = False, logger=None):
+    """init -> warmup -> sample on the plain leapfrog (batched grad_fn).
+    block_size, checkpoint_path, resume and logger: driver.run_mcmc's."""
     kernel = make_hmc_kernel(plain_trajectory(grad_fn), mask, config, generator)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size,
-                    target_accept=config.target_accept, thin=thin)
+                    target_accept=config.target_accept, thin=thin,
+                    block_size=block_size, checkpoint_path=checkpoint_path,
+                    resume=resume, logger=logger, generator=generator)
 
 
 def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
                   prior, theta0: torch.Tensor, mask: torch.Tensor,
                   n_samples: int, n_warmup: int,
-                  config: HMCConfig = HMCConfig(), thin: int = 1):
+                  config: HMCConfig = HMCConfig(), thin: int = 1,
+                  block_size: int | None = None, checkpoint_path: str | None = None,
+                  resume: bool = False, logger=None):
     """run_hmc with every trajectory in one launch of the fused leapfrog
     kernel that takes the scene, B1 or B5 (B1's contract; the entry
     gradient comes from the chain state)."""
@@ -108,4 +115,6 @@ def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
     kernel = make_hmc_kernel(trajectory, mask, config, generator)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size,
-                    target_accept=config.target_accept, thin=thin)
+                    target_accept=config.target_accept, thin=thin,
+                    block_size=block_size, checkpoint_path=checkpoint_path,
+                    resume=resume, logger=logger, generator=generator)

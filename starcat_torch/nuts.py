@@ -232,10 +232,16 @@ def make_nuts_kernel(leaf: Callable, mask: torch.Tensor, config: NUTSConfig,
 
 def run_nuts(generator: torch.Generator, grad_fn: Callable, theta0: torch.Tensor,
              mask: torch.Tensor, n_samples: int, n_warmup: int,
-             config: NUTSConfig = NUTSConfig(), thin: int = 1, leaf: Callable | None = None):
+             config: NUTSConfig = NUTSConfig(), thin: int = 1, leaf: Callable | None = None,
+             block_size: int | None = None, checkpoint_path: str | None = None,
+             resume: bool = False, logger=None):
     """init -> warmup -> sample; every leaf on ``leaf`` (the fused kernel's
-    leaf contract), the plain step over ``grad_fn`` when None."""
+    leaf contract), the plain step over ``grad_fn`` when None.  block_size,
+    checkpoint_path, resume and logger: driver.run_mcmc's.  A transition
+    draws all its random numbers at its start, so a block boundary never
+    splits a tree."""
     kernel = make_nuts_kernel(leaf or plain_leaf(grad_fn), mask, config, generator)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size, target_accept=config.target_accept,
-                    thin=thin)
+                    thin=thin, block_size=block_size, checkpoint_path=checkpoint_path,
+                    resume=resume, logger=logger, generator=generator)

@@ -210,30 +210,34 @@ def make_fused_rhmc_kernel(spec, image: torch.Tensor, prior, mask: torch.Tensor,
 
 
 def _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
-         config: RHMCConfig, thin: int):
+         config: RHMCConfig, thin: int, generator, durability: dict):
     pg = make_potential_and_grad(spec, image, prior)
     return run_mcmc(kernel, lambda th: pg(th, mask), theta0, n_samples,
                     n_warmup, step_size=config.step_size,
                     target_accept=config.target_accept, thin=thin,
                     adapt_mass=False,
-                    divergence_penalty=config.divergence_penalty)
+                    divergence_penalty=config.divergence_penalty,
+                    generator=generator, **durability)
 
 
 def run_rhmc(generator: torch.Generator, spec, image: torch.Tensor, prior,
              theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
-             n_warmup: int, config: RHMCConfig = RHMCConfig(), thin: int = 1):
-    """init -> step-size-only warmup -> sample on the plain trajectory."""
+             n_warmup: int, config: RHMCConfig = RHMCConfig(), thin: int = 1,
+             **durability):
+    """init -> step-size-only warmup -> sample on the plain trajectory.
+    ``durability``: driver.run_mcmc's block_size, checkpoint_path, resume
+    and logger."""
     traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config, False)
     kernel = make_rhmc_kernel(traj, mask, config, generator)
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
-                config, thin)
+                config, thin, generator, durability)
 
 
 def run_rhmc_fused(generator: torch.Generator, spec, image: torch.Tensor, prior,
                    theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
                    n_warmup: int, config: RHMCConfig = RHMCConfig(),
-                   thin: int = 1):
+                   thin: int = 1, **durability):
     """run_rhmc with every trajectory in one launch of kernel B6, B3 or B4."""
     kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator)
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
-                config, thin)
+                config, thin, generator, durability)

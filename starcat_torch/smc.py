@@ -25,19 +25,27 @@ Random numbers come from the run's one generator, drawn per step by
 :func:`draw_step` in a fixed order: the resampling uniforms, each sweep's
 draws, then each mutation step's (momentum noise, step jitter, acceptance
 uniform).  The step itself is a pure function of them, so tests feed it the
-reference keys' own draws.  Not ported: the relocate sweeps (measured
-negative in the reference), its legacy checkpoint layout and program-size
-routing, the device mesh, checkpoints and the per-step log.
+reference keys' own draws.
+
+``run_smc`` logs one ``smc_temperature_step`` record a step and then, with
+``checkpoint_path``, saves the whole SMCState and the generator's state
+(SMCCheckpoint); ``resume=True`` continues from the last completed step
+with the same bits as an uninterrupted pass, running only the posterior
+rounds not yet done (``final_done``).  Not ported: the relocate sweeps
+(measured negative in the reference), its legacy checkpoint layout and
+program-size routing, and the device mesh (ROADMAP A13).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import diagnostics
+from .checkpoint import restore_state, save_state
 from .driver import ChainState
 from .hmc import hmc_transition
 from .integrators import plain_trajectory
@@ -326,6 +334,14 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
     return step
 
 
+class SMCCheckpoint(NamedTuple):
+    """Written after every temperature step: the population and its
+    schedule, and the run generator's state."""
+
+    state: SMCState
+    generator: torch.Generator
+
+
 def _host(s: SMCState) -> tuple[float, int, int]:
     """(beta, n_steps, final_done) read back in one sync."""
     beta, n, done = torch.stack([s.beta.double(), s.n_steps.double(),
@@ -341,26 +357,43 @@ def _result(s: SMCState) -> SMCResult:
 
 def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
             prior: PriorSpec, kmax: int, cfg: SMCConfig,
-            fused: bool = False, on_step=None) -> SMCResult:
+            fused: bool = False, on_step=None, checkpoint_path: str | None = None,
+            resume: bool = False, logger=None) -> SMCResult:
     """A full pass: temperature steps until beta = 1 (or max_steps), then
     the posterior rounds (n_final_rounds, or plateau-stopped), with
     final_n_leapfrog when set.  ``on_step(state)``, when given, sees the
-    state after every step (scripts/smc_trace.py records it)."""
+    state after every step (scripts/smc_trace.py records it).
+
+    After every step ``logger`` gets an ``smc_temperature_step`` record and
+    then, with ``checkpoint_path``, an SMCCheckpoint is written.
+    resume=True with a checkpoint there continues from its step: only the
+    posterior rounds not yet done run, and the plateau window restarts (at
+    least 2 W more rounds).  With islands, ``logger`` gets
+    ``smc_island_diag`` at the end."""
     check_mutation(cfg.mutation)
     s = init_smc(generator, spec, image, prior, kmax, cfg)
     p, dev = cfg.n_particles, image.device
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        s = restore_state(checkpoint_path, SMCCheckpoint(s, generator), dev).state
     step = make_smc_step(spec, image, prior, kmax, cfg, fused)
 
     def advance(st, fn):
         st = fn(st, draw_step(generator, p, kmax, spec, prior, cfg, dev))
         if on_step is not None:
             on_step(st)
-        return st
+        rec = torch.stack([st.beta.double(), st.n_steps.double(), st.final_done.double(),
+                           st.log_z.double(), st.mean_accept.double(), st.eps.double(),
+                           st.mask.sum(-1).mean().double()]).tolist()
+        if logger is not None:
+            logger.log("smc_temperature_step", step=int(rec[1]), beta=rec[0], log_z=rec[3],
+                       accept=rec[4], step_size=rec[5], mean_n=rec[6])
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, SMCCheckpoint(st, generator))
+        return st, rec[0], int(rec[1]), int(rec[2]), rec[6]
 
     beta, n_steps, done = _host(s)
     while beta < 1.0 and n_steps < cfg.max_steps:
-        s = advance(s, step)
-        beta, n_steps, done = _host(s)
+        s, beta, n_steps, done, _ = advance(s, step)
 
     fstep = step
     if cfg.final_n_leapfrog not in (0, cfg.n_leapfrog):
@@ -371,12 +404,14 @@ def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
         # pass (beta < 1) returns as it is
         w, hist = cfg.plateau_window, []
         while beta >= 1.0 and done < cfg.max_final_rounds:
-            s = advance(s, fstep)
-            beta, n_steps, done = _host(s)
-            hist.append(float(s.mask.sum(-1).mean()))
+            s, beta, n_steps, done, mean_n = advance(s, fstep)
+            hist.append(mean_n)
             if len(hist) >= 2 * w and abs(sum(hist[-w:]) - sum(hist[-2 * w:-w])) / w < cfg.plateau_tol:
                 break
     else:
-        for _ in range(cfg.n_final_rounds):
-            s = advance(s, fstep)
-    return _attach_island_diag(_result(s), cfg)
+        for _ in range(max(cfg.n_final_rounds - done, 0)):
+            s, beta, n_steps, done, _ = advance(s, fstep)
+    res = _attach_island_diag(_result(s), cfg)
+    if logger is not None and res.island_diag is not None:
+        logger.log("smc_island_diag", **res.island_diag)
+    return res

@@ -21,17 +21,25 @@ tempered log-likelihood); beta = 0 makes the whole head sample the prior.
 Random numbers come from the run's one generator, in a fixed order per
 transition (:func:`draw_transition`): each sweep's draws
 (transdim.draw_sweep), then the within-model move's; the transition is a
-pure function of them.  Blocked sampling and checkpoints are not ported yet (ROADMAP A12).
+pure function of them.  So blocked sampling (``run_transdim(block_size=...)``)
+gives the same bits as one loop, and a TDBlockCheckpoint (the chains, the
+draws done, eps and the generator's state) written after every block lets a
+replacement process resume with the same bits as an uninterrupted run.  The
+warmup keeps its per-transition records on the device and ``logger`` gets
+four ``warmup_window`` records, ``warmup_complete`` and one
+``sampling_block`` a block.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
 
 from .adapt import da_init, da_update
-from .driver import ChainState
+from .checkpoint import restore_state, save_state
+from .driver import ChainState, block_sizes, concat_blocks
 from .dispatch import make_leapfrog
 from .hmc import hmc_transition
 from .integrators import plain_trajectory
@@ -213,15 +221,21 @@ def warmup(states: TDState, kernel, n_warmup: int, step_size: float,
            target_accept: float, divergence_penalty: float = 0.0):
     """Dual-averaging step-size warmup (no mass adaptation: the mask varies
     per chain).  The statistic is mean(accept_prob) - divergence_penalty *
-    frac(diverged | solver_fail).  Returns (states, eps_bar)."""
-    da = da_init(step_size, states.theta.device)
+    frac(diverged | solver_fail).  Returns (states, eps_bar, records): the
+    records (n_warmup, 4) on the device hold each transition's mean
+    acceptance, mean trans-d acceptance, mean alive count and eps."""
+    dev = states.theta.device
+    da = da_init(step_size, dev)
+    recs = torch.empty((n_warmup, 4), dtype=torch.float32, device=dev)
     st = states
-    for _ in range(n_warmup):
+    for i in range(n_warmup):
         st, info = kernel(st, torch.exp(da.log_eps))
+        acc = info.accept_prob.mean()
         bad = (info.diverged | info.solver_fail).to(torch.float32).mean()
-        da = da_update(da, info.accept_prob.mean() - divergence_penalty * bad,
-                       target=target_accept)
-    return st, torch.exp(da.log_eps_bar)
+        da = da_update(da, acc - divergence_penalty * bad, target=target_accept)
+        recs[i] = torch.stack([acc, info.td_accept.mean(), st.mask.sum(-1).mean(),
+                               torch.exp(da.log_eps)])
+    return st, torch.exp(da.log_eps_bar), recs
 
 
 def sample(states: TDState, kernel, n_samples: int, eps) -> TDSampleResult:
@@ -246,14 +260,74 @@ def sample(states: TDState, kernel, n_samples: int, eps) -> TDSampleResult:
     return TDSampleResult(thetas, masks, aprob, div, td, sf, st)
 
 
+class TDBlockCheckpoint(NamedTuple):
+    """Written after every sampling block: the chains, the draws done, the
+    adapted eps and the run generator's state."""
+
+    state: TDState
+    done: int
+    step_size: torch.Tensor  # ()
+    generator: torch.Generator
+
+
+def _log_warmup(logger, recs: torch.Tensor, eps, n_warmup: int) -> None:
+    """Four ``warmup_window`` records and ``warmup_complete``, from the
+    warmup's records read back in one sync."""
+    rows = recs.cpu()
+    n_win = min(4, n_warmup)
+    for i in range(n_win):
+        lo, hi = i * n_warmup // n_win, (i + 1) * n_warmup // n_win
+        acc, tda, mean_n, _ = rows[lo:hi].mean(0).tolist()
+        logger.log("warmup_window", head="transdim", window=i, accept=acc,
+                   td_accept=tda, mean_n=mean_n, step_size=float(rows[hi - 1, 3]))
+    logger.log("warmup_complete", head="transdim", step_size=float(eps),
+               n_warmup=n_warmup)
+
+
 def run_transdim(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
                  prior: PriorSpec, kmax: int, n_chains: int, n_samples: int,
                  n_warmup: int, cfg: TransDimMCMCConfig = TransDimMCMCConfig(),
-                 fused: bool = False, beta=1.0):
-    """init -> warmup -> sampling; returns (TDSampleResult, step_size)."""
+                 fused: bool = False, beta=1.0, block_size: int | None = None,
+                 checkpoint_path: str | None = None, resume: bool = False,
+                 logger=None):
+    """init -> warmup -> (blocked) sampling; returns (TDSampleResult,
+    step_size).  With block_size and checkpoint_path every block writes a
+    TDBlockCheckpoint; resume=True continues from the last completed one
+    and returns only the remaining draws."""
     kernel = make_transdim_kernel(spec, image, prior, kmax, cfg, generator, beta, fused)
     states = init_td_states(generator, spec, image, prior, kmax, n_chains,
                             cfg.transdim.lam_count, beta)
-    states, eps = warmup(states, kernel, n_warmup, cfg.step_size,
-                         cfg.target_accept, cfg.divergence_penalty)
-    return sample(states, kernel, n_samples, eps), eps
+    start_done = 0
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        like = TDBlockCheckpoint(states, 0, torch.zeros((), device=image.device), generator)
+        ck = restore_state(checkpoint_path, like, image.device)
+        states, eps, start_done = ck.state, ck.step_size, ck.done
+    else:
+        states, eps, recs = warmup(states, kernel, n_warmup, cfg.step_size,
+                                   cfg.target_accept, cfg.divergence_penalty)
+        if logger is not None:
+            _log_warmup(logger, recs, eps, n_warmup)
+    if block_size is None:
+        return sample(states, kernel, n_samples, eps), eps
+
+    parts = []
+    done = start_done
+    for n in block_sizes(n_samples, block_size, start_done):
+        res = sample(states, kernel, n, eps)
+        states = res.final_state
+        parts.append(res[:-1])
+        done += n
+        if logger is not None:
+            acc, tda, mean_n = torch.stack([
+                res.accept_prob.mean(), res.td_accept.mean(),
+                res.masks.sum(-1, dtype=torch.float32).mean()]).tolist()
+            logger.log("sampling_block", head="transdim", done=done, accept=acc,
+                       td_accept=tda, mean_n=mean_n)
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, TDBlockCheckpoint(states, done, eps, generator))
+    c, k, dev = n_chains, kmax, image.device
+    empty = (torch.zeros((c, 0, k, 3), device=dev),
+             torch.zeros((c, 0, k), dtype=torch.bool, device=dev),
+             torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev),
+             torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev))
+    return TDSampleResult(*concat_blocks(parts, empty), states), eps

@@ -1081,3 +1081,86 @@ def test_nuts_and_advi_run_through_b1(dev, name, over):
     else:
         assert out.thetas.shape == (cfg.n_chains, cfg.n_samples, cfg.kmax, 3)
         assert 0.3 < st["accept"] <= 1.0
+
+
+# ---- durability: blocked sampling and a SIGKILLed run resumed, on the card ----
+
+
+def _kill_on_the_card(config, over, ckpt):
+    """tests/torch_fault_worker.py's crash-api leg on the card: the run dies
+    at its third block's record (SMC: its fourth step's)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    over_arg = ",".join(f"{k}={v}" for k, v in over.items())
+    return subprocess.run([sys.executable, os.path.join(repo, "tests", "torch_fault_worker.py"),
+                           "crash-api", config, over_arg, "cuda", ckpt],
+                          capture_output=True, text=True, timeout=600, env=env)
+
+
+def test_chees_on_b2_blocked_and_resumed_after_sigkill_give_the_same_bits(dev, tmp_path):
+    """cfg6 at 256 chains on B2: blocks of 10 with checkpoints give the
+    unblocked run's draws, and a run SIGKILLed after two blocks' checkpoints
+    resumes to its last 20 draws, bit for bit."""
+    import signal
+
+    from starcat_torch.configs import apply_overrides
+
+    over = {"n_chains": 256, "n_warmup": 60, "n_samples": 40}
+    cfg = apply_overrides(CONFIGS["cfg6_chees"], over)
+    one = api.sample(cfg, dev, seed=0)
+    blocked = api.sample(cfg, dev, seed=0, checkpoint_path=str(tmp_path / "a.ck"),
+                         metrics_path=str(tmp_path / "a.jsonl"))
+    assert blocked.stats["trajectory_kernel"] == "B2" and blocked.stats["kernel_launches"] > 0
+    np.testing.assert_array_equal(blocked.thetas, one.thetas)
+    ckpt = str(tmp_path / "killed.ck")
+    r = _kill_on_the_card("cfg6_chees", over, ckpt)
+    assert r.returncode == -signal.SIGKILL, r.stderr[-3000:]
+    rest = api.sample(cfg, dev, seed=0, checkpoint_path=ckpt, resume=True)
+    assert rest.thetas.shape[1] == 20
+    np.testing.assert_array_equal(rest.thetas, one.thetas[:, 20:])
+
+
+def test_smc_on_b6_resumed_after_sigkill_gives_the_same_bits(dev, tmp_path):
+    """cfg3 at 512 particles on B6, killed after three temperature steps'
+    checkpoints: the resumed pass ends at the uninterrupted pass's beta,
+    log Z and population, bit for bit; so does a pass without checkpoints."""
+    import signal
+
+    from starcat_torch.configs import apply_overrides
+
+    over = {"smc.n_particles": 512, "smc.max_steps": 6}
+    cfg = apply_overrides(CONFIGS["cfg3_transdim_smc"], over)
+    full = api.sample(cfg, dev, seed=0, checkpoint_path=str(tmp_path / "a.ck"))
+    again = api.sample(cfg, dev, seed=0)
+    assert full.stats["kernel"] == "rhmc_cuda" and full.stats["n_temp_steps"] == 6
+    ckpt = str(tmp_path / "killed.ck")
+    r = _kill_on_the_card("cfg3_transdim_smc", over, ckpt)
+    assert r.returncode == -signal.SIGKILL, r.stderr[-3000:]
+    assert int(torch.load(ckpt, weights_only=True)["state.n_steps"]) == 3
+    rest = api.sample(cfg, dev, seed=0, checkpoint_path=ckpt, resume=True)
+    for out in (again, rest):
+        np.testing.assert_array_equal(out.thetas, full.thetas)
+        np.testing.assert_array_equal(out.masks, full.masks)
+        assert out.stats["log_z"] == full.stats["log_z"] and out.stats["beta"] == full.stats["beta"]
+
+
+def test_a_cuda_checkpoint_does_not_restore_on_the_cpu(dev, tmp_path):
+    from starcat_torch.checkpoint import CheckpointError, restore_state, save_state
+    from starcat_torch.driver import ChainState, checkpoint_like
+
+    th = torch.zeros((4, 2, 3), device=dev)
+    path = str(tmp_path / "cuda_ck")
+    save_state(path, checkpoint_like(ChainState(th, torch.zeros(4, device=dev), th),
+                                     torch.Generator(device=dev)))
+    th_cpu = th.cpu()
+    like = checkpoint_like(ChainState(th_cpu, torch.zeros(4), th_cpu), torch.Generator())
+    with pytest.raises(CheckpointError, match="cuda_ck.*cuda generator state.*cpu"):
+        restore_state(path, like, "cpu")
+    back = restore_state(path, checkpoint_like(ChainState(th, torch.zeros(4, device=dev), th),
+                                               torch.Generator(device=dev)), dev)
+    assert back.states.theta.device.type == "cuda"

@@ -99,7 +99,8 @@ def test_port_imports_no_jax():
             "starcat_torch.build, starcat_torch.metric, starcat_torch.rhmc, "
             "starcat_torch.fused_rhmc_diag, starcat_torch.fused_rhmc, "
             "starcat_torch.smc, starcat_torch.transdim, starcat_torch.transdim_mcmc, "
-            "starcat_torch.nuts, starcat_torch.advi; "
+            "starcat_torch.nuts, starcat_torch.advi, starcat_torch.checkpoint, "
+            "starcat_torch.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'starcat')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
