@@ -73,20 +73,40 @@
    set to 0 just before and read just after: cfg2_nuts at full width (1024
    chains, max_depth 8) cut to 100 + 50 transitions and cfg7_advi as the
    preset stands (3000 steps), both on B1, checked against the records;
-13. durability: each of three runs at full width through the public API,
+13. durability: each of five runs at full width through the public API,
    the launch counts set to 0 just before and read just after: cfg6_chees
    (1024 chains, K = 10, 32x32, on B2) cut to 150 + 300 draws in four
-   blocks, cfg3_transdim_smc as the preset stands (4096 particles, B6) and
-   cfg5_transdim_mcmc (256 chains, B3) cut to 60 + 40 in four blocks.  Each
+   blocks, cfg3_transdim_smc as the preset stands (4096 particles, B6),
+   cfg5_transdim_mcmc (256 chains, B3) cut to 60 + 40 in four blocks,
+   cfg1_rhmc on the full metric (64 chains, B6's 512-thread layout) cut to
+   40 + 40 in four blocks and cfg4_crowded (4096 particles, K_max 64,
+   128x128, B4 with per-particle masks) cut to three temperature steps.  Each
    runs uninterrupted with a metrics stream and checkpoints, again with
    neither (unblocked), then in a process of its own that SIGKILLs itself
    from its logger (after two blocks' checkpoints; cfg3 after three
-   temperature steps'), and is resumed here from that checkpoint.  The
-   unblocked run and the resumed draws must equal the uninterrupted run's
-   bit for bit (cfg3: beta, log Z and the final population), the killed
-   process must return -9, and the streams must hold the reference's
-   records; prints each leg's wall and the checkpoint's size and save time;
-14. prints one JSON line with a row per kernel (launches on its paths, the
+   temperature steps', cfg4 after two), and is resumed here from that
+   checkpoint.  The unblocked run and the resumed draws must equal the
+   uninterrupted run's bit for bit (SMC: beta, log Z and the final
+   population), the killed process must return -9, and the streams must
+   hold the reference's records; prints each leg's wall and the
+   checkpoint's size and save time;
+14. the CLI's report on the card, each in a process of its own
+   (``python -m starcat_torch report --device cuda``): cfg6_chees at full
+   width cut to 150 + 300 (B2) and cfg5_transdim_mcmc at full width cut to
+   60 + 40 (B3).  The catalog JSON must parse and use 512 draws, and the
+   sources at prevalence >= 0.5 must match the flagship truth one to one
+   within 1 px, but for the truth stars the JAX package's own report at the
+   same chain count misses, with no more unmatched sources than it leaves
+   (REPORT_REFERENCE); prints completeness and purity by flux bin, the walls
+   and the PNGs skipped for want of matplotlib;
+15. a device mesh of one: a one-rank NCCL group (``file://`` rendezvous in
+   a temporary directory) runs api.sample with mesh=make_mesh() for
+   cfg6_chees cut as in 13 (B2) and cfg3_transdim_smc as the preset stands
+   (B6, 4096 particles); each must equal the unsharded run bit for bit (the
+   draws, masks, eps, log Z).  With two or more cards it also runs two NCCL
+   ranks, a process each, against the same one-process runs; with one it
+   says that only a world of one ran;
+16. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work).
 
@@ -1549,6 +1569,8 @@ DURABILITY = {
     "cfg6_chees": ({"n_warmup": 150, "n_samples": 300}, 1, "sampling_block", 3),
     "cfg3_transdim_smc": ({}, 0, "smc_temperature_step", 4),
     "cfg5_transdim_mcmc": ({"n_warmup": 60, "n_samples": 40}, 1, "sampling_block", 3),
+    "cfg1_rhmc": ({"n_warmup": 40, "n_samples": 40}, 0, "sampling_block", 3),
+    "cfg4_crowded": ({"smc.max_steps": 3}, 0, "smc_temperature_step", 3),
 }
 # the records each uninterrupted stream must hold: (event, count); None
 # counts the temperature steps the run took
@@ -1558,6 +1580,8 @@ DURABILITY_EVENTS = {
     "cfg3_transdim_smc": (("smc_temperature_step", None), ("run_complete", 1)),
     "cfg5_transdim_mcmc": (("warmup_window", 4), ("warmup_complete", 1),
                            ("sampling_block", 4), ("run_complete", 1)),
+    "cfg1_rhmc": (("warmup_phase", 3), ("sampling_block", 4), ("run_complete", 1)),
+    "cfg4_crowded": (("smc_temperature_step", None), ("run_complete", 1)),
 }
 DURABILITY_DIR = Path(__file__).resolve().parent / "build" / "durability"
 
@@ -1599,9 +1623,9 @@ def timed_saves(modules):
     times, saved = [], {m: m.save_state for m in modules}
 
     def wrap(save):
-        def timed(path, payload):
+        def timed(*args, **kw):
             t0 = time.perf_counter()
-            save(path, payload)
+            save(*args, **kw)
             times.append(1e3 * (time.perf_counter() - t0))
         return timed
 
@@ -1650,12 +1674,14 @@ def run_durability(api, configs, dev):
     from starcat_torch import fused_leapfrog as fl
     from starcat_torch import fused_rhmc as fr
     from starcat_torch import fused_rhmc_diag as frd
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
 
     shutil.rmtree(DURABILITY_DIR, ignore_errors=True)
     DURABILITY_DIR.mkdir(parents=True)
     fl.reset_launch_counts()
     frd.reset_launch_counts()
     fr.reset_launch_counts()
+    frdc.reset_launch_counts()
     for case in DURABILITY:
         cfg, seed = _durability_cfg(configs, case)
         _, _, event, n_kill = DURABILITY[case]
@@ -1717,7 +1743,215 @@ def run_durability(api, configs, dev):
               f"{os.path.getsize(ck_a)} bytes, save median {float(np.median(times)):.3f} ms, "
               f"max {max(times):.3f} ms; total flux {tf['mean']:.2f} ± {tf['sd']:.2f}")
     return {"dyn": fl.DYN_LAUNCHES, "static": fl.STATIC_LAUNCHES, "b3": frd.LAUNCHES,
-            "b6": fr.LAUNCHES}
+            "b6": fr.LAUNCHES, "b4": frdc.LAUNCHES}
+
+
+# Phase 14.  The report runs: the preset, its cut and seed, and the kernel
+# it must run on, whose row of the kernels line its launches go to.
+#
+# REPORT_REFERENCE is the JAX package's own report on the same scene, seed,
+# cut and chain count, on the CPU:
+#     JAX_PLATFORMS=cpu python -m starcat report --config NAME --seed 1 \
+#         --out-prefix P n_warmup=W n_samples=S
+# its catalog read by scripts/report_truth_match_torch.py (PERF.md §6).
+# For each preset: the truth stars (by index into the truth catalog) that
+# no source at prevalence >= 0.5 matches within 1 px, and how many such
+# sources match no truth star.  Both presets miss the same three: star 1
+# (flux 9.6 on a background of 10 a pixel), star 4 (0.96 px from the
+# brighter star 6, condensed with it into one source) and star 5 (flux
+# 86).  cfg6's two unmatched sources are a source 1.37 px from star 5 and
+# one at (4.1, 1.9), flux 78, where the truth has no star.  The port must
+# match every other truth star one to one, and may leave no more sources
+# unmatched than the reference does.
+REPORT = {
+    "cfg6_chees": ({"n_warmup": 150, "n_samples": 300}, 1, "B2"),
+    "cfg5_transdim_mcmc": ({"n_warmup": 60, "n_samples": 40}, 1, "B3"),
+}
+REPORT_COUNTER = {"B2": "dyn", "B3": "b3"}
+REPORT_REFERENCE: dict[str, tuple[tuple[int, ...], int]] = {
+    "cfg6_chees": ((1, 4, 5), 2),
+    "cfg5_transdim_mcmc": ((1, 4, 5), 0),
+}
+REPORT_DIR = Path(__file__).resolve().parent / "build" / "report"
+
+
+def run_report(configs, dev):
+    """Phase 14 (see the module docstring).  Returns the launches of each
+    kernel counter, as each run's stats count them."""
+    import numpy as np
+
+    from starcat_torch.catalogs import match_catalogs
+    from starcat_torch.potential import constrain
+
+    shutil.rmtree(REPORT_DIR, ignore_errors=True)
+    REPORT_DIR.mkdir(parents=True)
+    launches = {}
+    for name, (over, seed, kernel) in REPORT.items():
+        cfg = configs[name]
+        prefix = REPORT_DIR / name
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "starcat_torch", "report", "--config", name, "--device",
+             str(dev), "--seed", str(seed), "--out-prefix", str(prefix),
+             *(f"{k}={v}" for k, v in over.items())],
+            capture_output=True, text=True, timeout=600,
+            cwd=str(Path(__file__).resolve().parent))
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"report {name}: returned {r.returncode}:\n{r.stderr[-3000:]}")
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        missing = {"config", "plots", "summary", "condensed_sources"} - set(rec)
+        if missing:
+            raise AssertionError(f"report {name}: the printed line lacks {sorted(missing)}")
+        cat = json.loads(Path(f"{prefix}_catalog.json").read_text())
+        if cat["n_draws_used"] != 512:
+            raise AssertionError(f"report {name}: {cat['n_draws_used']} draws used, not 512")
+        truth_theta, _ = cfg.make_data()
+        truth = np.stack([t.numpy() for t in constrain(truth_theta, cfg.scene)], axis=1)
+        solid = np.array([[c["x"], c["y"], c["flux"]] for c in cat["condensed"]
+                          if c["prevalence"] >= 0.5]).reshape(-1, 3)
+        pairs, un_truth, un_solid = match_catalogs(truth, solid, 1.0)
+        missed, n_spurious = REPORT_REFERENCE[name]
+        if not set(un_truth.tolist()) <= set(missed) or len(un_solid) > n_spurious:
+            raise AssertionError(
+                f"report {name}: {len(solid)} sources at prevalence >= 0.5 match "
+                f"{len(pairs)} of {len(truth)} truth stars within 1 px; truth unmatched "
+                f"{un_truth.tolist()}, sources unmatched {solid[un_solid].tolist()} (the "
+                f"JAX package's report: truth unmatched {list(missed)}, {n_spurious} "
+                "sources unmatched)")
+        st = rec["stats"]
+        if st["trajectory_kernel"] != kernel or st["kernel_launches"] <= 0:
+            raise AssertionError(f"report {name}: {st['kernel_launches']} launches of "
+                                 f"{st['trajectory_kernel']}, expected {kernel}")
+        counter = REPORT_COUNTER[kernel]
+        launches[counter] = launches.get(counter, 0) + st["kernel_launches"]
+        cp = cat["completeness_purity"]
+        skipped = rec.get("skipped")
+        print(f"report {name}: {wall:.3f} s wall (run {st['wall_seconds']:.3f} s, kernel "
+              f"{st['trajectory_kernel']}, {st['kernel_launches']} launches); "
+              f"{cat['n_condensed_ge_half']} sources at prevalence >= 0.5 match "
+              f"{len(pairs)} of {len(truth)} truth stars (unmatched truth "
+              f"{un_truth.tolist()}, {len(un_solid)} sources unmatched); flux bins {[round(b, 1) for b in cp['flux_bins']]}, "
+              f"completeness {cp['completeness']}, purity {cp['purity']}; PNGs "
+              + (f"skipped ({skipped['reason']}): {[Path(q).name for q in skipped['plots']]}"
+                 if skipped else f"written: {[Path(q).name for q in rec['plots'][:-1]]}"))
+    return launches
+
+
+# Phase 15.  Each case: the preset, its cut and seed, and the kernel counter
+# its launches go to.
+MESH = {
+    "cfg6_chees": ({"n_warmup": 150, "n_samples": 300}, 1, "dyn"),
+    "cfg3_transdim_smc": ({}, 0, "b6"),
+}
+
+
+def _mesh_outputs(out):
+    """What a sharded run must reproduce: the draws, the masks, eps and, for
+    SMC, log Z and beta."""
+    import numpy as np
+
+    got = {"thetas": out.thetas, "masks": out.masks,
+           "step_size": np.float64(out.stats["step_size"])}
+    if out.config.head == "smc":
+        got.update(log_z=np.float64(out.stats["log_z"]), beta=np.float64(out.stats["beta"]))
+    return got
+
+
+def mesh_worker(case: str, rank: str, world: str, init_file: str, out: str) -> int:
+    """One rank of phase 15's multi-card leg, on card ``rank``: the case's run
+    under the group's mesh, its outputs saved to OUT.RANK.npz."""
+    import numpy as np
+
+    from starcat_torch import api, dist
+    from starcat_torch.configs import CONFIGS, apply_overrides
+
+    over, seed, _ = MESH[case]
+    dist.init_distributed(f"cuda:{rank}", init_method=f"file://{init_file}",
+                          world_size=int(world), rank=int(rank))
+    mesh = dist.make_mesh()
+    res = api.sample(apply_overrides(CONFIGS[case], over), mesh.device, seed=seed, mesh=mesh)
+    np.savez(f"{out}.{rank}.npz", **_mesh_outputs(res))
+    import torch.distributed as tdist
+
+    tdist.destroy_process_group()
+    return 0
+
+
+def run_mesh(api, configs, dev):
+    """Phase 15 (see the module docstring).  Returns the launches of each
+    kernel counter over the sharded runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from starcat_torch import dist
+    from starcat_torch import fused_leapfrog as fl
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch.configs import apply_overrides
+
+    launches = {"dyn": 0, "b6": 0}
+    singles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_distributed(dev, init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            mesh = dist.make_mesh(dev)
+            print(f"mesh: backend {tdist.get_backend()}, world {mesh.world}, rank "
+                  f"{mesh.rank}, {mesh.device}")
+            for case, (over, seed, counter) in MESH.items():
+                cfg = apply_overrides(configs[case], over)
+                t0 = time.perf_counter()
+                single = api.sample(cfg, dev, seed=seed)
+                wall_single = time.perf_counter() - t0
+                singles[case] = _mesh_outputs(single)
+                fl.reset_launch_counts()
+                fr.reset_launch_counts()
+                t0 = time.perf_counter()
+                sharded = api.sample(cfg, dev, seed=seed, mesh=mesh)
+                torch.cuda.synchronize()
+                wall_mesh = time.perf_counter() - t0
+                n = {"dyn": fl.DYN_LAUNCHES, "b6": fr.LAUNCHES}[counter]
+                if n <= 0:
+                    raise AssertionError(f"mesh {case}: {counter} never launched")
+                launches[counter] += n
+                _same_bits_or_raise(case, "the run on a mesh of one", _mesh_outputs(sharded),
+                                    singles[case])
+                print(f"mesh {case}: world 1 equals the unsharded run bit for bit (draws "
+                      f"{sharded.thetas.shape}, eps {sharded.stats['step_size']:.6g}"
+                      + (f", log Z {sharded.stats['log_z']:.4f}" if cfg.head == "smc" else "")
+                      + f"); walls {wall_single:.3f} s unsharded, {wall_mesh:.3f} s on the "
+                      f"mesh; {n} {counter} launches")
+        finally:
+            tdist.destroy_process_group()
+
+        n_cards = torch.cuda.device_count()
+        if n_cards < 2:
+            print(f"mesh: {n_cards} card, so only a world of one ran; two NCCL ranks need "
+                  "two cards")
+            return launches
+        for case in MESH:
+            out = f"{tmp}/{case}"
+            procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--mesh-worker", case, str(r), "2",
+                                       f"{tmp}/rdv_{case}", out],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for r in range(2)]
+            try:
+                logs = [p.communicate(timeout=600) for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            for p, (_, err) in zip(procs, logs):
+                if p.returncode != 0:
+                    raise AssertionError(f"mesh {case}: a rank returned {p.returncode}:\n"
+                                         f"{err[-3000:]}")
+            for r in range(2):
+                got = dict(np.load(f"{out}.{r}.npz"))
+                _same_bits_or_raise(case, f"rank {r} of two NCCL ranks", got, singles[case])
+            print(f"mesh {case}: two NCCL ranks on two cards equal the unsharded run bit for bit")
+    return launches
 
 
 # Bounds: the least time the card could take for a kernel's work, the larger
@@ -1801,6 +2035,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--durability-worker"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         return durability_worker(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return mesh_worker(*sys.argv[2:7])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1902,6 +2139,19 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the durability path: {dur}")
         launches[name] += dur[name]
     launches["static"] += dur["static"]
+    if dur["b4"] <= 0:
+        raise AssertionError(f"B4 was never launched on the durability path: {dur}")
+    launches["b4"] += dur["b4"]
+    t0 = time.perf_counter()
+    rep = run_report(CONFIGS, dev)
+    print(f"report path: {time.perf_counter() - t0:.3f} s wall; launches {rep}")
+    for name, n in rep.items():
+        launches[name] += n
+    t0 = time.perf_counter()
+    msh = run_mesh(api, CONFIGS, dev)
+    print(f"mesh path: {time.perf_counter() - t0:.3f} s wall; launches {msh}")
+    for name, n in msh.items():
+        launches[name] += n
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):

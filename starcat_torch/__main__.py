@@ -4,6 +4,8 @@ Commands:
   list                                                list presets
   run       --config cfg6_chees [--device cuda] [--checkpoint PATH]
             [--metrics PATH] [--resume] [key=value ...]
+  report    --config cfg0_single_star [--device cuda] [--seed S]
+            [--out-prefix P] [key=value ...]
   validate  [--config cfg0_single_star]
             [--heads hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim]
             [--device cuda]
@@ -19,6 +21,13 @@ sampling blocks, SMC temperature steps, ADVI windows, the end of the run)
 to PATH; ``--checkpoint PATH`` writes a checkpoint after every sampling
 block (SMC: every temperature step), and ``--resume`` continues a killed
 run from it, printing the summary of the remaining draws only.
+
+``report`` runs a preset on the device and writes ``P_catalog.json`` (the
+condensed catalog and completeness / purity against the mock truth,
+catalogs.catalog_report) and, when matplotlib imports, the trace, corner
+(single-star runs) and reconstruction PNGs of plots.save_report.  Without
+matplotlib the printed JSON names the PNGs it skipped and why; the run and
+the catalog are the same either way.
 """
 from __future__ import annotations
 
@@ -48,13 +57,8 @@ def cmd_list(_args):
 
 def cmd_run(args):
     from .api import sample, summarize_output
-    from .configs import CONFIGS, apply_overrides
 
-    if args.config not in CONFIGS:
-        raise SystemExit(f"unknown config {args.config!r}; try: {', '.join(CONFIGS)}")
-    cfg = apply_overrides(CONFIGS[args.config], _parse_overrides(args.overrides))
-    if cfg.head == "oracle":
-        cfg = apply_overrides(cfg, {"head": "hmc"})  # oracle preset -> HMC head
+    cfg = _load_config(args)
     out = sample(cfg, args.device, seed=args.seed, metrics_path=args.metrics,
                  checkpoint_path=args.checkpoint, resume=args.resume)
     record = {
@@ -63,6 +67,48 @@ def cmd_run(args):
         "stats": {k: v for k, v in out.stats.items() if k != "truth"},
         "summary": summarize_output(out),
     }
+    print(json.dumps(record, default=float))
+
+
+def _load_config(args):
+    from .configs import CONFIGS, apply_overrides
+
+    if args.config not in CONFIGS:
+        raise SystemExit(f"unknown config {args.config!r}; try: {', '.join(CONFIGS)}")
+    cfg = apply_overrides(CONFIGS[args.config], _parse_overrides(args.overrides))
+    if cfg.head == "oracle":
+        cfg = apply_overrides(cfg, {"head": "hmc"})  # oracle preset -> HMC head
+    return cfg
+
+
+def cmd_report(args):
+    """Run a preset, write the catalog JSON and, with matplotlib, the
+    trace/corner/reconstruction PNGs; print one JSON line with the
+    reference's keys and the run's stats."""
+    from .api import sample, summarize_output
+    from .catalogs import catalog_report
+    from .plots import report_plots, save_report
+
+    cfg = _load_config(args)
+    truth, img = cfg.make_data()
+    out = sample(cfg, args.device, seed=args.seed, image=img)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        paths, skipped = [], {"plots": [f"{args.out_prefix}_{n}.png" for n in report_plots(out)],
+                              "reason": f"matplotlib does not import: {e}"}
+    else:
+        paths, skipped = save_report(out, img.numpy(), args.out_prefix), None
+    cat = catalog_report(out, truth_theta=truth.numpy())
+    cat_path = f"{args.out_prefix}_catalog.json"
+    with open(cat_path, "w") as fh:
+        json.dump(cat, fh, default=float)
+    paths.append(cat_path)
+    record = {"config": cfg.name, "plots": paths, "summary": summarize_output(out),
+              "condensed_sources": cat["n_condensed_ge_half"],
+              "stats": {k: v for k, v in out.stats.items() if k != "truth"}}
+    if skipped is not None:
+        record["skipped"] = skipped
     print(json.dumps(record, default=float))
 
 
@@ -160,6 +206,14 @@ def main(argv=None):
                        help="continue a killed run from --checkpoint")
     p_run.add_argument("overrides", nargs="*", help="key=value overrides")
     p_run.set_defaults(fn=cmd_run)
+
+    p_rep = sub.add_parser("report", help="run a preset, write its catalog and plots")
+    p_rep.add_argument("--config", required=True)
+    p_rep.add_argument("--seed", type=int, default=0)
+    p_rep.add_argument("--device", default="cuda")
+    p_rep.add_argument("--out-prefix", default="starcat_report")
+    p_rep.add_argument("overrides", nargs="*", help="key=value overrides")
+    p_rep.set_defaults(fn=cmd_report)
 
     p_val = sub.add_parser("validate", help="oracle vs port validation")
     p_val.add_argument("--config", default="cfg0_single_star")

@@ -17,6 +17,13 @@ path) and ``stats["kernel_launches"]`` counts the kernels' launches.
 The run draws every random number from one ``torch.Generator`` on the
 run's device, seeded from ``seed``.
 
+``mesh`` (dist.make_mesh) shards the chain (or particle) axis over the
+processes of a torch.distributed group, one device each: every rank runs
+this call with the same arguments, holds C / W chains, runs each head on its
+shard on its own kernel, and returns the gathered full SampleOutput, the
+same bits as the one-process run (dist.py says how).  ADVI, one fit,
+ignores the mesh, as the reference does.
+
 ``metrics_path`` streams the run's JSONL records (metrics.MetricsLogger);
 ``checkpoint_path`` writes a checkpoint after every sampling block (SMC:
 every temperature step), and ``resume=True`` continues a killed run from it
@@ -36,6 +43,7 @@ from . import (
     advi,
     diagnostics,
     dispatch,
+    dist,
     fused_leapfrog,
     fused_leapfrog_crowded,
     fused_rhmc,
@@ -121,7 +129,8 @@ def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
 
 def sample(cfg: RunConfig, device, seed: int = 0, image=None,
            on_step=None, metrics_path: str | None = None,
-           checkpoint_path: str | None = None, resume: bool = False) -> SampleOutput:
+           checkpoint_path: str | None = None, resume: bool = False,
+           mesh: dist.Mesh | None = None) -> SampleOutput:
     """Run the configured head on the config's mock scene (or ``image``).
     ``on_step(state)``, when given, sees the SMC head's state after every
     temperature step (scripts/smc_trace.py records it).
@@ -129,13 +138,20 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
     metrics_path: JSONL sink for the run's records.  checkpoint_path /
     resume: block checkpoints (SMC: step checkpoints); with resume=True a
     killed run continues from its last completed block and the output holds
-    only the remaining draws."""
+    only the remaining draws.  mesh: shard the chains over the processes of
+    a torch.distributed group (module docstring); C (SMC: P) must be a
+    multiple of the world size."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    if cfg.head == "advi":
+        mesh = None
+    if mesh is not None:
+        mesh.local(cfg.smc.n_particles if cfg.head == "smc" else cfg.n_chains)
     logger = MetricsLogger(metrics_path, cfg.name) if metrics_path is not None else None
     try:
-        out = _sample(cfg, device, seed, image, on_step, logger, checkpoint_path, resume)
+        out = _sample(cfg, device, seed, image, on_step, logger, checkpoint_path, resume,
+                      mesh)
     finally:
         if logger is not None:
             logger.close()
@@ -143,7 +159,7 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
 
 
 def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, logger,
-            checkpoint_path: str | None, resume: bool) -> SampleOutput:
+            checkpoint_path: str | None, resume: bool, mesh) -> SampleOutput:
     truth_theta, mock_img = cfg.make_data()
     img = (mock_img if image is None else torch.as_tensor(image)).to(
         device=device, dtype=torch.float32)
@@ -167,12 +183,12 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     if checkpoint_path is not None and block is None:
         block = max(1, cfg.n_samples // 4)
     ck = dict(block_size=block, checkpoint_path=checkpoint_path, resume=resume,
-              logger=logger)
+              logger=logger, mesh=mesh)
     if cfg.head in ("hmc", "oracle", "nuts", "rhmc"):
         ck["thin"] = cfg.thin
     launches0 = sum(k.LAUNCHES for k in _KERNELS)
     t_start = time.perf_counter()
-    theta0 = (_init_chains(generator, cfg, truth_theta.to(device))
+    theta0 = (dist.shard(_init_chains(generator, cfg, truth_theta.to(device)), mesh)
               if cfg.head not in ("smc", "advi", "transdim") else None)
     masks = mask.cpu().numpy()
 
@@ -196,7 +212,7 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
                 if kernel == "cuda" else None)
         # the relocate move hops metastable star/flux configurations; the
         # scene is known here, so it is on at the preset's cadence
-        reloc = (make_chees_relocate(spec, img, prior, generator)
+        reloc = (make_chees_relocate(spec, img, prior, generator, mesh=mesh)
                  if cfg.chees.relocate_every > 0 else None)
         res, ad = run_chees(generator, grad_fn, theta0, mask, cfg.n_samples,
                             cfg.n_warmup, cfg.chees, leapfrog_impl=impl,
@@ -221,7 +237,8 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     elif cfg.head == "smc":
         res = run_smc(generator, spec, img, prior, cfg.kmax, cfg.smc,
                       fused=kernel == "cuda", on_step=on_step,
-                      checkpoint_path=checkpoint_path, resume=resume, logger=logger)
+                      checkpoint_path=checkpoint_path, resume=resume, logger=logger,
+                      mesh=mesh)
         beta = float(res.beta)
         stats.update(kernel=f"{cfg.smc.mutation.removesuffix('_pallas')}_{kernel}",
                      log_z=float(res.log_z), n_temp_steps=int(res.n_steps),

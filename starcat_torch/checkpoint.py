@@ -18,6 +18,11 @@ the same bits as an uninterrupted run.
 A save writes ``path + ".tmp"`` and renames it over ``path`` with
 ``os.replace``, so a process killed during a save leaves the previous
 checkpoint whole, never a half-written one.
+
+Under a device mesh (dist.py) the heads pass the gathered full state:
+rank 0 writes it and every rank waits at a barrier, so the file is the one
+a single process writes, and on resume every rank reads it whole and takes
+its own chains.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import os
 from typing import Any
 
 import torch
+
+from . import dist
 
 
 class CheckpointError(RuntimeError):
@@ -63,8 +70,14 @@ def _to_disk(flat: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
-def save_state(path: str, payload) -> None:
-    """Write ``payload`` (a checkpoint NamedTuple) to ``path`` atomically."""
+def save_state(path: str, payload, mesh=None) -> None:
+    """Write ``payload`` (a checkpoint NamedTuple) to ``path`` atomically;
+    with a ``mesh`` (dist.Mesh), rank 0 writes and every rank waits."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_state(path, payload)
+        dist.barrier(mesh)
+        return
     path = os.path.abspath(os.fspath(path))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"

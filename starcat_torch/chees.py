@@ -21,6 +21,12 @@ warmup and its gates and after every sampling block (chees_sample_blocked),
 a resume that restores eps, mass, T, the warmup divergences and the
 generator, and the warmup's records (T extensions, equilibration stages,
 three phases, its end) and one a block for ``logger``.
+
+Under a device mesh (``mesh``, dist.py) each rank runs its chains' draws
+and trajectories; the criterion's gradient, the pooled acceptance and
+Welford moments, the divergence counts and the equilibration statistic are
+computed from the gathered chains, so every rank adapts eps, mass and T as
+the one-process run does.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import dist
 from .adapt import (
     AdamState,
     adam_update,
@@ -103,14 +110,17 @@ def resolve_adam_lr(n_chains: int) -> float:
 def _chees_iteration(states: ChainState, grad_fn: Callable, eps, inv_mass,
                      mask, u_jit: float, traj_length, max_leapfrog: int,
                      div_threshold: float, p0: torch.Tensor,
-                     u_acc: torch.Tensor, leapfrog_impl: Callable | None = None):
+                     u_acc: torch.Tensor, leapfrog_impl: Callable | None = None,
+                     mesh=None):
     """One jittered-HMC sweep over all chains; returns (states, info,
     g_logT), the pooled ChEES gradient with respect to log T.
 
     p0 (C, K, 3) standard normal and u_acc (C,) uniform are the iteration's
     random inputs.  leapfrog_impl: a fused trajectory with signature
     (theta, p, u, grad, eps, n_steps, inv_mass, mask) -> (theta, p, u,
-    grad); the default is the plain lockstep leapfrog over grad_fn.
+    grad); the default is the plain lockstep leapfrog over grad_fn.  Under
+    a ``mesh`` the states and draws are this rank's and the gradient is
+    taken over every rank's chains.
     """
     mask3 = mask[..., None]
     t = u_jit * traj_length
@@ -143,40 +153,51 @@ def _chees_iteration(states: ChainState, grad_fn: Callable, eps, inv_mass,
     # through Adam, every later trajectory length.  Mask such chains out.
     ok = torch.isfinite(e_err) & torch.all(
         torch.isfinite(theta_n) & torch.isfinite(p_n), dim=2).all(dim=1)
-    ok3 = ok[:, None, None]
-    theta_f = torch.where(ok3, theta_n, torch.zeros_like(theta_n))
-    p_f = torch.where(ok3, p_n, torch.zeros_like(p_n))
-    n_ok = torch.clamp(ok.sum(), min=1)
-    mu0 = states.theta.mean(dim=0, keepdim=True)
-    mu1 = theta_f.sum(dim=0, keepdim=True) / n_ok
-    dsq = (((theta_f - mu1) ** 2).sum(dim=(1, 2))
-           - ((states.theta - mu0) ** 2).sum(dim=(1, 2)))
-    proj = ((theta_f - mu1) * (inv_mass * p_f)).sum(dim=(1, 2))
-    w = accept_prob * ok
-    g_t = (w * dsq * proj).sum() / torch.clamp(w.sum(), min=1e-6)
-    g_logT = g_t * t  # chain rule through t = u_jit * T
-    g_logT = torch.where(torch.isfinite(g_logT), g_logT, torch.zeros_like(g_logT))
-
+    g_logT = _chees_grad_log_t(
+        *dist.gather((states.theta, theta_n, p_n, accept_prob, ok), mesh), inv_mass, t)
     info = ChEESInfo(accept_prob, diverged, n_steps, traj_length)
     return ChainState(theta, u, grad), info, g_logT
 
 
-def _draw(generator: torch.Generator, theta: torch.Tensor):
-    """The iteration's random inputs for all chains: p0, then u_acc."""
-    p0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype,
-                     device=theta.device)
-    u_acc = torch.rand((theta.shape[0],), generator=generator, device=theta.device)
-    return p0, u_acc
+def _chees_grad_log_t(theta0, theta_n, p_n, accept_prob, ok, inv_mass, t):
+    """The pooled ChEES gradient with respect to log T over the chains of
+    (theta0, the proposals theta_n and p_n, their acceptance), the chains
+    with a non-finite trajectory (ok False) left out."""
+    ok3 = ok[:, None, None]
+    theta_f = torch.where(ok3, theta_n, torch.zeros_like(theta_n))
+    p_f = torch.where(ok3, p_n, torch.zeros_like(p_n))
+    n_ok = torch.clamp(ok.sum(), min=1)
+    mu0 = theta0.mean(dim=0, keepdim=True)
+    mu1 = theta_f.sum(dim=0, keepdim=True) / n_ok
+    dsq = (((theta_f - mu1) ** 2).sum(dim=(1, 2))
+           - ((theta0 - mu0) ** 2).sum(dim=(1, 2)))
+    proj = ((theta_f - mu1) * (inv_mass * p_f)).sum(dim=(1, 2))
+    w = accept_prob * ok
+    g_t = (w * dsq * proj).sum() / torch.clamp(w.sum(), min=1e-6)
+    g_logT = g_t * t  # chain rule through t = u_jit * T
+    return torch.where(torch.isfinite(g_logT), g_logT, torch.zeros_like(g_logT))
+
+
+def _draw(generator: torch.Generator, theta: torch.Tensor, mesh=None):
+    """The iteration's random inputs for all chains: p0, then u_acc (under a
+    ``mesh`` at full width, keeping this rank's rows)."""
+    def draws(c):
+        return (torch.randn((c,) + theta.shape[1:], generator=generator, dtype=theta.dtype,
+                            device=theta.device),
+                torch.rand((c,), generator=generator, device=theta.device))
+
+    return dist.draw(draws, theta.shape[0], mesh)
 
 
 def make_chees_relocate(spec, image: torch.Tensor, prior,
                         generator: torch.Generator, resid_floor: float = 1e-2,
                         flux_sigma: float | None = 0.1,
-                        pos_sigma: float = 0.12):
+                        pos_sigma: float = 0.12, mesh=None):
     """Batch relocate sweep: one transdim.relocate_step attempt per chain in
     the data-driven mode (matched-filter flux and centroid-refined
     sub-pixel position).  Returns relocate_fn(theta (C, K, 3), mask (K,)) ->
-    (theta', accepted (C,)); its random inputs are drawn in a fixed order."""
+    (theta', accepted (C,)); its random inputs are drawn in a fixed order
+    (under a ``mesh`` at full width, keeping this rank's rows)."""
     tiny = torch.finfo(torch.float32).tiny
 
     def gumbel(shape, device):
@@ -184,13 +205,16 @@ def make_chees_relocate(spec, image: torch.Tensor, prior,
         return -torch.log(-torch.log(u))
 
     def sweep(theta, mask):
-        c, k = theta.shape[:2]
         dev = theta.device
-        g_slot = gumbel((c, k), dev)
-        g_pix = gumbel((c, spec.height * spec.width), dev)
-        u_sub = torch.rand((c, 2), generator=generator, device=dev)
-        z = torch.randn((c,), generator=generator, device=dev)
-        u_acc = torch.rand((c,), generator=generator, device=dev)
+
+        def draws(c):
+            return (gumbel((c, theta.shape[1]), dev),
+                    gumbel((c, spec.height * spec.width), dev),
+                    torch.rand((c, 2), generator=generator, device=dev),
+                    torch.randn((c,), generator=generator, device=dev),
+                    torch.rand((c,), generator=generator, device=dev))
+
+        g_slot, g_pix, u_sub, z, u_acc = dist.draw(draws, theta.shape[0], mesh)
         lls = log_likelihood(theta, mask, spec, image)
         theta_new, _, _, info = relocate_step(
             theta, mask, lls, prior, spec, image, g_slot, g_pix, u_sub, z,
@@ -227,12 +251,13 @@ class ChEESWarmupResult(NamedTuple):
 
 def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
                   config: ChEESConfig, generator: torch.Generator,
-                  leapfrog_impl=None) -> ChEESWarmupResult:
+                  leapfrog_impl=None, mesh=None) -> ChEESWarmupResult:
     """Three-phase warmup: eps by pooled dual averaging, diagonal mass by
     pooled Welford, T by Adam ascent on the ChEES criterion.  Phase 3 runs
     as two halves, whose mean log T give the drift."""
     if config.adam_lr is None:
-        config = config._replace(adam_lr=resolve_adam_lr(states.theta.shape[0]))
+        config = config._replace(adam_lr=resolve_adam_lr(
+            dist.n_global(states.theta.shape[0], mesh)))
     dev = states.theta.device
     n1 = max(n_warmup * 15 // 100, 1)
     n3 = max(n_warmup * 25 // 100, 1)
@@ -245,20 +270,21 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
         lt = torch.zeros((), device=dev)
         acc = torch.zeros((), device=dev)
         for i in range(offset, offset + n):
-            p0, u_acc = _draw(generator, st.theta)
+            p0, u_acc = _draw(generator, st.theta, mesh)
             st, info, g_logT = _chees_iteration(
                 st, grad_fn, torch.exp(da.log_eps), inv_mass, mask,
                 _halton2(i), torch.exp(log_T), config.max_leapfrog,
-                config.divergence_threshold, p0, u_acc, leapfrog_impl)
-            a = info.accept_prob.mean()
+                config.divergence_threshold, p0, u_acc, leapfrog_impl, mesh)
+            aprob, div = dist.gather((info.accept_prob, info.diverged), mesh)
+            a = aprob.mean()
             acc = acc + a
             da = da_update(da, a, target=config.target_accept)
             adam, delta = adam_update(adam, g_logT, config.adam_lr)
             log_T = torch.clamp(log_T + delta, _LOG_T_MIN, _LOG_T_MAX)
             if accumulate:
-                wf = welford_update_batch(wf, st.theta)
+                wf = welford_update_batch(wf, dist.gather(st.theta, mesh))
             lt = lt + log_T
-            ndiv = ndiv + info.diverged.sum()
+            ndiv = ndiv + div.sum()
         return (st, da, wf, inv_mass, log_T, adam, ndiv), lt / n, acc / n
 
     z = torch.zeros((), device=dev)
@@ -288,26 +314,27 @@ def _chees_warmup(states: ChainState, grad_fn: Callable, mask, n_warmup: int,
 
 def _chees_extend(states: ChainState, grad_fn: Callable, mask, n_steps: int,
                   config: ChEESConfig, eps, inv_mass, log_T, adam: AdamState,
-                  generator: torch.Generator, leapfrog_impl=None):
+                  generator: torch.Generator, leapfrog_impl=None, mesh=None):
     """Extra T-adaptation block at fixed (eps, inv_mass), run as two halves
     so the new drift falls out.  Halton indices restart from 0.
     Returns (states, log_T, adam, traj_drift, n_divergent)."""
     if config.adam_lr is None:
-        config = config._replace(adam_lr=resolve_adam_lr(states.theta.shape[0]))
+        config = config._replace(adam_lr=resolve_adam_lr(
+            dist.n_global(states.theta.shape[0], mesh)))
     ndiv = torch.zeros((), dtype=torch.int64, device=states.theta.device)
 
     def half(st, log_T, adam, ndiv, n, offset):
         lt = torch.zeros_like(log_T)
         for i in range(offset, offset + n):
-            p0, u_acc = _draw(generator, st.theta)
+            p0, u_acc = _draw(generator, st.theta, mesh)
             st, info, g_logT = _chees_iteration(
                 st, grad_fn, eps, inv_mass, mask, _halton2(i),
                 torch.exp(log_T), config.max_leapfrog,
-                config.divergence_threshold, p0, u_acc, leapfrog_impl)
+                config.divergence_threshold, p0, u_acc, leapfrog_impl, mesh)
             adam, delta = adam_update(adam, g_logT, config.adam_lr)
             log_T = torch.clamp(log_T + delta, _LOG_T_MIN, _LOG_T_MAX)
             lt = lt + log_T
-            ndiv = ndiv + info.diverged.sum()
+            ndiv = ndiv + dist.gather(info.diverged, mesh).sum()
         return st, log_T, adam, lt / n, ndiv
 
     na = max(n_steps // 2, 1)
@@ -342,32 +369,33 @@ def _maybe_relocate(st: ChainState, i: int, grad_fn: Callable, mask,
 def _chees_equilibrate(states: ChainState, grad_fn: Callable, mask,
                        n_steps: int, config: ChEESConfig, eps, inv_mass, traj,
                        generator: torch.Generator, leapfrog_impl=None,
-                       relocate_fn=None):
+                       relocate_fn=None, mesh=None):
     """One discarded equilibration block at fixed (eps, inv_mass, traj).
     Returns (states, per-chain mean U (C,), per-chain mean total log flux
-    (C,), n_divergent); Halton indices restart from 0."""
+    (C,), n_divergent); Halton indices restart from 0.  Under a ``mesh``
+    the states are this rank's and the means every rank's chains'."""
     st = states
     dev = st.theta.device
     ndiv = torch.zeros((), dtype=torch.int64, device=dev)
     u_sum = torch.zeros_like(st.u)
     f_sum = torch.zeros_like(st.u)
     for i in range(n_steps):
-        p0, u_acc = _draw(generator, st.theta)
+        p0, u_acc = _draw(generator, st.theta, mesh)
         st, info, _ = _chees_iteration(
             st, grad_fn, eps, inv_mass, mask, _halton2(i), traj,
             config.max_leapfrog, config.divergence_threshold, p0, u_acc,
-            leapfrog_impl)
+            leapfrog_impl, mesh)
         st = _maybe_relocate(st, i, grad_fn, mask, config, relocate_fn)
-        ndiv = ndiv + info.diverged.sum()
+        ndiv = ndiv + dist.gather(info.diverged, mesh).sum()
         u_sum = u_sum + st.u
         f_sum = f_sum + torch.sum(st.theta[:, :, 2] * mask, dim=1)
-    return st, u_sum / n_steps, f_sum / n_steps, ndiv
+    return st, *dist.gather((u_sum / n_steps, f_sum / n_steps), mesh), ndiv
 
 
 def chees_sample(states: ChainState, grad_fn: Callable, mask, n_samples: int,
                  eps, inv_mass, traj, config: ChEESConfig,
                  generator: torch.Generator, leapfrog_impl=None,
-                 start: int = 0, relocate_fn=None) -> SampleResult:
+                 start: int = 0, relocate_fn=None, mesh=None) -> SampleResult:
     """Sampling leg at fixed adapted (eps, inv_mass, T); the i-th iteration
     overall uses Halton index start + i (run_chees passes n_warmup).
     The relocate cadence keys off the same global index."""
@@ -380,11 +408,11 @@ def chees_sample(states: ChainState, grad_fn: Callable, mask, n_samples: int,
     div = torch.empty((c, n_samples), dtype=torch.bool, device=dev)
     for n in range(n_samples):
         i = start + n
-        p0, u_acc = _draw(generator, st.theta)
+        p0, u_acc = _draw(generator, st.theta, mesh)
         st, info, _ = _chees_iteration(
             st, grad_fn, eps, inv_mass, mask, _halton2(i), traj,
             config.max_leapfrog, config.divergence_threshold, p0, u_acc,
-            leapfrog_impl)
+            leapfrog_impl, mesh)
         st = _maybe_relocate(st, i, grad_fn, mask, config, relocate_fn)
         thetas[:, n] = st.theta
         aprob[:, n] = info.accept_prob
@@ -423,7 +451,7 @@ def chees_sample_blocked(states: ChainState, grad_fn: Callable, mask, n_samples:
                          n_warmup: int = 0, block_size: int = 250,
                          checkpoint_path: str | None = None, start_done: int = 0,
                          logger=None, warmup_ndiv: int = 0,
-                         relocate_fn=None) -> SampleResult:
+                         relocate_fn=None, mesh=None) -> SampleResult:
     """chees_sample in blocks, the same bits as one call (block b starts at
     Halton index n_warmup + done): after each block one sync reads its
     summary, ``logger`` gets a ``sampling_block`` record and then, with
@@ -434,18 +462,20 @@ def chees_sample_blocked(states: ChainState, grad_fn: Callable, mask, n_samples:
     for n in block_sizes(n_samples, block_size, start_done):
         res = chees_sample(states, grad_fn, mask, n, eps, inv_mass, traj, config,
                            generator, leapfrog_impl, start=n_warmup + done,
-                           relocate_fn=relocate_fn)
+                           relocate_fn=relocate_fn, mesh=mesh)
         states = res.final_states
         parts.append((res.thetas, res.accept_prob, res.diverged))
         done += n
         if logger is not None:
-            acc, ndiv, t = torch.stack([res.accept_prob.mean(), res.diverged.sum().float(),
+            aprob, div = dist.gather((res.accept_prob, res.diverged), mesh)
+            acc, ndiv, t = torch.stack([aprob.mean(), div.sum().float(),
                                         torch.as_tensor(traj, dtype=torch.float32)]).tolist()
             logger.log("sampling_block", done=done, n_total=n_samples, accept=acc,
                        divergences=int(ndiv), traj_length=t)
         if checkpoint_path is not None:
             save_state(checkpoint_path, ChEESBlockCheckpoint(
-                states, done, eps, inv_mass, traj, warmup_ndiv, generator))
+                dist.gather(states, mesh), done, eps, inv_mass, traj, warmup_ndiv,
+                generator), mesh)
     c, dev = states.theta.shape[0], states.theta.device
     empty = (torch.zeros((c, 0) + tuple(states.theta.shape[1:]), device=dev),
              torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev))
@@ -458,7 +488,7 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
               config: ChEESConfig = ChEESConfig(), leapfrog_impl=None,
               relocate_fn=None, block_size: int | None = None,
               checkpoint_path: str | None = None, resume: bool = False,
-              logger=None):
+              logger=None, mesh=None):
     """init -> warmup (eps, mass, T) -> T-drift gate -> equilibration gate
     -> jittered sampling.  Returns (SampleResult, adaptation dict).
 
@@ -467,24 +497,28 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
     checkpoint after warmup and after every block, per-window records, and
     a resume from the last completed block with the same bits as an
     uninterrupted run.  A resumed run's dict holds only the restored eps,
-    mass, T and warmup divergences."""
+    mass, T and warmup divergences.
+
+    mesh: theta0 holds this rank's chains (dist.shard of the full start);
+    the returned SampleResult holds every chain's draws, on every rank."""
     if config.adam_lr is None:
-        config = config._replace(adam_lr=resolve_adam_lr(theta0.shape[0]))
+        config = config._replace(adam_lr=resolve_adam_lr(dist.n_global(theta0.shape[0], mesh)))
     if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        full = dist.gather(theta0, mesh)
         like = chees_checkpoint_like(ChainState(
-            theta0, theta0.new_zeros(theta0.shape[0]), torch.zeros_like(theta0)), generator)
+            full, full.new_zeros(full.shape[0]), torch.zeros_like(full)), generator)
         ck = restore_state(checkpoint_path, like, theta0.device)
         res = chees_sample_blocked(
-            ck.states, grad_fn, mask, n_samples, ck.step_size, ck.inv_mass, ck.traj,
-            config, generator, leapfrog_impl, n_warmup=n_warmup,
+            dist.shard(ck.states, mesh), grad_fn, mask, n_samples, ck.step_size,
+            ck.inv_mass, ck.traj, config, generator, leapfrog_impl, n_warmup=n_warmup,
             block_size=block_size or 250, checkpoint_path=checkpoint_path,
             start_done=ck.done, logger=logger, warmup_ndiv=ck.warmup_ndiv,
-            relocate_fn=relocate_fn)
-        return res, {"step_size": ck.step_size, "inv_mass": ck.inv_mass,
+            relocate_fn=relocate_fn, mesh=mesh)
+        return dist.gather(res, mesh), {"step_size": ck.step_size, "inv_mass": ck.inv_mass,
                      "traj_length": ck.traj, "warmup_divergences": ck.warmup_ndiv}
     states = init_chain_states(theta0, grad_fn)
     wu = _chees_warmup(states, grad_fn, mask, n_warmup, config, generator,
-                       leapfrog_impl)
+                       leapfrog_impl, mesh)
     st, eps, inv_mass = wu.states, wu.step_size, wu.inv_mass
     ndiv, log_T, adam, drift = wu.n_divergent, wu.log_T, wu.adam, wu.traj_drift
 
@@ -494,7 +528,7 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
     while float(drift) > config.t_drift_tol and n_ext < config.max_warmup_extensions:
         st, log_T, adam, drift, ndiv_ext = _chees_extend(
             st, grad_fn, mask, ext_steps, config, eps, inv_mass, log_T, adam,
-            generator, leapfrog_impl)
+            generator, leapfrog_impl, mesh)
         ndiv = ndiv + ndiv_ext
         n_ext += 1
         if logger is not None:
@@ -512,10 +546,10 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
         while eq_stages < config.max_eq_stages:
             st, u1, f1, nd1 = _chees_equilibrate(
                 st, grad_fn, mask, eq_steps, config, eps, inv_mass,
-                traj * eq_factor, generator, leapfrog_impl, relocate_fn)
+                traj * eq_factor, generator, leapfrog_impl, relocate_fn, mesh)
             st, u2, f2, nd2 = _chees_equilibrate(
                 st, grad_fn, mask, eq_steps, config, eps, inv_mass,
-                traj * eq_factor, generator, leapfrog_impl, relocate_fn)
+                traj * eq_factor, generator, leapfrog_impl, relocate_fn, mesh)
             ndiv = ndiv + nd1 + nd2
             eq_stages += 1
             eq_disagreement = float(torch.maximum(_eq_disagreement(u1, u2),
@@ -545,18 +579,18 @@ def run_chees(generator: torch.Generator, grad_fn: Callable,
                            "+ extensions; raise n_warmup or max_warmup_extensions")
     if checkpoint_path is not None:  # warmup is the expensive leg: save it
         save_state(checkpoint_path, ChEESBlockCheckpoint(
-            st, 0, eps, inv_mass, traj, n_div, generator))
+            dist.gather(st, mesh), 0, eps, inv_mass, traj, n_div, generator), mesh)
     if block_size is not None:
         res = chees_sample_blocked(
             st, grad_fn, mask, n_samples, eps, inv_mass, traj, config, generator,
             leapfrog_impl, n_warmup=n_warmup, block_size=block_size,
             checkpoint_path=checkpoint_path, logger=logger, warmup_ndiv=n_div,
-            relocate_fn=relocate_fn)
+            relocate_fn=relocate_fn, mesh=mesh)
     else:
         res = chees_sample(st, grad_fn, mask, n_samples, eps, inv_mass, traj,
                            config, generator, leapfrog_impl, start=n_warmup,
-                           relocate_fn=relocate_fn)
-    return res, {"step_size": eps, "inv_mass": inv_mass, "traj_length": traj,
+                           relocate_fn=relocate_fn, mesh=mesh)
+    return dist.gather(res, mesh), {"step_size": eps, "inv_mass": inv_mass, "traj_length": traj,
                  "warmup_divergences": n_div, "traj_drift": float(drift),
                  "traj_converged": converged, "warmup_extensions": n_ext,
                  "eq_stages": eq_stages, "eq_disagreement": eq_disagreement}

@@ -12,6 +12,11 @@ once, logs it and writes a checkpoint of the chains, the adapted step size
 and mass and the generator's state; :func:`run_mcmc` resumes from it with
 the same bits as an uninterrupted run, since every draw of a transition
 comes from the one generator in a fixed order.
+
+Under a device mesh (``mesh``, dist.py) the states hold this rank's chains,
+the kernel draws at full width and keeps its rows, the pooled statistics
+reduce the gathered full tensors, checkpoints hold the gathered state and
+:func:`run_mcmc` returns the gathered draws: the one-process run's bits.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import dist
 from .adapt import (
     da_init,
     da_restart,
@@ -57,14 +63,15 @@ class WarmupResult(NamedTuple):
 def warmup(states: ChainState, kernel: Callable, n_warmup: int,
            step_size: float = 0.1, target_accept: float = 0.8,
            adapt_mass: bool = True,
-           divergence_penalty: float = 0.0) -> WarmupResult:
+           divergence_penalty: float = 0.0, mesh=None) -> WarmupResult:
     """Three-phase pooled warmup (15% eps / 60% eps + mass / 25% eps).
 
     adapt_mass=False keeps the unit mass (the Riemannian heads, whose
     metric is the mass).  divergence_penalty > 0 makes dual averaging see
     mean(accept_prob) - penalty * frac(diverged | solver_fail), so eps
     settles where failures are rare (at equilibrium the fraction is at most
-    (1 - target_accept) / penalty)."""
+    (1 - target_accept) / penalty).  With a ``mesh`` the pooled statistics
+    reduce the gathered chains."""
     n1 = max(n_warmup * 15 // 100, 1)
     n3 = max(n_warmup * 25 // 100, 1)
     n2 = max(n_warmup - n1 - n3, 1)
@@ -75,12 +82,12 @@ def warmup(states: ChainState, kernel: Callable, n_warmup: int,
         acc = torch.zeros((), dtype=torch.float32, device=device)
         for _ in range(n):
             st, info = kernel(st, torch.exp(da.log_eps), inv_mass)
-            a = info.accept_prob.mean()
+            a = dist.gather(info.accept_prob, mesh).mean()
             acc = acc + a
-            stat = a - divergence_penalty * _bad_frac(info) if divergence_penalty else a
+            stat = a - divergence_penalty * _bad_frac(info, mesh) if divergence_penalty else a
             da = da_update(da, stat, target=target_accept)
             if accumulate:
-                wf = welford_update_batch(wf, st.theta)
+                wf = welford_update_batch(wf, dist.gather(st.theta, mesh))
         return st, da, wf, acc / n
 
     da = da_init(step_size, device)
@@ -107,13 +114,13 @@ def log_warmup_phases(logger, phase_accept: torch.Tensor, phase_eps: torch.Tenso
         logger.log("warmup_phase", phase=i + 1, accept=pa[i], step_size=pe[i])
 
 
-def _bad_frac(info) -> torch.Tensor:
+def _bad_frac(info, mesh=None) -> torch.Tensor:
     """Pooled fraction of divergent or solver-failed transitions."""
     bad = info.diverged
     sf = getattr(info, "solver_fail", None)
     if sf is not None:
         bad = bad | sf
-    return bad.to(torch.float32).mean()
+    return dist.gather(bad, mesh).to(torch.float32).mean()
 
 
 class SampleResult(NamedTuple):
@@ -195,14 +202,16 @@ def sample_blocked(states: ChainState, kernel: Callable, n_samples: int,
                    step_size: torch.Tensor, inv_mass: torch.Tensor,
                    block_size: int = 250, checkpoint_path: str | None = None,
                    start_done: int = 0, logger=None, thin: int = 1,
-                   generator: torch.Generator | None = None) -> SampleResult:
+                   generator: torch.Generator | None = None, mesh=None) -> SampleResult:
     """sample() in blocks, the same bits as one call: after each block one
     sync reads its summary, ``logger`` gets a ``sampling_block`` record and
     then, with ``checkpoint_path``, a BlockCheckpoint is written (which
     needs the run's ``generator``).  The draws stay on the device.
 
     start_done: draws completed by an earlier process; this call produces
-    only the remaining n_samples - start_done (see run_mcmc(resume=True))."""
+    only the remaining n_samples - start_done (see run_mcmc(resume=True)).
+    With a ``mesh`` the summary and the checkpoint are of the gathered
+    chains; the draws stay this rank's."""
     if checkpoint_path is not None and generator is None:
         raise ValueError("a checkpoint needs the run's generator")
     parts = []
@@ -213,16 +222,17 @@ def sample_blocked(states: ChainState, kernel: Callable, n_samples: int,
         parts.append((res.thetas, res.accept_prob, res.diverged, res.solver_fail))
         done += n
         if logger is not None:
-            summ = [res.accept_prob.mean(), res.diverged.sum().float()]
-            if res.solver_fail is not None:
-                summ.append(res.solver_fail.sum().float())
+            aprob, div, sf = dist.gather((res.accept_prob, res.diverged, res.solver_fail), mesh)
+            summ = [aprob.mean(), div.sum().float()]
+            if sf is not None:
+                summ.append(sf.sum().float())
             summ = torch.stack(summ).tolist()
             extra = {"solver_rejections": int(summ[2])} if len(summ) > 2 else {}
             logger.log("sampling_block", done=done, n_total=n_samples, accept=summ[0],
                        divergences=int(summ[1]), **extra)
         if checkpoint_path is not None:
             save_state(checkpoint_path, BlockCheckpoint(
-                states, done, step_size, inv_mass, generator))
+                dist.gather(states, mesh), done, step_size, inv_mass, generator), mesh)
     c, dev = states.theta.shape[0], states.theta.device
     empty = (torch.zeros((c, 0) + tuple(states.theta.shape[1:]), device=dev),
              torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev),
@@ -237,7 +247,7 @@ def run_mcmc(kernel: Callable, grad_fn: Callable, theta0: torch.Tensor,
              adapt_mass: bool = True, divergence_penalty: float = 0.0,
              block_size: int | None = None, checkpoint_path: str | None = None,
              resume: bool = False, logger=None,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, mesh=None):
     """init -> warmup -> sample; returns (SampleResult, WarmupResult).
 
     block_size: sample in blocks of about this many draws (sample_blocked),
@@ -246,30 +256,35 @@ def run_mcmc(kernel: Callable, grad_fn: Callable, theta0: torch.Tensor,
     a checkpoint at ``checkpoint_path`` skips warmup, restores the chains,
     step size, mass and generator, and produces only the remaining draws:
     the same bits as the uninterrupted run's last ones.  ``logger`` gets
-    three ``warmup_phase`` records and a ``sampling_block`` a block."""
+    three ``warmup_phase`` records and a ``sampling_block`` a block.
+
+    mesh: theta0 holds this rank's chains (dist.shard of the full start);
+    the returned SampleResult holds every chain's draws, on every rank."""
     if checkpoint_path is not None and generator is None:
         raise ValueError("a checkpoint needs the run's generator")
     if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
-        like = checkpoint_like(ChainState(theta0, theta0.new_zeros(theta0.shape[0]),
-                                          torch.zeros_like(theta0)), generator)
+        full = dist.gather(theta0, mesh)
+        like = checkpoint_like(ChainState(full, full.new_zeros(full.shape[0]),
+                                          torch.zeros_like(full)), generator)
         ck = restore_state(checkpoint_path, like, theta0.device)
-        wr = WarmupResult(ck.states, ck.step_size, ck.inv_mass)
-        res = sample_blocked(ck.states, kernel, n_samples, ck.step_size, ck.inv_mass,
+        states = dist.shard(ck.states, mesh)
+        wr = WarmupResult(states, ck.step_size, ck.inv_mass)
+        res = sample_blocked(states, kernel, n_samples, ck.step_size, ck.inv_mass,
                              block_size=block_size or 250, checkpoint_path=checkpoint_path,
                              start_done=ck.done, logger=logger, thin=thin,
-                             generator=generator)
-        return res, wr
+                             generator=generator, mesh=mesh)
+        return dist.gather(res, mesh), wr
     states = init_chain_states(theta0, grad_fn)
     wr = warmup(states, kernel, n_warmup, step_size=step_size,
                 target_accept=target_accept, adapt_mass=adapt_mass,
-                divergence_penalty=divergence_penalty)
+                divergence_penalty=divergence_penalty, mesh=mesh)
     if logger is not None:
         log_warmup_phases(logger, wr.phase_accept, wr.phase_eps)
     if block_size is not None:
         res = sample_blocked(wr.states, kernel, n_samples, wr.step_size, wr.inv_mass,
                              block_size=block_size, checkpoint_path=checkpoint_path,
-                             logger=logger, thin=thin, generator=generator)
+                             logger=logger, thin=thin, generator=generator, mesh=mesh)
     else:
         res = sample(wr.states, kernel, n_samples, wr.step_size, wr.inv_mass,
                      thin=thin)
-    return res, wr
+    return dist.gather(res, mesh), wr

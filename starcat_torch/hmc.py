@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import dist
 from .driver import ChainState, run_mcmc
 from .dispatch import make_leapfrog
 from .integrators import kinetic_energy, plain_trajectory
@@ -68,15 +69,21 @@ def hmc_transition(states: ChainState, eps, inv_mass: torch.Tensor,
 
 
 def make_hmc_kernel(trajectory: Callable, mask: torch.Tensor,
-                    config: HMCConfig, generator: torch.Generator):
+                    config: HMCConfig, generator: torch.Generator, mesh=None):
     """Batched kernel with driver.py's signature (states, eps, inv_mass);
-    draws p0, u_jit and u_acc for all chains, in that order."""
+    draws p0, u_jit and u_acc for all chains, in that order (under a
+    ``mesh`` at full width, keeping this rank's rows)."""
 
     def kernel(states: ChainState, eps, inv_mass):
         th = states.theta
-        p0 = torch.randn(th.shape, generator=generator, dtype=th.dtype, device=th.device)
-        u_jit = torch.rand((th.shape[0],), generator=generator, device=th.device)
-        u_acc = torch.rand((th.shape[0],), generator=generator, device=th.device)
+
+        def draws(c):
+            return (torch.randn((c,) + th.shape[1:], generator=generator, dtype=th.dtype,
+                                device=th.device),
+                    torch.rand((c,), generator=generator, device=th.device),
+                    torch.rand((c,), generator=generator, device=th.device))
+
+        p0, u_jit, u_acc = dist.draw(draws, th.shape[0], mesh)
         return hmc_transition(states, eps, inv_mass, mask, p0, u_jit, u_acc,
                               trajectory, config.n_leapfrog,
                               config.divergence_threshold)
@@ -88,15 +95,15 @@ def run_hmc(generator: torch.Generator, grad_fn: Callable,
             theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
             n_warmup: int, config: HMCConfig = HMCConfig(), thin: int = 1,
             block_size: int | None = None, checkpoint_path: str | None = None,
-            resume: bool = False, logger=None):
+            resume: bool = False, logger=None, mesh=None):
     """init -> warmup -> sample on the plain leapfrog (batched grad_fn).
-    block_size, checkpoint_path, resume and logger: driver.run_mcmc's."""
-    kernel = make_hmc_kernel(plain_trajectory(grad_fn), mask, config, generator)
+    block_size, checkpoint_path, resume, logger and mesh: driver.run_mcmc's."""
+    kernel = make_hmc_kernel(plain_trajectory(grad_fn), mask, config, generator, mesh)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size,
                     target_accept=config.target_accept, thin=thin,
                     block_size=block_size, checkpoint_path=checkpoint_path,
-                    resume=resume, logger=logger, generator=generator)
+                    resume=resume, logger=logger, generator=generator, mesh=mesh)
 
 
 def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
@@ -104,7 +111,7 @@ def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
                   n_samples: int, n_warmup: int,
                   config: HMCConfig = HMCConfig(), thin: int = 1,
                   block_size: int | None = None, checkpoint_path: str | None = None,
-                  resume: bool = False, logger=None):
+                  resume: bool = False, logger=None, mesh=None):
     """run_hmc with every trajectory in one launch of the fused leapfrog
     kernel that takes the scene, B1 or B5 (B1's contract; the entry
     gradient comes from the chain state)."""
@@ -112,9 +119,9 @@ def run_hmc_fused(generator: torch.Generator, spec, image: torch.Tensor,
     grad_fn = lambda th: pg(th, mask)  # noqa: E731
     fused = make_leapfrog(spec, image, prior, int(mask.shape[-1]), config.n_leapfrog)
     trajectory = lambda th, p, e, im, m, n, g: fused(th, p, e, im, m, grad=g)  # noqa: E731
-    kernel = make_hmc_kernel(trajectory, mask, config, generator)
+    kernel = make_hmc_kernel(trajectory, mask, config, generator, mesh)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size,
                     target_accept=config.target_accept, thin=thin,
                     block_size=block_size, checkpoint_path=checkpoint_path,
-                    resume=resume, logger=logger, generator=generator)
+                    resume=resume, logger=logger, generator=generator, mesh=mesh)

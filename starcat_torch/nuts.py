@@ -30,6 +30,10 @@ asks whether any chain is still building once a doubling (at most
 max_depth waits a transition) and never waits on a leaf: with 1024 chains
 some chain reaches the last doubling in nearly every transition, so a
 check inside a doubling would save almost nothing.
+
+Under a device mesh each rank builds its chains' trees, and the question
+"is any chain still building" is asked of every rank's chains at once
+(a gather of the per-chain flags), so all ranks stop at the same doubling.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import dist
 from .driver import ChainState, run_mcmc
 from .integrators import kinetic_energy, plain_trajectory
 
@@ -156,11 +161,13 @@ def _build_subtree(leaf, z_start: _Z, depth: int, eps_signed, inv_mass, mask, h0
 
 def nuts_transition(states: ChainState, eps, inv_mass: torch.Tensor, mask: torch.Tensor,
                     draws: NUTSDraws, leaf: Callable, max_depth: int,
-                    divergence_threshold: float = 1000.0):
+                    divergence_threshold: float = 1000.0, mesh=None):
     """One NUTS transition of every chain on the given draws.
 
     ``eps`` is a scalar (the driver's adapted step size); ``mask`` (K,) or
-    (C, K) freezes dead catalog slots by zeroing their momentum."""
+    (C, K) freezes dead catalog slots by zeroing their momentum.  Under a
+    ``mesh`` the states and draws are this rank's, and the doubling loop
+    ends when no chain of any rank is still building."""
     theta = states.theta
     c = theta.shape[0]
     eps = torch.as_tensor(eps, dtype=theta.dtype, device=theta.device).expand(c)
@@ -178,7 +185,7 @@ def nuts_transition(states: ChainState, eps, inv_mass: torch.Tensor, mask: torch
     diverging = torch.zeros_like(turning)
     for d in range(max_depth):
         building = ~(turning | diverging)
-        if d and not bool(building.any()):
+        if d and not bool(dist.gather(building, mesh).any()):
             break
         right = draws.right[:, d]
         z_edge = _select(right, z_plus, z_minus)
@@ -208,24 +215,32 @@ def nuts_transition(states: ChainState, eps, inv_mass: torch.Tensor, mask: torch
     return new, info
 
 
-def draw_nuts(generator: torch.Generator, theta: torch.Tensor, max_depth: int) -> NUTSDraws:
-    """A transition's draws for theta's chains, in NUTSDraws' field order."""
-    c, dev = theta.shape[0], theta.device
-    p0 = torch.randn(theta.shape, generator=generator, dtype=theta.dtype, device=dev)
-    right = torch.rand((c, max_depth), generator=generator, device=dev) < 0.5
-    u_leaf = torch.rand((c, max_depth, 1 << (max_depth - 1)), generator=generator, device=dev)
-    u_merge = torch.rand((c, max_depth), generator=generator, device=dev)
-    return NUTSDraws(p0, right, u_leaf, u_merge)
+def draw_nuts(generator: torch.Generator, theta: torch.Tensor, max_depth: int,
+              mesh=None) -> NUTSDraws:
+    """A transition's draws for theta's chains, in NUTSDraws' field order
+    (under a ``mesh`` at full width, keeping this rank's rows)."""
+    dev = theta.device
+
+    def draws(c):
+        p0 = torch.randn((c,) + theta.shape[1:], generator=generator, dtype=theta.dtype,
+                         device=dev)
+        right = torch.rand((c, max_depth), generator=generator, device=dev) < 0.5
+        u_leaf = torch.rand((c, max_depth, 1 << (max_depth - 1)), generator=generator,
+                            device=dev)
+        u_merge = torch.rand((c, max_depth), generator=generator, device=dev)
+        return NUTSDraws(p0, right, u_leaf, u_merge)
+
+    return dist.draw(draws, theta.shape[0], mesh)
 
 
 def make_nuts_kernel(leaf: Callable, mask: torch.Tensor, config: NUTSConfig,
-                     generator: torch.Generator):
+                     generator: torch.Generator, mesh=None):
     """Batched kernel with driver.py's signature (states, eps, inv_mass)."""
 
     def kernel(states: ChainState, eps, inv_mass):
-        draws = draw_nuts(generator, states.theta, config.max_depth)
+        draws = draw_nuts(generator, states.theta, config.max_depth, mesh)
         return nuts_transition(states, eps, inv_mass, mask, draws, leaf, config.max_depth,
-                               config.divergence_threshold)
+                               config.divergence_threshold, mesh)
 
     return kernel
 
@@ -234,14 +249,14 @@ def run_nuts(generator: torch.Generator, grad_fn: Callable, theta0: torch.Tensor
              mask: torch.Tensor, n_samples: int, n_warmup: int,
              config: NUTSConfig = NUTSConfig(), thin: int = 1, leaf: Callable | None = None,
              block_size: int | None = None, checkpoint_path: str | None = None,
-             resume: bool = False, logger=None):
+             resume: bool = False, logger=None, mesh=None):
     """init -> warmup -> sample; every leaf on ``leaf`` (the fused kernel's
     leaf contract), the plain step over ``grad_fn`` when None.  block_size,
-    checkpoint_path, resume and logger: driver.run_mcmc's.  A transition
+    checkpoint_path, resume, logger and mesh: driver.run_mcmc's.  A transition
     draws all its random numbers at its start, so a block boundary never
     splits a tree."""
-    kernel = make_nuts_kernel(leaf or plain_leaf(grad_fn), mask, config, generator)
+    kernel = make_nuts_kernel(leaf or plain_leaf(grad_fn), mask, config, generator, mesh)
     return run_mcmc(kernel, grad_fn, theta0, n_samples, n_warmup,
                     step_size=config.step_size, target_accept=config.target_accept,
                     thin=thin, block_size=block_size, checkpoint_path=checkpoint_path,
-                    resume=resume, logger=logger, generator=generator)
+                    resume=resume, logger=logger, generator=generator, mesh=mesh)

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import dist
 from .driver import ChainState, run_mcmc
 from .potential import make_potential_and_grad
 
@@ -157,17 +158,23 @@ def rhmc_transition(states: ChainState, xi: torch.Tensor, u_jit: torch.Tensor,
 
 
 def make_rhmc_kernel(trajectory: Callable, mask: torch.Tensor,
-                     config: RHMCConfig, generator: torch.Generator, beta=1.0):
+                     config: RHMCConfig, generator: torch.Generator, beta=1.0, mesh=None):
     """Batched kernel with driver.py's signature (states, eps, inv_mass);
     inv_mass is ignored (the metric is the mass).  Draws xi, u_jit and
-    u_acc for all chains, in that order."""
+    u_acc for all chains, in that order (under a ``mesh`` at full width,
+    keeping this rank's rows)."""
 
     def kernel(states: ChainState, eps, inv_mass):
         del inv_mass
         th = states.theta
-        xi = torch.randn(th.shape, generator=generator, dtype=th.dtype, device=th.device)
-        u_jit = torch.rand((th.shape[0],), generator=generator, device=th.device)
-        u_acc = torch.rand((th.shape[0],), generator=generator, device=th.device)
+
+        def draws(c):
+            return (torch.randn((c,) + th.shape[1:], generator=generator, dtype=th.dtype,
+                                device=th.device),
+                    torch.rand((c,), generator=generator, device=th.device),
+                    torch.rand((c,), generator=generator, device=th.device))
+
+        xi, u_jit, u_acc = dist.draw(draws, th.shape[0], mesh)
         return rhmc_transition(states, xi, u_jit, u_acc, trajectory, eps, mask,
                                beta, config.divergence_threshold,
                                config.solver_tol)
@@ -201,12 +208,12 @@ def make_trajectory(spec, image: torch.Tensor, prior, kmax: int,
 
 def make_fused_rhmc_kernel(spec, image: torch.Tensor, prior, mask: torch.Tensor,
                            config: RHMCConfig, generator: torch.Generator,
-                           beta=1.0, jitter: float = 1e-3):
+                           beta=1.0, jitter: float = 1e-3, mesh=None):
     """The RHMC kernel with every trajectory in one launch of the CUDA
     kernel of ``config.metric`` (B6, or B3/B4); mask is (K,) or per chain (C, K)."""
     traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config,
                            True, jitter)
-    return make_rhmc_kernel(traj, mask, config, generator, beta)
+    return make_rhmc_kernel(traj, mask, config, generator, beta, mesh)
 
 
 def _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
@@ -225,10 +232,11 @@ def run_rhmc(generator: torch.Generator, spec, image: torch.Tensor, prior,
              n_warmup: int, config: RHMCConfig = RHMCConfig(), thin: int = 1,
              **durability):
     """init -> step-size-only warmup -> sample on the plain trajectory.
-    ``durability``: driver.run_mcmc's block_size, checkpoint_path, resume
-    and logger."""
+    ``durability``: driver.run_mcmc's block_size, checkpoint_path, resume,
+    logger and mesh."""
     traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config, False)
-    kernel = make_rhmc_kernel(traj, mask, config, generator)
+    kernel = make_rhmc_kernel(traj, mask, config, generator,
+                              mesh=durability.get("mesh"))
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
                 config, thin, generator, durability)
 
@@ -238,6 +246,7 @@ def run_rhmc_fused(generator: torch.Generator, spec, image: torch.Tensor, prior,
                    n_warmup: int, config: RHMCConfig = RHMCConfig(),
                    thin: int = 1, **durability):
     """run_rhmc with every trajectory in one launch of kernel B6, B3 or B4."""
-    kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator)
+    kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator,
+                                    mesh=durability.get("mesh"))
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,
                 config, thin, generator, durability)

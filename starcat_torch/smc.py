@@ -33,7 +33,16 @@ reference keys' own draws.
 with the same bits as an uninterrupted pass, running only the posterior
 rounds not yet done (``final_done``).  Not ported: the relocate sweeps
 (measured negative in the reference), its legacy checkpoint layout and
-program-size routing, and the device mesh (ROADMAP A13).
+program-size routing.
+
+Under a device mesh (``mesh``, dist.py) each rank holds P / W particles:
+the step's draws are drawn at full width and sharded, the sweeps and
+mutations run on this rank's particles, and the weights, log Z, the
+bisection, the resampling plan and the controller are computed on the
+gathered population, so every rank holds the one-process schedule.  The
+resampled population is gathered and re-sliced, so islands may straddle
+the shards.  A checkpoint holds the gathered state and ``run_smc`` returns
+the gathered population on every rank.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import diagnostics
+from . import diagnostics, dist
 from .checkpoint import restore_state, save_state
 from .driver import ChainState
 from .hmc import hmc_transition
@@ -217,10 +226,11 @@ def smc_state_from(spec: SceneSpec, image: torch.Tensor, theta: torch.Tensor,
 
 
 def init_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
-             prior: PriorSpec, kmax: int, cfg: SMCConfig) -> SMCState:
+             prior: PriorSpec, kmax: int, cfg: SMCConfig, mesh=None) -> SMCState:
     """P particles from the prior at beta = 0; with trans-d sweeps the star
     count is Poisson(lam_count) truncated to [0, kmax], the first n slots
-    alive (slots are exchangeable under the target)."""
+    alive (slots are exchangeable under the target).  Under a ``mesh``,
+    this rank's of the P."""
     p, dev = cfg.n_particles, image.device
     theta = sample_prior(generator, p * kmax, prior, dev).reshape(p, kmax, 3)
     if cfg.n_transdim_sweeps > 0:
@@ -228,7 +238,7 @@ def init_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
         mask = (torch.arange(kmax, device=dev)[None, :] < n[:, None]).to(torch.float32)
     else:
         mask = torch.ones((p, kmax), dtype=torch.float32, device=dev)
-    return smc_state_from(spec, image, theta, mask, cfg)
+    return smc_state_from(spec, image, *dist.shard((theta, mask), mesh), cfg)
 
 
 def draw_step(generator: torch.Generator, p: int, kmax: int, spec: SceneSpec,
@@ -263,11 +273,12 @@ def _chunked(trajectory, chunk: int):
 
 
 def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
-                  kmax: int, cfg: SMCConfig, fused: bool = False):
+                  kmax: int, cfg: SMCConfig, fused: bool = False, mesh=None):
     """One temperature step, step(state, draws) -> state: reweight,
     resample, sweep, mutate.  fused=True runs the Riemannian mutations on
     their CUDA kernels (B6 for rhmc, B3 or B4 for rhmc_diag); the hmc mutation
-    always runs the plain tempered leapfrog."""
+    always runs the plain tempered leapfrog.  Under a ``mesh`` the state's
+    particles and the draws' (all but u_res) are this rank's."""
     check_mutation(cfg.mutation)
     metric = MUTATIONS[cfg.mutation]
     tpg = make_tempered_potential_and_grad(spec, image, prior)
@@ -295,20 +306,22 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
 
     def step(s: SMCState, draws: StepDraws) -> SMCState:
         # 1-2. adaptive tempering and reweighting (weights are equal
-        # after the previous resampling)
-        db = _next_dbeta(s.beta, s.loglik, cfg.ess_target_frac * p)
+        # after the previous resampling), on the whole population
+        theta, mask, loglik = dist.gather((s.theta, s.mask, s.loglik), mesh)
+        db = _next_dbeta(s.beta, loglik, cfg.ess_target_frac * p)
         beta = s.beta + db
-        logw = db * s.loglik
+        logw = db * loglik
         log_z = s.log_z + torch.logsumexp(logw, 0) - math.log(float(p))
 
-        # 3. systematic resampling
-        idx = systematic_resample(logw, draws.u_res, cfg.n_islands)
-        theta, mask = s.theta[idx], s.mask[idx]
+        # 3. systematic resampling; this rank keeps its rows of the
+        # resampled population
+        idx = dist.shard(systematic_resample(logw, draws.u_res, cfg.n_islands), mesh)
+        theta, mask = theta[idx], mask[idx]
 
         # 4a. trans-dimensional sweeps at the tempered likelihood
         if draws.sweeps:
             tllf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
-            tll = beta * s.loglik[idx]
+            tll = beta * loglik[idx]
             for sd in draws.sweeps:
                 theta, mask, tll, _ = transdim_sweep(theta, mask, tll, tllf, prior,
                                                      spec, cfg.transdim, sd, image)
@@ -317,6 +330,7 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
         aprobs, div, fail = [], 0, 0
         for noise, u_jit, u_acc in draws.mutation:
             theta, ap, dv, sf = mutate(theta, mask, beta, s.eps, noise, u_jit, u_acc)
+            ap, dv, sf = dist.gather((ap, dv, sf), mesh)
             aprobs.append(ap)
             div = div + dv.sum(dtype=torch.int32)
             fail = fail + sf.sum(dtype=torch.int32)
@@ -358,7 +372,7 @@ def _result(s: SMCState) -> SMCResult:
 def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
             prior: PriorSpec, kmax: int, cfg: SMCConfig,
             fused: bool = False, on_step=None, checkpoint_path: str | None = None,
-            resume: bool = False, logger=None) -> SMCResult:
+            resume: bool = False, logger=None, mesh=None) -> SMCResult:
     """A full pass: temperature steps until beta = 1 (or max_steps), then
     the posterior rounds (n_final_rounds, or plateau-stopped), with
     final_n_leapfrog when set.  ``on_step(state)``, when given, sees the
@@ -369,26 +383,34 @@ def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
     resume=True with a checkpoint there continues from its step: only the
     posterior rounds not yet done run, and the plateau window restarts (at
     least 2 W more rounds).  With islands, ``logger`` gets
-    ``smc_island_diag`` at the end."""
+    ``smc_island_diag`` at the end.
+
+    Under a ``mesh`` each rank holds P / W particles (``on_step`` sees this
+    rank's) and the result is the gathered population, on every rank."""
     check_mutation(cfg.mutation)
-    s = init_smc(generator, spec, image, prior, kmax, cfg)
     p, dev = cfg.n_particles, image.device
+    if mesh is not None:
+        mesh.local(p)   # raises unless the particles split over the ranks
+    s = init_smc(generator, spec, image, prior, kmax, cfg, mesh)
     if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
-        s = restore_state(checkpoint_path, SMCCheckpoint(s, generator), dev).state
-    step = make_smc_step(spec, image, prior, kmax, cfg, fused)
+        like = SMCCheckpoint(dist.gather(s, mesh), generator)
+        s = dist.shard(restore_state(checkpoint_path, like, dev).state, mesh)
+    step = make_smc_step(spec, image, prior, kmax, cfg, fused, mesh)
 
     def advance(st, fn):
-        st = fn(st, draw_step(generator, p, kmax, spec, prior, cfg, dev))
+        draws = draw_step(generator, p, kmax, spec, prior, cfg, dev)
+        st = fn(st, draws._replace(sweeps=dist.shard(draws.sweeps, mesh),
+                                   mutation=dist.shard(draws.mutation, mesh)))
         if on_step is not None:
             on_step(st)
         rec = torch.stack([st.beta.double(), st.n_steps.double(), st.final_done.double(),
                            st.log_z.double(), st.mean_accept.double(), st.eps.double(),
-                           st.mask.sum(-1).mean().double()]).tolist()
+                           dist.gather(st.mask, mesh).sum(-1).mean().double()]).tolist()
         if logger is not None:
             logger.log("smc_temperature_step", step=int(rec[1]), beta=rec[0], log_z=rec[3],
                        accept=rec[4], step_size=rec[5], mean_n=rec[6])
         if checkpoint_path is not None:
-            save_state(checkpoint_path, SMCCheckpoint(st, generator))
+            save_state(checkpoint_path, SMCCheckpoint(dist.gather(st, mesh), generator), mesh)
         return st, rec[0], int(rec[1]), int(rec[2]), rec[6]
 
     beta, n_steps, done = _host(s)
@@ -398,7 +420,7 @@ def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
     fstep = step
     if cfg.final_n_leapfrog not in (0, cfg.n_leapfrog):
         fstep = make_smc_step(spec, image, prior, kmax,
-                              cfg._replace(n_leapfrog=cfg.final_n_leapfrog), fused)
+                              cfg._replace(n_leapfrog=cfg.final_n_leapfrog), fused, mesh)
     if cfg.plateau_window > 0:
         # only posterior rounds are plateau-stopped: a max_steps-capped
         # pass (beta < 1) returns as it is
@@ -411,7 +433,7 @@ def run_smc(generator: torch.Generator, spec: SceneSpec, image: torch.Tensor,
     else:
         for _ in range(max(cfg.n_final_rounds - done, 0)):
             s, beta, n_steps, done, _ = advance(s, fstep)
-    res = _attach_island_diag(_result(s), cfg)
+    res = _attach_island_diag(_result(dist.gather(s, mesh)), cfg)
     if logger is not None and res.island_diag is not None:
         logger.log("smc_island_diag", **res.island_diag)
     return res

@@ -28,6 +28,11 @@ replacement process resume with the same bits as an uninterrupted run.  The
 warmup keeps its per-transition records on the device and ``logger`` gets
 four ``warmup_window`` records, ``warmup_complete`` and one
 ``sampling_block`` a block.
+
+Under a device mesh (``mesh``, dist.py) each rank runs its chains: the
+start and every transition's draws are drawn at full width and sharded,
+the warmup's statistics and the records are of the gathered chains, a
+checkpoint holds the gathered state, and the result every chain's draws.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import dist
 from .adapt import da_init, da_update
 from .checkpoint import restore_state, save_state
 from .driver import ChainState, block_sizes, concat_blocks
@@ -102,12 +108,14 @@ def draw_counts(generator: torch.Generator, lam_count: float, kmax: int, n: int,
 
 def init_td_states(generator: torch.Generator, spec: SceneSpec,
                    image: torch.Tensor, prior: PriorSpec, kmax: int,
-                   n_chains: int, lam_count: float, beta=1.0) -> TDState:
+                   n_chains: int, lam_count: float, beta=1.0, mesh=None) -> TDState:
     """Prior-initialised chains: parameters from the prior, n from the
-    Poisson(lam_count) truncated to [0, kmax], the first n slots alive."""
+    Poisson(lam_count) truncated to [0, kmax], the first n slots alive.
+    Under a ``mesh``, this rank's of the n_chains."""
     dev = image.device
     thetas = sample_prior(generator, n_chains * kmax, prior, dev).reshape(n_chains, kmax, 3)
     n_draw = draw_counts(generator, lam_count, kmax, n_chains, dev)
+    thetas, n_draw = dist.shard((thetas, n_draw), mesh)
     masks = (torch.arange(kmax, device=dev)[None, :] < n_draw[:, None]).to(torch.float32)
     loglik = beta * log_likelihood(thetas, masks, spec, image)
     return TDState(thetas, masks, loglik)
@@ -135,10 +143,11 @@ def draw_transition(generator: torch.Generator, c: int, kmax: int, spec: SceneSp
 def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                          kmax: int, cfg: TransDimMCMCConfig,
                          generator: torch.Generator, beta=1.0,
-                         fused: bool = False):
+                         fused: bool = False, mesh=None):
     """Batched transition: kernel(TDState, eps, draws=None) -> (TDState,
     TDInfo), a pure function of its draws (drawn from ``generator`` by
-    :func:`draw_transition` when not given).
+    :func:`draw_transition` when not given; under a ``mesh`` at full width,
+    keeping this rank's rows).
 
     fused=True runs the within-model trajectory in the CUDA kernel (B1 or,
     on crowded fields, B5 for ``hmc``; B6 for ``rhmc``; B3 or B4 for
@@ -190,7 +199,8 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
         theta, mask, ll = state
         c = theta.shape[0]
         if draws is None:
-            draws = draw_transition(generator, c, kmax, spec, prior, cfg, theta.device)
+            draws = dist.draw(lambda n: draw_transition(generator, n, kmax, spec, prior, cfg,
+                                                        theta.device), c, mesh)
         td_acc = torch.zeros((c,), dtype=torch.float32, device=theta.device)
         for sd in draws.sweeps:
             theta, mask, ll, info = transdim_sweep(theta, mask, ll, llf, prior, spec,
@@ -218,22 +228,25 @@ class TDSampleResult(NamedTuple):
 
 
 def warmup(states: TDState, kernel, n_warmup: int, step_size: float,
-           target_accept: float, divergence_penalty: float = 0.0):
+           target_accept: float, divergence_penalty: float = 0.0, mesh=None):
     """Dual-averaging step-size warmup (no mass adaptation: the mask varies
     per chain).  The statistic is mean(accept_prob) - divergence_penalty *
     frac(diverged | solver_fail).  Returns (states, eps_bar, records): the
     records (n_warmup, 4) on the device hold each transition's mean
-    acceptance, mean trans-d acceptance, mean alive count and eps."""
+    acceptance, mean trans-d acceptance, mean alive count and eps (under a
+    ``mesh``, of every rank's chains)."""
     dev = states.theta.device
     da = da_init(step_size, dev)
     recs = torch.empty((n_warmup, 4), dtype=torch.float32, device=dev)
     st = states
     for i in range(n_warmup):
         st, info = kernel(st, torch.exp(da.log_eps))
-        acc = info.accept_prob.mean()
-        bad = (info.diverged | info.solver_fail).to(torch.float32).mean()
+        aprob, bad, td_acc, mask = dist.gather(
+            (info.accept_prob, info.diverged | info.solver_fail, info.td_accept, st.mask), mesh)
+        acc = aprob.mean()
+        bad = bad.to(torch.float32).mean()
         da = da_update(da, acc - divergence_penalty * bad, target=target_accept)
-        recs[i] = torch.stack([acc, info.td_accept.mean(), st.mask.sum(-1).mean(),
+        recs[i] = torch.stack([acc, td_acc.mean(), mask.sum(-1).mean(),
                                torch.exp(da.log_eps)])
     return st, torch.exp(da.log_eps_bar), recs
 
@@ -289,26 +302,29 @@ def run_transdim(generator: torch.Generator, spec: SceneSpec, image: torch.Tenso
                  n_warmup: int, cfg: TransDimMCMCConfig = TransDimMCMCConfig(),
                  fused: bool = False, beta=1.0, block_size: int | None = None,
                  checkpoint_path: str | None = None, resume: bool = False,
-                 logger=None):
+                 logger=None, mesh=None):
     """init -> warmup -> (blocked) sampling; returns (TDSampleResult,
     step_size).  With block_size and checkpoint_path every block writes a
     TDBlockCheckpoint; resume=True continues from the last completed one
-    and returns only the remaining draws."""
-    kernel = make_transdim_kernel(spec, image, prior, kmax, cfg, generator, beta, fused)
+    and returns only the remaining draws.  Under a ``mesh`` each rank runs
+    its chains and the result holds every chain's draws, on every rank."""
+    kernel = make_transdim_kernel(spec, image, prior, kmax, cfg, generator, beta, fused,
+                                  mesh)
     states = init_td_states(generator, spec, image, prior, kmax, n_chains,
-                            cfg.transdim.lam_count, beta)
+                            cfg.transdim.lam_count, beta, mesh)
     start_done = 0
     if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
-        like = TDBlockCheckpoint(states, 0, torch.zeros((), device=image.device), generator)
+        like = TDBlockCheckpoint(dist.gather(states, mesh), 0,
+                                 torch.zeros((), device=image.device), generator)
         ck = restore_state(checkpoint_path, like, image.device)
-        states, eps, start_done = ck.state, ck.step_size, ck.done
+        states, eps, start_done = dist.shard(ck.state, mesh), ck.step_size, ck.done
     else:
         states, eps, recs = warmup(states, kernel, n_warmup, cfg.step_size,
-                                   cfg.target_accept, cfg.divergence_penalty)
+                                   cfg.target_accept, cfg.divergence_penalty, mesh)
         if logger is not None:
             _log_warmup(logger, recs, eps, n_warmup)
     if block_size is None:
-        return sample(states, kernel, n_samples, eps), eps
+        return dist.gather(sample(states, kernel, n_samples, eps), mesh), eps
 
     parts = []
     done = start_done
@@ -318,16 +334,19 @@ def run_transdim(generator: torch.Generator, spec: SceneSpec, image: torch.Tenso
         parts.append(res[:-1])
         done += n
         if logger is not None:
+            aprob, td_acc, masks = dist.gather((res.accept_prob, res.td_accept, res.masks),
+                                               mesh)
             acc, tda, mean_n = torch.stack([
-                res.accept_prob.mean(), res.td_accept.mean(),
-                res.masks.sum(-1, dtype=torch.float32).mean()]).tolist()
+                aprob.mean(), td_acc.mean(),
+                masks.sum(-1, dtype=torch.float32).mean()]).tolist()
             logger.log("sampling_block", head="transdim", done=done, accept=acc,
                        td_accept=tda, mean_n=mean_n)
         if checkpoint_path is not None:
-            save_state(checkpoint_path, TDBlockCheckpoint(states, done, eps, generator))
-    c, k, dev = n_chains, kmax, image.device
+            save_state(checkpoint_path,
+                       TDBlockCheckpoint(dist.gather(states, mesh), done, eps, generator), mesh)
+    c, k, dev = states.theta.shape[0], kmax, image.device
     empty = (torch.zeros((c, 0, k, 3), device=dev),
              torch.zeros((c, 0, k), dtype=torch.bool, device=dev),
              torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev),
              torch.zeros((c, 0), device=dev), torch.zeros((c, 0), dtype=torch.bool, device=dev))
-    return TDSampleResult(*concat_blocks(parts, empty), states), eps
+    return dist.gather(TDSampleResult(*concat_blocks(parts, empty), states), mesh), eps

@@ -76,6 +76,34 @@ def test_sigkill_midrun_then_resume_in_a_replacement_process(tmp_path, head):
         assert int(full["n_steps"]) > worker.KILL_AT["smc_temperature_step"]
 
 
+@pytest.mark.parametrize("head", worker.HEADS)
+def test_kill_between_the_tmp_write_and_the_rename_resumes_the_previous_checkpoint(
+        tmp_path, head):
+    """A process SIGKILLed inside a save, after CKPT.tmp is written and
+    synced but before the rename, leaves the previous checkpoint whole at
+    CKPT; a new process resumes from it (ignoring the orphaned CKPT.tmp,
+    which holds the next block or step) to the uninterrupted run's bits."""
+    ckpt, out = str(tmp_path / "ckpt"), str(tmp_path / "resume.npz")
+    full = worker.run(head)
+
+    r = _worker("crash-in-save", head, ckpt, str(tmp_path / "unused.npz"))
+    assert r.returncode == -signal.SIGKILL, (r.returncode, r.stderr[-2000:])
+    saved = torch.load(ckpt, weights_only=True)
+    orphan = torch.load(ckpt + ".tmp", weights_only=True)
+    if head == "smc":
+        assert int(saved["state.n_steps"]) == worker.KILL_AT["smc_temperature_step"] - 1
+        assert int(orphan["state.n_steps"]) == int(saved["state.n_steps"]) + 1
+    else:
+        assert saved["done"] == 2 * worker.BLOCK and orphan["done"] == 3 * worker.BLOCK
+
+    r = _worker("resume", head, ckpt, out)
+    assert r.returncode == 0, r.stderr[-2000:]
+    resumed = np.load(out)
+    for key in resumed.files:
+        want = full[key] if head == "smc" else full[key][:, 2 * worker.BLOCK:]
+        np.testing.assert_array_equal(resumed[key], want, err_msg=key)
+
+
 class _Steps:
     def __init__(self):
         self.steps = 0

@@ -3,13 +3,17 @@ starcat_torch head on a 12x12 two-star scene, on the CPU, in a process of
 its own.
 
     python tests/torch_fault_worker.py crash  HEAD CKPT OUT
+    python tests/torch_fault_worker.py crash-in-save HEAD CKPT OUT
     python tests/torch_fault_worker.py resume HEAD CKPT OUT
     python tests/torch_fault_worker.py crash-api CONFIG OVERRIDES DEVICE CKPT
 
 ``crash`` runs with checkpoints and SIGKILLs itself from the logger: at the
 third sampling block's record (the MCMC heads log a block before saving it,
 so the checkpoint holds two of four blocks) or at the fourth SMC
-temperature step's (three steps saved).  ``resume`` continues from the
+temperature step's (three steps saved).  ``crash-in-save`` SIGKILLs
+itself inside the save after those, between the write of CKPT.tmp and its
+rename over CKPT (KILL_IN_SAVE: ChEES also saves after its warmup), so
+CKPT holds the same state as after ``crash``.  ``resume`` continues from the
 checkpoint and saves what it produced to OUT (``np.savez``).  The test
 runs the uninterrupted run in its own process with :func:`run`; both pin
 torch to one thread so the CPU's reductions give the same bits in both.
@@ -29,6 +33,9 @@ import torch
 HEADS = ("hmc", "chees", "transdim", "smc")
 N_SAMPLES, N_WARMUP, BLOCK = 16, 12, 4
 KILL_AT = {"sampling_block": 3, "smc_temperature_step": 4}
+# the save whose rename never happens: the third block's (ChEES: after the
+# warmup's save), SMC's fourth step's
+KILL_IN_SAVE = {"hmc": 3, "chees": 4, "transdim": 3, "smc": 4}
 
 
 def scene():
@@ -118,12 +125,30 @@ def crash_api(config: str, overrides: str, device: str, ckpt: str) -> None:
     api.sample(cfg, device, seed=0, metrics_path=ckpt + ".jsonl", checkpoint_path=ckpt)
 
 
+def crash_in_save(head: str, ckpt: str) -> None:
+    """The run with checkpoints, SIGKILLed inside its KILL_IN_SAVE-th save:
+    CKPT.tmp written and synced, the rename over CKPT not done."""
+    replace, renames = os.replace, []
+
+    def replace_or_die(src, dst):
+        renames.append(src)
+        if len(renames) == KILL_IN_SAVE[head]:
+            os.kill(os.getpid(), signal.SIGKILL)
+        replace(src, dst)
+
+    os.replace = replace_or_die
+    run(head, ckpt)
+
+
 def main(argv) -> None:
     torch.set_num_threads(1)
     if argv[0] == "crash-api":
         crash_api(*argv[1:])
         raise SystemExit("the worker should have been killed")
     mode, head, ckpt, out = argv
+    if mode == "crash-in-save":
+        crash_in_save(head, ckpt)
+        raise SystemExit("the worker should have been killed")
     if mode == "crash":
         event = "smc_temperature_step" if head == "smc" else "sampling_block"
         run(head, ckpt, logger=Killer(event, KILL_AT[event]))
