@@ -73,19 +73,20 @@
    set to 0 just before and read just after: cfg2_nuts at full width (1024
    chains, max_depth 8) cut to 100 + 50 transitions and cfg7_advi as the
    preset stands (3000 steps), both on B1, checked against the records;
-13. durability: each of five runs at full width through the public API,
+13. durability: each of six runs at full width through the public API,
    the launch counts set to 0 just before and read just after: cfg6_chees
    (1024 chains, K = 10, 32x32, on B2) cut to 150 + 300 draws in four
    blocks, cfg3_transdim_smc as the preset stands (4096 particles, B6),
    cfg5_transdim_mcmc (256 chains, B3) cut to 60 + 40 in four blocks,
    cfg1_rhmc on the full metric (64 chains, B6's 512-thread layout) cut to
-   40 + 40 in four blocks and cfg4_crowded (4096 particles, K_max 64,
-   128x128, B4 with per-particle masks) cut to three temperature steps.  Each
-   runs uninterrupted with a metrics stream and checkpoints, again with
-   neither (unblocked), then in a process of its own that SIGKILLs itself
-   from its logger (after two blocks' checkpoints; cfg3 after three
-   temperature steps', cfg4 after two), and is resumed here from that
-   checkpoint.  The unblocked run and the resumed draws must equal the
+   40 + 40 in four blocks, cfg4_crowded (4096 particles, K_max 64,
+   128x128, B4 with per-particle masks) cut to three temperature steps and
+   cfg2_nuts (1024 chains, every leaf a B1 launch) cut to 60 + 40 in four
+   blocks.  Each runs uninterrupted with a metrics stream and checkpoints,
+   again with neither (unblocked), then in a process of its own that
+   SIGKILLs itself from its logger (after two blocks' checkpoints; cfg3
+   after three temperature steps', cfg4 after two), and is resumed here
+   from that checkpoint.  The unblocked run and the resumed draws must equal the
    uninterrupted run's bit for bit (SMC: beta, log Z and the final
    population), the killed process must return -9, and the streams must
    hold the reference's records; prints each leg's wall and the
@@ -106,7 +107,15 @@
    draws, masks, eps, log Z).  With two or more cards it also runs two NCCL
    ranks, a process each, against the same one-process runs; with one it
    says that only a world of one ran;
-16. prints one JSON line with a row per kernel (launches on its paths, the
+16. the benchmark (starcat_torch/bench.py): ``python -m starcat_torch bench
+   --chains 1024 --scan 10 --repeats 2`` in a process of its own, whose last
+   line must be the four-key headline with 0 < value <= B1's bound rate;
+   then every leg of ``--full`` in process at a cut size (BENCH_CUT: 256
+   chains and 2 trajectories a timed call for the trajectory legs, 64 chains
+   at 20 + 10 + 10 for the ESS legs), each raising unless its kernel's
+   launch count is exact and its final state finite, and the one-rank NCCL
+   scaling row with verify; prints each leg's rate and the phase's wall;
+17. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work).
 
@@ -1571,6 +1580,7 @@ DURABILITY = {
     "cfg5_transdim_mcmc": ({"n_warmup": 60, "n_samples": 40}, 1, "sampling_block", 3),
     "cfg1_rhmc": ({"n_warmup": 40, "n_samples": 40}, 0, "sampling_block", 3),
     "cfg4_crowded": ({"smc.max_steps": 3}, 0, "smc_temperature_step", 3),
+    "cfg2_nuts": ({"n_warmup": 60, "n_samples": 40}, 0, "sampling_block", 3),
 }
 # the records each uninterrupted stream must hold: (event, count); None
 # counts the temperature steps the run took
@@ -1582,6 +1592,7 @@ DURABILITY_EVENTS = {
                            ("sampling_block", 4), ("run_complete", 1)),
     "cfg1_rhmc": (("warmup_phase", 3), ("sampling_block", 4), ("run_complete", 1)),
     "cfg4_crowded": (("smc_temperature_step", None), ("run_complete", 1)),
+    "cfg2_nuts": (("warmup_phase", 3), ("sampling_block", 4), ("run_complete", 1)),
 }
 DURABILITY_DIR = Path(__file__).resolve().parent / "build" / "durability"
 
@@ -1954,6 +1965,85 @@ def run_mesh(api, configs, dev):
     return launches
 
 
+# Phase 16.  The bench legs in process at a cut size: (chains, trajectories
+# a timed call, repeats) of the trajectory legs, and (chains, warmup, draws)
+# of the ESS legs; the scaling row's chains and draws.
+BENCH_CUT = {"trajectories": (256, 2, 2), "ess": (64, 20, 10), "scaling": (256, 10)}
+BENCH_HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def run_bench(dev):
+    """Phase 16 (see the module docstring).  Returns the launches of each
+    kernel counter over the in-process legs."""
+    from starcat_torch import bench
+    from starcat_torch import fused_leapfrog as fl
+    from starcat_torch import fused_leapfrog_crowded as flc
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch import fused_rhmc_diag as frd
+    from starcat_torch import fused_rhmc_diag_crowded as frdc
+    from starcat_torch.configs import CONFIGS
+
+    cfg = CONFIGS["cfg2_nuts"]
+    bound = bench.b1_bound_evals_per_sec(cfg.scene, cfg.kmax)
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "starcat_torch", "bench", "--chains", "1024", "--scan", "10",
+           "--repeats", "2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=Path(__file__).resolve().parent)
+    if r.returncode != 0:
+        raise AssertionError(f"bench: {' '.join(cmd[1:])} returned {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    head = json.loads(r.stdout.strip().splitlines()[-1])
+    if (set(head) != BENCH_HEADLINE_KEYS
+            or head["metric"] != "leapfrog_grad_evals_per_sec_per_chip"
+            or not 0 < head["value"] <= bound):
+        raise AssertionError(f"bench: the headline {head} (B1's bound {bound:.6g} evals/s)")
+    print(f"bench CLI ({' '.join(cmd[3:])}): {json.dumps(head)} in "
+          f"{time.perf_counter() - t0:.3f} s; {head['value'] / bound:.4f} of B1's bound")
+
+    for m in (fl, flc, fr, frd, frdc):
+        m.reset_launch_counts()
+    c, n_scan, reps = BENCH_CUT["trajectories"]
+    reduced = {}
+    legs = [
+        ("B1 headline evals/s", lambda: bench.bench_fused_grad_evals(c, 20, n_scan, reps, dev)[0]),
+        ("plain leapfrog evals/s",
+         lambda: bench.bench_plain_grad_evals(c, 20, n_scan, reps, dev, reduced)[0]),
+        ("B6 steps/s", lambda: bench.bench_fused_rhmc_steps(c, 10, 6, reps, n_scan, dev)[0]),
+        ("plain diagonal steps/s",
+         lambda: bench.bench_plain_rhmc_diag_steps(c, 10, 6, reps, n_scan, dev, reduced)[0]),
+        ("B3 steps/s", lambda: bench.bench_fused_rhmc_diag_steps(c, 10, 6, reps, n_scan, dev)[0]),
+        ("crowded plain / B4 steps/s",
+         lambda: bench.bench_rhmc_diag_crowded(c, reps, n_scan, device=dev, reduced=reduced)),
+        ("B5 evals/s", lambda: bench.bench_fused_crowded(c, 10, n_scan, reps, dev)),
+        ("plain crowded evals/s",
+         lambda: bench.bench_plain_crowded(c, 10, n_scan, reps, dev, reduced)),
+    ]
+    ce, n_warm, n_draw = BENCH_CUT["ess"]
+    legs += [
+        ("NUTS (B1 leaves) ESS/s, ESS, s",
+         lambda: bench.bench_ess_per_sec(ce, n_draw, n_warm, dev)),
+        ("ChEES (B2) ESS/s, ESS, s, T", lambda: bench.bench_ess_chees(ce, n_draw, n_warm, dev)),
+    ]
+    cs, ns = BENCH_CUT["scaling"]
+    legs.append(("scaling row, one NCCL rank",
+                 lambda: bench.bench_scaling([1], n_chains=cs, n_samples=ns, verify=True,
+                                             device=dev)["points"][0]))
+    for name, leg in legs:
+        t0 = time.perf_counter()
+        got = leg()
+        print(f"bench leg {name}: {got} ({time.perf_counter() - t0:.3f} s)", flush=True)
+    if reduced:
+        print(f"bench: plain legs cut {json.dumps(reduced)}")
+    launches = {"static": fl.STATIC_LAUNCHES, "dyn": fl.DYN_LAUNCHES, "b3": frd.LAUNCHES,
+                "b4": frdc.LAUNCHES, "b5": flc.LAUNCHES, "b6": fr.LAUNCHES}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"bench: a kernel was never launched: {launches}")
+    print(f"bench phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches
+
+
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its operations over the fp32 peak outside the tensor cores and its bytes
 # (each input read once, each output written once) over the memory rate
@@ -2134,11 +2224,10 @@ def main() -> int:
     t0 = time.perf_counter()
     dur = run_durability(api, CONFIGS, dev)
     print(f"durability path: {time.perf_counter() - t0:.3f} s wall; launches {dur}")
-    for name in ("dyn", "b3", "b6"):
+    for name in ("dyn", "static", "b3", "b6"):
         if dur[name] <= 0:
             raise AssertionError(f"{name} was never launched on the durability path: {dur}")
         launches[name] += dur[name]
-    launches["static"] += dur["static"]
     if dur["b4"] <= 0:
         raise AssertionError(f"B4 was never launched on the durability path: {dur}")
     launches["b4"] += dur["b4"]
@@ -2151,6 +2240,11 @@ def main() -> int:
     msh = run_mesh(api, CONFIGS, dev)
     print(f"mesh path: {time.perf_counter() - t0:.3f} s wall; launches {msh}")
     for name, n in msh.items():
+        launches[name] += n
+    t0 = time.perf_counter()
+    bnc = run_bench(dev)
+    print(f"bench path: {time.perf_counter() - t0:.3f} s wall; launches {bnc}")
+    for name, n in bnc.items():
         launches[name] += n
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)

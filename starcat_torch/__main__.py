@@ -9,6 +9,9 @@ Commands:
   validate  [--config cfg0_single_star]
             [--heads hmc,nuts,chees,rhmc,rhmc_diag,smc,advi,transdim]
             [--device cuda]
+  bench     [--chains 32768] [--leapfrog 20] [--scan 50] [--repeats 3]
+            [--full] [--scaling] [--retime-baseline] [--device cuda]
+            [--out build/bench_full_torch.json]
 
 The presets: cfg0_single_star, cfg1_rhmc, cfg2_nuts, cfg3_transdim_smc,
 cfg4_crowded, cfg5_transdim_mcmc, cfg6_chees and cfg7_advi.
@@ -28,6 +31,11 @@ catalogs.catalog_report) and, when matplotlib imports, the trace, corner
 (single-star runs) and reconstruction PNGs of plots.save_report.  Without
 matplotlib the printed JSON names the PNGs it skipped and why; the run and
 the catalog are the same either way.
+
+``bench`` is bench.py's benchmark on the port (bench.py): its last line is
+the headline ``leapfrog_grad_evals_per_sec_per_chip``; ``--full`` prints
+and writes the secondary legs' document, ``--scaling`` the samples/s of the
+sharded HMC head over 1, 2, 4, ... ranks.
 """
 from __future__ import annotations
 
@@ -188,6 +196,35 @@ def cmd_validate(args):
     sys.exit(0 if ok else 1)
 
 
+def cmd_bench(args):
+    """bench.py's main (bench.py:633): the headline leg, the pinned or
+    re-timed NumPy baseline, with --full the secondary legs' document (one
+    line before the headline, and written to --out), or with --scaling the
+    scaling document alone."""
+    from pathlib import Path
+
+    from . import bench
+
+    device = bench.resolve_device(args.device)
+    if args.scaling:
+        print(json.dumps(bench.bench_scaling(device=device)))
+        return
+    out = Path(args.out) if args.out else bench.FULL_OUT
+    if args.full and out.name == "BENCH_FULL.json":
+        raise SystemExit("BENCH_FULL.json is the TPU's record; pass another --out")
+    rate, best = bench.bench_fused_grad_evals(args.chains, args.leapfrog, args.scan,
+                                              args.repeats, device)
+    np_rate = (bench.bench_numpy_baseline() if args.retime_baseline
+               else bench.NUMPY_BASELINE_EVALS_PER_SEC)
+    if args.full:
+        full = bench.full_document(rate, best, args.chains, args.leapfrog, args.scan,
+                                   args.repeats, np_rate, device)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(full, indent=1))
+        print(json.dumps({"bench_full": full}))
+    print(json.dumps(bench.headline(rate, np_rate)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="starcat_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -222,6 +259,23 @@ def main(argv=None):
                             "(default: %(default)s)")
     p_val.add_argument("--device", default="cuda")
     p_val.set_defaults(fn=cmd_validate)
+
+    p_bench = sub.add_parser("bench", help="bench.py's benchmark on the port")
+    # 32768 chains: the reference's single-chip operating point (bench.py:635-639)
+    p_bench.add_argument("--chains", type=int, default=32768)
+    p_bench.add_argument("--leapfrog", type=int, default=20)
+    p_bench.add_argument("--scan", type=int, default=50)
+    p_bench.add_argument("--repeats", type=int, default=3)
+    p_bench.add_argument("--full", action="store_true",
+                         help="every secondary leg, as one JSON document before the headline")
+    p_bench.add_argument("--scaling", action="store_true",
+                         help="samples/s over 1..N ranks (one card each) and exit")
+    p_bench.add_argument("--retime-baseline", action="store_true",
+                         help="re-time the NumPy baseline instead of the pinned rate")
+    p_bench.add_argument("--device", default="cuda")
+    p_bench.add_argument("--out", default=None,
+                         help="--full's document (default build/bench_full_torch.json)")
+    p_bench.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -132,13 +132,21 @@ def shard(tree, mesh: Mesh | None):
     return _map(lambda x: x if x.ndim == 0 else x[mesh.local(x.shape[0])], tree)
 
 
+# The all_gathers _gather has issued in this process (bench.bench_scaling
+# checks that a pooled warmup communicates exactly when there are ranks to
+# hear from).
+GATHERS = 0
+
+
 def _gather(x: torch.Tensor) -> torch.Tensor:
-    if x.ndim == 0:
-        return x
+    global GATHERS
+    if x.ndim == 0 or tdist.get_world_size() == 1:
+        return x   # a world of one holds every chain already
     # NCCL and gloo move bytes, not bools
     y = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     parts = [torch.empty_like(y) for _ in range(tdist.get_world_size())]
     tdist.all_gather(parts, y)
+    GATHERS += 1
     out = torch.cat(parts)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 

@@ -94,18 +94,20 @@ def test_short_cfg6_chees_run_on_the_plain_path():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, starcat_torch, starcat_torch.api, starcat_torch.__main__, "
-            "starcat_torch.chees, starcat_torch.convert, starcat_torch.fused_leapfrog, "
-            "starcat_torch.build, starcat_torch.metric, starcat_torch.rhmc, "
-            "starcat_torch.fused_rhmc_diag, starcat_torch.fused_rhmc, "
-            "starcat_torch.smc, starcat_torch.transdim, starcat_torch.transdim_mcmc, "
-            "starcat_torch.nuts, starcat_torch.advi, starcat_torch.checkpoint, "
-            "starcat_torch.metrics; "
+    """Every module of the package, found by walking it, imports neither
+    JAX nor the JAX package."""
+    code = ("import importlib, json, pkgutil, sys, starcat_torch; "
+            "names = [m.name for m in pkgutil.walk_packages(starcat_torch.__path__, "
+            "'starcat_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'starcat')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(json.dumps([names, bad])); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    names, _ = json.loads(res.stdout.strip().splitlines()[-1])
+    files = {f"starcat_torch.{p.stem}" for p in (ROOT / "starcat_torch").glob("*.py")}
+    assert set(names) == files - {"starcat_torch.__init__"}
 
 
 @pytest.mark.parametrize("name,jax_name", [("cfg0_single_star", "cfg0_single_star"),
