@@ -115,7 +115,21 @@
    at 20 + 10 + 10 for the ESS legs), each raising unless its kernel's
    launch count is exact and its final state finite, and the one-rank NCCL
    scaling row with verify; prints each leg's rate and the phase's wall;
-17. prints one JSON line with a row per kernel (launches on its paths, the
+17. mock scenes without JAX: (a) RunConfig.make_data draws the three
+   scenes that starcat_torch/data/scenes.npz holds (written with the JAX
+   package), and each draw must equal its entry bit for bit, truth and
+   image; (b) two scenes that no export holds run through api.sample on
+   the card, the launch counts set to 0 just before each and read just
+   after: cfg6_chees at truth_seed=21 data_seed=22 at the preset's width
+   (1024 chains, K = 10, 32x32) cut to 200 + 200, on B2, and the HMC head
+   on a 64x64 field of 20 stars (truth_seed=31 data_seed=32, 1024 chains,
+   200 + 200), past B1's 48x48 and so on B5; each must name its kernel,
+   launch it, and end with a posterior total flux within 4 sd of the drawn
+   truth; before the B5 run, B5 at that run's shape (1024 chains, K = 20,
+   the drawn 64x64 image, L = 10, with and without an entry gradient) is
+   held against its plain version, float64 as arbiter, and its error goes
+   into B5's row; prints each draw's host time and each run's wall;
+18. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work).
 
@@ -2054,6 +2068,107 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
+# phase 17: the scenes data/scenes.npz holds, by entry and config, and two
+# scenes no export holds, each with the kernel it must run on
+SCENE_ENTRIES = (("cfg0_single_star", "cfg0_single_star"), ("flagship", "cfg6_chees"),
+                 ("crowded", "cfg4_crowded"))
+MOCK_SCENES = (
+    ("cfg6_chees", {"truth_seed": 21, "data_seed": 22, "n_warmup": 200,
+                    "n_samples": 200}, "B2"),
+    ("cfg4_crowded", {"head": "hmc", "scene.height": 64, "scene.width": 64,
+                      "n_stars": 20, "kmax": 20, "truth_seed": 31, "data_seed": 32,
+                      "n_chains": 1024, "n_warmup": 200, "n_samples": 200}, "B5"),
+)
+
+
+def _b5_on_drawn_scene(fl, flc, cfg, truth, image, dev):
+    """B5 at a drawn scene's run shape (its chains, K and field): one L = 10
+    trajectory near the truth, with and without an entry gradient, against
+    its plain version (float64 as arbiter, _b5_compare).  Returns the theta
+    error."""
+    import torch
+
+    img = image.to(dev)
+    spec, prior, c, k, L = cfg.scene, cfg.prior, cfg.n_chains, cfg.kmax, 10
+    theta, p, eps = _crowded_inputs(truth, c, k, dev, 80)
+    eps = 0.002 * eps
+    inv_mass = torch.full((k, 3), 0.9, device=dev)
+    mask = torch.ones(k, device=dev)
+    fused = flc.make_fused_leapfrog(spec, img, prior, k, L)
+    _, _, _, g0 = fl.fused_leapfrog_reference(spec, img, prior, theta, p, eps, inv_mass, mask,
+                                              0, None)
+    err = 0.0
+    for grad in (None, g0):
+        case = (f"drawn {spec.height}x{spec.width} K={k}, {c} chains, L={L}, "
+                f"grad={'in' if grad is not None else 'none'}")
+        want = fl.fused_leapfrog_reference(spec, img, prior, theta, p, eps, inv_mass, mask, L,
+                                           grad)
+        want64 = fl.fused_leapfrog_reference(
+            spec, img.double(), prior, theta.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), L, None if grad is None else grad.double())
+        e, _ = _b5_compare(case, fused(theta, p, eps, inv_mass, mask, grad=grad), want, want64)
+        print(f"B5 {case}: max theta err {e:.3g}")
+        err = max(err, e)
+    return err
+
+
+def run_mock_scenes(api, configs, dev, fl, flc):
+    """Phase 17: mock scenes drawn on a machine without JAX (docstring, 17).
+    Returns the launches of B2's contract and of B5, and B5's largest theta
+    error against its plain version at the B5 scene's run shape."""
+    import numpy as np
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    scenes = Path(__file__).resolve().parent / "starcat_torch" / "data" / "scenes.npz"
+    with np.load(scenes) as data:
+        for entry, name in SCENE_ENTRIES:
+            t0 = time.perf_counter()
+            theta, image = configs[name].make_data()
+            ms = (time.perf_counter() - t0) * 1e3
+            want_theta, want_image = data[f"{entry}/theta"], data[f"{entry}/image"]
+            n_theta = int((theta.numpy() != want_theta).sum())
+            n_pix = int((image.numpy() != want_image).sum())
+            print(f"mock scene {entry} ({name}): drawn in {ms:.1f} ms on the host; "
+                  f"{n_theta} of {want_theta.size} truth values and {n_pix} of "
+                  f"{want_image.size} pixels differ from scenes.npz")
+            if n_theta or n_pix:
+                raise AssertionError(f"the draw of {entry} is not the JAX package's")
+    launches = {"dyn": 0, "b5": 0}
+    err_b5 = 0.0
+    for name, overrides, kernel in MOCK_SCENES:
+        cfg = apply_overrides(configs[name], overrides)
+        t0 = time.perf_counter()
+        truth_theta, image = cfg.make_data()
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        if kernel == "B5":
+            err_b5 = max(err_b5, _b5_on_drawn_scene(fl, flc, cfg, truth_theta, image, dev))
+        fl.reset_launch_counts()
+        flc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = fl.DYN_LAUNCHES if kernel == "B2" else flc.LAUNCHES
+        launches["dyn" if kernel == "B2" else "b5"] += n
+        st = out.stats
+        tf = api.summarize_output(out)["total_flux"]
+        truth = float(np.sum(st["truth"]["f"]))
+        print(f"mock scene {name} {json.dumps(overrides)}: drawn in {draw_ms:.1f} ms on "
+              f"the host; {cfg.n_chains} chains, {cfg.n_warmup} + {cfg.n_samples} in "
+              f"{wall:.3f} s wall ({st['wall_seconds']:.3f} s sampling), "
+              f"{st['trajectory_kernel']} x{n}, accept {st['accept']:.3f}; total flux "
+              f"{tf['mean']:.2f} ± {tf['sd']:.2f}, truth {truth:.2f}")
+        if st["trajectory_kernel"] != kernel or n <= 0:
+            raise AssertionError(f"{name} {overrides} did not run through {kernel}: "
+                                 f"{st['trajectory_kernel']} x{n}")
+        if not np.isfinite(out.thetas).all() or not abs(tf["mean"] - truth) <= 4 * tf["sd"]:
+            raise AssertionError(f"{name} {overrides}: total flux {tf['mean']} ± {tf['sd']} "
+                                 f"vs the drawn truth {truth}")
+    return launches, err_b5
+
+
 def leapfrog_ops(c, k, h, w, n_steps, grad_in):
     """B1/B2/B5: the render (one FMA) and the contraction (two FMAs) per
     star and pixel of every gradient evaluation."""
@@ -2245,6 +2360,12 @@ def main() -> int:
     bnc = run_bench(dev)
     print(f"bench path: {time.perf_counter() - t0:.3f} s wall; launches {bnc}")
     for name, n in bnc.items():
+        launches[name] += n
+    t0 = time.perf_counter()
+    mock, err_mock = run_mock_scenes(api, CONFIGS, dev, fl, flc)
+    err_b5 = max(err_b5, err_mock)
+    print(f"mock-scene path: {time.perf_counter() - t0:.3f} s wall; launches {mock}")
+    for name, n in mock.items():
         launches[name] += n
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)

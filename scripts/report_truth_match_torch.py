@@ -5,9 +5,8 @@ flux) and the sources that match no truth star.
 
 It reads the ``P_catalog.json`` that ``python -m starcat_torch report``
 writes, or the one of the JAX package's ``python -m starcat report`` (the
-same format), and takes the truth from the port's stored scene
-(starcat_torch/data/scenes.npz, the scene ``make_data()`` draws), so it
-imports no JAX:
+same format), and takes the truth from the port's ``make_data()``, which
+draws the JAX package's truth bit for bit, so it imports no JAX:
 
     python scripts/report_truth_match_torch.py --config cfg6_chees \\
         build/report/cfg6_chees_catalog.json

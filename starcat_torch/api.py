@@ -160,9 +160,11 @@ def sample(cfg: RunConfig, device, seed: int = 0, image=None,
 
 def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, logger,
             checkpoint_path: str | None, resume: bool, mesh) -> SampleOutput:
-    truth_theta, mock_img = cfg.make_data()
-    img = (mock_img if image is None else torch.as_tensor(image)).to(
-        device=device, dtype=torch.float32)
+    if image is None:
+        truth_theta, image = cfg.make_data()
+    else:
+        truth_theta = cfg.make_truth()
+    img = torch.as_tensor(image).to(device=device, dtype=torch.float32)
     spec, prior = cfg.scene, cfg.prior
     mask = torch.ones(cfg.kmax, dtype=torch.float32, device=device)
     generator = torch.Generator(device=device)

@@ -47,7 +47,9 @@ group (NCCL, one card a rank; gloo on the CPU).
 
 Inputs are drawn on the CPU from torch generators seeded as bench.py numbers
 its keys (0 for theta0's jitter, 1 for p0, 2 for the Riemannian xi, ...), so
-a leg's inputs are the same on every device; the samplers of the ESS legs
+a leg's inputs are the same on every device; the crowded mutation leg
+starts from bench.py's own theta0, JAX's bits through threefry.py
+(``crowded_theta0``); the samplers of the ESS legs
 and the scaling rows draw from a generator on the chains' device, seeded as
 bench.py's key for their chain states.
 
@@ -79,13 +81,14 @@ from . import fused_leapfrog_crowded as flc
 from . import fused_rhmc as fr
 from . import fused_rhmc_diag as frd
 from . import fused_rhmc_diag_crowded as frdc
+from . import threefry
 from .chees import ChEESConfig, chees_sample, make_fused_leapfrog_impl, run_chees
 from .configs import CONFIGS
 from .hmc import HMCConfig, make_hmc_kernel
 from .integrators import leapfrog, riemannian_leapfrog
 from .metric import make_diag_metric_fn
 from .nuts import NUTSConfig, make_nuts_kernel
-from .potential import make_potential, make_potential_and_grad, sample_prior
+from .potential import make_potential, make_potential_and_grad
 from .rhmc import make_rhmc_diag_functions
 
 # The NumPy oracle's gradient rate on the flagship scene, pinned by the
@@ -419,8 +422,7 @@ def bench_rhmc_diag_crowded(n_chains: int = 256, repeats: int = 3, n_scan: int =
     cfg, truth, img = _scene("cfg4_crowded", device)
     kmax = cfg.kmax
     mask = torch.cat([torch.ones(cfg.n_stars), torch.zeros(kmax - cfg.n_stars)]).to(device)
-    theta0 = (sample_prior(torch.Generator().manual_seed(5), kmax, cfg.prior, "cpu")[None]
-              + 0.01 * _normal(6, (n_chains, kmax, 3))).to(device)
+    theta0 = crowded_theta0(cfg, n_chains).to(device)
     n_steps = cfg.smc.n_leapfrog if n_steps is None else n_steps
     fpi = cfg.smc.fixed_point_iters if fpi is None else fpi
     plain = _plain_rhmc_diag(cfg.scene, img, cfg.prior, n_steps, fpi)
@@ -435,6 +437,13 @@ def bench_rhmc_diag_crowded(n_chains: int = 256, repeats: int = 3, n_scan: int =
         f"diagonal-Fisher trajectory, crowded (B4), {n_chains} chains",
         lambda: frdc.LAUNCHES)
     return rate_plain, rate_cuda
+
+
+def crowded_theta0(cfg, n_chains: int) -> torch.Tensor:
+    """bench.py:280-281's start of the crowded mutation leg, JAX's bits:
+    ``sample_prior(key(5), kmax) + 0.01 normal(key(6), (C, kmax, 3))``."""
+    return (threefry.sample_prior(threefry.key(5), cfg.kmax, cfg.prior)[None]
+            + 0.01 * threefry.normal(threefry.key(6), (n_chains, cfg.kmax, 3)))
 
 
 def _crowded_setup(n_chains: int, device: torch.device):

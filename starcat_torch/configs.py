@@ -13,19 +13,16 @@ chain on the flagship scene, diagonal-Fisher RHMC moves), ``cfg6_chees``
 under mean-field ADVI, its gradients from B1 at n_steps = 0;
 ``advi.full_rank=true`` fits the full-rank family).
 
-The mock data are the reference's own: ``data/scenes.npz`` holds the truth
-and image that ``starcat.configs.RunConfig.make_data`` draws at the default
-seeds, written by scripts/export_torch_scenes.py.  A config whose scene,
-prior, star count or seeds differ from every exported entry raises instead
-of drawing different data.
+The mock data are the reference's own: ``RunConfig.make_data`` draws the
+truth and image that ``starcat.configs.RunConfig.make_data`` draws, from
+the same seeds through the port of JAX's threefry draws (threefry.py), for
+any scene, prior, star count and seeds.
 """
 from __future__ import annotations
 
 import dataclasses
-from pathlib import Path
 from typing import Any
 
-import numpy as np
 import torch
 
 from .advi import ADVIConfig
@@ -36,10 +33,9 @@ from .potential import PriorSpec
 from .rhmc import RHMCConfig
 from .scene import SceneSpec
 from .smc import SMCConfig
+from .threefry import constrain, key, make_mock_image, sample_prior
 from .transdim import TransDimConfig
 from .transdim_mcmc import TransDimMCMCConfig
-
-SCENES = Path(__file__).resolve().parent / "data" / "scenes.npz"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,22 +67,18 @@ class RunConfig:
     advi: ADVIConfig = ADVIConfig()
     notes: str = ""
 
+    def make_truth(self) -> torch.Tensor:
+        """The mock truth, (n_stars, 3) float32: the prior's draw from
+        key(truth_seed)."""
+        return sample_prior(key(self.truth_seed), self.n_stars, self.prior)
+
     def make_data(self):
         """(truth_theta (n_stars, 3), image (H, W)), float32 CPU tensors:
-        the reference's mock scene for this config, from data/scenes.npz."""
-        key = (self.scene.height, self.scene.width, self.scene.psf_sigma,
-               self.scene.background, self.prior.logf_mean,
-               self.prior.logf_sigma, self.n_stars, self.truth_seed,
-               self.data_seed)
-        with np.load(SCENES) as data:
-            for entry in sorted({k.split("/")[0] for k in data.files}):
-                if tuple(data[f"{entry}/meta"].tolist()) == key:
-                    return (torch.from_numpy(data[f"{entry}/theta"].copy()),
-                            torch.from_numpy(data[f"{entry}/image"].copy()))
-        raise ValueError(
-            f"{self.name}: no exported mock scene for (scene, prior, n_stars, "
-            f"truth_seed, data_seed) = {key}; run "
-            "scripts/export_torch_scenes.py with the JAX package to add it")
+        the truth, then a Poisson draw of its render from key(data_seed),
+        JAX's bits for any scene, prior, star count and seeds."""
+        theta = self.make_truth()
+        x, y, f = constrain(theta, self.scene)
+        return theta, make_mock_image(key(self.data_seed), x, y, f, self.scene)
 
 
 CONFIGS: dict[str, RunConfig] = {}

@@ -167,6 +167,16 @@ def _cli(*args):
                           capture_output=True, text=True, timeout=120, env=env)
 
 
+def test_crowded_start_is_bench_py_start():
+    """The crowded mutation leg starts from bench.py:280-281's theta0."""
+    jcfg = JAX_CONFIGS["cfg4_crowded"]
+    want = (starcat.sample_prior(jax.random.key(5), jcfg.kmax, jcfg.prior)[None]
+            + 0.01 * jax.random.normal(jax.random.key(6), (C, jcfg.kmax, 3)))
+    got = bench.crowded_theta0(CONFIGS["cfg4_crowded"], C)
+    assert got.shape == (C, jcfg.kmax, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
 def test_cli_prints_the_headline_last():
     res = _cli("--device", "cpu", "--chains", "8", "--leapfrog", "3", "--scan", "2",
                "--repeats", "1")

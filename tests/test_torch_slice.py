@@ -1,7 +1,7 @@
 """The starcat_torch slice end to end on the CPU: the fixed-K heads against
 the NumPy oracle, short runs of the cfg2 (NUTS), cfg6 (ChEES) and cfg7
-(ADVI) presets, the CLI, the committed scenes, kernel selection, and the
-package's independence from JAX."""
+(ADVI) presets, the CLI, the presets' scenes and others drawn without JAX,
+kernel selection, and the package's independence from JAX."""
 import dataclasses
 import json
 import os
@@ -15,6 +15,7 @@ import torch
 
 from oracle.numpy_sampler import run_oracle
 from starcat.configs import CONFIGS as JAX_CONFIGS
+from starcat.potential import constrain as starcat_constrain
 from starcat_torch import api, diagnostics
 from starcat_torch.configs import CONFIGS, apply_overrides
 
@@ -126,10 +127,32 @@ def test_committed_scenes_equal_jax_make_data(name, jax_name):
     assert theta_t.dtype == torch.float32 and img_t.dtype == torch.float32
 
 
-def test_make_data_refuses_other_seeds():
-    cfg = dataclasses.replace(CONFIGS["cfg6_chees"], data_seed=13)
-    with pytest.raises(ValueError, match="export_torch_scenes.py"):
-        cfg.make_data()
+def test_cli_runs_a_seed_no_preset_has():
+    res = _cli("run", "--config", "cfg6_chees", "data_seed=13", "n_chains=4",
+               "n_warmup=10", "n_samples=10", "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rec["config"] == "cfg6_chees" and rec["stats"]["kernel"] == "torch"
+    assert np.isfinite(rec["summary"]["total_flux"]["mean"])
+
+
+def test_sample_takes_an_image_of_a_new_size():
+    """api.sample on a caller's 24x40 image starts its chains from the
+    config's drawn truth, the JAX package's own."""
+    cfg = apply_overrides(CONFIGS["cfg6_chees"], {
+        "scene.height": 24, "scene.width": 40, "n_stars": 3, "kmax": 3, "n_chains": 4,
+        "n_warmup": 10, "n_samples": 5, "truth_seed": 40, "data_seed": 41,
+        "chees.max_leapfrog": 16})
+    jax_cfg6 = JAX_CONFIGS["cfg6_chees"]
+    jcfg = dataclasses.replace(jax_cfg6, scene=jax_cfg6.scene._replace(height=24, width=40),
+                               n_stars=3, kmax=3, truth_seed=40, data_seed=41)
+    truth_j, img_j = jcfg.make_data()
+    image = np.asarray(img_j) + 1.0
+    out = api.sample(cfg, "cpu", seed=0, image=image)
+    assert out.thetas.shape == (4, 5, 3, 3) and np.isfinite(out.thetas).all()
+    truth_t = dict(zip("xyf", (np.asarray(v) for v in starcat_constrain(truth_j, jcfg.scene))))
+    for k in "xyf":
+        np.testing.assert_allclose(out.stats["truth"][k], truth_t[k], rtol=1e-6)
 
 
 def test_kernel_selection():
