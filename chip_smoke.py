@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-1. prints the card (nvidia-smi name and power limit) and builds the five
+1. prints the card (nvidia-smi name and power limit) and builds the six
    CUDA kernels from csrc/ with nvcc, one process per source, started
    together, printing each kernel's registers and spills;
 2. holds the fused leapfrog kernel (B1/B2) against its plain torch version
@@ -129,9 +129,34 @@
    the drawn 64x64 image, L = 10, with and without an entry gradient) is
    held against its plain version, float64 as arbiter, and its error goes
    into B5's row; prints each draw's host time and each run's wall;
-18. prints one JSON line with a row per kernel (launches on its paths, the
+18. the full metric beyond B6's domain, on B6c: (a) B6c against its plain
+   version chain by chain, float64 as arbiter, at a drawn 64x64 field of
+   20 stars (64 chains, K = 20, shared mask, cfg1's 16 steps x 6 sweeps)
+   and at cfg4's shape (128x128, K = 64, 16 particles with 30..64 live
+   stars, 6 x 4, beta 1 and 0.3, float64 on the first 8), at the edges of
+   its domain (K = 1 and K = 64 at 128x128, a 128x96 field with K = 40 and
+   a 49x49 one with K = 16), the same bits for a chain alone, among 7
+   others and among 300, a chain that overflows, and one trajectory timed
+   at cfg4's full width (4096 particles), its first 16 particles held
+   against the plain version, which is timed on those 16, as is the kernel;
+   (b) through the public API, B6c's launch count set to 0 just before
+   each run and read just after: cfg1_rhmc on that 64x64 field at its 64
+   chains cut to 300 + 300, whose total flux must lie within 4 posterior
+   sd of the drawn truth and within 4 combined standard errors of the same
+   run on the diagonal metric (B4); cfg4_crowded with smc.mutation=rhmc at
+   4096 particles for 2 temperature steps, printed beside the diagonal
+   mutation's 2 steps; cfg5_transdim_mcmc with tdm.mutation=rhmc on the
+   64x64 field (K_max 24, 256 chains, 30 + 30); each must run through
+   B6c with finite draws, and after each B6c run the kernel is held at
+   that run's shape on its last state, adapted step and temperature (the
+   rhmc head's 64 chains, 1024 of cfg4's particles at beta ~0.006, cfg5's
+   256 chains with their per-chain masks): solver verdicts, and the
+   well-conditioned chains against float64;
+19. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
-   bound: the least time the card could take for the same work).
+   bound: the least time the card could take for the same work; B6c's row
+   also gives the particles of its timed launch, the plain version's, and
+   the kernel's time on the plain version's, ms_same).
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -2169,6 +2194,382 @@ def run_mock_scenes(api, configs, dev, fl, flc):
     return launches, err_b5
 
 
+# phase 18: the full metric beyond B6's domain.  The rhmc head's leg runs
+# cfg1_rhmc on a drawn 64x64 field of 20 stars at the preset's 64 chains,
+# warmup and samples cut from 400 + 1000 to 300 + 300, on the full metric
+# (B6c) and on its diagonal (B4); cfg4 with the full-metric mutation runs
+# 2 temperature steps at the preset's 4096 particles; cfg5 with the
+# full-metric move runs 30 + 30 transitions at its 256 chains on the 64x64
+# field with K_max 24
+WIDE_FIELD = {"scene.height": 64, "scene.width": 64, "n_stars": 20, "truth_seed": 41,
+              "data_seed": 42}
+B6C_RHMC = {**WIDE_FIELD, "kmax": 20, "n_warmup": 300, "n_samples": 300}
+B6C_CFG4 = {"smc.mutation": "rhmc", "smc.max_steps": 2}
+B6C_CFG5 = {**WIDE_FIELD, "kmax": 24, "tdm.mutation": "rhmc", "n_warmup": 30,
+            "n_samples": 30}
+B6C_CFG4_HELD = 1024  # cfg4's particles held against the plain version
+# B6c's edges: (chains, K, H, W) on cuts of the crowded image
+B6C_EDGES = ((7, 1, 128, 128), (5, 64, 128, 128), (9, 40, 128, 96), (9, 16, 49, 49))
+
+
+def _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi):
+    """B6c's plain version 32 chains a call, in the inputs' dtype."""
+    import torch
+
+    c = theta.shape[0]
+    parts = [fr.fused_rhmc_reference(spec, img, pr, theta[i:i + 32], xi[i:i + 32],
+                                     eps[i:i + 32], mask[i:i + 32] if mask.ndim == 2 else mask,
+                                     beta, n_steps, fpi) for i in range(0, c, 32)]
+    return [torch.cat(o) for o in zip(*parts)]
+
+
+def _hold_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mask, beta,
+              n64, crowded):
+    """B6c against its plain version (32 chains a call), chain by chain
+    (_compare_chains), the first n64 chains with the float64 arbiter too, and
+    its dead slots frozen.  The crowded field's energies get eight float32
+    spacings and its momenta, p = L xi with L growing with the Fisher
+    information of its bright stars, the bar relative to 1 + |p|, as B4's
+    (phase 6).  Returns the largest theta error."""
+    import torch
+
+    dev = theta.device
+    out = frc.make_fused_rhmc(spec, img, pr, k, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(beta, device=dev))
+    c = theta.shape[0]
+    ref = _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
+    spacings = 8 if crowded else 4
+    e = 0.0
+    if n64 < c:  # every chain against the plain version alone
+        e = _compare_chains(f"B6c {name}", out, ref, h_spacings=spacings, p_rel=crowded)
+    if n64:  # the first n64 with the float64 arbiter too
+        m = mask[:n64] if mask.ndim == 2 else mask
+        ref64 = fr.fused_rhmc_reference(spec, img.double(), pr, theta[:n64].double(),
+                                        xi[:n64].double(), eps[:n64].double(),
+                                        m.double(), beta, n_steps, fpi)
+        e = max(e, _compare_chains(f"B6c {name}, {n64} of {c} with float64",
+                                   [o[:n64] for o in out], [r[:n64] for r in ref], ref64,
+                                   h_spacings=spacings, p_rel=crowded))
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    dead = (live == 0) & (out[5] < SOLVER_TOL)[:, None]
+    if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+        raise AssertionError(f"B6c {name}: a dead slot moved")
+    return e
+
+
+def _arbitrate_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mask,
+                   beta, crowded, min_conv):
+    """B6c on a run's own state.  Solver verdicts agree with the plain
+    version's on at least 99% of the chains, and at least min_conv chains
+    converged in both.  float64 then sorts the converged chains: on a
+    well-conditioned one the fixed points converged to TIGHT in the kernel
+    and in both plain versions, and every output of the float32 plain
+    version lies within RTOL of the float64 one's (energies _h_tol, eight
+    spacings on the crowded field; p relative to 1 + |p|, as phase 6 holds
+    B4's, since p = L xi grows with the Fisher information of a run's
+    bright stars), and there the kernel's must lie no farther from float64
+    than the plain version's, plus RTOL, chain by chain; at least 8 chains
+    must be well-conditioned.  On the others the trajectory amplifies
+    float32 rounding beyond RTOL in any float32 program (on the H100 the
+    plain version alone moved a tightly converged chain's theta by 1.5e-4
+    between a launch of 1 chain and one of 32), so their distances are only
+    printed.  Dead slots frozen."""
+    import torch
+
+    dev = theta.device
+    out = frc.make_fused_rhmc(spec, img, pr, k, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(beta, device=dev))
+    ref = _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
+    c = theta.shape[0]
+    fail_k, fail_r = ~(out[5] < SOLVER_TOL), ~(ref[5] < SOLVER_TOL)
+    disagree = int((fail_k != fail_r).sum())
+    conv = ~fail_k & ~fail_r
+    n_conv = int(conv.sum())
+    print(f"B6c {name}: solver failures kernel {int(fail_k.sum())}, plain "
+          f"{int(fail_r.sum())}, disagreeing {disagree} of {c}; {n_conv} converged in both")
+    if disagree > 0.01 * c:
+        raise AssertionError(f"B6c {name}: {disagree} chains' solver verdicts disagree")
+    if n_conv < min_conv:
+        raise AssertionError(f"B6c {name}: only {n_conv} of {c} chains converged, "
+                             f"fewer than {min_conv}")
+    idx = conv.nonzero()[:, 0]
+    m = mask[idx] if mask.ndim == 2 else mask
+    ref64 = _plain_b6c(fr, spec, img.double(), pr, theta[idx].double(), xi[idx].double(),
+                       eps[idx].double(), m.double(), beta, n_steps, fpi)
+    ok = ref64[5] < SOLVER_TOL
+
+    def dist(x, z, rel):
+        d = (x[idx].double() - z).abs()
+        return _per_chain(d / (1.0 + z.abs()) if rel else d)
+
+    dk, dp, tol = {}, {}, {}
+    for nm, a, b, z in zip(("theta", "p", "h0", "h1", "u1"), out, ref, ref64):
+        dk[nm], dp[nm] = dist(a, z, nm == "p"), dist(b, z, nm == "p")
+        tol[nm] = _h_tol(z[ok], 8 if crowded else 4) if nm in ("h0", "h1", "u1") else RTOL[nm]
+    well = ok & (out[5][idx] < TIGHT) & (ref[5][idx] < TIGHT) & (ref64[5] < TIGHT)
+    for nm in dk:
+        well &= dp[nm] <= tol[nm]
+    ill = ok & ~well
+    worst = torch.argsort(dk["theta"] - dp["theta"], descending=True)[:4].tolist()
+    print(f"B6c {name}: the converged chains whose kernel theta is farthest beyond the "
+          "plain version's from float64 (chain, resid kernel / plain / float64, theta "
+          "kernel / plain from float64, well-conditioned): " + "; ".join(
+              f"{int(idx[i])}, {float(out[5][idx[i]]):.2e} / {float(ref[5][idx[i]]):.2e} / "
+              f"{float(ref64[5][i]):.2e}, {float(dk['theta'][i]):.2e} / "
+              f"{float(dp['theta'][i]):.2e}, {bool(well[i])}" for i in worst))
+    far = {nm: (float(dk[nm][well].max()), float(dp[nm][well].max()))
+           if bool(well.any()) else None for nm in dk}
+    print(f"B6c {name}: {int(ok.sum())} converged in float64 too, {int(well.sum())} "
+          f"well-conditioned; there against float64 (kernel, plain float32) {json.dumps(far)}; "
+          f"tolerances {json.dumps(tol)}; on the {int(ill.sum())} others theta "
+          f"{float(dk['theta'][ill].max()) if bool(ill.any()) else 0.0} (kernel), "
+          f"{float(dp['theta'][ill].max()) if bool(ill.any()) else 0.0} (plain float32)")
+    if int(well.sum()) < 8:
+        raise AssertionError(f"B6c {name}: only {int(well.sum())} well-conditioned chains")
+    for nm in dk:
+        bad = well & (dk[nm] > dp[nm] + tol[nm])
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            raise AssertionError(f"B6c {name}: chain {int(idx[i])}'s {nm} is "
+                                 f"{float(dk[nm][i])} from float64, the plain version's "
+                                 f"{float(dp[nm][i])}")
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    dead = (live == 0) & (~fail_k)[:, None]
+    if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+        raise AssertionError(f"B6c {name}: a dead slot moved")
+
+
+def check_b6c_kernel(frc, fr, rhmc_mod, configs, dev):
+    """Phase 18a: B6c against its plain version, chain by chain (float64 as
+    arbiter), at the drawn 64x64 field with K = 20 (64 chains, shared mask,
+    cfg1's 16 steps x 6 sweeps) and at cfg4's shape (128x128, K = 64, 16
+    particles with 30..64 live stars, B4's step over 3, 6 x 4, beta 1 and
+    0.3; float64 on the first 8), at the edges of its domain (B6C_EDGES,
+    beta 0.7), the same bits for a chain alone, among 7 others and among
+    300, a chain that overflows, and one timed trajectory at cfg4's full
+    width (4096 particles), its first 16 particles held against the plain
+    version, which is timed on those 16.  Phase 18b holds the kernel at
+    each run's own state and step.  Returns the largest theta error and the
+    times."""
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    wide = apply_overrides(configs["cfg1_rhmc"], B6C_RHMC)
+    w_truth, w_image = wide.make_data()
+    w_img, w_spec, prior = w_image.to(dev), wide.scene, wide.prior
+    cfg4 = configs["cfg4_crowded"]
+    c_truth, c_image = cfg4.make_data()
+    c_img, c_spec = c_image.to(dev), cfg4.scene
+    err = 0.0
+
+    theta, xi, eps, mask = _rhmc_inputs(w_truth, 64, 20, dev, 60, False)
+    err = max(err, _hold_b6c(frc, fr, "64x64 K=20 (64 chains, 16 x 6)", w_spec, w_img, prior,
+                             20, 16, 6, theta, xi, eps / 3.0, mask, 1.0, 64, False))
+    # B4's inputs at a third of its step: at B4's own step (0.04-0.06) 4 of
+    # 16 particles at beta 0.3 do not converge to TIGHT on the H100, in the
+    # kernel and the plain version alike, below _compare_chains' 80%; the
+    # step the cfg4 mutation takes is held in phase 18b on its own state
+    for i, beta in enumerate((1.0, 0.3)):
+        theta, xi, eps, mask = b4_inputs(c_truth, 16, 64, dev, 61 + i, True)
+        err = max(err, _hold_b6c(frc, fr, f"cfg4 shape beta={beta} (16 particles, 6 x 4)",
+                                 c_spec, c_img, cfg4.prior, 64, 6, 4, theta, xi, eps / 3.0,
+                                 mask, beta, 8, True))
+    for i, (c, k, h, w) in enumerate(B6C_EDGES):
+        e_spec, e_img, theta, xi, eps, mask = _cut_inputs(h, w, k, c, dev, 63 + i)
+        err = max(err, _hold_b6c(frc, fr, f"edge C={c} K={k} {h}x{w}", e_spec, e_img,
+                                 cfg4.prior, k, 6, 4, theta, xi, eps, mask, 0.7, 0, h == 128))
+
+    # nothing of one chain reaches another through the workspace: a chain's
+    # bits alone, among 7 others and among 300, and on a rerun
+    e_spec, e_img, theta, xi, eps, mask = _cut_inputs(49, 49, 16, 300, dev, 68)
+    fused = frc.make_fused_rhmc(e_spec, e_img, cfg4.prior, 16, 6, 4)
+    full = fused(theta, xi, eps, mask)
+    if not _same_bits(full, fused(theta, xi, eps, mask)):
+        raise AssertionError("B6c: a rerun gave other bits")
+    for idx in ([5], [0, 9, 17, 5, 41, 52, 63, 299]):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(),
+                     mask[sel].contiguous())
+        if not _same_bits(part, [o[sel] for o in full]):
+            raise AssertionError(f"B6c: chains {idx} differ from the 300-chain launch")
+    print("B6c: chain 5 gives the same bits alone, among 7 others and among 300 "
+          f"({frc.launch_layout(300, 16, 49, 49)}), and on a rerun")
+
+    # a chain that overflows (exp(95) > float32's range): NaN residual,
+    # reported by the transition as a solver failure and rejected
+    c = 64
+    theta, xi, eps, mask = _rhmc_inputs(w_truth, c, 20, dev, 69, True)
+    theta[0, :, 2] = 95.0
+    fused = frc.make_fused_rhmc(w_spec, w_img, prior, 20, 6, 4)
+    out = fused(theta, xi, eps / 3.0, mask)
+    new, info = rhmc_mod.rhmc_transition(
+        rhmc_mod.ChainState(theta, torch.zeros(c, device=dev), torch.zeros_like(theta)), xi,
+        torch.full((c,), 0.5, device=dev), torch.full((c,), 0.01, device=dev),
+        fused, torch.tensor(0.01, device=dev), mask)
+    if not (bool(torch.isnan(out[5][0])) and bool(info.solver_fail[0])
+            and not bool(info.accepted[0]) and torch.equal(new.theta[0], theta[0])):
+        raise AssertionError(f"B6c: the overflowing chain was not a solver failure "
+                             f"(resid {float(out[5][0])})")
+    if not bool(torch.isfinite(out[5][1:]).all()):
+        raise AssertionError("B6c: the overflowing chain reached another chain")
+    print(f"B6c overflowing chain: resid NaN -> solver failure, rejected; "
+          f"the other {c - 1} chains finite")
+
+    # one trajectory at cfg4's full width, the plain version on 16 particles
+    n_steps, fpi = cfg4.smc.n_leapfrog, cfg4.smc.fixed_point_iters
+    p_all = cfg4.smc.n_particles
+    fused = frc.make_fused_rhmc(c_spec, c_img, cfg4.prior, 64, n_steps, fpi)
+    theta, xi, eps, mask = b4_inputs(c_truth, p_all, 64, dev, 70, True)
+    eps = eps / 3.0
+    t0 = time.perf_counter()
+    fused(theta, xi, eps, mask, 1.0)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if first > 60.0:
+        print(f"B6c: one trajectory of {p_all} particles took {first:.1f} s; timing 1024")
+        p_all = 1024
+        theta, xi, eps, mask = (t[:p_all].contiguous() for t in (theta, xi, eps, mask))
+    last = []
+    ms = {"b6c": _time_ms(lambda: last.append(fused(theta, xi, eps, mask, 1.0)), 2, warmup=0),
+          "particles": p_all,
+          "ops": sum(rhmc_full_ops(1, int(n), 128, 128, n_steps, fpi)
+                     for n in mask.sum(1).tolist())}
+    sub = tuple(t[:16].contiguous() for t in (theta, xi, eps, mask))
+    plain = []
+    ms["b6c_plain"] = _time_ms(lambda: plain.append(fr.fused_rhmc_reference(
+        c_spec, c_img, cfg4.prior, *sub, 1.0, n_steps, fpi)), 1, warmup=0)
+    ms["plain_particles"] = 16
+    # the kernel on the same 16, for a like-for-like reading of the plain time
+    ms["b6c_16"] = _time_ms(lambda: fused(*sub, 1.0), 2, warmup=1)
+    err = max(err, _compare_chains(f"B6c timed launch, the first 16 of {p_all} particles",
+                                   [o[:16] for o in last[-1]], plain[-1], h_spacings=8,
+                                   p_rel=True))
+    lay = frc.launch_layout(p_all, 64, 128, 128)
+    print(f"B6c ({p_all} particles, K=64, {int(mask.sum())} live stars, 128x128, {n_steps} "
+          f"steps x {fpi} sweeps): kernel {ms['b6c']:.3f} ms per trajectory; on 16 of them "
+          f"kernel {ms['b6c_16']:.3f} ms, plain {ms['b6c_plain']:.3f} ms; layout {lay}")
+    return err, ms
+
+
+def _run_state(out, dev, seed, n=None):
+    """The next transition's inputs from a run's last state: each chain's
+    (or particle's) last draw and mask, standard-normal xi and the run's
+    adapted step jittered by +-20% per chain, as rhmc_transition does; the
+    first n chains only, given n."""
+    import torch
+
+    theta = torch.as_tensor(out.thetas[:n, -1], dtype=torch.float32)
+    m = out.masks
+    mask = torch.as_tensor(m if m.ndim == 1 else (m[:n, -1] if m.ndim == 3 else m[:n]),
+                           dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    theta, mask = theta.to(dev).contiguous(), mask.to(dev).contiguous()
+    xi = torch.randn(theta.shape, generator=gen, device=dev)
+    eps = out.stats["step_size"] * (
+        0.8 + 0.4 * torch.rand((theta.shape[0],), generator=gen, device=dev))
+    return theta, xi, eps, mask
+
+
+def run_full_crowded_slice(api, configs, dev, frc, fr):
+    """Phase 18b: the full metric beyond B6's domain through the public API,
+    B6c's launch count set to 0 just before each run and read just after:
+    the rhmc head on the drawn 64x64 field (B6C_RHMC, then the same on the
+    diagonal metric, B4), cfg4 with the full-metric mutation (B6C_CFG4,
+    then with the preset's diagonal one) and cfg5 with the full-metric
+    move (B6C_CFG5).  After each B6c run (its count read), B6c is held
+    at that run's shape on its last state, at its adapted step and
+    temperature (_run_state, _arbitrate_b6c): the rhmc head's 64 chains and
+    cfg5's 256 chains with their per-chain masks, 80% of them converged,
+    and the first B6C_CFG4_HELD of cfg4's particles at beta ~0.006, where
+    the full metric's mutation fails the solver on most particles (the run
+    rejects those), at least 8 of them converged.  Returns B6c's
+    launches."""
+    import numpy as np
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    launches = 0
+
+    def run(name, over, want_kernel):
+        nonlocal launches
+        cfg = apply_overrides(configs[name], over)
+        frc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = frc.LAUNCHES
+        st = out.stats
+        if st["trajectory_kernel"] != want_kernel or st["kernel_launches"] <= 0:
+            raise AssertionError(f"{name} {over} did not run through {want_kernel}: "
+                                 f"{st['trajectory_kernel']} x{st['kernel_launches']}")
+        if want_kernel == "B6c":
+            if n <= 0 or n != st["kernel_launches"]:
+                raise AssertionError(f"{name} {over}: B6c launches {n}, the run's "
+                                     f"{st['kernel_launches']}")
+            launches += n
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{name} {over}: non-finite draws")
+        print(f"B6c slice {name} {json.dumps(over)}: {wall:.3f} s wall, "
+              f"{st['trajectory_kernel']} x{st['kernel_launches']}, accept {st['accept']:.3f}, "
+              f"step {st['step_size']:.5f}, solver rejections {st.get('solver_rejections')}")
+        return out, api.summarize_output(out)
+
+    def hold(label, out, sub, beta, n, crowded, seed, min_conv):
+        """B6c at a run's shape on its last state (launched after the
+        run's count was read)."""
+        cfg = out.config
+        image = cfg.make_data()[1].to(dev)
+        theta, xi, eps, mask = _run_state(out, dev, seed, n)
+        return _arbitrate_b6c(frc, fr, f"{label} on the run's last state (beta {beta:.6f}, "
+                              f"step {out.stats['step_size']:.5f})", cfg.scene, image,
+                              cfg.prior, cfg.kmax, sub.n_leapfrog, sub.fixed_point_iters,
+                              theta, xi, eps, mask, beta, crowded, min_conv)
+
+    full, s_full = run("cfg1_rhmc", B6C_RHMC, "B6c")
+    hold("rhmc head 64x64 K=20 (64 chains, 16 x 6)", full, full.config.rhmc, 1.0, None,
+         False, 71, 0.8 * full.thetas.shape[0])
+    diag, s_diag = run("cfg1_rhmc", {**B6C_RHMC, "rhmc.metric": "diag"}, "B4")
+    truth = float(np.sum(full.stats["truth"]["f"]))
+    tf, td = s_full["total_flux"], s_diag["total_flux"]
+    se = float(np.hypot(tf["mcse"], td["mcse"]))
+    print(f"rhmc on the drawn 64x64 field: total flux full {tf['mean']:.2f} ± {tf['sd']:.2f} "
+          f"(ESS {tf['ess']:.0f}, R-hat {tf['rhat']:.4f}), diagonal {td['mean']:.2f} ± "
+          f"{td['sd']:.2f} (ESS {td['ess']:.0f}); truth {truth:.2f}; combined standard "
+          f"error {se:.3f}")
+    if not abs(tf["mean"] - truth) <= 4 * tf["sd"]:
+        raise AssertionError(f"rhmc full on the 64x64 field: total flux {tf['mean']} ± "
+                             f"{tf['sd']} vs the drawn truth {truth}")
+    if not abs(tf["mean"] - td["mean"]) <= 4 * se:
+        raise AssertionError(f"rhmc full vs diag on the 64x64 field: {tf['mean']} vs "
+                             f"{td['mean']}, combined standard error {se}")
+
+    rows = {}
+    for label, over, kernel in (("full", B6C_CFG4, "B6c"),
+                                ("diagonal", {"smc.max_steps": 2}, "B4")):
+        out, summ = run("cfg4_crowded", over, kernel)
+        st = out.stats
+        if kernel == "B6c":
+            hold(f"cfg4 mutation 128x128 K=64 ({B6C_CFG4_HELD} of {out.thetas.shape[0]} "
+                 f"particles, 6 x 4)", out, out.config.smc, st["beta"], B6C_CFG4_HELD, True,
+                 72, 8)
+        rows[label] = (st["beta"], st["log_z"], st["accept"], summ["star_count"]["mean"])
+        if not (0.0 < st["beta"] and np.isfinite(st["log_z"]) and st["n_temp_steps"] == 2):
+            raise AssertionError(f"cfg4 {label}: beta {st['beta']}, log Z {st['log_z']} "
+                                 f"after {st['n_temp_steps']} steps")
+    for label, (beta, log_z, acc, mean_n) in rows.items():
+        print(f"cfg4 after 2 temperature steps, {label} metric: beta {beta:.6f}, log Z "
+              f"{log_z:.3f}, accept {acc:.3f}, mean star count {mean_n:.3f}")
+
+    out, _ = run("cfg5_transdim_mcmc", B6C_CFG5, "B6c")
+    hold("cfg5 trans-d 64x64 K=24 (256 chains, 6 x 4)", out, out.config.tdm, 1.0, None,
+         False, 73, 0.8 * out.thetas.shape[0])
+    return launches
+
+
 def leapfrog_ops(c, k, h, w, n_steps, grad_in):
     """B1/B2/B5: the render (one FMA) and the contraction (two FMAs) per
     star and pixel of every gradient evaluation."""
@@ -2222,7 +2623,7 @@ def _build_all(build):
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("fused_leapfrog", "fused_rhmc_diag", "fused_rhmc", "fused_leapfrog_crowded",
-             "fused_rhmc_diag_crowded")
+             "fused_rhmc_diag_crowded", "fused_rhmc_crowded")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build_kernel, names)))
@@ -2251,6 +2652,7 @@ def main() -> int:
     from starcat_torch import fused_leapfrog as fl
     from starcat_torch import fused_leapfrog_crowded as flc
     from starcat_torch import fused_rhmc as fr
+    from starcat_torch import fused_rhmc_crowded as frc
     from starcat_torch import fused_rhmc_diag as frd
     from starcat_torch import fused_rhmc_diag_crowded as frdc
     from starcat_torch.configs import CONFIGS
@@ -2367,6 +2769,15 @@ def main() -> int:
     print(f"mock-scene path: {time.perf_counter() - t0:.3f} s wall; launches {mock}")
     for name, n in mock.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    err_b6c, ms_b6c = check_b6c_kernel(frc, fr, rhmc, CONFIGS, dev)
+    print(f"B6c kernel checks: {time.perf_counter() - t0:.3f} s wall")
+    t0 = time.perf_counter()
+    launches["b6c"] = run_full_crowded_slice(api, CONFIGS, dev, frc, fr)
+    print(f"full metric beyond B6's domain: {time.perf_counter() - t0:.3f} s wall; B6c "
+          f"launches {launches['b6c']}")
+    if launches["b6c"] <= 0:
+        raise AssertionError("B6c was never launched on its path")
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
@@ -2377,8 +2788,8 @@ def main() -> int:
     # the timed shapes: B1/B2 C = 1024, K = 10, 32x32, L = 20, entry gradient
     # in; B3 256 chains, K = 16, 32x32, 6 x 4, per-chain masks; B6 4096
     # particles, K = 16, 32x32, 6 x 4, per-chain masks; B5 1024 chains, K =
-    # 50, 128x128, L = 10, entry gradient in; B4 4096 particles, K = 64
-    # (30..64 live), 128x128, 6 x 4, per-chain masks
+    # 50, 128x128, L = 10, entry gradient in; B4 and B6c 4096 particles, K =
+    # 64 (30..64 live), 128x128, 6 x 4, per-chain masks
     b12 = bound_ms(leapfrog_ops(1024, 10, 32, 32, 20, True),
                    leapfrog_bytes(1024, 10, 32, 32, True))
     b3 = bound_ms(rhmc_diag_ops(256, 16, 32, 32, 6, 4), rhmc_bytes(256, 16, 32, 32, True))
@@ -2388,6 +2799,8 @@ def main() -> int:
     # B4 skips dead stars: its work is that of the timed inputs' live ones
     b4 = bound_ms(rhmc_diag_ops(1, ms_b4["b4_live"], 128, 128, 6, 4),
                   rhmc_bytes(4096, 64, 128, 128, True))
+    # B6c too: the pair work of each particle's live stars
+    b6c = bound_ms(ms_b6c["ops"], rhmc_bytes(ms_b6c["particles"], 64, 128, 128, True))
 
     def row(name, source, replaces, n, e, t, t_plain, bound):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2414,7 +2827,14 @@ def main() -> int:
         row("fused_rhmc (B6, full-Fisher Riemannian trajectory)",
             "starcat_torch/csrc/fused_rhmc.cu", "starcat/pallas_rhmc.py:663",
             launches["b6"], err_b6, ms_b6["cfg3"], ms_b6["cfg3_plain"], b6),
+        row("fused_rhmc_crowded (B6c, full-Fisher trajectory beyond B6's domain)",
+            "starcat_torch/csrc/fused_rhmc_crowded.cu", "starcat/api.py:205",
+            launches["b6c"], err_b6c, ms_b6c["b6c"], ms_b6c["b6c_plain"], b6c),
     ]
+    # B6c's kernel time and bound are of the full-width launch, its plain
+    # time of the first plain_particles of it (the kernel on those: ms_same)
+    rows[-1].update(particles=ms_b6c["particles"], plain_particles=ms_b6c["plain_particles"],
+                    ms_same=ms_b6c["b6c_16"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ diagonal-Fisher Riemannian trajectory (`fused_rhmc_diag.py`) the one of
 `starcat/pallas_rhmc_diag.py` that small scenes run (B3), and on crowded
 fields (`fused_rhmc_diag_crowded.py`) its MXU variant (B4); the full-Fisher
 Riemannian trajectory (`fused_rhmc.py`) the one of `starcat/pallas_rhmc.py`
-(B6).  `dispatch.py` picks the kernel of each pair by the scene's shape.
+(B6), and on crowded fields (`fused_rhmc_crowded.py`, B6c) the XLA route the
+JAX package takes beyond that kernel's gate.  `dispatch.py` picks the kernel
+of each of the three pairs by the scene's shape.
 """
 from .potential import (
     PriorSpec,

@@ -11,7 +11,7 @@ advi's gradients are the plain leapfrog kernel's), ``rhmc_full_cuda`` /
 and ``<mutation>_cuda`` / ``<mutation>_torch`` for smc and transdim (the
 smc ``hmc`` mutation has no kernel and is always ``hmc_torch``);
 ``stats["trajectory_kernel"]``
-names the CUDA kernel (B1, B2, B3, B4, B5 or B6, chosen by
+names the CUDA kernel (B1, B2, B3, B4, B5, B6 or B6c, chosen by
 dispatch.trajectory_kernel from the scene's shape; "torch" on the plain
 path) and ``stats["kernel_launches"]`` counts the kernels' launches.
 The run draws every random number from one ``torch.Generator`` on the
@@ -47,6 +47,7 @@ from . import (
     fused_leapfrog,
     fused_leapfrog_crowded,
     fused_rhmc,
+    fused_rhmc_crowded,
     fused_rhmc_diag,
     fused_rhmc_diag_crowded,
 )
@@ -65,8 +66,8 @@ PORTED_HEADS = ("hmc", "oracle", "nuts", "chees", "rhmc", "smc", "advi", "transd
 UNPORTED_HEADS: dict[str, str] = {}
 ADVI_DRAWS = 1000   # iid draws from the fitted q, as the reference's record
 ADVI_WINDOWS = 5    # advi_window records of the ELBO trace
-_KERNELS = (fused_leapfrog, fused_leapfrog_crowded, fused_rhmc, fused_rhmc_diag,
-            fused_rhmc_diag_crowded)
+_KERNELS = (fused_leapfrog, fused_leapfrog_crowded, fused_rhmc, fused_rhmc_crowded,
+            fused_rhmc_diag, fused_rhmc_diag_crowded)
 
 
 @dataclass
@@ -94,7 +95,7 @@ def _check_head(cfg: RunConfig) -> None:
 
 
 def _metric_of(cfg: RunConfig) -> str | None:
-    """The Riemannian metric the head's kernel runs ("full": B6, "diag":
+    """The Riemannian metric the head's kernel runs ("full": B6/B6c, "diag":
     B3/B4), or None for the plain leapfrog (B1/B2/B5; the smc hmc mutation)."""
     if cfg.head == "rhmc":
         return cfg.rhmc.metric
@@ -107,9 +108,9 @@ def _metric_of(cfg: RunConfig) -> str | None:
 
 def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     """RunConfig.kernel -> "cuda" or "torch".  Nothing falls back: "cuda"
-    off a CUDA device or off the domain of the kernel the head runs raises,
-    and "auto" on a CUDA device takes the kernel (which raises off its
-    domain)."""
+    off a CUDA device or beyond the domains of both kernels of the head's
+    pair (dispatch.py: B1/B5, B3/B4, B6/B6c) raises, and "auto" on a CUDA
+    device takes the pair's kernel (which raises beyond both domains)."""
     if pref not in ("auto", "cuda", "torch"):
         raise ValueError(f"kernel must be 'auto'|'cuda'|'torch', got {pref!r}")
     metric = _metric_of(cfg)

@@ -6,8 +6,9 @@ toolkit or a failed compile raises.  :func:`check_tensor` is the wrappers'
 common check of what they pass a kernel; :func:`launch_leapfrog` is the
 one launch of the two leapfrog trajectory kernels (B1/B2, B5), behind
 B1's and B2's contracts in :class:`LeapfrogKernel`, and
-:func:`launch_riemannian` that of the three Riemannian trajectory kernels
-(B3, B4, B6): the kernels of each family share their C interface.
+:func:`launch_riemannian` that of the four Riemannian trajectory kernels
+(B3, B4, B6, B6c): the kernels of each family share their C interface, B6c's
+with a workspace and its grid besides.
 """
 from __future__ import annotations
 
@@ -206,6 +207,12 @@ class LeapfrogKernel:
 
         return fused
 
+
+# the Riemannian kernels whose entry takes a workspace's pointer and the
+# grid it is sized for, before the stream
+WORKSPACE_KERNELS = frozenset({"fused_rhmc_crowded"})
+
+
 @functools.cache
 def riemannian_library(name: str) -> ctypes.CDLL:
     """csrc/<name>.cu's library (built at first use), its trajectory entry
@@ -213,7 +220,8 @@ def riemannian_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernel(name)[0]))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, f"starcat_{name}")
-    fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
+    fn.argtypes = ([vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7
+                   + ([vp, ci] if name in WORKSPACE_KERNELS else []) + [vp])
     fn.restype = ci
     return _error_strings(lib)
 
@@ -243,11 +251,13 @@ def riemannian_scalars(spec, prior, jitter: float) -> tuple:
 
 def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
                       fpi: int, scalars: tuple, theta: torch.Tensor,
-                      xi: torch.Tensor, eps, mask: torch.Tensor, beta):
+                      xi: torch.Tensor, eps, mask: torch.Tensor, beta, workspace=None):
     """One launch of csrc/<name>.cu's trajectory kernel on CUDA tensors,
     after checking what it is given: theta, xi (C, K, 3), eps a scalar or
-    (C,), mask (K,) or (C, K), beta a float or one float32 on the device.
-    Returns (theta', p', h0, h1, u1, resid); raises if the launch fails."""
+    (C,), mask (K,) or (C, K), beta a float or one float32 on the device;
+    ``workspace``, for a kernel that takes one, (a float32 tensor on the
+    device, the grid it is sized for).  Returns (theta', p', h0, h1, u1,
+    resid); raises if the launch fails."""
     dev, k = theta.device, kmax
     c = theta.shape[0]
     if c < 1:
@@ -275,6 +285,15 @@ def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
     theta_out = torch.empty_like(theta)
     p_out = torch.empty_like(theta)
     outs = torch.empty((4, c), dtype=torch.float32, device=dev)
+    extra = ()
+    if (workspace is None) == (name in WORKSPACE_KERNELS):
+        raise ValueError(f"{name} takes {'a' if name in WORKSPACE_KERNELS else 'no'} workspace")
+    if workspace is not None:
+        work, grid = workspace
+        if work.device != dev or work.dtype != torch.float32 or not work.is_contiguous():
+            raise ValueError("the workspace must be a contiguous float32 tensor on the "
+                             "chains' device")
+        extra = (work.data_ptr(), int(grid))
     lib = riemannian_library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -283,7 +302,7 @@ def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
             mask_stride, beta_dev.data_ptr(), image.data_ptr(), theta_out.data_ptr(),
             p_out.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr(), outs[3].data_ptr(), c, k, image.shape[0],
-            image.shape[1], n_steps, fpi, *scalars, stream)
+            image.shape[1], n_steps, fpi, *scalars, *extra, stream)
     if rc != 0:
         msg = lib.starcat_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")

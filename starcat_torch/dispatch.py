@@ -1,11 +1,13 @@
 """Which CUDA kernel runs a trajectory, chosen by the scene's shape and the
 catalog capacity alone.
 
-Two kernels share each of three call contracts: the plain leapfrog (B1 on
+Two kernels share each of four call contracts: the plain leapfrog (B1 on
 small scenes, fused_leapfrog.py; B5 on crowded fields,
 fused_leapfrog_crowded.py), the same with a runtime step count for ChEES
-(B2, the B1 kernel; B5 again) and the diagonal-Fisher Riemannian trajectory
-(B3, fused_rhmc_diag.py; B4, fused_rhmc_diag_crowded.py).  The small-scene
+(B2, the B1 kernel; B5 again), the diagonal-Fisher Riemannian trajectory
+(B3, fused_rhmc_diag.py; B4, fused_rhmc_diag_crowded.py) and the
+full-Fisher one (B6, fused_rhmc.py; B6c, fused_rhmc_crowded.py): three
+pairs of kernels, the leapfrog's serving two contracts.  The small-scene
 kernel takes what its domain holds, the crowded-field kernel what its own
 holds, and a scene beyond both raises naming both limits.  Each domain is
 the kernel's own (its shared memory, its star count), not the reference's
@@ -32,12 +34,14 @@ from . import (
     fused_leapfrog,
     fused_leapfrog_crowded,
     fused_rhmc,
+    fused_rhmc_crowded,
     fused_rhmc_diag,
     fused_rhmc_diag_crowded,
 )
 
 LEAPFROG = ((fused_leapfrog, "B1"), (fused_leapfrog_crowded, "B5"))
 RHMC_DIAG = ((fused_rhmc_diag, "B3"), (fused_rhmc_diag_crowded, "B4"))
+RHMC_FULL = ((fused_rhmc, "B6"), (fused_rhmc_crowded, "B6c"))
 
 
 def _choose(pair, spec, kmax: int):
@@ -58,6 +62,11 @@ def leapfrog_module(spec, kmax: int):
 def rhmc_diag_module(spec, kmax: int):
     """(module, name) of the diagonal-Fisher kernel for this scene: B3 or B4."""
     return _choose(RHMC_DIAG, spec, kmax)
+
+
+def rhmc_full_module(spec, kmax: int):
+    """(module, name) of the full-Fisher kernel for this scene: B6 or B6c."""
+    return _choose(RHMC_FULL, spec, kmax)
 
 
 def make_leapfrog(spec, image, prior, kmax: int, n_steps: int):
@@ -89,16 +98,22 @@ def make_rhmc_diag(spec, image, prior, kmax: int, n_steps: int, fixed_point_iter
         spec, image, prior, kmax, n_steps, fixed_point_iters, jitter)
 
 
+def make_rhmc_full(spec, image, prior, kmax: int, n_steps: int, fixed_point_iters: int,
+                   jitter: float = 1e-3):
+    """B6's contract on the kernel that takes this scene."""
+    return rhmc_full_module(spec, kmax)[0].make_fused_rhmc(
+        spec, image, prior, kmax, n_steps, fixed_point_iters, jitter)
+
+
 def trajectory_kernel(head: str, metric: str | None, spec, kmax: int) -> str:
-    """The name of the kernel a head's trajectory runs on ("B1".."B6"):
-    ``metric`` "full" (B6) or "diag" (B3/B4) for the Riemannian heads and
-    mutations, None for the plain leapfrog (chees: B2's runtime step count,
-    on B1's kernel ("B2") or on B5; otherwise, hmc's trajectories, nuts's
-    one-step leaves and advi's gradients at n_steps = 0, B1/B5).  Raises off
-    the kernel's domain."""
+    """The name of the kernel a head's trajectory runs on ("B1".."B6",
+    "B6c"): ``metric`` "full" (B6/B6c) or "diag" (B3/B4) for the Riemannian
+    heads and mutations, None for the plain leapfrog (chees: B2's runtime
+    step count, on B1's kernel ("B2") or on B5; otherwise, hmc's
+    trajectories, nuts's one-step leaves and advi's gradients at n_steps =
+    0, B1/B5).  Raises beyond both kernels' domains."""
     if metric == "full":
-        fused_rhmc.check_domain(spec, kmax)
-        return "B6"
+        return rhmc_full_module(spec, kmax)[1]
     if metric == "diag":
         return rhmc_diag_module(spec, kmax)[1]
     name = leapfrog_module(spec, kmax)[1]

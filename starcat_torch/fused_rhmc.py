@@ -69,21 +69,26 @@ def smem_bytes(kmax: int, height: int, width: int) -> int:
                 + (3 * d + 1) * matrix_stride(d))
 
 
-def check_domain(spec: SceneSpec, kmax: int) -> None:
-    """Raise unless the kernel takes this scene and catalog capacity."""
+def domain_error(spec: SceneSpec, kmax: int) -> str | None:
+    """Why the kernel does not take this scene and catalog, or None."""
     hw = spec.height * spec.width
     if hw > MAX_PIXELS or kmax > MAX_STARS or kmax < 1:
-        raise ValueError(
-            f"the fused CUDA full-Fisher trajectory (B6) takes H*W <= "
-            f"{MAX_PIXELS} and 1 <= K <= {MAX_STARS}, got "
-            f"{spec.height}x{spec.width} and K={kmax}; on crowded fields use "
-            "rhmc.metric=diag (kernels B3 and B4)")
+        return (f"the fused CUDA full-Fisher trajectory (B6) takes H*W <= "
+                f"{MAX_PIXELS} and 1 <= K <= {MAX_STARS}, got "
+                f"{spec.height}x{spec.width} and K={kmax}")
     if smem_bytes(kmax, spec.height, spec.width) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the fused CUDA full-Fisher trajectory (B6): a "
-            f"{spec.height}x{spec.width} scene with K={kmax} needs "
-            f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
-            f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+        return (f"the fused CUDA full-Fisher trajectory (B6): a "
+                f"{spec.height}x{spec.width} scene with K={kmax} needs "
+                f"{smem_bytes(kmax, spec.height, spec.width)} bytes of shared "
+                f"memory per block, more than the card's {MAX_SMEM_BYTES}")
+    return None
+
+
+def check_domain(spec: SceneSpec, kmax: int) -> None:
+    """Raise unless the kernel takes this scene and catalog capacity."""
+    err = domain_error(spec, kmax)
+    if err is not None:
+        raise ValueError(err)
 
 
 def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:

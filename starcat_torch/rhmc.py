@@ -15,7 +15,8 @@ failures through ``divergence_penalty``.
 Every trajectory has the call contract of kernels B3 and B6:
 ``trajectory(theta, xi, eps, mask, beta) -> (theta', p', h0, h1, u1,
 resid)``.  :func:`make_trajectory` supplies it: the CUDA kernel's wrapper
-(fused_rhmc.make_fused_rhmc for the full metric, B6; for the diagonal,
+(fused_rhmc.make_fused_rhmc for the full metric, B6, or on crowded fields
+fused_rhmc_crowded.make_fused_rhmc, B6c; for the diagonal,
 fused_rhmc_diag.make_fused_rhmc_diag, B3, or on crowded fields
 fused_rhmc_diag_crowded.make_fused_rhmc_diag, B4) or its plain version.
 The transition is a pure function of its draws (xi, u_jit, u_acc).
@@ -39,7 +40,7 @@ class RHMCConfig(NamedTuple):
     fixed_point_iters: int = 6
     target_accept: float = 0.9
     divergence_threshold: float = 1000.0
-    # "full": the dense Fisher metric (kernel B6); "diag": its diagonal (B3/B4)
+    # "full": the dense Fisher metric (kernel B6/B6c); "diag": its diagonal (B3/B4)
     metric: str = "full"
     solver_tol: float = 0.05
     divergence_penalty: float = 5.0
@@ -185,19 +186,19 @@ def make_rhmc_kernel(trajectory: Callable, mask: torch.Tensor,
 def make_trajectory(spec, image: torch.Tensor, prior, kmax: int,
                     config: RHMCConfig, fused: bool, jitter: float = 1e-3):
     """The trajectory of ``config.metric``: the CUDA kernel's wrapper, B6
-    for "full" and B3 or, on crowded fields, B4 for "diag" (which run the
-    plain version only for CPU tensors), or, with ``fused=False``, the plain
-    version on any device."""
+    or, beyond its domain, B6c for "full" and B3 or, on crowded fields, B4
+    for "diag" (which run the plain version only for CPU tensors), or, with
+    ``fused=False``, the plain version on any device."""
     # imported here: the kernels' modules build their plain versions from
     # this one
-    from .dispatch import make_rhmc_diag
-    from .fused_rhmc import fused_rhmc_reference, make_fused_rhmc
+    from .dispatch import make_rhmc_diag, make_rhmc_full
+    from .fused_rhmc import fused_rhmc_reference
     from .fused_rhmc_diag import fused_rhmc_diag_reference
 
     check_metric(config.metric)
     full = config.metric == "full"
     if fused:
-        make = make_fused_rhmc if full else make_rhmc_diag
+        make = make_rhmc_full if full else make_rhmc_diag
         return make(spec, image, prior, kmax, config.n_leapfrog,
                     config.fixed_point_iters, jitter)
     return functools.partial(fused_rhmc_reference if full else fused_rhmc_diag_reference,
@@ -210,7 +211,7 @@ def make_fused_rhmc_kernel(spec, image: torch.Tensor, prior, mask: torch.Tensor,
                            config: RHMCConfig, generator: torch.Generator,
                            beta=1.0, jitter: float = 1e-3, mesh=None):
     """The RHMC kernel with every trajectory in one launch of the CUDA
-    kernel of ``config.metric`` (B6, or B3/B4); mask is (K,) or per chain (C, K)."""
+    kernel of ``config.metric`` (B6/B6c, or B3/B4); mask is (K,) or per chain (C, K)."""
     traj = make_trajectory(spec, image, prior, int(mask.shape[-1]), config,
                            True, jitter)
     return make_rhmc_kernel(traj, mask, config, generator, beta, mesh)
@@ -245,7 +246,7 @@ def run_rhmc_fused(generator: torch.Generator, spec, image: torch.Tensor, prior,
                    theta0: torch.Tensor, mask: torch.Tensor, n_samples: int,
                    n_warmup: int, config: RHMCConfig = RHMCConfig(),
                    thin: int = 1, **durability):
-    """run_rhmc with every trajectory in one launch of kernel B6, B3 or B4."""
+    """run_rhmc with every trajectory in one launch of kernel B6, B6c, B3 or B4."""
     kernel = make_fused_rhmc_kernel(spec, image, prior, mask, config, generator,
                                     mesh=durability.get("mesh"))
     return _run(kernel, spec, image, prior, theta0, mask, n_samples, n_warmup,

@@ -11,7 +11,7 @@ Per temperature step:
   4. ``n_transdim_sweeps`` birth/death + split/merge sweeps at the tempered
      log-likelihood beta * loglik, then ``n_mutation_steps`` within-model
      moves on the tempered target: ``rhmc`` (the dense Fisher metric,
-     kernel B6), ``rhmc_diag`` (its diagonal, kernel B3 or B4) or ``hmc`` (the
+     kernel B6 or B6c), ``rhmc_diag`` (its diagonal, kernel B3 or B4) or ``hmc`` (the
      plain leapfrog at unit mass; it has no kernel, here or in the
      reference); the step size follows a Robbins-Monro controller on the
      mean acceptance, and the untempered log-likelihood is refreshed.
@@ -80,7 +80,7 @@ class SMCConfig(NamedTuple):
     n_particles: int = 1024
     ess_target_frac: float = 0.5
     max_steps: int = 60
-    mutation: str = "rhmc"   # "rhmc" (B6) | "rhmc_diag" (B3/B4) | "hmc"
+    mutation: str = "rhmc"   # "rhmc" (B6/B6c) | "rhmc_diag" (B3/B4) | "hmc"
     n_mutation_steps: int = 2
     n_leapfrog: int = 8
     fixed_point_iters: int = 4
@@ -152,7 +152,7 @@ class StepDraws(NamedTuple):
 def check_mutation(mutation: str) -> None:
     if mutation not in MUTATIONS:
         raise ValueError(f"unknown SMC mutation {mutation!r}; ported: "
-                         "rhmc (B6), rhmc_diag (B3/B4), hmc")
+                         "rhmc (B6/B6c), rhmc_diag (B3/B4), hmc")
 
 
 def ess_from_logw(logw: torch.Tensor) -> torch.Tensor:
@@ -276,7 +276,7 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                   kmax: int, cfg: SMCConfig, fused: bool = False, mesh=None):
     """One temperature step, step(state, draws) -> state: reweight,
     resample, sweep, mutate.  fused=True runs the Riemannian mutations on
-    their CUDA kernels (B6 for rhmc, B3 or B4 for rhmc_diag); the hmc mutation
+    their CUDA kernels (B6 or B6c for rhmc, B3 or B4 for rhmc_diag); the hmc mutation
     always runs the plain tempered leapfrog.  Under a ``mesh`` the state's
     particles and the draws' (all but u_res) are this rank's."""
     check_mutation(cfg.mutation)

@@ -7,7 +7,7 @@ transdim.py:
   1. ``n_transdim_sweeps`` birth/death + split/merge sweeps, which change
      each chain's alive mask;
   2. one within-model move at each chain's current mask, dead slots frozen:
-     ``hmc`` (kernel B1's or B5's trajectory), ``rhmc`` (kernel B6's
+     ``hmc`` (kernel B1's or B5's trajectory), ``rhmc`` (kernel B6's or B6c's
      full-Fisher trajectory) or ``rhmc_diag`` (kernel B3's or B4's
      diagonal-Fisher trajectory), all at per-chain masks.
 
@@ -67,7 +67,7 @@ TD_MUTATIONS = ("hmc", "rhmc", "rhmc_diag")
 
 class TransDimMCMCConfig(NamedTuple):
     step_size: float = 0.1
-    # within-model move: "hmc" (B1/B5) | "rhmc" (the full metric, B6) |
+    # within-model move: "hmc" (B1/B5) | "rhmc" (the full metric, B6/B6c) |
     # "rhmc_diag" (B3/B4)
     mutation: str = "hmc"
     n_leapfrog: int = 10
@@ -150,7 +150,7 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
     keeping this rank's rows).
 
     fused=True runs the within-model trajectory in the CUDA kernel (B1 or,
-    on crowded fields, B5 for ``hmc``; B6 for ``rhmc``; B3 or B4 for
+    on crowded fields, B5 for ``hmc``; B6 or B6c for ``rhmc``; B3 or B4 for
     ``rhmc_diag``); off it, the plain torch trajectory."""
     if cfg.mutation not in TD_MUTATIONS:
         raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: {', '.join(TD_MUTATIONS)}")

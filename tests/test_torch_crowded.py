@@ -169,11 +169,13 @@ def test_kernel_choice_raises_beyond_both_domains():
         dispatch.leapfrog_module(CROWDED, 129)
     with pytest.raises(ValueError, match="B4"):
         dispatch.rhmc_diag_module(CROWDED, 79)
-    # the full metric (B6) has no crowded-field kernel: its domain raises,
-    # naming it; ChEES's runtime step count (B2's contract) runs on B5 there
-    # and raises only beyond both leapfrog kernels
-    with pytest.raises(ValueError, match="B6"):
-        dispatch.trajectory_kernel("rhmc", "full", CROWDED, 64)
+    # the full metric runs on B6c, its crowded-field kernel, there and
+    # raises only beyond both full-metric kernels, naming both; ChEES's
+    # runtime step count (B2's contract) runs on B5 there and raises only
+    # beyond both leapfrog kernels
+    assert dispatch.trajectory_kernel("rhmc", "full", CROWDED, 64) == "B6c"
+    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
+        dispatch.trajectory_kernel("rhmc", "full", big, 64)
     assert dispatch.trajectory_kernel("chees", None, CROWDED, 50) == "B5"
     with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\)"):
         dispatch.trajectory_kernel("chees", None, big, 64)
@@ -213,8 +215,11 @@ def test_api_resolves_the_crowded_kernels():
     assert api.resolve_kernel("cuda", cuda, hmc) == "cuda"
     rh = apply_overrides(hmc, {"head": "rhmc", "rhmc.metric": "diag"})
     assert api.resolve_kernel("cuda", cuda, rh) == "cuda"
-    with pytest.raises(ValueError, match="B6"):
-        api.resolve_kernel("cuda", cuda, apply_overrides(rh, {"rhmc.metric": "full"}))
+    full = apply_overrides(rh, {"rhmc.metric": "full"})
+    assert api.resolve_kernel("cuda", cuda, full) == "cuda"
+    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
+        api.resolve_kernel("cuda", cuda, dataclasses.replace(
+            full, scene=full.scene._replace(height=256, width=256)))
     huge = dataclasses.replace(cfg, scene=cfg.scene._replace(height=256, width=256))
     with pytest.raises(ValueError, match="B4"):
         api.resolve_kernel("cuda", cuda, huge)

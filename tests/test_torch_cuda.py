@@ -163,8 +163,8 @@ def test_slice_runs_through_the_kernel(dev, head):
 RTOL = dict(theta=1e-4, p=1e-3, h=2e-3, resid=1e-5)
 
 
-def _h_tol(h):
-    return RTOL["h"] + 4.0 * float(np.spacing(np.float32(h.abs().max().item())))
+def _h_tol(h, spacings=4):
+    return RTOL["h"] + spacings * float(np.spacing(np.float32(h.abs().max().item())))
 
 
 def _rhmc_inputs(c, k, dev, per_chain, seed=0):
@@ -188,11 +188,11 @@ def _rhmc_inputs(c, k, dev, per_chain, seed=0):
     return cfg, img.to(dev), theta, xi, eps, mask
 
 
-def _assert_rhmc_close(out, ref):
+def _assert_rhmc_close(out, ref, spacings=4):
     assert float((out[0] - ref[0]).abs().max()) <= RTOL["theta"]
     assert float((out[1] - ref[1]).abs().max()) <= RTOL["p"]
     for a, b in zip(out[2:5], ref[2:5]):
-        assert float((a - b).abs().max()) <= _h_tol(b)
+        assert float((a - b).abs().max()) <= _h_tol(b, spacings)
     assert float((out[5] - ref[5]).abs().max()) <= RTOL["resid"]
 
 
@@ -499,6 +499,142 @@ def test_full_rhmc_kernel_across_its_layout_boundary(dev):
     tight = (wide[5] < TIGHT) & (narrow[5] < TIGHT)
     assert int(tight.sum()) >= int(0.8 * sms)
     _assert_rhmc_close([o[tight] for o in wide], [o[tight] for o in narrow])
+
+
+# -- B6c, the full-Fisher trajectory beyond B6's domain -------------------------
+
+def _b6c_inputs(h, w, k, c, dev, seed, live=None):
+    """_cut_scene's inputs; with ``live``, per-chain masks of live - 5 ..
+    live + 5 live stars (at most k) in shuffled slots."""
+    spec, prior, img, theta, xi, eps, mask = _cut_scene(h, w, k, c, dev, seed)
+    if live is not None:
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        alive = torch.randint(live - 5, min(live + 5, k) + 1, (c,), generator=gen, device=dev)
+        order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+        mask = (order < alive[:, None]).to(torch.float32)
+    return spec, prior, img, theta, xi, eps, mask
+
+
+@pytest.mark.parametrize("beta", [0.7, 1.0])
+@pytest.mark.parametrize("h,w,k,c,live", [(64, 64, 20, 16, None), (128, 128, 64, 8, 50)])
+def test_b6c_matches_plain(dev, h, w, k, c, live, beta):
+    """B6c against its plain version on the chains whose fixed points
+    converged tightly in both, solver verdicts equal on every chain, energies
+    within RTOL plus four float32 spacings at their magnitude, eight on the
+    128x128 field (the kernel sums them in double, the plain version in
+    float32; chip_smoke.py's bars), dead slots frozen bit for bit."""
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(h, w, k, c, dev, 11, live)
+    out = frc.make_fused_rhmc(spec, img, prior, k, 6, 4)(theta, xi, eps, mask,
+                                                         torch.tensor(beta, device=dev))
+    ref = fr.fused_rhmc_reference(spec, img, prior, theta, xi, eps, mask, beta, 6, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= int(0.8 * c)
+    _assert_rhmc_close([o[tight] for o in out], [r[tight] for r in ref],
+                       spacings=8 if h == 128 else 4)
+    dead = (mask == 0) & (out[5] < 0.05)[:, None]
+    assert bool(dead.any())
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+
+
+def test_b6c_reports_a_nan_chain_as_a_solver_failure(dev):
+    from starcat_torch import fused_rhmc_crowded as frc
+    from starcat_torch.driver import ChainState
+    from starcat_torch.rhmc import rhmc_transition
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(64, 64, 20, 16, dev, 12)
+    theta[0, :, 2] = 95.0  # exp(95) overflows float32
+    fused = frc.make_fused_rhmc(spec, img, prior, 20, 6, 4)
+    out = fused(theta, xi, eps, mask)
+    assert bool(torch.isnan(out[5][0])) and bool(torch.isfinite(out[5][1:]).all())
+    new, info = rhmc_transition(ChainState(theta, torch.zeros(16, device=dev),
+                                           torch.zeros_like(theta)), xi,
+                                torch.full((16,), 0.5, device=dev),
+                                torch.full((16,), 0.01, device=dev), fused,
+                                torch.tensor(0.01, device=dev), mask)
+    assert bool(info.solver_fail[0]) and not bool(info.accepted[0])
+    assert torch.equal(new.theta[0], theta[0])
+
+
+def test_b6c_gives_a_chain_the_same_bits_at_any_chain_count(dev):
+    """A block walks several chains in one workspace: a chain's outputs are
+    the same bits alone, among 7 others and among 300, and on a rerun."""
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(49, 49, 16, 300, dev, 13)
+    fused = frc.make_fused_rhmc(spec, img, prior, 16, 6, 4)
+    assert frc.launch_layout(300, 16, 49, 49, dev)["chains_per_block"] >= 2
+    full = fused(theta, xi, eps, mask)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(full, fused(theta, xi, eps, mask)))
+    for idx in ([5], [0, 9, 17, 5, 41, 52, 63, 299]):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(),
+                     mask[sel].contiguous())
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
+
+
+def test_b6c_launch_count(dev):
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(64, 64, 20, 4, dev, 14)
+    frc.reset_launch_counts()
+    fused = frc.make_fused_rhmc(spec, img, prior, 20, 1, 1)
+    fused(theta, xi, eps, mask)
+    fused(theta, xi, eps, mask, 0.5)
+    assert frc.LAUNCHES == 2
+
+
+def test_b6c_wrapper_rejects_bad_inputs(dev):
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(64, 64, 20, 8, dev, 15)
+    fused = frc.make_fused_rhmc(spec, img, prior, 20, 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fused(theta.double(), xi, eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi[:, :5], eps, mask)
+    with pytest.raises(ValueError, match="shape"):
+        fused(theta, xi, eps, mask[:, :5])
+    with pytest.raises(ValueError, match="eps"):
+        fused(theta, xi, eps[:3], mask)
+    with pytest.raises(ValueError, match="beta"):
+        fused(theta, xi, eps, mask, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="theta"):
+        fused(theta[0], xi, eps, mask)
+    with pytest.raises(ValueError, match="B6c"):
+        frc.make_fused_rhmc(spec._replace(height=136, width=64),
+                            torch.zeros((136, 64), device=dev), prior, 20, 2, 2)
+    with pytest.raises(ValueError, match="B6c"):
+        frc.make_fused_rhmc(spec, img, prior, 65, 2, 2)
+
+
+WIDE_FIELD = {"scene.height": 64, "scene.width": 64, "n_stars": 20, "truth_seed": 41,
+              "data_seed": 42}
+
+
+@pytest.mark.parametrize("name,over,kernel", [
+    ("cfg1_rhmc", {**WIDE_FIELD, "kmax": 20, "n_warmup": 60, "n_samples": 30},
+     "rhmc_full_cuda"),
+    ("cfg5_transdim_mcmc", {**WIDE_FIELD, "kmax": 24, "tdm.mutation": "rhmc",
+                            "n_chains": 64, "n_warmup": 20, "n_samples": 10}, "rhmc_cuda"),
+    ("cfg4_crowded", {"smc.mutation": "rhmc", "smc.n_particles": 512, "smc.max_steps": 2},
+     "rhmc_cuda"),
+])
+def test_full_metric_heads_run_through_b6c_beyond_b6s_domain(dev, name, over, kernel):
+    from starcat_torch import fused_rhmc_crowded as frc
+    from starcat_torch.configs import apply_overrides
+
+    cfg = apply_overrides(CONFIGS[name], over)
+    frc.reset_launch_counts()
+    out = api.sample(cfg, dev, seed=1)
+    assert out.stats["kernel"] == kernel and out.stats["trajectory_kernel"] == "B6c"
+    assert out.stats["kernel_launches"] > 0 and frc.LAUNCHES == out.stats["kernel_launches"]
+    assert np.isfinite(out.thetas).all()
+    assert np.isfinite(api.summarize_output(out)["total_flux"]["mean"])
 
 
 # -- B5 and B4, the crowded-field kernels -------------------------------------

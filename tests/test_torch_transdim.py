@@ -307,16 +307,17 @@ def test_short_preset_runs_on_the_plain_path(name, over):
 
 
 @pytest.mark.parametrize("head,over,match", [
-    ("rhmc", {}, "B6"),
-    ("transdim", {"tdm.mutation": "rhmc"}, "B6"),
+    ("rhmc", {}, r"\(B6\).*\(B6c\)"),
+    ("transdim", {"tdm.mutation": "rhmc"}, r"\(B6\).*\(B6c\)"),
     ("transdim", {"tdm.mutation": "nuts"}, "unknown mutation"),
 ])
 def test_unported_metric_or_mutation_raises(head, over, match):
-    """The full metric and the trans-d rhmc mutation run on kernel B6 now:
-    asked for the kernel beyond its domain (K = 64), they raise naming B6;
-    an unknown mutation still raises before any kernel is chosen."""
+    """The full metric and the trans-d rhmc mutation run on kernel B6 or,
+    beyond its domain, B6c now: asked for a kernel beyond both domains (K =
+    65), they raise naming both; an unknown mutation still raises before
+    any kernel is chosen."""
     cfg = apply_overrides(dataclasses.replace(CONFIGS["cfg1_rhmc"], head=head, n_chains=2,
-                                              n_samples=2, n_warmup=2, kmax=64,
+                                              n_samples=2, n_warmup=2, kmax=65,
                                               kernel="cuda"), over)
     with pytest.raises(ValueError, match=match):
         api.sample(cfg, "cpu")
