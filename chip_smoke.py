@@ -2348,9 +2348,12 @@ def check_b6c_kernel(frc, fr, rhmc_mod, configs, dev):
     beta 0.7), the same bits for a chain alone, among 7 others and among
     300, a chain that overflows, and one timed trajectory at cfg4's full
     width (4096 particles), its first 16 particles held against the plain
-    version, which is timed on those 16.  Phase 18b holds the kernel at
-    each run's own state and step.  Returns the largest theta error and the
-    times."""
+    version, which is timed on those 16; then the kernel timed at the rhmc
+    leg's shape (64 chains, K = 20, 16 x 6, shared mask) and at cfg5's rhmc
+    move's (256 chains, K_max 24, 6 x 4, per-chain masks) on the drawn
+    64x64 field, each beside its bound (rhmc_full_sparse_ops).  Phase 18b
+    holds the kernel at each run's own state and step.  Returns the largest
+    theta error and the times."""
     import torch
 
     from starcat_torch.configs import apply_overrides
@@ -2431,10 +2434,14 @@ def check_b6c_kernel(frc, fr, rhmc_mod, configs, dev):
         p_all = 1024
         theta, xi, eps, mask = (t[:p_all].contiguous() for t in (theta, xi, eps, mask))
     last = []
+    counts = mask.sum(1).tolist()
     ms = {"b6c": _time_ms(lambda: last.append(fused(theta, xi, eps, mask, 1.0)), 2, warmup=0),
           "particles": p_all,
-          "ops": sum(rhmc_full_ops(1, int(n), 128, 128, n_steps, fpi)
-                     for n in mask.sum(1).tolist())}
+          "ops": rhmc_full_sparse_ops(theta, mask, c_spec, n_steps, fpi),
+          "ops_dense": sum(rhmc_full_crowded_ops(1, int(n), 128, 128, n_steps, fpi)
+                           for n in counts),
+          "ops_b6_count": sum(rhmc_full_ops(1, int(n), 128, 128, n_steps, fpi)
+                              for n in counts)}
     sub = tuple(t[:16].contiguous() for t in (theta, xi, eps, mask))
     plain = []
     ms["b6c_plain"] = _time_ms(lambda: plain.append(fr.fused_rhmc_reference(
@@ -2449,6 +2456,31 @@ def check_b6c_kernel(frc, fr, rhmc_mod, configs, dev):
     print(f"B6c ({p_all} particles, K=64, {int(mask.sum())} live stars, 128x128, {n_steps} "
           f"steps x {fpi} sweeps): kernel {ms['b6c']:.3f} ms per trajectory; on 16 of them "
           f"kernel {ms['b6c_16']:.3f} ms, plain {ms['b6c_plain']:.3f} ms; layout {lay}")
+
+    # the kernel at the rhmc leg's shape (64 chains, K = 20, 16 x 6, shared
+    # mask) and at cfg5's rhmc move's (256 chains, K_max 24, 6 x 4, per-chain
+    # masks), both on the drawn 64x64 field, each beside its bound
+    cfg5 = apply_overrides(configs["cfg5_transdim_mcmc"], B6C_CFG5)
+    ms["shapes"] = {}
+    for label, c, k, n_steps, fpi, seed, per_chain in (
+            ("rhmc_leg", 64, 20, wide.rhmc.n_leapfrog, wide.rhmc.fixed_point_iters, 60, False),
+            ("cfg5_rhmc", cfg5.n_chains, 24, cfg5.tdm.n_leapfrog, cfg5.tdm.fixed_point_iters,
+             61, True)):
+        theta, xi, eps, mask = _rhmc_inputs(w_truth, c, k, dev, seed, per_chain)
+        fused = frc.make_fused_rhmc(w_spec, w_img, prior, k, n_steps, fpi)
+        t = _time_ms(lambda: fused(theta, xi, eps / 3.0, mask, 1.0), 3, warmup=1)
+        counts = mask.sum(1).tolist() if per_chain else [k] * c
+        nbytes = rhmc_bytes(c, k, 64, 64, per_chain)
+        b = bound_ms(rhmc_full_sparse_ops(theta, mask, w_spec, n_steps, fpi), nbytes)
+        dense = bound_ms(sum(rhmc_full_crowded_ops(1, int(n), 64, 64, n_steps, fpi)
+                             for n in counts), nbytes)[0]
+        ms["shapes"][label] = {"chains": c, "k": k, "n_steps": n_steps, "fpi": fpi,
+                               "live_stars": int(sum(counts)), "ms": t, "bound_ms": b[0],
+                               "bound_by": b[1], "bound_ms_dense": dense}
+        print(f"B6c {label} ({c} chains, K={k}, {int(sum(counts))} live stars, 64x64, {n_steps} "
+              f"x {fpi}): kernel {t:.3f} ms per trajectory, bound {b[0]:.4f} ms ({b[1]}), "
+              f"{100 * b[0] / t:.2f}% of it (every pixel of every pair: {dense:.4f} ms); "
+              f"layout {frc.launch_layout(c, k, 64, 64)}")
     return err, ms
 
 
@@ -2598,6 +2630,79 @@ def rhmc_full_ops(c, k, h, w, n_steps, fpi):
     pairs = k * k * h * w * (21.0 + n_steps * (4.0 * fpi + 21.0))
     single = k * h * w * (26.0 + n_steps * (26.0 * fpi + 50.0))
     return c * (pairs + single)
+
+
+def rhmc_full_crowded_ops(c, k, h, w, n_steps, fpi):
+    """B6c: rhmc_full_ops with the q field counted in the product form B6c
+    computes it in, every pass on the CUDA cores (no pass runs on tensor
+    cores, so the whole count is over the float32 rate): per pixel of a
+    rebuild, one FMA for each of the four column-profile combinations of
+    each unordered star pair, 4 k (k + 1) operations in place of B6's
+    9 k^2."""
+    q_saved = (1 + n_steps) * h * w * (9.0 * k * k - 4.0 * k * (k + 1))
+    return rhmc_full_ops(c, k, h, w, n_steps, fpi) - c * q_saved
+
+
+def _footprints(coord, n, sig, norm):
+    """The first and last pixel (of n) where a star's float32 profile
+    exp(-z^2 / 2) norm at coordinate ``coord`` (any shape) is not 0, as the
+    kernels compute it; an empty footprint gives first > last."""
+    import torch
+
+    z = ((torch.arange(n, device=coord.device, dtype=torch.float32) + 0.5)
+         - coord[..., None]) / sig
+    nz = (torch.exp(-0.5 * z * z) * norm) != 0
+    idx = torch.arange(n, device=coord.device)
+    first = torch.where(nz, idx, n).amin(-1)
+    last = torch.where(nz, idx, -1).amax(-1)
+    return first, last
+
+
+def rhmc_full_sparse_ops(theta, mask, spec, n_steps, fpi):
+    """What B6c's work needs on these inputs: rhmc_full_crowded_ops with
+    every star-pair term counted only on the pixels where both stars'
+    float32 profiles are non-zero (the rows and the columns of their
+    footprints' overlap, at theta), and every single-star term only on the
+    star's footprint: elsewhere those products are exact zeros; and the
+    dense algebra at D = 3 live stars, which the pixel counts leave out: a
+    Cholesky factorisation (D^3 / 3 FMAs) at each of the 1 + n_steps
+    rebuilds and n_steps fpi position sweeps, L^-1 and G^-1 = L^-T L^-1
+    (D^3 / 6 FMAs each) at each rebuild.  Per chain, with O the ordered
+    pairs' overlaps, U the unordered pairs' (i <= j) and A the live stars'
+    footprints, in pixels: (1 + n_steps)(12 O + 8 U) + n_steps fpi 4 O +
+    A (26 + n_steps (26 fpi + 50)) + 2 D^3 ((1 + n_steps + n_steps fpi) /
+    3 + (1 + n_steps) / 3).  Every operation counts at the float32 rate:
+    no pass of B6c runs on tensor cores.  The footprints are theta's, the
+    trajectory's start: its stars move by far less than a footprint's
+    width."""
+    import math
+
+    import torch
+
+    theta = theta.float()
+    live = (mask if mask.ndim == 2 else mask.expand(theta.shape[0], -1)) != 0
+    sig = float(spec.psf_sigma)
+    norm = 1.0 / (math.sqrt(2.0 * math.pi) * sig)
+    x = spec.width * torch.sigmoid(theta[..., 0])
+    y = spec.height * torch.sigmoid(theta[..., 1])
+    x0, x1 = _footprints(x, spec.width, sig, norm)
+    y0, y1 = _footprints(y, spec.height, sig, norm)
+
+    def overlap(a0, a1):
+        lo = torch.maximum(a0[:, :, None], a0[:, None, :])
+        hi = torch.minimum(a1[:, :, None], a1[:, None, :])
+        return (hi - lo + 1).clamp(min=0).double()
+
+    both = (live[:, :, None] & live[:, None, :]).double()
+    ov = overlap(x0, x1) * overlap(y0, y1) * both
+    o_sum = float(ov.sum())
+    u_sum = 0.5 * (o_sum + float(torch.diagonal(ov, dim1=1, dim2=2).sum()))
+    area = float((((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).double()
+                  * live.double()).sum())
+    d3 = float(((3.0 * live.double().sum(1)) ** 3).sum())
+    return ((1 + n_steps) * (12.0 * o_sum + 8.0 * u_sum) + n_steps * fpi * 4.0 * o_sum
+            + area * (26.0 + n_steps * (26.0 * fpi + 50.0))
+            + 2.0 * d3 * ((1 + n_steps + n_steps * fpi) / 3.0 + (1 + n_steps) / 3.0))
 
 
 def bound_ms(ops, nbytes):
@@ -2799,8 +2904,11 @@ def main() -> int:
     # B4 skips dead stars: its work is that of the timed inputs' live ones
     b4 = bound_ms(rhmc_diag_ops(1, ms_b4["b4_live"], 128, 128, 6, 4),
                   rhmc_bytes(4096, 64, 128, 128, True))
-    # B6c too: the pair work of each particle's live stars
-    b6c = bound_ms(ms_b6c["ops"], rhmc_bytes(ms_b6c["particles"], 64, 128, 128, True))
+    # B6c's: the work its inputs need, each star pair's terms on the pixels
+    # where both stars' profiles are non-zero, and its dense algebra
+    # (rhmc_full_sparse_ops)
+    b6c_bytes = rhmc_bytes(ms_b6c["particles"], 64, 128, 128, True)
+    b6c = bound_ms(ms_b6c["ops"], b6c_bytes)
 
     def row(name, source, replaces, n, e, t, t_plain, bound):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2834,7 +2942,10 @@ def main() -> int:
     # B6c's kernel time and bound are of the full-width launch, its plain
     # time of the first plain_particles of it (the kernel on those: ms_same)
     rows[-1].update(particles=ms_b6c["particles"], plain_particles=ms_b6c["plain_particles"],
-                    ms_same=ms_b6c["b6c_16"])
+                    ms_same=ms_b6c["b6c_16"],
+                    bound_ms_dense=bound_ms(ms_b6c["ops_dense"], b6c_bytes)[0],
+                    bound_ms_b6_count=bound_ms(ms_b6c["ops_b6_count"], b6c_bytes)[0],
+                    shapes=ms_b6c["shapes"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,9 +71,13 @@ extern "C" int b6_zero_clocks() {
 
 
 def _call_re(fn: str) -> re.Pattern:
-    """A one-line call statement of fn, its value assigned or not."""
-    return re.compile(r"^(\s*)(?:(?:const\s+)?[\w:]+\s+\w+\s*=\s*)?" + re.escape(fn)
-                      + r"\(.*\);\s*(?://.*)?$")
+    """A one-line call statement of fn, its value assigned (to a declared
+    variable or not) or not, alone or in a one-line block that makes the
+    pass's Work first (B6c's ``{ const Work s = make_work(P); fn(P, s);
+    }``)."""
+    return re.compile(r"^(\s*)(?:\{ const Work s = make_work\(P\); )?"
+                      r"(?:(?:(?:const\s+)?[\w:]+\s+)?\w+\s*=\s*)?" + re.escape(fn)
+                      + r"\(.*\);(?: \})?\s*(?://.*)?$")
 
 
 def instrumented_source(src: str) -> tuple[str, dict]:

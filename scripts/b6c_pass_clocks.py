@@ -50,6 +50,7 @@ def build_probed(text: str, name: str):
     fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp, ci, vp]
     fn.restype = ci
     lib.b6_read_clocks.argtypes = [vp]
+    lib.starcat_fused_rhmc_crowded_sizes.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
     return lib, proc.stderr
 
 
@@ -100,13 +101,21 @@ def main() -> int:
         lay = build.query_layout(lib, "starcat_fused_rhmc_crowded_layout", c, k, spec.height,
                                  spec.width)
         grid = min(c, lay["blocks_per_sm"] * sms)
-        work = torch.empty(grid * frc.workspace_floats(k, spec.height, spec.width),
-                           dtype=torch.float32, device=dev)
+        # the source's own workspace a block, after the header whose first
+        # int, the chain counter of a source that takes chains from one, is
+        # zeroed before each launch
+        smem, floats = ctypes.c_int(), ctypes.c_int()
+        if lib.starcat_fused_rhmc_crowded_sizes(k, spec.height, spec.width, ctypes.byref(smem),
+                                                ctypes.byref(floats)):
+            raise RuntimeError("starcat_fused_rhmc_crowded_sizes failed")
+        work = torch.zeros(frc.HEADER_FLOATS + grid * floats.value, dtype=torch.float32,
+                           device=dev)
         outs = torch.empty((2, c, k, 3), device=dev)
         scal = torch.empty((4, c), device=dev)
         beta = torch.ones(1, device=dev)
 
         def run():
+            work[:frc.HEADER_FLOATS].zero_()
             rc = getattr(lib, ENTRY)(
                 theta.data_ptr(), xi.data_ptr(), eps.data_ptr(), mask.data_ptr(),
                 k if mask.ndim == 2 else 0, beta.data_ptr(), img.data_ptr(),

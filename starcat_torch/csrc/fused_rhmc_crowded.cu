@@ -13,38 +13,84 @@
 // dH/dtheta split into t1 (once per position) and t2 (every sweep) as
 // csrc/fused_rhmc.cu's header sets out, fixed Picard sweeps.
 //
-// What bounds it on this card.  The work is the star-pair contractions over
-// the field: a rebuild's 18 profile pairs of both orders and the q field,
-// a position sweep's Fisher pairs, K_live^2 / 2 pairs of H W pixels each
-// (chip_smoke.rhmc_full_ops; at 45 live stars on 128 x 128, 6 x 4 steps,
-// about 9 GFLOP a chain), so it is bound by float32 operations.  One
-// chain's state is about 1.1 MB at K = 64 on 128 x 128, five times what a
-// block's shared memory holds.  The design, simple first:
-//   * a persistent grid: one 512-thread block an SM walks the chains c,
-//     c + gridDim.x, ...; each block owns a slice of a workspace in device
-//     memory that the wrapper allocates (work_floats a block), so the
-//     memory does not grow with the chain count.  A chain writes every
-//     workspace entry before it reads it: nothing of the previous chain is
-//     read;
-//   * shared memory holds what every pair pass reuses: 1/lam (H rows at a
-//     stride of W rounded up to 4, zero past column W) and the row profiles
-//     gy, gy', gy'' of every star; the column profiles, the working field,
-//     the pair contractions and the dense matrices live in the workspace;
-//   * the live stars are compacted at entry: a dead slot is an identity row
-//     of G with zero momentum, so the passes, the factorisation and the
-//     solves run over D = 3 K_live, and dead slots come back as they went
-//     in (theta bit for bit, p = 0), their log det term added in closed
-//     form;
-//   * the pair passes give each star pair a group of L lanes (L the power of
-//     two at or above the row's 4-column chunks, 32 at 128 columns): lane g
-//     takes chunk g, holds the pair's row products against 1/lam on its 4
-//     columns in registers (16-byte loads of 1/lam, the row profiles by
-//     broadcast), then meets the column profiles, and the L lanes sum by
-//     shuffles in a fixed order;
-//   * the dense algebra is block-wide: G and L by columns (entry (r, c) at c
-//     ld + r), a right-looking Cholesky in panels of kPanel columns factored
-//     by warp 0, every warp on the trailing update, so loads along a column
-//     are coalesced; L^-1 by columns, one a warp; G^-1 = L^-T L^-1.
+// What bounds it on this card.  The work is the star-pair terms over the
+// field: a rebuild's 18 profile pairs of both orders and the q field, a
+// position sweep's Fisher pairs.  A star's float32 profiles are exactly 0
+// beyond about 14 sigma (22 pixels at sigma 1.5), so a pair has work only
+// on the rows and columns where both stars' footprints overlap: at cfg4's
+// 4096 particles of 30..64 stars on 128 x 128 that is under 2% of the
+// every-pixel count (chip_smoke.rhmc_full_sparse_ops), and the dense
+// algebra (D = 3 K_live <= 192: a Cholesky a sweep, L^-1 and G^-1 a
+// rebuild), a chain of latencies, weighs as much.  One chain's state is
+// about 0.74 MB at K = 64 on 128 x 128, so shared memory is reused by phase.
+//
+// Where each operand lives (the block's dynamic shared memory holds a
+// phase region and the per-star and per-parameter vectors; the workspace is
+// the block's slice of device memory that the wrapper allocates):
+//   * field phase (profiles, render, the pair passes, the phi and q fields,
+//     the contractions): shared 1/lam (H rows at the field stride), gy and
+//     gy' interleaved and gx, gx' of every live star, each star's footprint
+//     (the rows and columns where its profiles are not 0) and the live
+//     stars in y order; during a rebuild's pair contractions gy'' takes the
+//     place of gx, gx'; during a momentum sweep phi / lam takes 1/lam's
+//     place until its contraction, after which 1/lam is rendered again.
+//     The workspace holds the working field (rho, q), a copy of gx, gx',
+//     gx'' and of gy'' (read once per column in the contractions' and pair
+//     contractions' epilogues, and row by row in the momentum sweep's
+//     contraction), the 18 K^2 pair sums, G^-1 and the q field's
+//     coefficient table;
+//   * dense phase (assembly, Cholesky, solves, L^-1): the same shared
+//     region holds L (packed by columns, with the momentum's row in a
+//     position sweep), then the Cholesky's column buffers and panel by
+//     rows, or L^-1 (packed by columns); G^-1 = L^-T L^-1 goes to the
+//     workspace for the matrix-vector products, the t1 terms and the q
+//     field's coefficients;
+//   * q field: while it runs, the 1/lam rows hold two stages of its GEMM
+//     operands, and a ring of two coefficient chunks is fed from the
+//     workspace by cp.async a chunk ahead of its use;
+//   * the block's layout (offsets, strides, the chain's live stars) and the
+//     chain's scalars and loop counters: shared memory, so that no thread
+//     keeps an address or a counter in registers across the passes.
+// No inner loop of a pixel pass or of the dense algebra reads the
+// workspace; the rho and q contractions read the working field row by row
+// from it.
+//
+// The passes:
+//   * the q field q(p) = sum_ab Ginv_ab J_a(p) J_b(p) as a GEMM.  J_a of star
+//     i factors into a column profile (gx' for x, gx for y and flux) and a
+//     row term, so with G^-1's 3x3 block of stars (i, j) folded into nine
+//     coefficients, q = sum over pairs i <= j and the four column-profile
+//     combinations of T(row) X(col): a product of depth 4 per pair (about
+//     2 K^2 operations a pixel against B6's 9 K^2), over only the pairs
+//     whose footprints overlap.  Chunks of kQPairs pairs (depth kQK) are
+//     written to shared memory, T from the row profiles and the
+//     coefficients, X from the column profiles, double-buffered against the
+//     product, and each thread holds a TR x TC register tile of pixels (4 x
+//     8 up to 128 x 128, 2 x 4 where that fills the block); a warp skips
+//     the pairs whose rows miss its own;
+//   * the phi field the same way: a TR x TC tile a thread, the stars in
+//     order, a warp skipping the stars whose rows miss its own;
+//   * the Fisher pairs of a position sweep by 2 x 2 star tiles (stars
+//     neighbouring in y): a lane group spans a row's 4-column chunks, each
+//     lane holds the 16 row products of four star pairs against 1/lam on
+//     its 4 columns (64 accumulators), over the rows of the pairs'
+//     footprints; a pair whose footprints do not overlap writes 0;
+//   * a rebuild's pair contractions one star pair a lane group (32
+//     accumulators) over the pair's overlapping rows, their 18 sums of both
+//     orders reduced in two halves;
+//   * the render by 4 x 4 pixel tiles, the stars in order, a warp skipping
+//     the stars whose rows miss its own; the contractions two stars a warp;
+//   * the Cholesky in shared memory: for D >= kPanelMinD right-looking in
+//     panels of 32 columns, a panel in registers (a column a lane) with one
+//     block barrier a column, then a register-tiled trailing update; below
+//     it by columns, one barrier a column; L^-1 a column a warp by forward
+//     substitution; G^-1 = L^-T L^-1 by all threads, its lower half
+//     computed and mirrored;
+//   * a persistent grid of one 512-thread block an SM: blocks take chains
+//     from a counter in the workspace's header (atomicAdd), so the blocks
+//     with chains of few live stars take more of them.
+// Every skipped term is an exact zero (a factor is a profile that is 0), so
+// skipping it changes no bit of any sum.
 //
 // Accuracy: no fast math.  The log-likelihood, log det G and the energies
 // sum in double.  A non-positive pivot gives NaN, which propagates to the
@@ -54,7 +100,7 @@
 // chain gives the same bits alone, among others and at any chain count.
 //
 // Domain (checked by the wrapper, fused_rhmc_crowded.py): H, W <= 128 and
-// 1 <= K <= 64; the shared memory (smem_floats) then stays within 180 KB.
+// 1 <= K <= 64; the shared memory (smem_floats) then stays within 216 KB.
 #include <cuda_runtime.h>
 
 // the block's dynamic shared memory, which carve() divides
@@ -66,10 +112,14 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStars = 64;
 constexpr int kMaxSide = 128;
-constexpr int kPanel = 8;  // columns of a Cholesky panel
-// rows of a (D + 1)-row factorisation a lane of warp 0 holds
-constexpr int kRows = (3 * kMaxStars + 1 + 31) / 32;
+// rows of a D-row column a lane holds in L^-1's forward substitution and the
+// back substitution
+constexpr int kRows = (3 * kMaxStars + 31) / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kQPairs = 8;            // star pairs of a q-field chunk
+constexpr int kQK = 4 * kQPairs;      // its GEMM depth
+constexpr int kCoef = 12;             // floats a pair in the q coefficient table
+constexpr int kHeader = 4;            // workspace floats before the blocks' slices
 
 struct Params {
   const float* theta;   // (C, K, 3)
@@ -85,92 +135,223 @@ struct Params {
   float* h1_out;
   float* u1_out;
   float* resid_out;
-  float* work;          // (gridDim.x, work_floats(K, H, W))
+  float* work;          // kHeader (the chain counter, 0 at launch), then
+                        // (gridDim.x, work_floats(K, H, W))
   int C, K, H, W, n_steps, fpi;
   float psf_sigma, psf_norm, background;
   float logf_mean, logf_sigma, lp_flux_const, jitter;
 };
 
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
 // row stride of the fields and column profiles: W rounded up to 4, so a
 // 4-column chunk is one 16-byte load
-__host__ __device__ inline int field_stride(int W) { return (W + 3) & ~3; }
+__host__ __device__ inline int field_stride(int W) { return round4(W); }
 
 // odd star stride of the row profiles: the stars of different lane groups
 // fall in distinct shared-memory banks
 __host__ __device__ inline int prof_ld(int n) { return n | 1; }
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+// the q and phi fields' padded extent: rows to 4, columns to 8
+__host__ __device__ inline int q_rows(int H) { return round4(H); }
+__host__ __device__ inline int q_cols(int W) { return (W + 7) & ~7; }
 
-// mirrored by smem_bytes() in fused_rhmc_crowded.py: 1/lam, the three row
-// profile sets, 25 floats a star (coefficients, mask, phi coefficients, 9
-// field contractions), 11 vectors of D and 8 of scratch
-__host__ __device__ inline int smem_floats(int K, int H, int W) {
-  return H * field_stride(W) + 3 * K * prof_ld(H) + 58 * K + 8;
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// one q-field operand stage: T (kQK, Hq), X (kQK, Wq) and its pairs' row
+// ranges (first rows, then last rows)
+__host__ __device__ inline int q_stage(int H, int W) {
+  return kQK * (q_rows(H) + q_cols(W)) + 2 * kQPairs;
 }
 
-// mirrored by workspace_bytes() in fused_rhmc_crowded.py: the working field,
-// the three column profile sets, the 18 K^2 pair contractions, G / L (D + 1
-// columns of D + 1), L^-1 and G^-1, G^-1's 3x3 star blocks padded to 12
+// the 1/lam slot: H rows at the field stride, or the q field's two operand
+// stages where those are larger
+__host__ __device__ inline int r1_slot(int H, int W) {
+  return imax(H * field_stride(W), 2 * q_stage(H, W));
+}
+
+// the column profiles' slot (gx, gx'), which gy'' takes over in a rebuild
+__host__ __device__ inline int gx_slot(int K, int H, int W) {
+  return imax(2 * K * field_stride(W), round4(K * prof_ld(H)));
+}
+
+// L packed by columns with N1 = D + 1 rows (the momentum's row last):
+// column c holds rows c .. D
+__host__ __device__ inline int packed_l(int D) { return (D + 1) * (D + 2) / 2; }
+
+// L^-1 packed by columns, D rows
+__host__ __device__ inline int packed_x(int D) { return D * (D + 1) / 2; }
+
+// the Cholesky's scratch after L: two column buffers, then (16-byte
+// aligned) a panel by rows, kPanelLd floats a row
+constexpr int kPanelLd = 36;
+__host__ __device__ inline int chol_prow(int D) { return round4(packed_l(D) + 2 * (D + 1)); }
+__host__ __device__ inline int chol_scratch(int D) {
+  return chol_prow(D) - packed_l(D) + kPanelLd * (D + 1);
+}
+
+// the phase region: the field phase's arrays or the dense phase's (L, then
+// the Cholesky's scratch or L^-1)
+__host__ __device__ inline int region_floats(int K, int H, int W) {
+  const int field = r1_slot(H, W) + 2 * round4(K * prof_ld(H)) + gx_slot(K, H, W);
+  const int D = 3 * K;
+  return round4(imax(field, packed_l(D) + imax(packed_x(D), chol_scratch(D))));
+}
+
+// mirrored by smem_bytes() in fused_rhmc_crowded.py: the phase region, the
+// q coefficient ring, 67 floats a star (25 per-star scalars, 12 vectors of
+// D and 6 per-star ints) and 12 of per-chain scalars
+__host__ __device__ inline int smem_floats(int K, int H, int W) {
+  return region_floats(K, H, W) + 2 * kQPairs * kCoef + 67 * K + 12;
+}
+
+// the q coefficient table's pairs, whole chunks
+__host__ __device__ inline int q_table_pairs(int K) {
+  return (K * (K + 1) / 2 + kQPairs - 1) / kQPairs * kQPairs;
+}
+
+// mirrored by workspace_floats() in fused_rhmc_crowded.py: the working
+// field, the three column profile sets, gy'', the 18 K^2 pair sums, G^-1
+// (D x D) and the q coefficient table
 __host__ __device__ inline int work_floats(int K, int H, int W) {
   const int fs = field_stride(W), D = 3 * K;
-  return H * fs + 3 * K * fs + round4(18 * K * K) + round4((D + 1) * (D + 1))
-         + 2 * round4(D * (D + 1)) + 12 * K * K;
+  return H * fs + 3 * K * fs + round4(K * prof_ld(H)) + round4(18 * K * K) + round4(D * D)
+         + kCoef * q_table_pairs(K);
 }
+
+// offset of packed column c with n rows (column c holds rows c .. n - 1)
+__device__ __forceinline__ int col_off(int c, int n) { return c * n - (c * (c - 1)) / 2; }
 
 // Per-star scalars, index i over the live stars; per-parameter vectors,
 // index a = t K + i.
 struct Work {
-  // shared memory
+  // shared memory, field phase
   float* r1;                        // (H, fs): 1/lam, 0 past column W
-  float *gy, *gy1, *gy2;            // (K, hp): star i's rows at i * hp
+  float* qbuf;                      // the q field's operand stages, over r1
+  float* gyy;                       // (K, hp, 2): gy, gy' of star i's row h at 2 (i hp + h)
+  float *gx, *gx1;                  // (K, fs): star i's columns at i * fs, 0 past W
+  float* gy2;                       // (K, hp) over gx, gx' in a rebuild's pair pass
+  // shared memory, dense phase (over the field phase's arrays)
+  float* dense;                     // packed L (N1 = D + 1 rows), then packed L^-1
+  float* qc;                        // (2, kQPairs, kCoef) q coefficient ring
   float *su, *sv, *x, *y, *w, *wcx, *wcy, *wcx2, *wcy2, *wcxx, *wcyy, *wcxcy, *m;
   float *cu, *cv, *cs;              // a_a coef_a per star, for the phi field
   float* dots;                      // (9, K) field contractions per star
-  float *th_b, *p_b, *ph, *th, *base, *vec, *t1, *infod, *a, *ldiag, *dh;
-  float* scal;                      // U, logdet, h, delta scratch
+  float *th_b, *p_b, *ph, *th, *base, *vec, *t1, *infod, *a, *ldiag, *dinv, *dh;
+  float* scal;                      // U, logdet, h, delta scratch, the q field's pairs,
+                                    // h0, the residual, the momentum sweeps' delta,
+                                    // beta, eps
+  int *ylo, *yhi;                   // the rows where star i's row profiles are not 0
+  int *xlo, *xhi;                   // the columns where its column profiles are not 0
+  int* ord;                         // the live stars by y, for grouping the pair passes
+  int* qrow;                        // the q field's first pair of star i (scratch)
   // the block's workspace in device memory
   float* fld;                       // (H, fs): rho, then q, then phi
-  float *gx, *gx1, *gx2;            // (K, fs): star i's columns at i * fs, 0 past W
+  float *gxg, *gx1g, *gx2g;         // (K, fs) copies of the column profiles
+  float* gy2g;                      // (K, hp): gy''
   float* sraw;                      // (18, K, K): [(hp * 3 + tb) K + i] K + j
-  float* gmat;                      // G, then L: entry (r, c), r >= c, at c ld + r; row D a rhs
-  float* lw;                        // L^-1: entry (k, c) at k ld + c
-  float* ginv;                      // G^-1 (symmetric)
-  float* gblk;                      // (K, K, 12): G^-1's 3x3 block of stars (i, j)
-  int K, D, ld, fs, hp, n_dead;     // K, D: the chain's live stars and parameters
+  float* ginv;                      // G^-1 (D x D, symmetric)
+  float* qcoef;                     // (pairs, kCoef): 9 coefficients, i, j
+  int K, D, fs, hp, Hq, Wq, n_dead; // K, D: the chain's live stars and parameters
 };
 
-// Shared arrays sized for the K slots, workspace arrays at this block's
-// slice; the chain's own K, D and ld are set per chain.
-__device__ Work carve(const Params& P) {
-  Work s;
+// The block's layout, in shared memory rather than in every thread's
+// registers: offsets of the shared arrays from b6c_smem and of the
+// workspace arrays from the block's slice, the slice's own offset, the
+// strides, and the chain's live stars.
+enum {
+  kLyFs, kLyHp, kLyHq, kLyWq, kLyGyy, kLyGx, kLyGx1, kLyQc, kLySmall,
+  kLySlice, kLyGxg, kLyGx1g, kLyGx2g, kLyGy2g, kLySraw, kLyGinv, kLyQcoef, kLyK, kLyCount
+};
+__shared__ int b6c_lay[kLyCount];
+__shared__ double b6c_red[kWarps];  // block_sum_d's partial sums
+__shared__ int b6c_chain;           // the block's chain
+__shared__ int b6c_iter[2];         // the trajectory's step and the step's sweep
+
+// The layout of the K slots into b6c_lay (one thread; the chain's K is set
+// per chain).
+__device__ void init_layout(const Params& P) {
+  int* ly = b6c_lay;
   const int K = P.K, H = P.H, W = P.W, D = 3 * K;
-  s.fs = field_stride(W);
-  s.hp = prof_ld(H);
-  int q = 0;
-  auto take = [&q](int n) { float* r = b6c_smem + q; q += n; return r; };
-  s.r1 = take(H * s.fs);  // first: 16-byte aligned rows
-  s.gy = take(K * s.hp); s.gy1 = take(K * s.hp); s.gy2 = take(K * s.hp);
-  s.su = take(K); s.sv = take(K); s.x = take(K); s.y = take(K); s.w = take(K);
-  s.wcx = take(K); s.wcy = take(K); s.wcx2 = take(K); s.wcy2 = take(K);
-  s.wcxx = take(K); s.wcyy = take(K); s.wcxcy = take(K); s.m = take(K);
-  s.cu = take(K); s.cv = take(K); s.cs = take(K);
-  s.dots = take(9 * K);
-  s.th_b = take(D); s.p_b = take(D); s.ph = take(D); s.th = take(D);
-  s.base = take(D); s.vec = take(D); s.t1 = take(D); s.infod = take(D);
-  s.a = take(D); s.ldiag = take(D); s.dh = take(D);
-  s.scal = take(8);
-  float* wk = P.work + static_cast<size_t>(blockIdx.x) * work_floats(K, H, W);
-  size_t o = 0;
-  auto grab = [wk, &o](int n) { float* r = wk + o; o += n; return r; };
-  s.fld = grab(H * s.fs);
-  s.gx = grab(K * s.fs); s.gx1 = grab(K * s.fs); s.gx2 = grab(K * s.fs);
-  s.sraw = grab(round4(18 * K * K));
-  s.gmat = grab(round4((D + 1) * (D + 1)));
-  s.lw = grab(round4(D * (D + 1)));
-  s.ginv = grab(round4(D * (D + 1)));
-  s.gblk = grab(12 * K * K);  // 16-byte aligned: every size before is a multiple of 4
-  s.K = K; s.D = D; s.ld = D + 1; s.n_dead = 0;
+  const int fs = field_stride(W), hp = prof_ld(H);
+  ly[kLyFs] = fs;
+  ly[kLyHp] = hp;
+  ly[kLyHq] = q_rows(H);
+  ly[kLyWq] = q_cols(W);
+  // the phase region first (16-byte aligned); every offset a multiple of 4
+  ly[kLyGyy] = r1_slot(H, W);
+  ly[kLyGx] = ly[kLyGyy] + 2 * round4(K * hp);
+  ly[kLyGx1] = ly[kLyGx] + K * fs;
+  ly[kLyQc] = region_floats(K, H, W);
+  ly[kLySmall] = ly[kLyQc] + 2 * kQPairs * kCoef;
+  ly[kLySlice] = kHeader + static_cast<int>(blockIdx.x) * work_floats(K, H, W);
+  ly[kLyGxg] = H * fs;
+  ly[kLyGx1g] = ly[kLyGxg] + K * fs;
+  ly[kLyGx2g] = ly[kLyGx1g] + K * fs;
+  ly[kLyGy2g] = ly[kLyGx2g] + K * fs;
+  ly[kLySraw] = ly[kLyGy2g] + round4(K * hp);
+  ly[kLyGinv] = ly[kLySraw] + round4(18 * K * K);
+  ly[kLyQcoef] = ly[kLyGinv] + round4(D * D);  // 16-byte aligned
+  ly[kLyK] = K;
+}
+
+// The arrays at the block's layout and the chain's live stars.  Each pass
+// makes its own, so that no address stays in registers across passes.
+__device__ __forceinline__ Work make_work(const Params& P) {
+  const int* ly = b6c_lay;
+  const int Ks = P.K, Ds = 3 * Ks;
+  Work s;
+  s.fs = ly[kLyFs];
+  s.hp = ly[kLyHp];
+  s.Hq = ly[kLyHq];
+  s.Wq = ly[kLyWq];
+  float* sm = b6c_smem;
+  s.r1 = sm;
+  s.qbuf = sm;
+  s.dense = sm;
+  s.gyy = sm + ly[kLyGyy];
+  s.gx = sm + ly[kLyGx];
+  s.gx1 = sm + ly[kLyGx1];
+  s.gy2 = s.gx;
+  s.qc = sm + ly[kLyQc];
+  float* v = sm + ly[kLySmall];
+  s.su = v; s.sv = v + Ks; s.x = v + 2 * Ks; s.y = v + 3 * Ks; s.w = v + 4 * Ks;
+  s.wcx = v + 5 * Ks; s.wcy = v + 6 * Ks; s.wcx2 = v + 7 * Ks; s.wcy2 = v + 8 * Ks;
+  s.wcxx = v + 9 * Ks; s.wcyy = v + 10 * Ks; s.wcxcy = v + 11 * Ks; s.m = v + 12 * Ks;
+  s.cu = v + 13 * Ks; s.cv = v + 14 * Ks; s.cs = v + 15 * Ks;
+  s.dots = v + 16 * Ks;
+  v += 25 * Ks;
+  s.th_b = v; s.p_b = v + Ds; s.ph = v + 2 * Ds; s.th = v + 3 * Ds;
+  s.base = v + 4 * Ds; s.vec = v + 5 * Ds; s.t1 = v + 6 * Ds; s.infod = v + 7 * Ds;
+  s.a = v + 8 * Ds; s.ldiag = v + 9 * Ds; s.dinv = v + 10 * Ds; s.dh = v + 11 * Ds;
+  s.scal = v + 12 * Ds;
+  s.ylo = reinterpret_cast<int*>(v + 12 * Ds + 12);
+  s.yhi = s.ylo + Ks;
+  s.xlo = s.ylo + 2 * Ks;
+  s.xhi = s.ylo + 3 * Ks;
+  s.ord = s.ylo + 4 * Ks;
+  s.qrow = s.ylo + 5 * Ks;
+  float* g = P.work + ly[kLySlice];
+  s.fld = g;
+  s.gxg = g + ly[kLyGxg];
+  s.gx1g = g + ly[kLyGx1g];
+  s.gx2g = g + ly[kLyGx2g];
+  s.gy2g = g + ly[kLyGy2g];
+  s.sraw = g + ly[kLySraw];
+  s.ginv = g + ly[kLyGinv];
+  s.qcoef = g + ly[kLyQcoef];
+  s.K = ly[kLyK];
+  s.D = 3 * s.K;
+  s.n_dead = Ks - s.K;
   return s;
+}
+
+// this thread's index, read afresh at each use: a value the compiler may not
+// keep live across the passes (it would spill it)
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
 }
 
 // type t of parameter a = t K + i, without a division
@@ -212,9 +393,33 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies have landed (visible to the block after a barrier)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Block-wide sum of a per-thread double, returned to every thread.
-__device__ double block_sum_d(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ double block_sum_d(double v) {
+  double* red = b6c_red;
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
   v = warp_sum_d(v);
   if (lane == 0) red[warp] = v;
   __syncthreads();
@@ -224,10 +429,11 @@ __device__ double block_sum_d(double v, double* red) {
   return tot;
 }
 
-// Per-star coefficients and the six profile sets at theta `th` (D, packed).
-// Every thread of the block calls it; it ends synchronised.
-__device__ void profiles(const Params& P, const Work& s, const float* th) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// Per-star coefficients and the profiles at theta `th` (D, packed): gy, gy',
+// gx, gx' into shared memory and, with `copies`, gx, gx', gx'' and gy'' into
+// the workspace.  Every thread of the block calls it; it ends synchronised.
+__device__ void profiles(const Params& P, const Work& s, const float* th, bool copies) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
   const int K = s.K, H = P.H, W = P.W, fs = s.fs, hp = s.hp;
   const float sig = P.psf_sigma;
   if (tid < K) {
@@ -246,49 +452,115 @@ __device__ void profiles(const Params& P, const Work& s, const float* th) {
   const float sig2 = sig * sig;
   for (int i = warp; i < K; i += kWarps) {
     const float xs = s.x[i], ys = s.y[i];
+    int clo = W, chi = -1;
     for (int col = lane; col < fs; col += 32) {
       const int n = i * fs + col;
+      float g = 0.0f, g1 = 0.0f, g2 = 0.0f;
       if (col < W) {
         const float z = ((col + 0.5f) - xs) / sig;
-        const float g = expf(-0.5f * z * z) * P.psf_norm;
-        s.gx[n] = g; s.gx1[n] = g * z / sig; s.gx2[n] = g * (z * z - 1.0f) / sig2;
-      } else {
-        s.gx[n] = 0.0f; s.gx1[n] = 0.0f; s.gx2[n] = 0.0f;
+        g = expf(-0.5f * z * z) * P.psf_norm;
+        g1 = g * z / sig;
+        g2 = g * (z * z - 1.0f) / sig2;
+      }
+      s.gx[n] = g; s.gx1[n] = g1;
+      if (copies) { s.gxg[n] = g; s.gx1g[n] = g1; s.gx2g[n] = g2; }
+      if (g != 0.0f) {
+        clo = min(clo, col);
+        chi = max(chi, col);
       }
     }
+    int lo = H, hi = -1;
     for (int row = lane; row < H; row += 32) {
       const int n = i * hp + row;
       const float z = ((row + 0.5f) - ys) / sig;
       const float g = expf(-0.5f * z * z) * P.psf_norm;
-      s.gy[n] = g; s.gy1[n] = g * z / sig; s.gy2[n] = g * (z * z - 1.0f) / sig2;
+      s.gyy[2 * n] = g;
+      s.gyy[2 * n + 1] = g * z / sig;
+      if (copies) s.gy2g[n] = g * (z * z - 1.0f) / sig2;
+      if (g != 0.0f) {
+        lo = min(lo, row);
+        hi = max(hi, row);
+      }
     }
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+      hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+      clo = min(clo, __shfl_xor_sync(kFull, clo, o));
+      chi = max(chi, __shfl_xor_sync(kFull, chi, o));
+    }
+    if (lane == 0) {
+      s.ylo[i] = lo;
+      s.yhi[i] = hi;
+      s.xlo[i] = clo;
+      s.xhi[i] = chi;
+    }
+  }
+  __syncthreads();
+  // the live stars by y (ties by index), which the pair passes group by
+  if (tid < K) {
+    const float yi = s.y[tid];
+    int rank = 0;
+    for (int j = 0; j < K; ++j) {
+      const float yj = s.y[j];
+      rank += (yj < yi || (yj == yi && j < tid)) ? 1 : 0;
+    }
+    s.ord[rank] = tid;
   }
   __syncthreads();
 }
 
-// lam -> s.r1 = 1/lam (0 past column W).  With `full`, also s.fld = beta
-// (D/lam - 1) and the log-likelihood sum_p D log lam - lam (double),
-// returned to every thread.  Ends synchronised.
-__device__ double render(const Params& P, const Work& s, float beta, bool full,
-                         double* red) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// lam -> s.r1 = 1/lam (0 past column W), by 4 x 4 pixel tiles, the stars in
+// order.  With `full`, also s.fld = beta (D/lam - 1) and the log-likelihood
+// sum_p D log lam - lam (double), returned to every thread.  Ends
+// synchronised.
+__device__ double render(const Params& P, const Work& s, float beta, bool full) {
+  const int tid = thread_index();
   const int K = s.K, H = P.H, W = P.W, fs = s.fs, hp = s.hp;
+  const int cq = fs >> 2, n_tiles = ((H + 3) >> 2) * cq;
   double ll = 0.0;
-  for (int h = warp; h < H; h += kWarps) {
-    for (int col = lane; col < fs; col += 32) {
-      const int pix = h * fs + col;
-      if (col >= W) {
-        s.r1[pix] = 0.0f;
-        continue;
+  for (int t = tid; t < n_tiles; t += kThreads) {
+    const int tr = t / cq;
+    const int h0 = 4 * tr, c0 = 4 * (t - tr * cq);
+    // the rows of the warp's tiles
+    const int t0 = t & ~31, t1 = min(t0 + 31, n_tiles - 1);
+    const int wlo = 4 * (t0 / cq), whi = 4 * (t1 / cq) + 3;
+    int rows[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) rows[r] = h0 + r < H ? h0 + r : H - 1;  // past the last row: not written
+    float lam[4][4];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) (&lam[0][0])[n] = P.background;
+    for (int i = 0; i < K; ++i) {
+      // a star whose row profiles vanish on the warp's rows adds exact zeros
+      if (s.yhi[i] < wlo || s.ylo[i] > whi) continue;
+      const float wi = s.w[i];
+      const float4 g = load4(s.gx + i * fs + c0);
+      const float* gyi = s.gyy + 2 * i * hp;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float yw = gyi[2 * rows[r]] * wi;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) lam[r][k] = lam[r][k] + yw * comp(g, k);
       }
-      float lam = P.background;
-      for (int i = 0; i < K; ++i) lam = lam + (s.gy[i * hp + h] * s.w[i]) * s.gx[i * fs + col];
-      const float r1 = 1.0f / lam;
-      s.r1[pix] = r1;
-      if (full) {
-        const float d = P.image[h * W + col];
-        ll += static_cast<double>(d * logf(lam) - lam);
-        s.fld[pix] = beta * (d * r1 - 1.0f);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int h = h0 + r;
+      if (h >= H) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = c0 + k, pix = h * fs + col;
+        if (col >= W) {
+          s.r1[pix] = 0.0f;
+          continue;
+        }
+        const float r1 = 1.0f / lam[r][k];
+        s.r1[pix] = r1;
+        if (full) {
+          const float d = P.image[h * W + col];
+          ll += static_cast<double>(d * logf(lam[r][k]) - lam[r][k]);
+          s.fld[pix] = beta * (d * r1 - 1.0f);
+        }
       }
     }
   }
@@ -296,67 +568,106 @@ __device__ double render(const Params& P, const Work& s, float beta, bool full,
     __syncthreads();
     return 0.0;
   }
-  return block_sum_d(ll, red);  // synchronises
+  return block_sum_d(ll);  // synchronises
 }
 
-// Field contractions, one warp per star: lanes over columns sum the field
-// against gy, gy', gy'' down the rows, then W-length dots by warp shuffles
-// (csrc/fused_rhmc.cu's contract: the same modes and results at
-// s.dots[n K + i]).
+// Field contractions, two stars a warp (neighbours in y order): lanes over
+// columns (all of a lane's columns at once) sum the field, read once for
+// both stars, against gy, gy', gy'' down the rows where either star's
+// profiles are non-zero, then W-length dots against the column profiles'
+// copies by warp shuffles (csrc/fused_rhmc.cu's contract: the same modes,
+// sums in the same order and results at s.dots[n K + i]).  The field is
+// rho (kGrad) or q (kQ, times 1/lam^2) in the workspace's working field, or
+// phi / lam (kSweep) in shared memory, where phi_field leaves it.
 enum { kGrad = 0, kQ = 1, kSweep = 2 };
 
 template <int MODE>
 __device__ void contract(const Params& P, const Work& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, H = P.H, W = P.W, fs = s.fs, hp = s.hp;
-  for (int i = warp; i < K; i += kWarps) {
-    const float *gy = s.gy + i * hp, *gy1 = s.gy1 + i * hp, *gy2 = s.gy2 + i * hp;
-    float a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f;
-    float b1 = 0.f, b4 = 0.f, b6 = 0.f;
-    for (int col = lane; col < W; col += 32) {
-      float rg = 0.f, rg1 = 0.f, rg2 = 0.f, rb = 0.f, rb1 = 0.f;
-      for (int h = 0; h < H; ++h) {
-        const int pix = h * fs + col;
-        float f1 = s.fld[pix];
-        if (MODE == kQ) {
-          const float r = s.r1[pix];
-          f1 = f1 * (r * r);
-        } else if (MODE == kSweep) {
-          f1 = f1 * s.r1[pix];
+  constexpr int kCols = kMaxSide / 32;     // a lane's columns lane + 32 u
+  constexpr int kAcc = MODE == kSweep ? 5 : 2;
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int K = s.K, W = P.W, fs = s.fs, hp = s.hp;
+  for (int m = warp; 2 * m < K; m += kWarps) {
+    // neighbours in y order; a lone last star twice, written once
+    const int st[2] = {s.ord[2 * m], s.ord[2 * m + 1 < K ? 2 * m + 1 : 2 * m]};
+    const int lo = min(s.ylo[st[0]], s.ylo[st[1]]), hi = max(s.yhi[st[0]], s.yhi[st[1]]);
+    float acc[2][kCols][kAcc];
+#pragma unroll
+    for (int n = 0; n < 2 * kCols * kAcc; ++n) (&acc[0][0][0])[n] = 0.f;
+#pragma unroll 2
+    for (int h = lo; h <= hi; ++h) {  // elsewhere both stars' row profiles are 0
+      float f1[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int col = lane + 32 * u, pix = h * fs + col;
+        float f = 0.f;
+        if (col < W) {
+          if (MODE == kSweep) {
+            f = s.r1[pix];  // phi / lam, which phi_field left in 1/lam's slot
+          } else {
+            f = s.fld[pix];
+            if (MODE == kQ) {
+              const float r = s.r1[pix];
+              f = f * (r * r);
+            }
+          }
         }
-        rg += f1 * gy[h];
-        rg1 += f1 * gy1[h];
+        f1[u] = f;
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float2 y = load2(s.gyy + 2 * (st[t] * hp + h));
+        const float y2 = MODE == kSweep ? s.gy2g[st[t] * hp + h] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          acc[t][u][0] += f1[u] * y.x;
+          acc[t][u][1] += f1[u] * y.y;
+          if (MODE == kSweep) {
+            acc[t][u][2] += f1[u] * y2;
+            const float f2 = f1[u] * f1[u];
+            acc[t][u][3] += f2 * y.x;
+            acc[t][u][4] += f2 * y.y;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int i = st[t];
+      float a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f, a6 = 0.f;
+      float b1 = 0.f, b4 = 0.f, b6 = 0.f;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int col = lane + 32 * u;
+        if (col < W) {
+          const float rg = acc[t][u][0], rg1 = acc[t][u][1];
+          const int n = i * fs + col;
+          const float gx = s.gxg[n], gx1 = s.gx1g[n];
+          a1 += gx1 * rg;
+          a4 += gx * rg1;
+          a6 += gx * rg;
+          if (MODE == kSweep) {
+            const float rg2 = acc[t][u][2], rb = acc[t][u][3], rb1 = acc[t][u][4];
+            a2 += s.gx2g[n] * rg;
+            a3 += gx1 * rg1;
+            a5 += gx * rg2;
+            b1 += gx1 * rb;
+            b4 += gx * rb1;
+            b6 += gx * rb;
+          }
+        }
+      }
+      a1 = warp_sum(a1); a4 = warp_sum(a4); a6 = warp_sum(a6);
+      if (MODE == kSweep) {
+        a2 = warp_sum(a2); a3 = warp_sum(a3); a5 = warp_sum(a5);
+        b1 = warp_sum(b1); b4 = warp_sum(b4); b6 = warp_sum(b6);
+      }
+      if (lane == 0 && (t == 0 || st[1] != st[0])) {
+        s.dots[i] = a1; s.dots[3 * K + i] = a4; s.dots[5 * K + i] = a6;
         if (MODE == kSweep) {
-          rg2 += f1 * gy2[h];
-          const float f2 = f1 * f1;
-          rb += f2 * gy[h];
-          rb1 += f2 * gy1[h];
+          s.dots[K + i] = a2; s.dots[2 * K + i] = a3; s.dots[4 * K + i] = a5;
+          s.dots[6 * K + i] = b1; s.dots[7 * K + i] = b4; s.dots[8 * K + i] = b6;
         }
-      }
-      const int n = i * fs + col;
-      const float gx = s.gx[n], gx1 = s.gx1[n];
-      a1 += gx1 * rg;
-      a4 += gx * rg1;
-      a6 += gx * rg;
-      if (MODE == kSweep) {
-        a2 += s.gx2[n] * rg;
-        a3 += gx1 * rg1;
-        a5 += gx * rg2;
-        b1 += gx1 * rb;
-        b4 += gx * rb1;
-        b6 += gx * rb;
-      }
-    }
-    a1 = warp_sum(a1); a4 = warp_sum(a4); a6 = warp_sum(a6);
-    if (MODE == kSweep) {
-      a2 = warp_sum(a2); a3 = warp_sum(a3); a5 = warp_sum(a5);
-      b1 = warp_sum(b1); b4 = warp_sum(b4); b6 = warp_sum(b6);
-    }
-    if (lane == 0) {
-      s.dots[i] = a1; s.dots[3 * K + i] = a4; s.dots[5 * K + i] = a6;
-      if (MODE == kSweep) {
-        s.dots[K + i] = a2; s.dots[2 * K + i] = a3; s.dots[4 * K + i] = a5;
-        s.dots[6 * K + i] = b1; s.dots[7 * K + i] = b4; s.dots[8 * K + i] = b6;
       }
     }
   }
@@ -368,23 +679,30 @@ __device__ void contract(const Params& P, const Work& s) {
 // hp = hp_of_type(t).
 __device__ __forceinline__ int hp_of_type(int t) { return t == 0 ? 0 : (t == 1 ? 3 : 5); }
 
-// star pair of unordered index u, i <= j, without a division
-__device__ __forceinline__ void pair_of(int u, int K, int& i, int& j) {
+// unordered pair u of n items, i <= j, without a division
+__device__ __forceinline__ void pair_of(int u, int n, int& i, int& j) {
   i = 0;
-  while (u >= K - i) { u -= K - i; ++i; }
+  while (u >= n - i) { u -= n - i; ++i; }
   j = i + u;
 }
 
-// The lane groups of a pair pass: a group of 1 << lg lanes a star pair, the
-// power of two at or above the n_chunks 4-column chunks of a row (at most
-// 32: W <= 128).
+// Whether stars i and j share a pixel where both stars' profiles are not 0:
+// elsewhere each term of the pair is an exact zero.
+__device__ __forceinline__ bool overlap(const Work& s, int i, int j) {
+  return max(s.ylo[i], s.ylo[j]) <= min(s.yhi[i], s.yhi[j])
+         && max(s.xlo[i], s.xlo[j]) <= min(s.xhi[i], s.xhi[j]);
+}
+
+// The lane groups of a pair pass: a group of 1 << lg lanes a star pair (or
+// star tile), the power of two at or above the n_chunks 4-column chunks of
+// a row (at most 32: W <= 128).
 struct PairLanes {
   int lg, g, slot, per_round, n_chunks;
 };
 
 __device__ __forceinline__ PairLanes pair_lanes(int fs) {
   PairLanes q;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
   q.n_chunks = fs >> 2;
   q.lg = 0;
   while ((1 << q.lg) < q.n_chunks) ++q.lg;
@@ -397,9 +715,13 @@ __device__ __forceinline__ PairLanes pair_lanes(int fs) {
 // Pair contractions of a rebuild:
 //   Sraw[hp][tb][i][j] = sum_p Hprof_hp,i(p) Jprof_tb,j(p) / lam(p)
 // and Sraw[hp][tb][j][i], all 18 (hp, tb) of both orders, from 8 row
-// products a pair (csrc/fused_rhmc.cu's pair_contract, by lane groups).
+// products a pair (csrc/fused_rhmc.cu's pair_contract, by lane groups),
+// over the rows where both stars' profiles are non-zero.
+// gy'' is read from s.gy2 (shared), the column profiles from their copies
+// in the epilogue; the 18 sums of each order are made and reduced in two
+// halves of three Hessian profiles.
 __device__ void pair_contract(const Params& P, const Work& s) {
-  const int K = s.K, H = P.H, fs = s.fs, hp = s.hp, KK = K * K;
+  const int K = s.K, fs = s.fs, hp = s.hp, KK = K * K;
   const int n_pairs = K * (K + 1) / 2;
   const PairLanes q = pair_lanes(fs);
   for (int base = 0; base < n_pairs; base += q.per_round) {
@@ -407,22 +729,28 @@ __device__ void pair_contract(const Params& P, const Work& s) {
     const bool has = u < n_pairs;
     int i, j;
     pair_of(has ? u : 0, K, i, j);
-    float acc[18], acm[18];  // (i, j) and (j, i)
+    // a pair that shares no pixel where both profiles are non-zero has
+    // sums of exact zeros: +0
+    const bool touch = has && overlap(s, i, j);
+    const bool work = touch && q.g < q.n_chunks;
+    float t[8][4];
 #pragma unroll
-    for (int n = 0; n < 18; ++n) acc[n] = acm[n] = 0.f;
-    if (has && q.g < q.n_chunks) {
-      const float *yi0 = s.gy + i * hp, *yi1 = s.gy1 + i * hp, *yi2 = s.gy2 + i * hp;
-      const float *yj0 = s.gy + j * hp, *yj1 = s.gy1 + j * hp, *yj2 = s.gy2 + j * hp;
-      const float* rcol = s.r1 + 4 * q.g;
-      float t[8][4];
-#pragma unroll
-      for (int n = 0; n < 32; ++n) (&t[0][0])[n] = 0.f;
-      for (int h = 0; h < H; ++h) {
-        const float a0 = yi0[h], a1 = yi1[h], a2 = yi2[h];
-        const float b0 = yj0[h], b1 = yj1[h], b2 = yj2[h];
+    for (int n = 0; n < 32; ++n) (&t[0][0])[n] = 0.f;
+    if (work) {
+      // offsets into the shared array rather than pointers: fewer registers
+      const int g0 = static_cast<int>(s.gyy - b6c_smem), g2 = static_cast<int>(s.gy2 - b6c_smem);
+      const int oi = g0 + 2 * i * hp, oj = g0 + 2 * j * hp, oi2 = g2 + i * hp, oj2 = g2 + j * hp;
+      const int orc = static_cast<int>(s.r1 - b6c_smem) + 4 * q.g;
+      // the rows where both stars' row profiles are non-zero
+      const int hi = min(s.yhi[i], s.yhi[j]);
+#pragma unroll 2
+      for (int h = max(s.ylo[i], s.ylo[j]); h <= hi; ++h) {
+        const float2 ya = load2(b6c_smem + oi + 2 * h), yb = load2(b6c_smem + oj + 2 * h);
+        const float a0 = ya.x, a1 = ya.y, a2 = b6c_smem[oi2 + h];
+        const float b0 = yb.x, b1 = yb.y, b2 = b6c_smem[oj2 + h];
         const float pr[8] = {a0 * b0, a0 * b1, a1 * b0, a1 * b1,
                              a2 * b0, a2 * b1, a0 * b2, a1 * b2};
-        const float4 r4 = load4(rcol + h * fs);
+        const float4 r4 = load4(b6c_smem + orc + h * fs);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float r = comp(r4, k);
@@ -430,42 +758,54 @@ __device__ void pair_contract(const Params& P, const Work& s) {
           for (int m = 0; m < 8; ++m) t[m][k] += pr[m] * r;
         }
       }
-      const int ci = i * fs + 4 * q.g, cj = j * fs + 4 * q.g;
-      const float4 xi0 = load4(s.gx + ci), xi1 = load4(s.gx1 + ci), xi2 = load4(s.gx2 + ci);
-      const float4 xj0 = load4(s.gx + cj), xj1 = load4(s.gx1 + cj), xj2 = load4(s.gx2 + cj);
+    }
+    const int ci = i * fs + 4 * q.g, cj = j * fs + 4 * q.g;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float xi[3] = {comp(xi0, k), comp(xi1, k), comp(xi2, k)};
-        const float xj[3] = {comp(xj0, k), comp(xj1, k), comp(xj2, k)};
-        const float T[3][3] = {{t[0][k], t[1][k], t[6][k]},
-                               {t[2][k], t[3][k], t[7][k]},
-                               {t[4][k], t[5][k], 0.f}};
+    for (int half = 0; half < 2; ++half) {
+      float acc[9], acm[9];  // (i, j) and (j, i)
 #pragma unroll
-        for (int hq = 0; hq < 6; ++hq) {
-          const int yh = hq == 4 ? 2 : ((hq == 2 || hq == 3) ? 1 : 0);
-          const int xh = (hq == 0 || hq == 2) ? 1 : (hq == 1 ? 2 : 0);
+      for (int n = 0; n < 9; ++n) acc[n] = acm[n] = 0.f;
+      if (work) {
+        const float4 xi0 = load4(s.gxg + ci), xi1 = load4(s.gx1g + ci), xi2 = load4(s.gx2g + ci);
+        const float4 xj0 = load4(s.gxg + cj), xj1 = load4(s.gx1g + cj), xj2 = load4(s.gx2g + cj);
 #pragma unroll
-          for (int tb = 0; tb < 3; ++tb) {
-            const int yb = tb == 1 ? 1 : 0;
-            const int xb = tb == 0 ? 1 : 0;
-            acc[hq * 3 + tb] += xi[xh] * xj[xb] * T[yh][yb];
-            acm[hq * 3 + tb] += xj[xh] * xi[xb] * T[yb][yh];
+        for (int k = 0; k < 4; ++k) {
+          const float xi[3] = {comp(xi0, k), comp(xi1, k), comp(xi2, k)};
+          const float xj[3] = {comp(xj0, k), comp(xj1, k), comp(xj2, k)};
+          const float T[3][3] = {{t[0][k], t[1][k], t[6][k]},
+                                 {t[2][k], t[3][k], t[7][k]},
+                                 {t[4][k], t[5][k], 0.f}};
+#pragma unroll
+          for (int hh = 0; hh < 3; ++hh) {
+            const int hq = 3 * half + hh;
+            const int yh = hq == 4 ? 2 : ((hq == 2 || hq == 3) ? 1 : 0);
+            const int xh = (hq == 0 || hq == 2) ? 1 : (hq == 1 ? 2 : 0);
+#pragma unroll
+            for (int tb = 0; tb < 3; ++tb) {
+              const int yb = tb == 1 ? 1 : 0;
+              const int xb = tb == 0 ? 1 : 0;
+              acc[hh * 3 + tb] += xi[xh] * xj[xb] * T[yh][yb];
+              acm[hh * 3 + tb] += xj[xh] * xi[xb] * T[yb][yh];
+            }
           }
         }
       }
-    }
-    for (int o = 1; o < (1 << q.lg); o <<= 1) {
+      if (__any_sync(kFull, touch)) {
+        for (int o = 1; o < (1 << q.lg); o <<= 1) {
 #pragma unroll
-      for (int n = 0; n < 18; ++n) {
-        acc[n] += __shfl_xor_sync(kFull, acc[n], o);
-        acm[n] += __shfl_xor_sync(kFull, acm[n], o);
+          for (int n = 0; n < 9; ++n) {
+            acc[n] += __shfl_xor_sync(kFull, acc[n], o);
+            acm[n] += __shfl_xor_sync(kFull, acm[n], o);
+          }
+        }
       }
-    }
-    if (has && q.g == 0) {
+      if (has && q.g == 0) {
 #pragma unroll
-      for (int n = 0; n < 18; ++n) {
-        s.sraw[n * KK + i * K + j] = acc[n];
-        if (i != j) s.sraw[n * KK + j * K + i] = acm[n];
+        for (int n = 0; n < 9; ++n) {
+          const int idx = (9 * half + n) * KK;
+          s.sraw[idx + i * K + j] = acc[n];
+          if (i != j) s.sraw[idx + j * K + i] = acm[n];
+        }
       }
     }
   }
@@ -474,67 +814,118 @@ __device__ void pair_contract(const Params& P, const Work& s) {
 
 // The Fisher pairs of a position sweep: the 9 entries F needs per star pair
 // (hp = hp_of_type(ta) against tb) from 4 row products, written to (i, j)
-// and, mirrored, (j, i).
+// and, mirrored, (j, i).  A lane group takes a 2 x 2 tile of star pairs
+// (in y order, stars 2 bi, 2 bi + 1 against 2 bj, 2 bj + 1, bi <= bj): 16
+// row products against 1/lam on its 4 columns, over the rows where some
+// pair's profiles are both non-zero (elsewhere its terms are exact zeros),
+// then each pair's 9 sums in turn.
 __device__ void fisher_pairs(const Params& P, const Work& s) {
   const int K = s.K, H = P.H, fs = s.fs, hp = s.hp, KK = K * K;
-  const int n_pairs = K * (K + 1) / 2;
+  const int nb = (K + 1) >> 1;
+  const int n_tiles = nb * (nb + 1) / 2;
   const PairLanes q = pair_lanes(fs);
-  for (int base = 0; base < n_pairs; base += q.per_round) {
+  for (int base = 0; base < n_tiles; base += q.per_round) {
     const int u = base + q.slot;
-    const bool has = u < n_pairs;
-    int i, j;
-    pair_of(has ? u : 0, K, i, j);
-    float acc[9];
+    const bool has = u < n_tiles;
+    int bi, bj;
+    pair_of(has ? u : 0, nb, bi, bj);
+    // the tile's stars in y order; a star past the last (odd K) is read as
+    // the block's first and never written, and on the diagonal the pair
+    // (second, first) repeats (first, second)
+    const bool odd_i = 2 * bi + 1 >= K, odd_j = 2 * bj + 1 >= K;
+    const int li[2] = {s.ord[2 * bi], s.ord[odd_i ? 2 * bi : 2 * bi + 1]};
+    const int lj[2] = {s.ord[2 * bj], s.ord[odd_j ? 2 * bj : 2 * bj + 1]};
+    const bool live[4] = {true, !odd_j, !odd_i && bi != bj, !odd_i && !odd_j};
+    // the pairs that share a pixel where both stars' profiles are non-zero
+    // (the others' sums are exact zeros: +0) and the rows where some of
+    // them has both row profiles non-zero (elsewhere every row product is
+    // exactly zero)
+    bool touch[4];
+    int lo = H, hi = -1;
 #pragma unroll
-    for (int n = 0; n < 9; ++n) acc[n] = 0.f;
-    if (has && q.g < q.n_chunks) {
-      const float *yi0 = s.gy + i * hp, *yi1 = s.gy1 + i * hp;
-      const float *yj0 = s.gy + j * hp, *yj1 = s.gy1 + j * hp;
-      const float* rcol = s.r1 + 4 * q.g;
-      float t[4][4];
-#pragma unroll
-      for (int n = 0; n < 16; ++n) (&t[0][0])[n] = 0.f;
-      for (int h = 0; h < H; ++h) {
-        const float a0 = yi0[h], a1 = yi1[h], b0 = yj0[h], b1 = yj1[h];
-        const float pr[4] = {a0 * b0, a0 * b1, a1 * b0, a1 * b1};
-        const float4 r4 = load4(rcol + h * fs);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float r = comp(r4, k);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) t[m][k] += pr[m] * r;
-        }
+    for (int pp = 0; pp < 4; ++pp) {
+      const int a = li[pp >> 1], b = lj[pp & 1];
+      touch[pp] = has && live[pp] && overlap(s, a, b);
+      if (touch[pp]) {
+        lo = min(lo, max(s.ylo[a], s.ylo[b]));
+        hi = max(hi, min(s.yhi[a], s.yhi[b]));
       }
-      const int ci = i * fs + 4 * q.g, cj = j * fs + 4 * q.g;
-      const float4 xi0 = load4(s.gx + ci), xi1 = load4(s.gx1 + ci);
-      const float4 xj0 = load4(s.gx + cj), xj1 = load4(s.gx1 + cj);
+    }
+    const bool work = has && q.g < q.n_chunks;
+    float t[16][4];  // [(ii 2 + jj) 4 + ya 2 + yb][column]
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float xi[2] = {comp(xi0, k), comp(xi1, k)};
-        const float xj[2] = {comp(xj0, k), comp(xj1, k)};
+    for (int n = 0; n < 64; ++n) (&t[0][0])[n] = 0.f;
+    if (work) {
+      // offsets into the shared array rather than pointers: fewer registers
+      const int g0 = static_cast<int>(s.gyy - b6c_smem);
+      const int oa = g0 + 2 * li[0] * hp, ob = g0 + 2 * li[1] * hp;
+      const int oc = g0 + 2 * lj[0] * hp, od = g0 + 2 * lj[1] * hp;
+      const int orc = static_cast<int>(s.r1 - b6c_smem) + 4 * q.g;
+#pragma unroll 2
+      for (int h = lo; h <= hi; ++h) {
+        const float2 va = load2(b6c_smem + oa + 2 * h), vb = load2(b6c_smem + ob + 2 * h);
+        const float2 vc = load2(b6c_smem + oc + 2 * h), vd = load2(b6c_smem + od + 2 * h);
+        const float a[2][2] = {{va.x, va.y}, {vb.x, vb.y}};
+        const float b[2][2] = {{vc.x, vc.y}, {vd.x, vd.y}};
+        const float4 r4 = load4(b6c_smem + orc + h * fs);
 #pragma unroll
-        for (int ta = 0; ta < 3; ++ta) {
-          const int yh = ta == 1 ? 1 : 0, xh = ta == 0 ? 1 : 0;  // hp_of_type(ta)
+        for (int ii = 0; ii < 2; ++ii) {
 #pragma unroll
-          for (int tb = 0; tb < 3; ++tb) {
-            const int yb = tb == 1 ? 1 : 0, xb = tb == 0 ? 1 : 0;
-            acc[ta * 3 + tb] += xi[xh] * xj[xb] * t[yh * 2 + yb][k];
+          for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+            for (int ya = 0; ya < 2; ++ya) {
+#pragma unroll
+              for (int yb = 0; yb < 2; ++yb) {
+                const float pr = a[ii][ya] * b[jj][yb];
+                float* tt = t[(ii * 2 + jj) * 4 + ya * 2 + yb];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) tt[k] += pr * comp(r4, k);
+              }
+            }
           }
         }
       }
     }
-    for (int o = 1; o < (1 << q.lg); o <<= 1) {
 #pragma unroll
-      for (int n = 0; n < 9; ++n) acc[n] += __shfl_xor_sync(kFull, acc[n], o);
-    }
-    if (has && q.g == 0) {
+    for (int pp = 0; pp < 4; ++pp) {
+      const int ii = pp >> 1, jj = pp & 1;
+      const int i = li[ii], j = lj[jj];
+      float acc[9];
 #pragma unroll
-      for (int ta = 0; ta < 3; ++ta) {
+      for (int n = 0; n < 9; ++n) acc[n] = 0.f;
+      if (work && touch[pp]) {
+        // the column profiles a column at a time, so that few are live beside t
+        const int ci = li[ii] * fs + 4 * q.g, cj = lj[jj] * fs + 4 * q.g;
 #pragma unroll
-        for (int tb = 0; tb < 3; ++tb) {
-          const float v = acc[ta * 3 + tb];
-          s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j] = v;
-          s.sraw[(hp_of_type(tb) * 3 + ta) * KK + j * K + i] = v;
+        for (int k = 0; k < 4; ++k) {
+          const float xi[2] = {s.gx[ci + k], s.gx1[ci + k]};
+          const float xj[2] = {s.gx[cj + k], s.gx1[cj + k]};
+#pragma unroll
+          for (int ta = 0; ta < 3; ++ta) {
+            const int yh = ta == 1 ? 1 : 0, xh = ta == 0 ? 1 : 0;  // hp_of_type(ta)
+#pragma unroll
+            for (int tb = 0; tb < 3; ++tb) {
+              const int yb = tb == 1 ? 1 : 0, xb = tb == 0 ? 1 : 0;
+              acc[ta * 3 + tb] += xi[xh] * xj[xb] * t[pp * 4 + yh * 2 + yb][k];
+            }
+          }
+        }
+      }
+      if (__any_sync(kFull, touch[pp])) {
+        for (int o = 1; o < (1 << q.lg); o <<= 1) {
+#pragma unroll
+          for (int n = 0; n < 9; ++n) acc[n] += __shfl_xor_sync(kFull, acc[n], o);
+        }
+      }
+      if (has && q.g == 0 && live[pp]) {
+#pragma unroll
+        for (int ta = 0; ta < 3; ++ta) {
+#pragma unroll
+          for (int tb = 0; tb < 3; ++tb) {
+            const float v = acc[ta * 3 + tb];
+            s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j] = v;
+            s.sraw[(hp_of_type(tb) * 3 + ta) * KK + j * K + i] = v;
+          }
         }
       }
     }
@@ -548,16 +939,18 @@ __device__ __forceinline__ float jcoef(const Work& s, int t, int i) {
 }
 
 // The lower triangle of G = beta F + diag(info + (1 - m) + jitter) into
-// s.gmat by columns from s.sraw (columns over warps, rows over lanes),
-// info' into s.infod when `with_infod`, and `rhs` (D, or null) into row D,
-// where the factorisation turns it into L^-1 rhs.  Ends synchronised.
+// s.dense, packed by columns with D + 1 rows, from s.sraw (columns over
+// warps, rows over lanes), info' into s.infod when `with_infod`, and `rhs`
+// (D, or null) into row D, where the factorisation turns it into L^-1 rhs.
+// Ends synchronised.
 __device__ void assemble_metric(const Params& P, const Work& s, float beta,
                                 bool with_infod, const float* rhs) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, D = s.D, KK = K * K, ld = s.ld;
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int K = s.K, D = s.D, KK = K * K, n1 = D + 1;
   for (int cb = warp; cb < D; cb += kWarps) {
     const int tb = type_of(cb, K), j = cb - tb * K;
     const float cbj = jcoef(s, tb, j);
+    float* col = s.dense + col_off(cb, n1) - cb;  // col[r] = G(r, cb)
     for (int ra = cb + lane; ra < D; ra += 32) {
       const int ta = type_of(ra, K), i = ra - ta * K;
       const float f = jcoef(s, ta, i) * cbj * s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j];
@@ -572,74 +965,166 @@ __device__ void assemble_metric(const Params& P, const Work& s, float beta,
           s.infod[ra] = ta == 0 ? info * (1.0f - 2.0f * s.su[i])
                       : (ta == 1 ? info * (1.0f - 2.0f * s.sv[i]) : 0.0f);
       }
-      s.gmat[cb * ld + ra] = g;
+      col[ra] = g;
     }
   }
   if (rhs != nullptr)
-    for (int c = tid; c < D; c += kThreads) s.gmat[c * ld + D] = rhs[c];
+    for (int c = tid; c < D; c += kThreads) s.dense[col_off(c, n1) - c + D] = rhs[c];
   __syncthreads();
 }
 
-// Blocked right-looking Cholesky of the first D rows of s.gmat, stored by
-// columns, in panels of kPanel columns: warp 0 factors a panel column by
-// column in dot-product form (lane l keeps rows l + 32 q, q < kRows: s_r =
-// G_rj - sum_k L_rk L_jk over the panel's earlier columns, the pivot s_jj
-// from its owner by a shuffle), then every warp applies the panel to the
-// trailing matrix (columns over warps, rows over lanes, so every load runs
-// down a column), so a factorisation takes two block barriers a panel.  Each
-// entry takes its updates in column order.  s.gmat then holds L on and below
-// the diagonal and s.ldiag its diagonal.  Rows D .. nrows - 1 (a right-hand
-// side b in row D) are reduced alongside, which leaves L^-1 b in row D.  A
-// non-positive pivot makes NaN that reaches every later column.  With
-// `logdet`, warp 0 writes log det G to s.scal[1], the dead slots' identity
-// rows (diagonal `ldead` of L) included.  Every thread calls it; it ends
-// synchronised but for s.scal[1].
-__device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = s.D, ld = s.ld;
-  float* A = s.gmat;
+// Cholesky of the first D rows of s.dense (packed by columns, D + 1 rows a
+// column) in shared memory; cholesky_panels is the blocked right-looking
+// form, in panels of 32 columns, for D >= kPanelMinD, cholesky_columns the
+// unblocked one below it.
+// A panel lives in registers while it is factored: lane l holds column
+// p0 + l, warp w the rows p0 + w + 16 m.  At each of its columns j the
+// lanes that hold column j publish it to a shared column buffer (two
+// alternate, so one block barrier a column), and every thread forms
+// 1 / sqrt(s_jj) and updates its own entries of the later columns,
+// A_rc -= (A_rj / L_jj)(A_cj / L_jj).  The panel goes back to shared memory
+// and updates the trailing matrix, A_rc -= sum over the panel of L_rk L_ck
+// (lanes over columns, each holding its column's panel entries; warps over
+// rows, whose panel entries every lane reads at once).  Each entry takes its
+// updates in column order, as the dot-product form does.  s.dense then
+// holds L below the diagonal, s.ldiag its diagonal and s.dinv
+// 1 / sqrt(s_jj).  Rows D .. nrows - 1 (a right-hand side b in row D) are
+// reduced alongside, which leaves L^-1 b in row D.  A non-positive pivot
+// makes NaN that reaches every later column.  With `logdet`, warp 0 writes
+// log det G to s.scal[1], the dead slots' identity rows (diagonal `ldead`
+// of L) included.  Every thread calls it; it ends synchronised but for
+// s.scal[1].
+constexpr int kPanel = 32;                                // columns of a panel: a warp's lanes
+constexpr int kPanelRows = (3 * kMaxStars + 1 + kWarps - 1) / kWarps;  // rows a thread holds
+
+__device__ void cholesky_panels(const Work& s, int nrows) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int D = s.D, n1 = D + 1;
+  float* A = s.dense;
+  float* colbuf = s.dense + packed_l(D);  // two column buffers of n1
+  float* prow = s.dense + chol_prow(D);   // prow[(r - p0) kPanelLd + k] = L(r, p0 + k)
   for (int p0 = 0; p0 < D; p0 += kPanel) {
-    const int p1 = p0 + kPanel < D ? p0 + kPanel : D;
-    if (warp == 0) {
-      for (int j = p0; j < p1; ++j) {
-        float sv[kRows];
+    const int p1 = min(p0 + kPanel, D);
+    const int c = p0 + lane;  // this lane's column of the panel
+    const bool col_ok = c < p1;
+    float* ac = A + col_off(col_ok ? c : p0, n1) - (col_ok ? c : p0);  // ac[r] = A(r, c)
+    float v[kPanelRows];
 #pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          const int r = lane + 32 * q;
-          float v = 0.0f;
-          if (r >= j && r < nrows) {
-            v = A[j * ld + r];
-            for (int k = p0; k < j; ++k) v -= A[k * ld + r] * A[k * ld + j];
-          }
-          sv[q] = v;
+    for (int m = 0; m < kPanelRows; ++m) {
+      const int r = p0 + warp + kWarps * m;
+      v[m] = (col_ok && r >= c && r < nrows) ? ac[r] : 0.0f;
+    }
+    for (int j = p0; j < p1; ++j) {
+      float* buf = colbuf + ((j - p0) & 1) * n1;
+      if (lane == j - p0) {
+#pragma unroll
+        for (int m = 0; m < kPanelRows; ++m) {
+          const int r = p0 + warp + kWarps * m;
+          if (r >= j && r < nrows) buf[r] = v[m];
         }
-        float own = 0.0f;
+      }
+      __syncthreads();
+      const float sjj = buf[j];
+      const float dinv = 1.0f / sqrtf(sjj);
+      if (tid == 0) {
+        s.ldiag[j] = sjj * dinv;
+        s.dinv[j] = dinv;
+      }
+      if (lane == j - p0) {
 #pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          if (q == (j >> 5)) own = sv[q];
-        const float sjj = __shfl_sync(kFull, own, j & 31);
-        const float dinv = 1.0f / sqrtf(sjj);
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          const int r = lane + 32 * q;
-          if (r > j && r < nrows) A[j * ld + r] = sv[q] * dinv;
+        for (int m = 0; m < kPanelRows; ++m) {
+          const int r = p0 + warp + kWarps * m;
+          if (r > j) v[m] = v[m] * dinv;
         }
-        if (lane == 0) s.ldiag[j] = sjj * dinv;
-        __syncwarp();
+      } else if (col_ok && c > j) {
+        const float lc = buf[c] * dinv;
+#pragma unroll
+        for (int m = 0; m < kPanelRows; ++m) {
+          const int r = p0 + warp + kWarps * m;
+          if (r >= c && r < nrows) v[m] -= (buf[r] * dinv) * lc;
+        }
+      }
+    }
+    // L's panel back into its columns, and by rows for the trailing update
+    // (0 on and above the diagonal there, and past the panel's last column)
+#pragma unroll
+    for (int m = 0; m < kPanelRows; ++m) {
+      const int r = p0 + warp + kWarps * m;
+      if (r < nrows) {
+        if (col_ok && r > c) ac[r] = v[m];
+        prow[(r - p0) * kPanelLd + lane] = (col_ok && r > c) ? v[m] : 0.0f;
       }
     }
     __syncthreads();
     if (p1 == D) break;  // nothing trails the last panel
-    // the trailing update: A_rc -= sum over the panel of L_rk L_ck, r >= c
-    for (int c = p1 + warp; c < D; c += kWarps) {
-      for (int r = c + lane; r < nrows; r += 32) {
-        float a = A[c * ld + r];
-        for (int k = p0; k < p1; ++k) a -= A[k * ld + r] * A[k * ld + c];
-        A[c * ld + r] = a;
+    // the trailing update: A_rc -= sum_k L_rk L_ck over the panel, r >= c;
+    // lanes over columns, warps over rows
+    for (int c0 = p1; c0 < D; c0 += 32) {
+      const int cc = c0 + lane;
+      const bool ok = cc < D;
+      float lc[kPanel];  // L(cc, p0 + k)
+      const float* pc = prow + ((ok ? cc : p1) - p0) * kPanelLd;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) lc[k] = pc[k];
+      float* acc_col = A + col_off(ok ? cc : p1, n1) - (ok ? cc : p1);
+      for (int r = c0 + warp; r < nrows; r += kWarps) {
+        const float* pr = prow + (r - p0) * kPanelLd;
+        float a = ok && r >= cc ? acc_col[r] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kPanel; k += 4) {
+          const float4 l4 = load4(pr + k);
+          a -= l4.x * lc[k];
+          a -= l4.y * lc[k + 1];
+          a -= l4.z * lc[k + 2];
+          a -= l4.w * lc[k + 3];
+        }
+        if (ok && r >= cc) acc_col[r] = a;
       }
     }
     __syncthreads();
   }
+}
+
+// The same factorisation unblocked, for small D, where a panel's barriers
+// outweigh what its register tiles save: at column j every thread forms
+// 1 / sqrt(s_jj), every warp updates its trailing columns (a column a warp,
+// rows over lanes), one block barrier a column, and the columns are scaled
+// at the end.  The same operations in the same order as cholesky_panels.
+__device__ void cholesky_columns(const Work& s, int nrows) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int D = s.D, n1 = D + 1;
+  float* A = s.dense;
+  for (int j = 0; j < D; ++j) {
+    const float* cj = A + col_off(j, n1) - j;  // cj[r] = A(r, j)
+    const float sjj = cj[j];
+    const float dinv = 1.0f / sqrtf(sjj);
+    if (tid == 0) {
+      s.ldiag[j] = sjj * dinv;
+      s.dinv[j] = dinv;
+    }
+    for (int c = j + 1 + warp; c < D; c += kWarps) {
+      float* cc = A + col_off(c, n1) - c;
+      const float lc = cj[c] * dinv;
+      for (int r = c + lane; r < nrows; r += 32) cc[r] -= (cj[r] * dinv) * lc;
+    }
+    __syncthreads();
+  }
+  for (int j = warp; j < D; j += kWarps) {
+    float* cj = A + col_off(j, n1) - j;
+    const float dinv = s.dinv[j];
+    for (int r = j + 1 + lane; r < nrows; r += 32) cj[r] = cj[r] * dinv;
+  }
+  __syncthreads();
+}
+
+// the factorisation's form by D: panels from kPanelMinD parameters up
+constexpr int kPanelMinD = 96;
+
+__device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
+  const int D = s.D;
+  if (D >= kPanelMinD) cholesky_panels(s, nrows);
+  else cholesky_columns(s, nrows);
   if (logdet && warp == 0) {
     double ld_sum = 0.0;
     for (int j = lane; j < D; j += 32) ld_sum += static_cast<double>(logf(s.ldiag[j]));
@@ -651,44 +1136,66 @@ __device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
 }
 
 // out = G^-1 b by back substitution, L^T out = L^-1 b, in warp 0 after
-// cholesky(nrows = D + 1) left L^-1 b in row D: out_k = (y_k - sum_{r > k}
-// L_rk out_r) / L_kk, the sum down column k by lanes.  Ends synchronised.
+// cholesky(nrows = D + 1) left L^-1 b in row D: the lanes hold y = L^-1 b
+// (rows lane + 32 q); for k = D - 1 .. 0, out_k = y_k / L_kk from its
+// owner by a shuffle, then y_r -= L_kr out_k for r < k in every lane.
+// Ends synchronised.
 __device__ void chol_solve(const Work& s, float* out) {
-  const int D = s.D, ld = s.ld;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const float* A = s.gmat;
+  const int D = s.D, n1 = D + 1;
+  if (thread_index() < 32) {
+    const int lane = thread_index();
+    float y[kRows];
+    int row0[kRows];  // row 0 of the lane's columns r: L(k, r) at row0 + k
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int r = lane + 32 * q;
+      row0[q] = r < D ? col_off(r, n1) - r : 0;
+      y[q] = r < D ? s.dense[row0[q] + D] : 0.0f;
+    }
     for (int k = D - 1; k >= 0; --k) {
-      float part = 0.0f;
-      for (int r = k + 1 + lane; r < D; r += 32) part += A[k * ld + r] * out[r];
-      part = warp_sum(part);
-      if (lane == 0) out[k] = (A[k * ld + D] - part) / s.ldiag[k];
-      __syncwarp();
+      // y's entry k, from its lane's registers by a select chain (an
+      // indexed register array would go to local memory)
+      const int qk = k >> 5;
+      float own = y[0];
+#pragma unroll
+      for (int q = 1; q < kRows; ++q) own = qk == q ? y[q] : own;
+      const float xk = __shfl_sync(kFull, own, k & 31) * s.dinv[k];
+      if (lane == (k & 31)) out[k] = xk;
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int r = lane + 32 * q;
+        if (r < k) y[q] -= s.dense[row0[q] + k] * xk;
+      }
     }
   }
   __syncthreads();
 }
 
-// L^-1 into s.lw (by rows, lower triangle), one column per warp at a time by
-// forward substitution on L e_c, then G^-1 = L^-T L^-1 into s.ginv and its
-// 3x3 star blocks into s.gblk.  Every thread calls it; it ends synchronised.
+// L^-1 packed by columns after L in shared memory, one column per warp at a
+// time by forward substitution on L e_c (x_k = r_k / L_kk as r_k / sqrt(s_kk)
+// with the factorisation's 1 / sqrt(s_kk)); then G^-1 = L^-T L^-1 into s.ginv
+// (its lower half computed, both written) and the q field's coefficient
+// table: for each star pair i <= j, the nine G^-1 (ta K + i, tb K + j)
+// coef_ta,i coef_tb,j, doubled for i < j, then i and j.  Every thread calls
+// it; it ends synchronised.
 __device__ void inverse(const Work& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, D = s.D, ld = s.ld;
-  const float* A = s.gmat;
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int K = s.K, D = s.D, n1 = D + 1;
+  const float* A = s.dense;
+  float* X = s.dense + packed_l(D);
   for (int c = warp; c < D; c += kWarps) {
     float acc[kRows];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) acc[q] = lane + 32 * q == c ? 1.0f : 0.0f;
+    float* xc = X + col_off(c, D) - c;  // xc[r] = L^-1(r, c)
     for (int k = c; k < D; ++k) {
-      float own = 0.0f;
+      const int qk = k >> 5;  // a select chain, as chol_solve's
+      float own = acc[0];
 #pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        if (q == (k >> 5)) own = acc[q];
-      const float rk = __shfl_sync(kFull, own, k & 31);
-      const float xk = rk / s.ldiag[k];
-      if (lane == (k & 31)) s.lw[k * ld + c] = xk;
-      const float* lk = A + k * ld;  // column k of L
+      for (int q = 1; q < kRows; ++q) own = qk == q ? acc[q] : own;
+      const float xk = __shfl_sync(kFull, own, k & 31) * s.dinv[k];
+      if (lane == (k & 31)) xc[k] = xk;
+      const float* lk = A + col_off(k, n1) - k;  // column k of L
 #pragma unroll
       for (int q = 0; q < kRows; ++q) {
         const int r = lane + 32 * q;
@@ -698,13 +1205,67 @@ __device__ void inverse(const Work& s) {
   }
   __syncthreads();
   for (int a = warp; a < D; a += kWarps) {
-    const int ta = type_of(a, K), i = a - ta * K;
-    for (int b = lane; b < D; b += 32) {
-      const int tb = type_of(b, K), j = b - tb * K;
+    const float* xa = X + col_off(a, D) - a;
+    for (int b = lane; b <= a; b += 32) {
+      const float* xb = X + col_off(b, D) - b;
       float acc = 0.0f;
-      for (int k = a > b ? a : b; k < D; ++k) acc += s.lw[k * ld + a] * s.lw[k * ld + b];
-      s.ginv[a * ld + b] = acc;
-      s.gblk[(i * K + j) * 12 + ta * 3 + tb] = i == j ? acc : 2.0f * acc;  // see q_field
+      for (int k = a; k < D; ++k) acc += xa[k] * xb[k];
+      s.ginv[a * D + b] = acc;
+      s.ginv[b * D + a] = acc;
+    }
+  }
+  __syncthreads();
+  // the q field's star pairs: those that share a pixel where both stars'
+  // profiles are non-zero (every other pair's terms are exact zeros), in
+  // (i, j) order; their number into s.scal[4]
+  for (int i = warp; i < K; i += kWarps) {
+    int n = 0;
+    for (int j0 = i; j0 < K; j0 += 32) {
+      const int j = j0 + lane;
+      n += __popc(__ballot_sync(kFull, j < K && overlap(s, i, j)));
+    }
+    if (lane == 0) s.qrow[i] = n;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int i = 0; i < K; ++i) {
+      const int c = s.qrow[i];
+      s.qrow[i] = n;
+      n += c;
+    }
+    s.scal[4] = static_cast<float>(n);
+  }
+  __syncthreads();
+  for (int i = warp; i < K; i += kWarps) {
+    int u = s.qrow[i];
+    for (int j0 = i; j0 < K; j0 += 32) {
+      const int j = j0 + lane;
+      const bool ov = j < K && overlap(s, i, j);
+      const unsigned bal = __ballot_sync(kFull, ov);
+      const int at = u + __popc(bal & ((1u << lane) - 1u));
+      u += __popc(bal);
+      if (!ov) continue;
+      float* e = s.qcoef + at * kCoef;
+      const float m = i == j ? 1.0f : 2.0f;
+      const float ci[3] = {s.wcx[i], s.wcy[i], s.w[i]};
+      const float cj[3] = {s.wcx[j], s.wcy[j], s.w[j]};
+      const float* g = s.ginv + i * D + j;  // g[ta K D + tb K] = G^-1(ta K + i, tb K + j)
+      const int KD = K * D;
+      // T(0,0) = e0 P00, T(0,1) = e1 P01 + e2 P00, T(1,0) = e3 P10 + e4 P00,
+      // T(1,1) = e5 P11 + e6 P10 + e7 P01 + e8 P00 (q_operands)
+      e[0] = m * g[0] * ci[0] * cj[0];
+      e[1] = m * g[K] * ci[0] * cj[1];
+      e[2] = m * g[2 * K] * ci[0] * cj[2];
+      e[3] = m * g[KD] * ci[1] * cj[0];
+      e[4] = m * g[2 * KD] * ci[2] * cj[0];
+      e[5] = m * g[KD + K] * ci[1] * cj[1];
+      e[6] = m * g[KD + 2 * K] * ci[1] * cj[2];
+      e[7] = m * g[2 * KD + K] * ci[2] * cj[1];
+      e[8] = m * g[2 * KD + 2 * K] * ci[2] * cj[2];
+      e[9] = static_cast<float>(i);
+      e[10] = static_cast<float>(j);
+      e[11] = 0.0f;
     }
   }
   __syncthreads();
@@ -714,113 +1275,281 @@ __device__ void inverse(const Work& s) {
 // thread a runs down column a, and a warp's loads are contiguous).  Ends
 // synchronised.
 __device__ void ginv_matvec(const Work& s, const float* p, float* out) {
-  const int tid = threadIdx.x;
-  const int D = s.D, ld = s.ld;
+  const int tid = thread_index();
+  const int D = s.D;
   if (tid < D) {
     float acc = 0.0f;
-    for (int b = 0; b < D; ++b) acc += s.ginv[b * ld + tid] * p[b];
+    for (int b = 0; b < D; ++b) acc += s.ginv[b * D + tid] * p[b];
     out[tid] = acc;
   }
   __syncthreads();
 }
 
-// q(p) = sum_ab Ginv_ab J_a(p) J_b(p) into s.fld by star tiles, as
-// csrc/fused_rhmc.cu's q_field: a thread takes two pixels (rows h, h + 1 of
-// one column) and, for each tile of kQTile stars i, holds their Jacobian
-// values at both pixels, then walks the stars j >= the tile's first and adds
-// J_i^T Ginv_ij J_j for the tile's i <= j (s.gblk holds the blocks i < j
-// doubled).
-constexpr int kQTile = 4;
+// Chunk n of the q coefficient table (kQPairs pairs) into ring slot `slot`
+// by cp.async; the issuing threads wait for it before the next barrier.
+__device__ __forceinline__ void stage_qcoef(const Work& s, int n, int slot) {
+  const int tid = thread_index();
+  constexpr int kVec = kQPairs * kCoef / 4;
+  if (tid < kVec) {
+    cp_async16(s.qc + slot * kQPairs * kCoef + 4 * tid, s.qcoef + n * kQPairs * kCoef + 4 * tid);
+    cp_async_commit();
+  }
+}
 
-__device__ void q_field(const Params& P, const Work& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, H = P.H, W = P.W, hp = s.hp, fs = s.fs;
-  for (int h0 = 2 * warp; h0 < H; h0 += 2 * kWarps) {
-    const int h1 = h0 + 1 < H ? h0 + 1 : h0;  // an odd last row is computed twice, written once
-    for (int col = lane; col < W; col += 32) {
-      float q0 = 0.0f, q1 = 0.0f;
-      for (int i0 = 0; i0 < K; i0 += kQTile) {
-        float ja[kQTile][3][2];  // J_(t, i0 + ii) at rows h0, h1
+// The q field's GEMM operands of chunk n into `buf` from ring slot `slot`:
+// T (kQK, Hq), the row terms of each pair's four column-profile
+// combinations, and X (kQK, Wq), those combinations of the column profiles;
+// zero past the field and past the last pair, and the pairs' row ranges.
+// Four groups of 128 threads, rows or columns over a group's threads.
+__device__ void q_operands(const Params& P, const Work& s, int n, int slot, float* buf) {
+  const int tid = thread_index();
+  const int H = P.H, fs = s.fs, hp = s.hp, Hq = s.Hq, Wq = s.Wq;
+  const int n_pairs = static_cast<int>(s.scal[4]);  // the q field's pairs (inverse)
+  const float* coef = s.qc + slot * kQPairs * kCoef;
+  float* T = buf;
+  float* X = buf + kQK * Hq;
+  if (tid < kQPairs) {
+    // the rows where both stars' row profiles are non-zero (none past the
+    // last pair); T is exactly zero elsewhere
+    int* rng = reinterpret_cast<int*>(X + kQK * Wq);
+    int lo = 1, hi = 0;
+    if (n * kQPairs + tid < n_pairs) {
+      const float* e = coef + tid * kCoef;
+      const int i = static_cast<int>(e[9]), j = static_cast<int>(e[10]);
+      lo = max(s.ylo[i], s.ylo[j]);
+      hi = min(s.yhi[i], s.yhi[j]);
+    }
+    rng[tid] = lo;
+    rng[kQPairs + tid] = hi;
+  }
+  const int r = tid & 127;
+  for (int pl = tid >> 7; pl < kQPairs; pl += kThreads / 128) {
+    const float* e = coef + pl * kCoef;
+    const bool live = n * kQPairs + pl < n_pairs;
+    const int i = live ? static_cast<int>(e[9]) : 0, j = live ? static_cast<int>(e[10]) : 0;
+    if (r < Hq) {
+      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+      if (live && r < H) {
+        const float2 vi = load2(s.gyy + 2 * (i * hp + r)), vj = load2(s.gyy + 2 * (j * hp + r));
+        const float yi = vi.x, yi1 = vi.y, yj = vj.x, yj1 = vj.y;
+        const float p00 = yi * yj, p01 = yi * yj1, p10 = yi1 * yj, p11 = yi1 * yj1;
+        t0 = e[0] * p00;
+        t1 = e[1] * p01 + e[2] * p00;
+        t2 = e[3] * p10 + e[4] * p00;
+        t3 = ((e[5] * p11 + e[6] * p10) + e[7] * p01) + e[8] * p00;
+      }
+      float* tc = T + 4 * pl * Hq + r;
+      tc[0] = t0; tc[Hq] = t1; tc[2 * Hq] = t2; tc[3 * Hq] = t3;
+    }
+    if (r < Wq) {
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;
+      if (live && r < fs) {
+        const float gi = s.gx[i * fs + r], gi1 = s.gx1[i * fs + r];
+        const float gj = s.gx[j * fs + r], gj1 = s.gx1[j * fs + r];
+        x0 = gi1 * gj1; x1 = gi1 * gj; x2 = gi * gj1; x3 = gi * gj;
+      }
+      float* xc = X + 4 * pl * Wq + r;
+      xc[0] = x0; xc[Wq] = x1; xc[2 * Wq] = x2; xc[3 * Wq] = x3;
+    }
+  }
+}
+
+// TR consecutive floats from shared memory (TR = 2 or 4, aligned)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
+  if (N == 4) {
+    const float4 a = load4(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  }
+}
+
+// q(p) = sum_ab Ginv_ab J_a(p) J_b(p) into s.fld: the GEMM of the header
+// note, a TR x TC pixel tile a thread, chunks of kQPairs pairs through two
+// operand stages over s.r1 and the coefficient ring; each pixel sums the
+// pairs in order, a warp skipping the pairs whose row profiles vanish on
+// all its rows (their terms are exact zeros there).  Ends synchronised.
+template <int TR, int TC>
+__device__ void q_gemm(const Params& P, const Work& s) {
+  const int tid = thread_index();
+  const int H = P.H, fs = s.fs, Hq = s.Hq, Wq = s.Wq;
+  // the star pairs that share a pixel where both profiles are non-zero
+  // (inverse); none: q is 0
+  const int n_pairs = static_cast<int>(s.scal[4]);
+  const int n_chunks = (n_pairs + kQPairs - 1) / kQPairs;
+  const int tiles_c = Wq / TC, n_tiles = (Hq / TR) * tiles_c;
+  const bool mine = tid < n_tiles;
+  const int tr = mine ? tid / tiles_c : 0;
+  // the tile's column groups of 4, 4 tiles_c apart, so that a warp's loads
+  // of a group are one contiguous run
+  const int r0 = tr * TR, c0 = mine ? 4 * (tid - tr * tiles_c) : 0, cstep = 4 * tiles_c;
+  const int stage = q_stage(H, P.W);
+  // the rows of the warp's tiles
+  const int w0 = tid & ~31;
+  const int wlo = (w0 / tiles_c) * TR, whi = ((w0 + 31) / tiles_c) * TR + TR - 1;
+  float acc[TR][TC];
 #pragma unroll
-        for (int ii = 0; ii < kQTile; ++ii) {
-          const int i = i0 + ii < K ? i0 + ii : K - 1;  // past the last star: never used
-          const float cu = s.wcx[i] * s.gx1[i * fs + col];
-          const float cv = s.wcy[i] * s.gx[i * fs + col];
-          const float cs = s.w[i] * s.gx[i * fs + col];
-          const float y0 = s.gy[i * hp + h0], y1 = s.gy[i * hp + h1];
-          ja[ii][0][0] = cu * y0; ja[ii][0][1] = cu * y1;
-          ja[ii][1][0] = cv * s.gy1[i * hp + h0]; ja[ii][1][1] = cv * s.gy1[i * hp + h1];
-          ja[ii][2][0] = cs * y0; ja[ii][2][1] = cs * y1;
-        }
-        for (int j = i0; j < K; ++j) {
-          const float cu = s.wcx[j] * s.gx1[j * fs + col];
-          const float cv = s.wcy[j] * s.gx[j * fs + col];
-          const float cs = s.w[j] * s.gx[j * fs + col];
-          const float y0 = s.gy[j * hp + h0], y1 = s.gy[j * hp + h1];
-          const float jb[3][2] = {{cu * y0, cu * y1},
-                                  {cv * s.gy1[j * hp + h0], cv * s.gy1[j * hp + h1]},
-                                  {cs * y0, cs * y1}};
+  for (int n = 0; n < TR * TC; ++n) (&acc[0][0])[n] = 0.f;
+  stage_qcoef(s, 0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  q_operands(P, s, 0, 0, s.qbuf);
+  if (n_chunks > 1) stage_qcoef(s, 1, 1);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int n = 0; n < n_chunks; ++n) {
+    const float* T = s.qbuf + (n & 1) * stage;
+    const float* X = T + kQK * Hq;
+    if (n + 1 < n_chunks) q_operands(P, s, n + 1, (n + 1) & 1, s.qbuf + ((n + 1) & 1) * stage);
+    if (n + 2 < n_chunks) stage_qcoef(s, n + 2, n & 1);
+    if (mine) {
+      const int* rng = reinterpret_cast<const int*>(X + kQK * Wq);
+      for (int pl = 0; pl < kQPairs; ++pl) {
+        // a pair whose row profiles vanish on the warp's rows adds exact zeros
+        if (rng[kQPairs + pl] < wlo || rng[pl] > whi) continue;
 #pragma unroll
-          for (int ii = 0; ii < kQTile; ++ii) {
-            const int i = i0 + ii;
-            if (i > j) continue;
-            const float* blk = s.gblk + (i * K + j) * 12;
-            const float4 b0 = load4(blk), b1 = load4(blk + 4);
-            const float b8 = blk[8];
-            const float gb[9] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w, b8};
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k = 4 * pl + kk;
+          float tv[TR], xv[TC];
+          load_n<TR>(T + k * Hq + r0, tv);
 #pragma unroll
-            for (int ta = 0; ta < 3; ++ta) {
-              const float r0 = gb[ta * 3] * jb[0][0] + gb[ta * 3 + 1] * jb[1][0]
-                               + gb[ta * 3 + 2] * jb[2][0];
-              const float r1 = gb[ta * 3] * jb[0][1] + gb[ta * 3 + 1] * jb[1][1]
-                               + gb[ta * 3 + 2] * jb[2][1];
-              q0 += ja[ii][ta][0] * r0;
-              q1 += ja[ii][ta][1] * r1;
-            }
+          for (int g = 0; g < TC / 4; ++g) load_n<4>(X + k * Wq + c0 + g * cstep, xv + 4 * g);
+#pragma unroll
+          for (int ri = 0; ri < TR; ++ri) {
+#pragma unroll
+            for (int ci = 0; ci < TC; ++ci) acc[ri][ci] += tv[ri] * xv[ci];
           }
         }
       }
-      s.fld[h0 * fs + col] = q0;
-      if (h1 != h0) s.fld[h1 * fs + col] = q1;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (mine) {
+#pragma unroll
+    for (int ri = 0; ri < TR; ++ri) {
+      if (r0 + ri >= H) break;
+#pragma unroll
+      for (int g = 0; g < TC / 4; ++g)
+        if (c0 + g * cstep < fs)
+          store4(s.fld + (r0 + ri) * fs + c0 + g * cstep, acc[ri][4 * g], acc[ri][4 * g + 1],
+                 acc[ri][4 * g + 2], acc[ri][4 * g + 3]);
     }
   }
   __syncthreads();
 }
 
-// phi(p) = sum_b a_b J_b(p) into s.fld, from the per-star a_b coef_b in
-// s.cu, s.cv, s.cs.
-__device__ void phi_field(const Params& P, const Work& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, H = P.H, W = P.W, hp = s.hp, fs = s.fs;
-  for (int h = warp; h < H; h += kWarps) {
-    for (int col = lane; col < W; col += 32) {
-      float phi = 0.0f;
-      for (int i = 0; i < K; ++i) {
-        const int nx = i * fs + col, ny = i * hp + h;
-        const float tx = s.cu[i] * s.gx1[nx] + s.cs[i] * s.gx[nx];
-        phi = phi + s.gy[ny] * tx;
-        phi = phi + s.gy1[ny] * (s.cv[i] * s.gx[nx]);
+// the pixel tile of the q and phi fields: 2 x 4 where that fills the block
+// at most, else 4 x 8
+__device__ __forceinline__ bool small_tiles(const Work& s) {
+  return (s.Hq / 2) * (s.Wq / 4) <= kThreads;
+}
+
+__device__ void q_field(const Params& P, const Work& s) {
+  if (small_tiles(s)) q_gemm<2, 4>(P, s);
+  else q_gemm<4, 8>(P, s);
+}
+
+// phi(p) / lam(p), phi = sum_b a_b J_b(p) from the per-star a_b coef_b in
+// s.cu, s.cv, s.cs, over 1/lam in s.r1 (which dh_dtheta restores after
+// the contraction): a TR x TC pixel tile a thread, the stars in order.
+template <int TR, int TC>
+__device__ void phi_tiles(const Params& P, const Work& s) {
+  const int tid = thread_index();
+  const int K = s.K, H = P.H, fs = s.fs, hp = s.hp, Hq = s.Hq, Wq = s.Wq;
+  const int tiles_c = Wq / TC, n_tiles = (Hq / TR) * tiles_c;
+  if (tid < n_tiles) {
+    const int tr = tid / tiles_c;
+    // column groups of 4, 4 tiles_c apart, as q_gemm's
+    const int r0 = tr * TR, c0 = 4 * (tid - tr * tiles_c), cstep = 4 * tiles_c;
+    const int w0 = tid & ~31;  // the rows of the warp's tiles
+    const int wlo = (w0 / tiles_c) * TR, whi = ((w0 + 31) / tiles_c) * TR + TR - 1;
+    int rows[TR];
+#pragma unroll
+    for (int ri = 0; ri < TR; ++ri) rows[ri] = r0 + ri < H ? r0 + ri : H - 1;
+    float phi[TR][TC];
+#pragma unroll
+    for (int n = 0; n < TR * TC; ++n) (&phi[0][0])[n] = 0.f;
+    for (int i = 0; i < K; ++i) {
+      // a star whose row profiles vanish on the warp's rows adds exact zeros
+      if (s.yhi[i] < wlo || s.ylo[i] > whi) continue;
+      const float cu = s.cu[i], cv = s.cv[i], cs = s.cs[i];
+      float gx[TC], gx1[TC];
+#pragma unroll
+      for (int g = 0; g < TC / 4; ++g) {
+        if (c0 + g * cstep < fs) {
+          load_n<4>(s.gx + i * fs + c0 + g * cstep, gx + 4 * g);
+          load_n<4>(s.gx1 + i * fs + c0 + g * cstep, gx1 + 4 * g);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gx[4 * g + k] = gx1[4 * g + k] = 0.f;
+        }
       }
-      s.fld[h * fs + col] = phi;
+      float tx[TC], vx[TC];
+#pragma unroll
+      for (int ci = 0; ci < TC; ++ci) {
+        tx[ci] = cu * gx1[ci] + cs * gx[ci];
+        vx[ci] = cv * gx[ci];
+      }
+#pragma unroll
+      for (int ri = 0; ri < TR; ++ri) {
+        const float2 v = load2(s.gyy + 2 * (i * hp + rows[ri]));
+        const float y = v.x, y1 = v.y;
+#pragma unroll
+        for (int ci = 0; ci < TC; ++ci) {
+          phi[ri][ci] = phi[ri][ci] + y * tx[ci];
+          phi[ri][ci] = phi[ri][ci] + y1 * vx[ci];
+        }
+      }
+    }
+    // phi / lam over 1/lam, pixel by pixel (each thread its own)
+#pragma unroll
+    for (int ri = 0; ri < TR; ++ri) {
+      if (r0 + ri >= H) break;
+#pragma unroll
+      for (int g = 0; g < TC / 4; ++g) {
+        if (c0 + g * cstep < fs) {
+          float* r1 = s.r1 + (r0 + ri) * fs + c0 + g * cstep;
+          const float4 r = load4(r1);
+          store4(r1, phi[ri][4 * g] * r.x, phi[ri][4 * g + 1] * r.y, phi[ri][4 * g + 2] * r.z,
+                 phi[ri][4 * g + 3] * r.w);
+        }
+      }
     }
   }
   __syncthreads();
 }
 
-// Everything theta-dependent at s.th_b: profiles, 1/lam, U_beta (s.scal[0]),
-// log det G (s.scal[1]), the factor L (s.gmat / s.ldiag), G^-1, info' and
-// t1.  Every thread calls it; it ends synchronised.
-__device__ void build_structs(const Params& P, const Work& s, float beta, float ldead,
-                              double* red) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, D = s.D, KK = K * K, ld = s.ld;
-  profiles(P, s, s.th_b);
-  const double ll = render(P, s, beta, true, red);
-  pair_contract(P, s);
-  assemble_metric(P, s, beta, true, nullptr);
-  cholesky(s, D, true, ldead);
-  contract<kGrad>(P, s);
+__device__ void phi_field(const Params& P, const Work& s) {
+  if (small_tiles(s)) phi_tiles<2, 4>(P, s);
+  else phi_tiles<4, 8>(P, s);
+}
+
+// Everything theta-dependent at th_b: profiles, 1/lam, U_beta (scal[0]),
+// log det G (scal[1]), the factor L's diagonal (ldiag, dinv), G^-1, info'
+// and t1; with `p0`, also p0 = (L xi) m into p_b from the factor, xi in vec.
+// Every thread calls it; it ends synchronised, the field phase's arrays in
+// place.  Each pass makes its own Work (make_work).
+__device__ void build_structs(const Params& P, bool p0) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const float beta = make_work(P).scal[8];
+  double ll;
+  { const Work s = make_work(P); profiles(P, s, s.th_b, true); }
+  { const Work s = make_work(P); ll = render(P, s, beta, true); }
+  {
+    // gy'' over the column profiles for the pair contractions, which read
+    // the column profiles' copies
+    const Work s = make_work(P);
+    for (int n = tid; n < s.K * s.hp; n += kThreads) s.gy2[n] = s.gy2g[n];
+  }
+  __syncthreads();
+  { const Work s = make_work(P); pair_contract(P, s); }
+  { const Work s = make_work(P); contract<kGrad>(P, s); }
   if (warp == 0) {
+    const Work s = make_work(P);
+    const int K = s.K;
     double lp = 0.0;
     for (int i = lane; i < K; i += 32) {
       const float u = s.th_b[i], v = s.th_b[K + i], sl = s.th_b[2 * K + i];
@@ -837,13 +1566,39 @@ __device__ void build_structs(const Params& P, const Work& s, float beta, float 
     lp = warp_sum_d(lp);
     if (lane == 0) s.scal[0] = static_cast<float>(-(static_cast<double>(beta) * ll + lp));
   }
-  inverse(s);  // synchronises, so t1 and scal[0] are visible
-  q_field(P, s);
-  contract<kQ>(P, s);
+  // the dense phase over the field phase's arrays
+  { const Work s = make_work(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
+  {
+    // a dead slot's diagonal of L: its identity row of G plus the jitter,
+    // factored as the kernel factors a pivot
+    const float gdead = 1.0f + P.jitter;
+    const Work s = make_work(P);
+    cholesky(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
+  }
+  if (p0) {
+    // p0 = (L xi) m, L the factor of G(theta0)
+    const Work s = make_work(P);
+    const int K = s.K, D = s.D, n1 = D + 1;
+    if (tid < D) {
+      float acc = s.ldiag[tid] * s.vec[tid];
+      for (int k = 0; k < tid; ++k) acc += s.dense[col_off(k, n1) - k + tid] * s.vec[k];
+      s.p_b[tid] = acc * s.m[tid - type_of(tid, K) * K];
+    }
+    __syncthreads();
+  }
+  { const Work s = make_work(P); inverse(s); }
+  // the field phase again: profiles and 1/lam around the q field, whose
+  // operand stages take 1/lam's place
+  { const Work s = make_work(P); profiles(P, s, s.th_b, false); }
+  { const Work s = make_work(P); q_field(P, s); }
+  { const Work s = make_work(P); render(P, s, beta, false); }
+  { const Work s = make_work(P); contract<kQ>(P, s); }
   // t1_c += beta sum_{a in star i} sum_b Ginv_ab S_acb - beta/2 sum_p q J_c R2
   //         + 1/2 Ginv_cc info'_c, one warp a parameter c, lanes over stars j,
   // with S assembled from Sraw: S[m][tb][i][j] = coef_tb,j sum_terms coefH_i
   // Sraw[hp][tb][i][j]
+  const Work s = make_work(P);
+  const int K = s.K, D = s.D, KK = K * K;
   for (int c = warp; c < D; c += kWarps) {
     const int tc = type_of(c, K), i = c - tc * K;
     float sg = 0.0f;
@@ -858,7 +1613,7 @@ __device__ void build_structs(const Params& P, const Work& s, float beta, float 
       else if (lo == 1 && hi == 1) { hp0 = 3; c0 = s.wcy2[i]; hp1 = 4; c1 = s.wcyy[i]; }
       else if (lo == 1 && hi == 2) { hp0 = 3; c0 = s.wcy[i]; }
       else { hp0 = 5; c0 = s.w[i]; }
-      const float* grow = s.ginv + (ta * K + i) * ld;
+      const float* grow = s.ginv + (ta * K + i) * D;
       for (int tb = 0; tb < 3; ++tb) {
         const float* q0 = s.sraw + (hp0 * 3 + tb) * KK + i * K;
         const float* q1 = hp1 >= 0 ? s.sraw + (hp1 * 3 + tb) * KK + i * K : nullptr;
@@ -873,26 +1628,17 @@ __device__ void build_structs(const Params& P, const Work& s, float beta, float 
     if (lane == 0) {
       const float cq = jcoef(s, tc, i) * s.dots[(tc == 0 ? 0 : (tc == 1 ? 3 : 5)) * K + i];
       s.t1[c] = s.t1[c] + beta * sg - 0.5f * beta * cq
-                + 0.5f * s.ginv[c * ld + c] * s.infod[c];
+                + 0.5f * s.ginv[c * D + c] * s.infod[c];
     }
   }
   __syncthreads();
 }
 
-// dH/dtheta at the structs' theta and momentum p (D) into out: t1 + t2(a).
-__device__ void dh_dtheta(const Params& P, const Work& s, float beta, const float* p,
-                          float* out) {
-  const int tid = threadIdx.x;
+// The terms of dH/dtheta that depend on a = G^-1 p (in s.a) after the phi
+// field's contraction: out = t1 + t2(a).
+__device__ void sweep_terms(const Work& s, float beta, float* out) {
+  const int tid = thread_index();
   const int K = s.K, D = s.D;
-  ginv_matvec(s, p, s.a);
-  if (tid < K) {
-    s.cu[tid] = s.a[tid] * s.wcx[tid];
-    s.cv[tid] = s.a[K + tid] * s.wcy[tid];
-    s.cs[tid] = s.a[2 * K + tid] * s.w[tid];
-  }
-  __syncthreads();
-  phi_field(P, s);
-  contract<kSweep>(P, s);
   if (tid < D) {
     const int tc = type_of(tid, K), i = tid - tc * K;
     const float* d = s.dots;
@@ -922,22 +1668,42 @@ __device__ void dh_dtheta(const Params& P, const Work& s, float beta, const floa
   __syncthreads();
 }
 
-// G(th)^-1 p by a fresh metric build at th (profiles, 1/lam, F, Cholesky with
-// p as its extra row, back substitution; no S, no q, no t1) into out.
-__device__ void fisher_solve(const Params& P, const Work& s, float beta, const float* th,
-                             const float* p, float* out, double* red) {
-  profiles(P, s, th);
-  render(P, s, beta, false, red);
-  fisher_pairs(P, s);
-  assemble_metric(P, s, beta, false, p);
-  cholesky(s, s.D + 1, false, 0.0f);
-  chol_solve(s, out);
+// dH/dtheta at the structs' theta and the momentum in ph into dh: t1 + t2(a).
+__device__ void dh_dtheta(const Params& P) {
+  const int tid = thread_index();
+  const float beta = make_work(P).scal[8];
+  {
+    const Work s = make_work(P);
+    ginv_matvec(s, s.ph, s.a);
+    if (tid < s.K) {
+      s.cu[tid] = s.a[tid] * s.wcx[tid];
+      s.cv[tid] = s.a[s.K + tid] * s.wcy[tid];
+      s.cs[tid] = s.a[2 * s.K + tid] * s.w[tid];
+    }
+  }
+  __syncthreads();
+  { const Work s = make_work(P); phi_field(P, s); }
+  { const Work s = make_work(P); contract<kSweep>(P, s); }
+  { const Work s = make_work(P); render(P, s, beta, false); }  // 1/lam again
+  { const Work s = make_work(P); sweep_terms(s, beta, s.dh); }
+}
+
+// G(th)^-1 ph into vec by a fresh metric build at th (profiles, 1/lam, F,
+// Cholesky with ph as its extra row, back substitution; no S, no q, no t1).
+__device__ void fisher_solve(const Params& P) {
+  const float beta = make_work(P).scal[8];
+  { const Work s = make_work(P); profiles(P, s, s.th, false); }
+  { const Work s = make_work(P); render(P, s, beta, false); }
+  { const Work s = make_work(P); fisher_pairs(P, s); }
+  { const Work s = make_work(P); assemble_metric(P, s, beta, false, s.ph); }
+  { const Work s = make_work(P); cholesky(s, s.D + 1, false, 0.0f); }
+  { const Work s = make_work(P); chol_solve(s, s.vec); }
 }
 
 // Relative sup-norm Picard delta max|x_new - x_old| / (1 + max|x_new|) over
 // the D entries, NaN-propagating; returned to every thread.
 __device__ float fp_delta(const Work& s, const float* x_new, const float* x_old) {
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = thread_index(), lane = tid & 31;
   if (tid < 32) {
     float num = 0.0f, den = 0.0f;
     for (int a = lane; a < s.D; a += 32) {
@@ -956,7 +1722,7 @@ __device__ float fp_delta(const Work& s, const float* x_new, const float* x_old)
 
 // H = U + 1/2 log det G + 1/2 p^T G^-1 p at the structs' theta, momentum p.
 __device__ float hamiltonian(const Work& s, const float* p) {
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = thread_index(), lane = tid & 31;
   ginv_matvec(s, p, s.a);
   if (tid < 32) {
     double kin = 0.0;
@@ -972,117 +1738,146 @@ __device__ float hamiltonian(const Work& s, const float* p) {
   return h;
 }
 
-// One block an SM walks the chains c = blockIdx.x, + gridDim.x, ...
+// One block an SM; each block takes the next chain from the workspace's
+// counter until none is left.  Between passes a thread holds no more than
+// its loop counters: the chain and its scalars live in shared memory.
 __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params P) {
-  __shared__ double red[kWarps];
   __shared__ int live[kMaxStars];     // the chain's live slots, in order
   __shared__ float live_m[kMaxStars];
-  __shared__ int n_live;
-  const int tid = threadIdx.x, Ks = P.K, Ds = 3 * Ks;
-  Work s = carve(P);
-  // a dead slot's diagonal of L: its identity row of G plus the jitter,
-  // factored as the kernel factors a pivot
-  const float gdead = 1.0f + P.jitter;
-  const float ldead = gdead * (1.0f / sqrtf(gdead));
-  const float beta = *P.beta;
+  const int tid = thread_index();
+  if (tid == 0) init_layout(P);
 
-  for (int c = blockIdx.x; c < P.C; c += gridDim.x) {
-    __syncthreads();  // the previous chain's outputs are written
-    if (tid == 0) {
-      int n = 0;
-      for (int i = 0; i < Ks; ++i) {
-        const float m = P.mask[c * P.mask_stride + i];
-        if (m != 0.0f) {
-          live[n] = i;
-          live_m[n] = m;
-          ++n;
+  for (;;) {
+    __syncthreads();  // the layout is set; the previous chain's outputs are written
+    if (tid == 0) b6c_chain = atomicAdd(reinterpret_cast<int*>(P.work), 1);
+    __syncthreads();
+    if (b6c_chain >= P.C) break;
+    {
+      const int c = b6c_chain, Ks = P.K, Ds = 3 * Ks;
+      if (tid == 0) {
+        int n = 0;
+        for (int i = 0; i < Ks; ++i) {
+          const float m = P.mask[c * P.mask_stride + i];
+          if (m != 0.0f) {
+            live[n] = i;
+            live_m[n] = m;
+            ++n;
+          }
         }
+        b6c_lay[kLyK] = n;
       }
-      n_live = n;
-    }
-    // every slot as it went in, with momentum 0; the live ones are
-    // overwritten at the end
-    for (int n = tid; n < Ds; n += kThreads) {
-      P.theta_out[c * Ds + n] = P.theta[c * Ds + n];
-      P.p_out[c * Ds + n] = 0.0f;
+      // every slot as it went in, with momentum 0; the live ones are
+      // overwritten at the end
+      for (int n = tid; n < Ds; n += kThreads) {
+        P.theta_out[c * Ds + n] = P.theta[c * Ds + n];
+        P.p_out[c * Ds + n] = 0.0f;
+      }
     }
     __syncthreads();
-    s.K = n_live;
-    s.D = 3 * s.K;
-    s.ld = s.D + 1;
-    s.n_dead = Ks - s.K;
-    const int K = s.K, D = s.D;
-    const float eps = P.eps[c];
-    const float half_eps = 0.5f * eps;
-    if (tid < K) s.m[tid] = live_m[tid];
-    if (tid < D) {  // (K, 3) star-major in memory -> packed a = t K + i over live stars
-      const int t = type_of(tid, K), i = tid - t * K, slot = live[i];
-      s.th_b[tid] = P.theta[c * Ds + 3 * slot + t];
-      s.vec[tid] = P.xi[c * Ds + 3 * slot + t];
+    {
+      const Work s = make_work(P);
+      const int c = b6c_chain, Ds = 3 * P.K, K = s.K, D = s.D;
+      if (tid < K) s.m[tid] = live_m[tid];
+      if (tid < D) {  // (K, 3) star-major in memory -> packed a = t K + i over live stars
+        const int t = type_of(tid, K), i = tid - t * K, slot = live[i];
+        s.th_b[tid] = P.theta[c * Ds + 3 * slot + t];
+        s.vec[tid] = P.xi[c * Ds + 3 * slot + t];
+      }
+      if (tid == 0) {
+        s.scal[6] = 0.0f;  // the residual
+        s.scal[8] = *P.beta;
+        s.scal[9] = P.eps[c];
+      }
     }
     __syncthreads();
 
-    build_structs(P, s, beta, ldead, red);
-    // p0 = (L xi) m, L the factor of G(theta0) that build_structs left behind
-    if (tid < D) {
-      float acc = s.ldiag[tid] * s.vec[tid];
-      for (int k = 0; k < tid; ++k) acc += s.gmat[k * s.ld + tid] * s.vec[k];
-      s.p_b[tid] = acc * s.m[tid - type_of(tid, K) * K];
+    // p0 = (L xi) m into p_b, L the factor of G(theta0)
+    build_structs(P, true);
+    {
+      const Work s = make_work(P);
+      const float h0 = hamiltonian(s, s.p_b);
+      if (tid == 0) s.scal[5] = h0;
     }
-    __syncthreads();
-    const float h0 = hamiltonian(s, s.p_b);
 
-    float resid = 0.0f;
-    for (int step = 0; step < P.n_steps; ++step) {
+    // the loops' counters in shared memory, stepped by thread 0 between
+    // barriers, so that no thread holds them in registers across the passes
+    if (tid == 0) b6c_iter[0] = 0;
+    __syncthreads();
+    while (b6c_iter[0] < P.n_steps) {
       // implicit momentum half-step: p_h = p - eps/2 dH/dtheta(theta, p_h)
-      if (tid < D) s.ph[tid] = s.p_b[tid];
+      {
+        const Work s = make_work(P);
+        if (tid < s.D) s.ph[tid] = s.p_b[tid];
+        if (tid == 0) b6c_iter[1] = 0;
+      }
       __syncthreads();
-      float d1 = 0.0f;
-      for (int it = 0; it < P.fpi; ++it) {
-        dh_dtheta(P, s, beta, s.ph, s.dh);
-        if (tid < D) s.dh[tid] = s.p_b[tid] - half_eps * s.dh[tid];
+      while (b6c_iter[1] < P.fpi) {
+        dh_dtheta(P);
+        const Work s = make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        if (tid < s.D) s.dh[tid] = s.p_b[tid] - half_eps * s.dh[tid];
         __syncthreads();
-        d1 = fp_delta(s, s.dh, s.ph);
-        if (tid < D) s.ph[tid] = s.dh[tid];
+        const float d1 = fp_delta(s, s.dh, s.ph);
+        if (tid == 0) s.scal[7] = d1;
+        if (tid < s.D) s.ph[tid] = s.dh[tid];
+        __syncthreads();
+        if (tid == 0) ++b6c_iter[1];
         __syncthreads();
       }
       // implicit position step: theta' = theta + eps/2 [G(theta)^-1 + G(theta')^-1] p_h
-      ginv_matvec(s, s.ph, s.vec);
-      if (tid < D) {
-        s.base[tid] = s.th_b[tid] + half_eps * s.vec[tid];
-        s.th[tid] = s.th_b[tid] + eps * s.vec[tid];
+      {
+        const Work s = make_work(P);
+        const float eps = s.scal[9];
+        ginv_matvec(s, s.ph, s.vec);
+        if (tid < s.D) {
+          s.base[tid] = s.th_b[tid] + (0.5f * eps) * s.vec[tid];
+          s.th[tid] = s.th_b[tid] + eps * s.vec[tid];
+        }
+        if (tid == 0) b6c_iter[1] = 0;
       }
       __syncthreads();
-      float d2 = 0.0f;
-      for (int it = 0; it < P.fpi; ++it) {
-        fisher_solve(P, s, beta, s.th, s.ph, s.vec, red);
-        if (tid < D) s.vec[tid] = s.base[tid] + half_eps * s.vec[tid];
+      while (b6c_iter[1] < P.fpi) {
+        fisher_solve(P);
+        const Work s = make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        if (tid < s.D) s.vec[tid] = s.base[tid] + half_eps * s.vec[tid];
         __syncthreads();
-        d2 = fp_delta(s, s.vec, s.th);
-        if (tid < D) s.th[tid] = s.vec[tid];
+        const float d2 = fp_delta(s, s.vec, s.th);
+        // the step's residual: the last sweeps' deltas, NaN-propagating
+        if (tid == 0 && b6c_iter[1] == P.fpi - 1)
+          s.scal[6] = nanmax(s.scal[6], nanmax(s.scal[7], d2));
+        if (tid < s.D) s.th[tid] = s.vec[tid];
+        __syncthreads();
+        if (tid == 0) ++b6c_iter[1];
         __syncthreads();
       }
       // rebuild at theta'; reused by the final half-step, h1 and the next step
-      if (tid < D) s.th_b[tid] = s.th[tid];
+      { const Work s = make_work(P); if (tid < s.D) s.th_b[tid] = s.th[tid]; }
       __syncthreads();
-      build_structs(P, s, beta, ldead, red);
-      dh_dtheta(P, s, beta, s.ph, s.dh);
-      if (tid < D) s.p_b[tid] = s.ph[tid] - half_eps * s.dh[tid];
+      build_structs(P, false);
+      dh_dtheta(P);
+      {
+        const Work s = make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        if (tid < s.D) s.p_b[tid] = s.ph[tid] - half_eps * s.dh[tid];
+        if (tid == 0) ++b6c_iter[0];
+      }
       __syncthreads();
-      resid = nanmax(resid, nanmax(d1, d2));
     }
+    const Work s = make_work(P);
     const float h1 = hamiltonian(s, s.p_b);
 
-    if (tid < D) {
-      const int t = type_of(tid, K), i = tid - t * K, slot = live[i];
+    const int c = b6c_chain, Ds = 3 * P.K;
+    if (tid < s.D) {
+      const int K = s.K, t = type_of(tid, K), i = tid - t * K, slot = live[i];
       P.theta_out[c * Ds + 3 * slot + t] = s.th_b[tid];
       P.p_out[c * Ds + 3 * slot + t] = s.p_b[tid];
     }
     if (tid == 0) {
-      P.h0_out[c] = h0;
+      P.h0_out[c] = s.scal[5];
       P.h1_out[c] = h1;
       P.u1_out[c] = s.scal[0];
-      P.resid_out[c] = resid;
+      P.resid_out[c] = s.scal[6];
     }
   }
 }
@@ -1110,8 +1905,9 @@ bool in_domain(int K, int H, int W) {
 
 extern "C" {
 
-// Launches `grid` blocks on `stream`, each walking the chains blockIdx.x +
-// n gridDim.x in its slice of `work` (grid x work_floats(K, H, W) floats,
+// Launches `grid` blocks on `stream`, which take the chains from the int
+// counter at `work` (zero at launch) and work in their slices of `work`
+// after its kHeader floats (kHeader + grid x work_floats(K, H, W) floats,
 // allocated by the caller); returns cudaGetLastError() (0 on success).
 int starcat_fused_rhmc_crowded(
     const void* theta, const void* xi, const void* eps, const void* mask,

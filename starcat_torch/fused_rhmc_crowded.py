@@ -11,10 +11,11 @@ The JAX package has no Pallas kernel here: beyond its B6 gate it runs the
 full metric on XLA (starcat/api.py:205).  The kernel takes scenes of at most
 128 x 128 pixels with 1 <= K <= 64 catalog slots; :func:`dispatch.rhmc_full_module`
 gives it what B6's domain does not hold.  One launch takes every chain: a
-persistent grid of one block an SM walks the chains, each block in its own
-slice of a workspace in device memory that the wrapper allocates
-(:func:`workspace_bytes` a block), so the memory follows the card, not the
-chain count.
+persistent grid of one block an SM, whose blocks take the chains from a
+counter in the workspace's header, each block in its own slice of that
+workspace in device memory, which the wrapper allocates
+(:func:`workspace_bytes`) and whose counter it zeroes before each launch,
+so the memory follows the card, not the chain count.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_rhmc.fused_rhmc_reference` (the same function),
@@ -35,6 +36,11 @@ from .scene import SceneSpec
 MAX_STARS = 64    # kMaxStars in the source
 MAX_SIDE = 128    # kMaxSide in the source: H, W <= 128
 THREADS = 512     # kThreads in the source
+Q_PAIRS = 8       # kQPairs in the source: star pairs of a q-field chunk
+Q_DEPTH = 4 * Q_PAIRS  # kQK: that chunk's GEMM depth
+Q_COEF = 12       # kCoef: floats a pair in the q coefficient table
+HEADER_FLOATS = 4  # kHeader: the workspace's header, the chain counter first
+CHOL_PANEL_LD = 36  # kPanelLd: floats a row of the Cholesky's panel by rows
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -55,26 +61,61 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def q_extent(height: int, width: int) -> tuple[int, int]:
+    """The q and phi fields' padded extent (q_rows, q_cols in the source):
+    rows rounded up to 4, columns to 8."""
+    return _round4(height), (width + 7) & ~7
+
+
+def q_tile(height: int, width: int) -> tuple[int, int]:
+    """The pixel tile (rows, columns) a thread holds in the q and phi fields
+    (small_tiles in the source): 2 x 4 where those tiles number at most the
+    block's threads, else 4 x 8 (at most 512 tiles up to 128 x 128)."""
+    hq, wq = q_extent(height, width)
+    return (2, 4) if (hq // 2) * (wq // 4) <= THREADS else (4, 8)
+
+
+def region_floats(kmax: int, height: int, width: int) -> int:
+    """The shared phase region (region_floats in the source): the field
+    phase's 1/lam slot (H rows at the field stride, or the q field's two
+    operand stages of Q_DEPTH rows and columns and their pairs' row ranges,
+    where larger), gy and gy' interleaved at the odd star stride H | 1,
+    and gx, gx' (or gy'' in a rebuild's pair pass), against the dense
+    phase's packed L (D + 1 rows) and then L^-1 or
+    the Cholesky's scratch (two column buffers and, 16-byte aligned, a
+    panel by rows, CHOL_PANEL_LD floats a row), whichever is larger."""
+    fs, hp, d = field_stride(width), height | 1, 3 * kmax
+    hq, wq = q_extent(height, width)
+    r1 = max(height * fs, 2 * (Q_DEPTH * (hq + wq) + 2 * Q_PAIRS))
+    field = r1 + 2 * _round4(kmax * hp) + max(2 * kmax * fs, _round4(kmax * hp))
+    packed_l = (d + 1) * (d + 2) // 2
+    chol = _round4(packed_l + 2 * (d + 1)) - packed_l + CHOL_PANEL_LD * (d + 1)
+    dense = packed_l + max(d * (d + 1) // 2, chol)
+    return _round4(max(field, dense))
+
+
 def smem_bytes(kmax: int, height: int, width: int) -> int:
     """Shared memory one block needs (mirrors smem_floats in the source):
-    1/lam (H rows at the field stride), the three row profile sets at the
-    odd star stride H | 1, 58 floats a star and 8 of scratch."""
-    return 4 * (height * field_stride(width) + 3 * kmax * (height | 1) + 58 * kmax + 8)
+    the phase region, the q coefficient ring (two chunks), 67 floats a star
+    and 12 of per-chain scalars."""
+    return 4 * (region_floats(kmax, height, width) + 2 * Q_PAIRS * Q_COEF + 67 * kmax + 12)
 
 
 def workspace_floats(kmax: int, height: int, width: int) -> int:
     """Device memory one block works in, in floats (mirrors work_floats in
-    the source): the working field, three column profile sets, the 18 K^2
-    pair contractions, G / L ((D + 1)^2), L^-1 and G^-1 (D (D + 1) each) and
-    G^-1's 3x3 star blocks padded to 12 floats, each a multiple of 4."""
+    the source): the working field, three column profile sets, gy'', the 18
+    K^2 pair sums, G^-1 (D^2) and the q coefficient table (Q_COEF floats a
+    star pair, in whole chunks of Q_PAIRS), each a multiple of 4."""
     fs, d = field_stride(width), 3 * kmax
-    return (height * fs + 3 * kmax * fs + _round4(18 * kmax * kmax)
-            + _round4((d + 1) * (d + 1)) + 2 * _round4(d * (d + 1)) + 12 * kmax * kmax)
+    pairs = (kmax * (kmax + 1) // 2 + Q_PAIRS - 1) // Q_PAIRS * Q_PAIRS
+    return (height * fs + 3 * kmax * fs + _round4(kmax * (height | 1))
+            + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs)
 
 
 def workspace_bytes(kmax: int, height: int, width: int, blocks: int = 1) -> int:
-    """The workspace a launch of ``blocks`` blocks takes."""
-    return 4 * blocks * workspace_floats(kmax, height, width)
+    """The workspace a launch of ``blocks`` blocks takes: the header and a
+    slice a block."""
+    return 4 * (HEADER_FLOATS + blocks * workspace_floats(kmax, height, width))
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
@@ -125,8 +166,8 @@ def _library_layout(device_index: int, kmax: int, height: int, width: int) -> di
 def launch_layout(c: int, kmax: int, height: int, width: int, device=None) -> dict:
     """How the kernel lays out a launch of c chains on the card: threads a
     block, the blocks an SM holds, the grid (at most the SMs times that,
-    each block walking its chains), the chains a block takes at most and
-    the workspace's bytes."""
+    its blocks taking the chains from the workspace's counter), the chains
+    a block takes on average, rounded up, and the workspace's bytes."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = _library_layout(index, kmax, height, width)
@@ -168,6 +209,7 @@ def make_fused_rhmc(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
         lay = launch_layout(theta.shape[0], kmax, spec.height, spec.width, theta.device)
         work = torch.empty(lay["workspace_bytes"] // 4, dtype=torch.float32,
                            device=theta.device)
+        work[:HEADER_FLOATS].zero_()  # the chain counter
         out = launch_riemannian("fused_rhmc_crowded", image, kmax, n_steps, fpi, scalars,
                                 theta, xi, eps, mask, beta, workspace=(work, lay["grid"]))
         LAUNCHES += 1

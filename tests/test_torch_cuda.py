@@ -577,6 +577,40 @@ def test_b6c_gives_a_chain_the_same_bits_at_any_chain_count(dev):
         assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
 
 
+def test_b6c_ptxas_reports_no_spills(dev):
+    """The B6c build keeps every value in registers or shared memory: its
+    ptxas report (nvcc -Xptxas -v) shows 0 bytes of spill stores and loads
+    and no stack frame."""
+    import re
+
+    from starcat_torch import build
+
+    _, report, _ = build.build_kernel("fused_rhmc_crowded")
+    spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", report)
+    assert spills, report
+    assert all(int(n) == 0 for row in spills for n in row), report
+
+
+def test_b6c_chain_counter_gives_the_same_bits_at_many_chains_a_block(dev):
+    """Blocks take the chains from the workspace's counter: at 1200 chains
+    (about nine a block on an H100), with live counts from 1 to K in
+    shuffled slots, every chain gives the bits it gives alone and on a
+    rerun, so the counter's order reaches no chain's result."""
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_inputs(40, 48, 12, 1200, dev, 16)
+    fused = frc.make_fused_rhmc(spec, img, prior, 12, 2, 2)
+    assert frc.launch_layout(1200, 12, 40, 48, dev)["chains_per_block"] >= 8
+    full = fused(theta, xi, eps, mask)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(full, fused(theta, xi, eps, mask)))
+    for idx in ([1199], [3, 700, 11, 1199, 0]):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(),
+                     mask[sel].contiguous())
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
+
+
 def test_b6c_launch_count(dev):
     from starcat_torch import fused_rhmc_crowded as frc
 

@@ -239,29 +239,115 @@ def test_api_resolves_b6c_for_the_full_metric_on_crowded_fields():
 
 
 def test_b6c_shared_memory_and_workspace_follow_its_layout():
-    """smem_bytes mirrors smem_floats in csrc/fused_rhmc_crowded.cu: 1/lam,
-    H rows at the field stride (W rounded up to 4), the three row profile
-    sets at the odd star stride H | 1, 58 floats a star and 8 of scratch;
-    workspace_bytes mirrors work_floats: the working field, the three
-    column profile sets, the 18 K^2 pair contractions, G / L ((D + 1)^2),
-    L^-1 and G^-1 (D (D + 1) each), G^-1's 3x3 star blocks padded to 12,
+    """smem_bytes mirrors smem_floats in csrc/fused_rhmc_crowded.cu: the
+    phase region (region_floats), the q coefficient ring of two chunks of
+    8 pairs at 12 floats, 67 floats a star and 12 of per-chain scalars;
+    workspace_bytes mirrors work_floats after the 4-float header (the chain
+    counter): the working field, the three column profile sets, gy'' at the
+    odd star stride H | 1, the 18 K^2 pair sums, G^-1 (D^2) and the q
+    coefficient table (12 floats a star pair, whole chunks of 8 pairs),
     each rounded up to a multiple of 4 floats."""
     assert [frc.field_stride(w) for w in (1, 4, 49, 72, 128)] == [4, 4, 52, 72, 128]
-    assert frc.smem_bytes(64, 128, 128) == 4 * (128 * 128 + 3 * 64 * 129 + 58 * 64 + 8) == 179488
-    assert frc.smem_bytes(18, 50, 50) == 4 * (50 * 52 + 3 * 18 * 51 + 58 * 18 + 8)
-    assert frc.workspace_floats(64, 128, 128) == (128 * 128 + 3 * 64 * 128 + 18 * 4096
-                                                  + 193 * 193 + 3 + 2 * 192 * 193
-                                                  + 12 * 4096) == 275204
-    assert frc.workspace_floats(20, 64, 64) == (64 * 64 + 3 * 20 * 64 + 7200 + 61 * 61 + 3
-                                                + 2 * 60 * 61 + 4800)
-    assert frc.workspace_floats(1, 49, 49) == 49 * 52 + 3 * 52 + 20 + 16 + 2 * 12 + 12
+    assert frc.smem_bytes(64, 128, 128) == 4 * (49312 + 2 * 8 * 12 + 67 * 64 + 12) == 215216
+    assert frc.smem_bytes(18, 50, 50) == 4 * (frc.region_floats(18, 50, 50) + 192 + 67 * 18 + 12)
+    assert frc.workspace_floats(64, 128, 128) == (128 * 128 + 3 * 64 * 128 + 64 * 129
+                                                  + 18 * 4096 + 192 * 192 + 12 * 2080) == 184768
+    assert frc.workspace_floats(20, 64, 64) == (64 * 64 + 3 * 20 * 64 + 1300 + 7200 + 3600
+                                                + 12 * 216)
+    assert frc.workspace_floats(1, 49, 49) == 49 * 52 + 3 * 52 + 52 + 20 + 12 + 12 * 8
     assert all(frc.workspace_floats(k, h, w) % 4 == 0
                for k in (1, 5, 17, 64) for h, w in ((49, 49), (128, 96), (7, 13)))
-    # at K = 64 on 128x128 a block works in 1.1 MB of device memory, 145 MB
-    # for a grid of one block on each of an H100's 132 SMs
-    assert frc.workspace_bytes(64, 128, 128, 132) == 132 * 4 * 275204
+    # at K = 64 on 128x128 a block works in 0.74 MB of device memory, 97.6
+    # MB for a grid of one block on each of an H100's 132 SMs
+    assert frc.workspace_bytes(64, 128, 128, 132) == 4 * (4 + 132 * 184768)
     # the shared memory holds every scene of the domain in one block
-    assert frc.smem_bytes(frc.MAX_STARS, 128, 128) <= MAX_SMEM_BYTES
+    assert frc.smem_bytes(frc.MAX_STARS, 128, 128) <= MAX_SMEM_BYTES - 1024
+    assert max(frc.smem_bytes(k, h, w) for k in (1, 20, 47, 64)
+               for h, w in ((1, 1), (16, 16), (49, 49), (128, 4), (4, 128), (128, 128))) == 215216
+
+
+@pytest.mark.parametrize("k,h,w,want", [
+    # the field phase: 1/lam (or the q field's two operand stages of depth
+    # 32 and 16 floats of row ranges, where larger), gy and gy' at the odd
+    # star stride, gx and gx' (or gy'')
+    (64, 128, 128, 2 * (32 * 256 + 16) + 2 * 8256 + 16384),
+    (20, 64, 64, 2 * (32 * 128 + 16) + 2 * 1300 + 2560),
+    (47, 128, 128, 2 * (32 * 256 + 16) + 2 * 6064 + 12032),
+    # a narrow field: gy'' is wider than gx and gx'
+    (8, 128, 4, 2 * (32 * (128 + 8) + 16) + 2 * 1032 + 1032),
+    # the dense phase wins at small fields: packed L (D + 1 rows) and L^-1
+    (64, 16, 16, 193 * 194 // 2 + 192 * 193 // 2 + 3),
+    (1, 1, 1, 2 * (32 * (4 + 8) + 16) + 2 * 4 + 8),
+])
+def test_b6c_phase_region_holds_the_larger_phase(k, h, w, want):
+    """region_floats mirrors the source: the larger of the field phase and
+    the dense phase, rounded up to a multiple of 4 floats; the dense phase
+    (packed L and L^-1 at D = 3K) always fits, and so do the q field's
+    operand stages in 1/lam's slot."""
+    assert frc.region_floats(k, h, w) == want
+    d = 3 * k
+    assert frc.region_floats(k, h, w) >= (d + 1) * (d + 2) // 2 + d * (d + 1) // 2
+    hq, wq = frc.q_extent(h, w)
+    assert frc.region_floats(k, h, w) >= (2 * (frc.Q_DEPTH * (hq + wq) + 2 * frc.Q_PAIRS)
+                                          + 2 * k * (h | 1))
+
+
+@pytest.mark.parametrize("h,w,extent,tile", [
+    (128, 128, (128, 128), (4, 8)),   # cfg4: 32 x 16 tiles, one a thread
+    (64, 64, (64, 64), (2, 4)),         # the 64x64 field: 32 x 16 tiles
+    (128, 96, (128, 96), (4, 8)),
+    (49, 49, (52, 56), (2, 4)),
+    (128, 4, (128, 8), (2, 4)),
+    (1, 1, (4, 8), (2, 4)),
+    (65, 64, (68, 64), (4, 8)),         # 34 x 16 small tiles would exceed 512
+])
+def test_b6c_q_field_tiles_fill_at_most_the_block(h, w, extent, tile):
+    """The q and phi fields' padded extent (rows to 4, columns to 8) and
+    the pixel tile a thread holds: 2 x 4 where those tiles number at most
+    the block's 512 threads, else 4 x 8, which never number more."""
+    assert frc.q_extent(h, w) == extent
+    assert frc.q_tile(h, w) == tile
+    tr, tc = tile
+    assert (extent[0] // tr) * (extent[1] // tc) <= frc.THREADS
+    assert extent[0] % tr == 0 and extent[1] % tc == 0
+
+
+def test_b6c_bound_counts_the_pixels_where_both_profiles_are_non_zero():
+    """chip_smoke.rhmc_full_sparse_ops, B6c's bound: with a PSF wide enough
+    for every float32 profile to be non-zero on the whole field it is the
+    every-pixel count rhmc_full_crowded_ops plus the dense algebra; two
+    stars in opposite corners of a 128x128 field share no pixel, so their
+    pair terms are left out and only each star's own remain; a dead slot
+    counts nothing."""
+    import chip_smoke
+
+    n, fpi, h, w = 2, 3, 16, 16
+    wide = SceneSpec(h, w, 1000.0, 5.0)
+    theta = torch.zeros((2, 3, 3))
+    mask = torch.ones(3)
+    algebra = 2 * 2 * 9.0 ** 3 * ((1 + n + n * fpi) / 3 + (1 + n) / 3)
+    assert chip_smoke.rhmc_full_sparse_ops(theta, mask, wide, n, fpi) == pytest.approx(
+        chip_smoke.rhmc_full_crowded_ops(2, 3, h, w, n, fpi) + algebra)
+    field = SceneSpec(128, 128, 1.5, 20.0)
+    corners = torch.tensor([[[-6.0, -6.0, 5.0], [6.0, 6.0, 5.0], [0.0, 0.0, 5.0]]])
+    one = chip_smoke.rhmc_full_sparse_ops(corners[:, :1], torch.ones(1), field, n, fpi)
+    two = chip_smoke.rhmc_full_sparse_ops(corners[:, :2], torch.ones(2), field, n, fpi)
+    d3_one, d3_two = 2 * 3.0 ** 3, 2 * 6.0 ** 3
+    shape = (1 + n + n * fpi) / 3 + (1 + n) / 3
+    assert two - d3_two * shape == pytest.approx(2 * (one - d3_one * shape))
+    dead = chip_smoke.rhmc_full_sparse_ops(corners, torch.tensor([1.0, 1.0, 0.0]), field, n,
+                                           fpi)
+    assert dead == pytest.approx(two)
+
+
+def test_b6c_workspace_header_holds_the_chain_counter():
+    """The launch's workspace starts with HEADER_FLOATS floats, the chain
+    counter first, before one slice a block; the slices stay 16-byte
+    aligned."""
+    assert frc.HEADER_FLOATS == 4
+    for k, h, w in ((64, 128, 128), (20, 64, 64), (1, 49, 49)):
+        assert frc.workspace_bytes(k, h, w, 3) == 4 * (4 + 3 * frc.workspace_floats(k, h, w))
+        assert (4 * frc.HEADER_FLOATS) % 16 == 0
 
 
 @pytest.mark.parametrize("h,w,k", [(128, 128, 64), (128, 128, 1), (128, 96, 64), (49, 49, 16),
