@@ -152,11 +152,27 @@
    rhmc head's 64 chains, 1024 of cfg4's particles at beta ~0.006, cfg5's
    256 chains with their per-chain masks): solver verdicts, and the
    well-conditioned chains against float64;
-19. prints one JSON line with a row per kernel (launches on its paths, the
+19. B5 and B4 over their TPU kernels' whole domains (their wide paths):
+   (a) each against its plain version, float64 as arbiter, on drawn fields
+   at cfg4's density at the TPU gates' edges (B5: 128x128 K = 667,
+   192x192 K = 361, 256x256 K = 183, 352x128 K = 179; B4: 128x128 K = 254,
+   192x192 K = 125, 256x256 K = 47, 304x96 K = 89) and at 200x136, 5-9
+   chains, both mask forms, B5 with and without an entry gradient, B4 at
+   beta 1 and 0.7; the same bits on a rerun and for chains alone or among
+   others, and a chain that overflows, at 192x192 K = 125; B4's wide path
+   forced onto cfg4's shape against its one-tile path; both kernels timed
+   at the slice's shapes (B4 4096 particles at K = 125, B5 1024 chains at
+   K = 112, L = 10); (b) through the public API, each launch count set to
+   0 just before its run and read just after: cfg4's SMC on a drawn
+   192x192 field of 112 stars at K_max 125 (4096 particles, 2 temperature
+   steps) on B4 and the crowded ChEES head on it (1024 chains, K = 112,
+   100 + 100) on B5, each kernel then held at its run's last state;
+20. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work; B6c's row
    also gives the particles of its timed launch, the plain version's, and
-   the kernel's time on the plain version's, ms_same).
+   the kernel's time on the plain version's, ms_same; B4's and B5's rows
+   the same at the slice's shapes under "wide").
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -2212,14 +2228,15 @@ B6C_CFG4_HELD = 1024  # cfg4's particles held against the plain version
 B6C_EDGES = ((7, 1, 128, 128), (5, 64, 128, 128), (9, 40, 128, 96), (9, 16, 49, 49))
 
 
-def _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi):
-    """B6c's plain version 32 chains a call, in the inputs' dtype."""
+def _plain_chunked(reference, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi):
+    """A Riemannian kernel's plain version (``reference``) 32 chains a call,
+    in the inputs' dtype."""
     import torch
 
     c = theta.shape[0]
-    parts = [fr.fused_rhmc_reference(spec, img, pr, theta[i:i + 32], xi[i:i + 32],
-                                     eps[i:i + 32], mask[i:i + 32] if mask.ndim == 2 else mask,
-                                     beta, n_steps, fpi) for i in range(0, c, 32)]
+    parts = [reference(spec, img, pr, theta[i:i + 32], xi[i:i + 32], eps[i:i + 32],
+                       mask[i:i + 32] if mask.ndim == 2 else mask, beta, n_steps, fpi)
+             for i in range(0, c, 32)]
     return [torch.cat(o) for o in zip(*parts)]
 
 
@@ -2237,7 +2254,8 @@ def _hold_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mas
     out = frc.make_fused_rhmc(spec, img, pr, k, n_steps, fpi)(
         theta, xi, eps, mask, torch.tensor(beta, device=dev))
     c = theta.shape[0]
-    ref = _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
+    ref = _plain_chunked(fr.fused_rhmc_reference, spec, img, pr, theta, xi, eps, mask, beta,
+                         n_steps, fpi)
     spacings = 8 if crowded else 4
     e = 0.0
     if n64 < c:  # every chain against the plain version alone
@@ -2257,11 +2275,13 @@ def _hold_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mas
     return e
 
 
-def _arbitrate_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mask,
-                   beta, crowded, min_conv):
-    """B6c on a run's own state.  Solver verdicts agree with the plain
-    version's on at least 99% of the chains, and at least min_conv chains
-    converged in both.  float64 then sorts the converged chains: on a
+def _arbitrate(label, make_fused, reference, name, spec, img, pr, k, n_steps, fpi, theta, xi,
+               eps, mask, beta, crowded, min_conv):
+    """A Riemannian kernel (``label``, built by ``make_fused``: B6c, B4) on
+    a run's own state, against its plain version ``reference`` 32 chains a
+    call.  Solver verdicts agree with the plain version's on at least 99%
+    of the chains, and at least min_conv chains converged in both.
+    float64 then sorts the converged chains: on a
     well-conditioned one the fixed points converged to TIGHT in the kernel
     and in both plain versions, and every output of the float32 plain
     version lies within RTOL of the float64 one's (energies _h_tol, eight
@@ -2277,25 +2297,25 @@ def _arbitrate_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps
     import torch
 
     dev = theta.device
-    out = frc.make_fused_rhmc(spec, img, pr, k, n_steps, fpi)(
+    out = make_fused(spec, img, pr, k, n_steps, fpi)(
         theta, xi, eps, mask, torch.tensor(beta, device=dev))
-    ref = _plain_b6c(fr, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
+    ref = _plain_chunked(reference, spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
     c = theta.shape[0]
     fail_k, fail_r = ~(out[5] < SOLVER_TOL), ~(ref[5] < SOLVER_TOL)
     disagree = int((fail_k != fail_r).sum())
     conv = ~fail_k & ~fail_r
     n_conv = int(conv.sum())
-    print(f"B6c {name}: solver failures kernel {int(fail_k.sum())}, plain "
+    print(f"{label} {name}: solver failures kernel {int(fail_k.sum())}, plain "
           f"{int(fail_r.sum())}, disagreeing {disagree} of {c}; {n_conv} converged in both")
     if disagree > 0.01 * c:
-        raise AssertionError(f"B6c {name}: {disagree} chains' solver verdicts disagree")
+        raise AssertionError(f"{label} {name}: {disagree} chains' solver verdicts disagree")
     if n_conv < min_conv:
-        raise AssertionError(f"B6c {name}: only {n_conv} of {c} chains converged, "
+        raise AssertionError(f"{label} {name}: only {n_conv} of {c} chains converged, "
                              f"fewer than {min_conv}")
     idx = conv.nonzero()[:, 0]
     m = mask[idx] if mask.ndim == 2 else mask
-    ref64 = _plain_b6c(fr, spec, img.double(), pr, theta[idx].double(), xi[idx].double(),
-                       eps[idx].double(), m.double(), beta, n_steps, fpi)
+    ref64 = _plain_chunked(reference, spec, img.double(), pr, theta[idx].double(),
+                           xi[idx].double(), eps[idx].double(), m.double(), beta, n_steps, fpi)
     ok = ref64[5] < SOLVER_TOL
 
     def dist(x, z, rel):
@@ -2311,7 +2331,7 @@ def _arbitrate_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps
         well &= dp[nm] <= tol[nm]
     ill = ok & ~well
     worst = torch.argsort(dk["theta"] - dp["theta"], descending=True)[:4].tolist()
-    print(f"B6c {name}: the converged chains whose kernel theta is farthest beyond the "
+    print(f"{label} {name}: the converged chains whose kernel theta is farthest beyond the "
           "plain version's from float64 (chain, resid kernel / plain / float64, theta "
           "kernel / plain from float64, well-conditioned): " + "; ".join(
               f"{int(idx[i])}, {float(out[5][idx[i]]):.2e} / {float(ref[5][idx[i]]):.2e} / "
@@ -2319,24 +2339,24 @@ def _arbitrate_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps
               f"{float(dp['theta'][i]):.2e}, {bool(well[i])}" for i in worst))
     far = {nm: (float(dk[nm][well].max()), float(dp[nm][well].max()))
            if bool(well.any()) else None for nm in dk}
-    print(f"B6c {name}: {int(ok.sum())} converged in float64 too, {int(well.sum())} "
+    print(f"{label} {name}: {int(ok.sum())} converged in float64 too, {int(well.sum())} "
           f"well-conditioned; there against float64 (kernel, plain float32) {json.dumps(far)}; "
           f"tolerances {json.dumps(tol)}; on the {int(ill.sum())} others theta "
           f"{float(dk['theta'][ill].max()) if bool(ill.any()) else 0.0} (kernel), "
           f"{float(dp['theta'][ill].max()) if bool(ill.any()) else 0.0} (plain float32)")
     if int(well.sum()) < 8:
-        raise AssertionError(f"B6c {name}: only {int(well.sum())} well-conditioned chains")
+        raise AssertionError(f"{label} {name}: only {int(well.sum())} well-conditioned chains")
     for nm in dk:
         bad = well & (dk[nm] > dp[nm] + tol[nm])
         if bool(bad.any()):
             i = int(bad.nonzero()[0, 0])
-            raise AssertionError(f"B6c {name}: chain {int(idx[i])}'s {nm} is "
+            raise AssertionError(f"{label} {name}: chain {int(idx[i])}'s {nm} is "
                                  f"{float(dk[nm][i])} from float64, the plain version's "
                                  f"{float(dp[nm][i])}")
     live = mask if mask.ndim == 2 else mask.expand(c, k)
     dead = (live == 0) & (~fail_k)[:, None]
     if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
-        raise AssertionError(f"B6c {name}: a dead slot moved")
+        raise AssertionError(f"{label} {name}: a dead slot moved")
 
 
 def check_b6c_kernel(frc, fr, rhmc_mod, configs, dev):
@@ -2512,7 +2532,7 @@ def run_full_crowded_slice(api, configs, dev, frc, fr):
     then with the preset's diagonal one) and cfg5 with the full-metric
     move (B6C_CFG5).  After each B6c run (its count read), B6c is held
     at that run's shape on its last state, at its adapted step and
-    temperature (_run_state, _arbitrate_b6c): the rhmc head's 64 chains and
+    temperature (_run_state, _arbitrate): the rhmc head's 64 chains and
     cfg5's 256 chains with their per-chain masks, 80% of them converged,
     and the first B6C_CFG4_HELD of cfg4's particles at beta ~0.006, where
     the full metric's mutation fails the solver on most particles (the run
@@ -2556,10 +2576,11 @@ def run_full_crowded_slice(api, configs, dev, frc, fr):
         cfg = out.config
         image = cfg.make_data()[1].to(dev)
         theta, xi, eps, mask = _run_state(out, dev, seed, n)
-        return _arbitrate_b6c(frc, fr, f"{label} on the run's last state (beta {beta:.6f}, "
-                              f"step {out.stats['step_size']:.5f})", cfg.scene, image,
-                              cfg.prior, cfg.kmax, sub.n_leapfrog, sub.fixed_point_iters,
-                              theta, xi, eps, mask, beta, crowded, min_conv)
+        return _arbitrate("B6c", frc.make_fused_rhmc, fr.fused_rhmc_reference,
+                          f"{label} on the run's last state (beta {beta:.6f}, "
+                          f"step {out.stats['step_size']:.5f})", cfg.scene, image,
+                          cfg.prior, cfg.kmax, sub.n_leapfrog, sub.fixed_point_iters,
+                          theta, xi, eps, mask, beta, crowded, min_conv)
 
     full, s_full = run("cfg1_rhmc", B6C_RHMC, "B6c")
     hold("rhmc head 64x64 K=20 (64 chains, 16 x 6)", full, full.config.rhmc, 1.0, None,
@@ -2600,6 +2621,377 @@ def run_full_crowded_slice(api, configs, dev, frc, fr):
     hold("cfg5 trans-d 64x64 K=24 (256 chains, 6 x 4)", out, out.config.tdm, 1.0, None,
          False, 73, 0.8 * out.thetas.shape[0])
     return launches
+
+
+# phase 19: B5 and B4 over their TPU kernels' whole domains.  The slice's
+# scene is cfg4's star density (50 stars on 128x128) on a 192x192 field:
+# 112 stars.  Run 1 is cfg4's SMC on it at K_max 125 (B4's gate edge
+# there) and the preset's widths (4096 particles, twelve residual-birth
+# sweeps and two 6 x 4 diagonal mutations a step), cut from up to 250
+# temperature steps to 2; run 2 the crowded ChEES head at 1024 chains and
+# K = 112 (a fixed-K head's K is the star count, as in the JAX package),
+# cut from 500 + 1000 to 100 + 100 at most 64 steps a trajectory (1024),
+# with no warmup extension or equilibration stage (2 and 2): there a step
+# costs 1.4 ms and an uncut trajectory up to 1024 of them.  The uncut runs
+# (scripts/wide_runs.py): PERF.md.
+WIDE_SLICE = {"scene.height": 192, "scene.width": 192, "n_stars": 112}
+WIDE_RUN1 = {**WIDE_SLICE, "kmax": 125, "smc.max_steps": 2}
+WIDE_RUN2 = {**WIDE_SLICE, "kmax": 112, "head": "chees", "n_chains": 1024, "n_warmup": 100,
+             "n_samples": 100, "chees.max_leapfrog": 64, "chees.max_warmup_extensions": 0,
+             "chees.max_eq_stages": 0}
+WIDE_HELD = 256  # run 1's particles held against the plain version
+# (H, W, K) at the TPU gates' edges (tests/test_torch_wide_fields.py) and
+# at a non-square interior shape, with the chains of each launch
+B5_WIDE = ((128, 128, 667, 5), (192, 192, 361, 7), (256, 256, 183, 9), (352, 128, 179, 6),
+           (200, 136, 300, 8))
+B4_WIDE = ((128, 128, 254, 5), (192, 192, 125, 7), (256, 256, 47, 9), (304, 96, 89, 6),
+           (200, 136, 100, 8))
+
+
+def _wide_scene(configs, h, w):
+    """A drawn h x w field at cfg4's star density: (the config, the truth,
+    the image on the host)."""
+    from starcat_torch.configs import apply_overrides
+
+    n = max(1, round(50 * h * w / (128 * 128)))
+    cfg = apply_overrides(configs["cfg4_crowded"],
+                          {"scene.height": h, "scene.width": w, "n_stars": n})
+    truth, image = cfg.make_data()
+    return cfg, truth, image
+
+
+def check_wide_kernels(flc, fl, frdc, frd, configs, dev):
+    """Phase 19a: B5 and B4 beyond their one-tile domains, each on a drawn
+    field at cfg4's density, at the TPU gates' edges and at 200x136
+    (B5_WIDE, B4_WIDE): B5 an L = 10 trajectory against its plain version
+    with float64 as arbiter (_b5_compare), shared masks and per-chain
+    masks with scattered dead slots by turns; B4 a 6 x 4 trajectory chain
+    by chain (_compare_chains, float64 for the looser chains), per-chain
+    and shared masks by turns, beta 1 and 0.7 from a device scalar, at a
+    third of b4_inputs' step (as phase 18a holds B6c at cfg4's shape); dead
+    slots frozen.  Then the same bits on a rerun and for chains alone or
+    among others at the slice's 192x192 shape, and both kernels timed
+    there: B5 at 1024 chains, K = 112, L = 10, entry gradient in (run 2's
+    width), B4 at 4096 particles, K = 125 with 30..125 live, 6 x 4 (run
+    1's), the plain version on the first WIDE_HELD.  Returns the largest
+    theta errors and the times."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+    err5 = err4 = 0.0
+    for i, (h, w, k, c) in enumerate(B5_WIDE):
+        cfg, truth, image = _wide_scene(configs, h, w)
+        img = image.to(dev)
+        theta, p, eps = _crowded_inputs(truth, c, k, dev, 90 + i)
+        eps = 0.002 * eps
+        inv_mass = torch.full((k, 3), 0.9, device=dev)
+        mask, g0 = torch.ones(k, device=dev), None
+        if i % 2:  # per-chain masks and the entry gradient in
+            mask = (torch.rand((c, k), generator=gen, device=dev) < 0.8).to(torch.float32)
+            p = p * mask[..., None]
+            g0 = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                             mask, 0, None)[3]
+        fused = flc.make_fused_leapfrog(cfg.scene, img, cfg.prior, k, 10)
+        out = fused(theta, p, eps, inv_mass, mask, grad=g0)
+        want = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                           mask, 10, g0)
+        want64 = fl.fused_leapfrog_reference(
+            cfg.scene, img.double(), cfg.prior, theta.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), 10, None if g0 is None else g0.double())
+        name = (f"wide {h}x{w} K={k} ({c} chains, "
+                f"{'per-chain mask, gradient in' if i % 2 else 'shared mask'})")
+        err5 = max(err5, _b5_compare(name, out, want, want64)[0])
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = live == 0
+        if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
+            raise AssertionError(f"B5 {name}: a dead slot moved or has a gradient")
+    for i, (h, w, k, c) in enumerate(B4_WIDE):
+        cfg, truth, image = _wide_scene(configs, h, w)
+        img = image.to(dev)
+        per_chain = i % 2 == 0
+        theta, xi, eps, mask = b4_inputs(truth, c, k, dev, 95 + i, per_chain)
+        eps = eps / 3.0
+        beta = 1.0 if per_chain else 0.7
+        out = frdc.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, k, 6, 4)(
+            theta, xi, eps, mask, torch.tensor(beta, device=dev))
+        ref = frd.fused_rhmc_diag_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
+                                            beta, 6, 4)
+        ref64 = frd.fused_rhmc_diag_reference(cfg.scene, img.double(), cfg.prior,
+                                              theta.double(), xi.double(), eps.double(),
+                                              mask.double(), beta, 6, 4)
+        name = (f"B4 wide {h}x{w} K={k} ({c} chains, {'per-chain' if per_chain else 'shared'} "
+                f"mask, beta {beta})")
+        err4 = max(err4, _compare_chains(name, out, ref, ref64, h_spacings=8, p_rel=True))
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = (live == 0) & (out[5] < SOLVER_TOL)[:, None]
+        if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+            raise AssertionError(f"{name}: a dead slot moved")
+
+    # the same bits on a rerun and for chains alone or among 8 others, at
+    # the slice's shape, per-chain masks
+    cfg, truth, image = _wide_scene(configs, 192, 192)
+    img, spec, prior = image.to(dev), cfg.scene, cfg.prior
+    theta, xi, eps, mask = b4_inputs(truth, 9, 125, dev, 101, True)
+    b4 = frdc.make_fused_rhmc_diag(spec, img, prior, 125, 6, 4)
+    p = xi * mask[..., None]
+    inv_mass = torch.full((125, 3), 0.9, device=dev)
+    b5 = flc.make_fused_leapfrog(spec, img, prior, 125, 10)
+    for name, fused, args in (("B4", b4, (theta, xi, eps / 3.0, mask)),
+                              ("B5", b5, (theta, p, 0.002 * eps, inv_mass, mask))):
+        full = fused(*args)
+        if not _same_bits(full, fused(*args)):
+            raise AssertionError(f"{name} wide: a rerun gave other bits")
+        for idx in ([4], [0, 8, 4, 2]):
+            sel = torch.tensor(idx, device=dev)
+            part = fused(*(a if a is inv_mass else a[sel].contiguous() for a in args))
+            if not _same_bits(part, [o[sel] for o in full]):
+                raise AssertionError(f"{name} wide: chains {idx} differ from the 9-chain launch")
+    # a chain that overflows (exp(95) > float32's range) on each wide path:
+    # B4's residual NaN (a solver failure), B5's energy not finite; the
+    # other chains finite
+    th_o = theta.clone()
+    th_o[0, :, 2] = 95.0
+    o4 = b4(th_o, xi, eps / 3.0, mask)
+    o5 = b5(th_o, p, 0.002 * eps, inv_mass, mask)
+    if not (bool(torch.isnan(o4[5][0])) and bool(torch.isfinite(o4[5][1:]).all())
+            and not bool(torch.isfinite(o5[2][0])) and bool(torch.isfinite(o5[2][1:]).all())):
+        raise AssertionError(f"wide paths: the overflowing chain gave B4 resid {o4[5].tolist()}, "
+                             f"B5 u {o5[2].tolist()}")
+    print("B4 and B5 wide at 192x192 K=125: the same bits on a rerun and for chains alone or "
+          "among others; an overflowing chain NaN (B4) or not finite (B5), the others finite")
+
+    # timed at the slice's shapes
+    c5, k5, L = 1024, 112, 10
+    theta, p, e5 = _crowded_inputs(truth, c5, k5, dev, 102)
+    e5 = 0.002 * e5
+    m5, im5 = torch.ones(k5, device=dev), torch.full((k5, 3), 0.9, device=dev)
+    b5 = flc.make_fused_leapfrog(spec, img, prior, k5, L)
+    g0 = fl.fused_leapfrog_reference(spec, img, prior, theta, p, e5, im5, m5, 0, None)[3]
+    ms = {"b5": _time_ms(lambda: b5(theta, p, e5, im5, m5, grad=g0), 5, warmup=1),
+          "b5_plain": _time_ms(lambda: fl.fused_leapfrog_reference(
+              spec, img, prior, theta, p, e5, im5, m5, L, g0), 2, warmup=1),
+          "b5_chains": c5, "b5_k": k5, "b5_layout": flc.launch_layout(c5, k5, 192, 192)}
+    p_all = configs["cfg4_crowded"].smc.n_particles
+    theta, xi, eps, mask = b4_inputs(truth, p_all, 125, dev, 103, True)
+    sub = tuple(t[:WIDE_HELD].contiguous() for t in (theta, xi, eps, mask))
+    ms.update(b4=_time_ms(lambda: b4(theta, xi, eps, mask, 1.0), 2, warmup=1),
+              b4_plain=_time_ms(lambda: _plain_chunked(
+                  frd.fused_rhmc_diag_reference, spec, img, prior, *sub, 1.0, 6, 4), 1,
+                  warmup=0),
+              b4_same=_time_ms(lambda: b4(*sub, 1.0), 2, warmup=1),
+              b4_particles=p_all, b4_plain_particles=WIDE_HELD, b4_live=int(mask.sum()))
+    # B4's wide path forced onto cfg4's shape (a launch with a workspace
+    # takes it), against the one-tile path there: why both stay
+    from starcat_torch import build
+
+    cfg4 = configs["cfg4_crowded"]
+    t4, i4 = cfg4.make_data()
+    i4 = i4.to(dev)
+    args = b4_inputs(t4, cfg4.smc.n_particles, 64, dev, 48, True)
+    scal = build.riemannian_scalars(cfg4.scene, cfg4.prior, 1e-3)
+    work = torch.empty(args[0].shape[0] * frdc.workspace_floats(64, 128, 128), device=dev)
+    forced = lambda: build.launch_riemannian(  # noqa: E731
+        "fused_rhmc_diag_crowded", i4, 64, 6, 4, scal, *args, 1.0,
+        workspace=(work, args[0].shape[0]))
+    one = frdc.make_fused_rhmc_diag(cfg4.scene, i4, cfg4.prior, 64, 6, 4)
+    _compare_chains("B4 wide path forced at cfg4's shape, against the one-tile path", forced(),
+                    one(*args, 1.0), h_spacings=8, p_rel=True)
+    ms.update(b4_cfg4_one_tile=_time_ms(lambda: one(*args, 1.0), 2, warmup=1),
+              b4_cfg4_wide=_time_ms(forced, 2, warmup=1))
+    print(f"B4 at cfg4's shape (4096 particles, K=64, 128x128): one-tile path "
+          f"{ms['b4_cfg4_one_tile']:.3f} ms, wide path forced {ms['b4_cfg4_wide']:.3f} ms")
+    print(f"B5 wide ({c5} chains, K={k5}, 192x192, L={L}): kernel {ms['b5']:.4f} ms, plain "
+          f"{ms['b5_plain']:.4f} ms per trajectory; layout {ms['b5_layout']}")
+    print(f"B4 wide ({p_all} particles, K=125, {ms['b4_live']} live stars, 192x192, 6 x 4): "
+          f"kernel {ms['b4']:.3f} ms per trajectory; on {WIDE_HELD} of them kernel "
+          f"{ms['b4_same']:.3f} ms, plain {ms['b4_plain']:.3f} ms")
+    return err5, err4, ms
+
+
+def _arbitrate_b5(name, out, want, moved, want64, mask, theta, min_well=8):
+    """B5's outputs on a run's own state against its plain version's, chain
+    by chain with a float64 run of the plain version as arbiter (phase
+    18b's _arbitrate for the leapfrog), the float32 plain version from
+    theta one float32 spacing up (moved) as the control.  Distances: theta
+    absolute; p relative to 1 + |p|, since a run's adapted mass scales p by
+    1/sqrt(inv_mass), as phase 6 holds B4's; U with eight float32 spacings
+    at its magnitude; the gradient relative to 1 + |g|.  Finite verdicts
+    (U) agree on at least 99% of the chains; the kernel lies within TOL of
+    float64 in every output on at least as many chains as the plain
+    version does, less 1% of them; at least min_well chains are
+    well-conditioned (the plain version within TOL of float64 there).  On
+    those, a chain is flagged where the kernel lies farther from float64
+    than the plain version plus TOL, and the kernel may be flagged on no
+    more chains than the control is by the same rule.  Over a long
+    trajectory at a run's adapted step a rounding-sized change moves a
+    chaotic chain beyond TOL in any float32 program, so phase 18b's rule
+    alone (no chain flagged) fails the plain version itself: on the H100
+    at run 2's last state, 64 steps, the control was flagged on 37 of the
+    382 chains, the kernel on 19 (scripts/b5_run_state_accuracy.py).  Dead
+    slots frozen with zero gradient.  Returns the largest theta distance
+    between the kernel and the plain version on the unflagged
+    well-conditioned chains."""
+    import torch
+
+    c = theta.shape[0]
+    fin_k, fin_r = torch.isfinite(out[2]), torch.isfinite(want[2])
+    disagree = int((fin_k != fin_r).sum())
+    fin = fin_k & fin_r & torch.isfinite(want64[2]) & torch.isfinite(moved[2])
+    print(f"B5 {name}: U not finite in the kernel on {int((~fin_k).sum())} chains, in the "
+          f"plain version on {int((~fin_r).sum())}, disagreeing on {disagree} of {c}")
+    if disagree > 0.01 * c:
+        raise AssertionError(f"B5 {name}: {disagree} chains' finite verdicts disagree")
+    tol = dict(TOL, u=TOL["u"] + _spacings(want64[2][fin], 8))
+    rel = {"theta": False, "p": True, "u": False, "grad_rel": True}
+
+    def dist(x, z, nm):
+        d = (x.double() - z).abs()
+        d = d / (1.0 + z.abs()) if rel[nm] else d
+        return d if d.ndim == 1 else _per_chain(d)
+
+    dk, dp, dm = {}, {}, {}
+    for nm, a, b, m, z in zip(rel, out, want, moved, want64):
+        dk[nm], dp[nm], dm[nm] = dist(a, z, nm), dist(b, z, nm), dist(m, z, nm)
+    near_k, well = fin.clone(), fin.clone()
+    for nm in rel:
+        near_k &= dk[nm] <= tol[nm]
+        well &= dp[nm] <= tol[nm]
+    flag_k, flag_m = torch.zeros_like(well), torch.zeros_like(well)
+    for nm in rel:
+        flag_k |= well & (dk[nm] > dp[nm] + tol[nm])
+        flag_m |= well & (dm[nm] > dp[nm] + tol[nm])
+    by = {nm: [int((well & (d[nm] > dp[nm] + tol[nm])).sum()) for d in (dk, dm)] for nm in rel}
+    ok = well & ~flag_k
+    far = {nm: (float(dk[nm][ok].max()), float(dp[nm][ok].max()))
+           if bool(ok.any()) else None for nm in rel}
+    print(f"B5 {name}: within TOL of float64 in every output the kernel on {int(near_k.sum())} "
+          f"chains, the plain version (well-conditioned) on {int(well.sum())}; there flagged "
+          f"(beyond the plain version + TOL) the kernel on {int(flag_k.sum())}, the control on "
+          f"{int(flag_m.sum())}, by output (kernel, control) {json.dumps(by)}; on the others "
+          f"against float64 (kernel, plain float32) {json.dumps(far)}; tolerances "
+          f"{json.dumps(tol)}")
+    if int(near_k.sum()) < int(well.sum()) - 0.01 * c:
+        raise AssertionError(f"B5 {name}: the kernel lies near float64 on {int(near_k.sum())} "
+                             f"chains, the plain version on {int(well.sum())}")
+    if int(well.sum()) < min_well:
+        raise AssertionError(f"B5 {name}: only {int(well.sum())} well-conditioned chains")
+    if int(flag_k.sum()) > int(flag_m.sum()):
+        raise AssertionError(f"B5 {name}: the kernel is flagged on {int(flag_k.sum())} "
+                             f"chains, the control on {int(flag_m.sum())}")
+    live = mask if mask.ndim == 2 else mask.expand(c, theta.shape[1])
+    dead = live == 0
+    if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
+        raise AssertionError(f"B5 {name}: a dead slot moved or has a gradient")
+    return float((out[0][ok] - want[0][ok]).abs().max())
+
+
+def _hold_b5_run(out, dev, flc, fl, seed):
+    """B5 held on a ChEES run's last state, through B2's contract as the
+    run calls it: every chain's last draw, momentum drawn as the run draws
+    it (standard normal over sqrt(inv_mass)) at the run's adapted step and
+    inverse mass, the run's longest trajectory (ceil(T / eps), at most
+    chees.max_leapfrog steps) from a device int32, the entry gradient in;
+    first (U, grad U) at that state (_b5_compare), then the trajectory
+    chain by chain (_arbitrate_b5; the control, the plain version from
+    theta one float32 spacing up).  Returns the largest theta error."""
+    import math
+
+    import torch
+
+    cfg, st = out.config, out.stats
+    image = cfg.make_data()[1].to(dev)
+    theta = torch.as_tensor(out.thetas[:, -1], dtype=torch.float32).to(dev).contiguous()
+    mask = torch.as_tensor(out.masks, dtype=torch.float32).to(dev).contiguous()
+    inv_mass = torch.as_tensor(out.inv_mass, dtype=torch.float32).to(dev).contiguous()
+    c, k = theta.shape[:2]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p = torch.randn(theta.shape, generator=gen, device=dev) / torch.sqrt(inv_mass)
+    p = (p * mask[..., None]).contiguous()
+    step = st["step_size"]
+    eps = torch.full((c,), step, device=dev)
+    n = min(max(math.ceil(st["traj_length"] / step), 1), cfg.chees.max_leapfrog)
+    spec, prior = cfg.scene, cfg.prior
+    fused = flc.make_fused_leapfrog_dyn(spec, image, prior, k)
+    label = (f"run 2 {spec.height}x{spec.width} K={k} ({c} chains) on its last state, step "
+             f"{step:.5f}, inverse mass {float(inv_mass.min()):.3e}..{float(inv_mass.max()):.3e}")
+
+    def plain(n_steps, g, dtype, th=theta):
+        return fl.fused_leapfrog_reference(spec, image.to(dtype), prior, th.to(dtype),
+                                           p.to(dtype), eps.to(dtype), inv_mass.to(dtype),
+                                           mask.to(dtype), n_steps, g)
+
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    at0 = fused(theta, p, eps, inv_mass, mask, zero, None)
+    want0 = plain(0, None, torch.float32)
+    err0, _ = _b5_compare(f"{label}, L=0", at0, want0, plain(0, None, torch.float64))
+    g0 = want0[3]
+    n_dev = torch.full((1,), n, dtype=torch.int32, device=dev)
+    got = fused(theta, p, eps, inv_mass, mask, n_dev, g0)
+    up = torch.nextafter(theta, torch.full_like(theta, math.inf))
+    moved = plain(n, plain(0, None, torch.float32, up)[3], torch.float32, up)
+    err = _arbitrate_b5(f"{label}, L={n} (T {st['traj_length']:.4f})", got,
+                        plain(n, g0, torch.float32), moved, plain(n, None, torch.float64),
+                        mask, theta)
+    return max(err0, err)
+
+
+def run_wide_slice(api, configs, dev, flc, frdc, fl, frd):
+    """Phase 19b: the slice's two runs through the public API (WIDE_RUN1 on
+    B4, WIDE_RUN2 on B5), each kernel's launch count set to 0 just before
+    its run and read just after, equal to the run's own count.  After each
+    run its kernel is held at the run's shape on its last state: B4 on run
+    1's first WIDE_HELD particles at its step and temperature
+    (_run_state, _arbitrate); B5 on run 2's 1024 chains at its adapted
+    step, inverse mass and longest trajectory (_hold_b5_run).
+    Returns each kernel's launches and the largest theta error."""
+    import numpy as np
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    def run(over, want, mod):
+        cfg = apply_overrides(configs["cfg4_crowded"], over)
+        flc.reset_launch_counts()
+        frdc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, st = mod.LAUNCHES, out.stats
+        if st["trajectory_kernel"] != want or n <= 0 or n != st["kernel_launches"]:
+            raise AssertionError(f"{json.dumps(over)} did not run through {want}: "
+                                 f"{st['trajectory_kernel']} x{st['kernel_launches']}, "
+                                 f"{want} launches {n}")
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{json.dumps(over)}: non-finite draws")
+        summ = api.summarize_output(out)
+        tf = summ["total_flux"]
+        print(f"wide slice {json.dumps(over)}: {wall:.3f} s wall, {want} x{n}, accept "
+              f"{st['accept']:.3f}, step {st['step_size']:.5f}; total flux {tf['mean']:.1f} ± "
+              f"{tf['sd']:.1f} (R-hat {tf['rhat']:.4f}), truth "
+              f"{float(np.sum(st['truth']['f'])):.1f}; star count mean "
+              f"{summ['star_count']['mean'] if 'star_count' in summ else cfg.kmax}")
+        return out, n
+
+    out1, n4 = run(WIDE_RUN1, "B4", frdc)
+    st = out1.stats
+    if not (0.0 < st["beta"] and np.isfinite(st["log_z"]) and st["n_temp_steps"] == 2):
+        raise AssertionError(f"wide cfg4: beta {st['beta']}, log Z {st['log_z']} after "
+                             f"{st['n_temp_steps']} steps")
+    cfg = out1.config
+    image = cfg.make_data()[1].to(dev)
+    theta, xi, eps, mask = _run_state(out1, dev, 104, WIDE_HELD)
+    _arbitrate("B4", frdc.make_fused_rhmc_diag, frd.fused_rhmc_diag_reference,
+               f"run 1 192x192 K=125 ({WIDE_HELD} of {out1.thetas.shape[0]} particles, 6 x 4) "
+               f"on its last state (beta {st['beta']:.6f}, step {st['step_size']:.5f})",
+               cfg.scene, image, cfg.prior, cfg.kmax, cfg.smc.n_leapfrog,
+               cfg.smc.fixed_point_iters, theta, xi, eps, mask, st["beta"], True, 8)
+
+    out2, n5 = run(WIDE_RUN2, "B5", flc)
+    err = _hold_b5_run(out2, dev, flc, fl, 105)
+    return {"b4": n4, "b5": n5}, err
 
 
 def leapfrog_ops(c, k, h, w, n_steps, grad_in):
@@ -2883,6 +3275,19 @@ def main() -> int:
           f"launches {launches['b6c']}")
     if launches["b6c"] <= 0:
         raise AssertionError("B6c was never launched on its path")
+    t0 = time.perf_counter()
+    err_b5w, err_b4w, ms_wide = check_wide_kernels(flc, fl, frdc, frd, CONFIGS, dev)
+    err_b5, err_b4 = max(err_b5, err_b5w), max(err_b4, err_b4w)
+    print(f"wide kernel checks: {time.perf_counter() - t0:.3f} s wall")
+    t0 = time.perf_counter()
+    wide, err_run = run_wide_slice(api, CONFIGS, dev, flc, frdc, fl, frd)
+    err_b5 = max(err_b5, err_run)
+    print(f"B5 and B4 beyond their one-tile domains: {time.perf_counter() - t0:.3f} s wall; "
+          f"launches {wide}")
+    for name, n in wide.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the wide path: {wide}")
+        launches[name] += n
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
@@ -2946,6 +3351,21 @@ def main() -> int:
                     bound_ms_dense=bound_ms(ms_b6c["ops_dense"], b6c_bytes)[0],
                     bound_ms_b6_count=bound_ms(ms_b6c["ops_b6_count"], b6c_bytes)[0],
                     shapes=ms_b6c["shapes"])
+    # B4 and B5 at the slice's shapes (phase 19): B4's plain time is of the
+    # first plain_particles of the launch (the kernel on those: ms_same)
+    b4w = bound_ms(rhmc_diag_ops(1, ms_wide["b4_live"], 192, 192, 6, 4),
+                   rhmc_bytes(ms_wide["b4_particles"], 125, 192, 192, True))
+    b5w = bound_ms(leapfrog_ops(ms_wide["b5_chains"], ms_wide["b5_k"], 192, 192, 10, True),
+                   leapfrog_bytes(ms_wide["b5_chains"], ms_wide["b5_k"], 192, 192, True))
+    rows[3]["wide"] = {"shape": f"{ms_wide['b4_particles']} particles, K=125 "
+                                f"({ms_wide['b4_live']} live), 192x192, 6 x 4",
+                       "launches": wide["b4"], "ms": ms_wide["b4"],
+                       "plain_ms": ms_wide["b4_plain"], "plain_particles": WIDE_HELD,
+                       "ms_same": ms_wide["b4_same"], "bound_ms": b4w[0], "bound_by": b4w[1]}
+    rows[4]["wide"] = {"shape": f"{ms_wide['b5_chains']} chains, K={ms_wide['b5_k']}, "
+                                f"192x192, L=10",
+                       "launches": wide["b5"], "ms": ms_wide["b5"],
+                       "plain_ms": ms_wide["b5_plain"], "bound_ms": b5w[0], "bound_by": b5w[1]}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

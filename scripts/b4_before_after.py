@@ -6,9 +6,9 @@ on one card: an earlier source given by path, and the one in the checkout.
 Both take B4's C interface (csrc/fused_rhmc_diag_crowded.cu).  At
 chip_smoke.py's cfg4 shape (4096 particles, K = 64, 128x128, 6 steps x 4
 sweeps, per-particle masks with 30..64 stars alive, beta 1) it prints the
-card's name and power limit, each build's ptxas report, how far the two
-kernels' outputs are apart on the chains whose fixed points converged
-tightly in both, and then the time of one trajectory with CUDA events in the
+card's name and power limit, each build's ptxas report, whether the two
+kernels' outputs hold the same bits, how far they are apart on the chains
+whose fixed points converged tightly in both, and then the time of one trajectory with CUDA events in the
 order old, new, new, old, with the mean of each kernel and the ratio.  The
 last line is one JSON object with the times.  Needs a CUDA card and nvcc.
 """
@@ -46,7 +46,11 @@ def build_source(source: Path, name: str, entry: str = B4_ENTRY) -> tuple[ctypes
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, entry)
-    fn.argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp]
+    # B4's entry takes its wide path's workspace and grid before the stream
+    # since its wide path came in; launch passes none (the one-tile path)
+    lib.takes_workspace = entry == B4_ENTRY and "void* work, int grid" in source.read_text()
+    fn.argtypes = ([vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7
+                   + ([vp, ci] if lib.takes_workspace else []) + [vp])
     fn.restype = ci
     return lib, proc.stderr
 
@@ -67,7 +71,8 @@ def launch(lib, image, kmax, n_steps, fpi, scalars, theta, xi, eps, mask, beta,
         theta.data_ptr(), xi.data_ptr(), eps.data_ptr(), mask.data_ptr(), kmax if mask.ndim == 2
         else 0, beta_dev.data_ptr(), image.data_ptr(), theta_out.data_ptr(), p_out.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(), c, kmax,
-        image.shape[0], image.shape[1], n_steps, fpi, *scalars, stream)
+        image.shape[0], image.shape[1], n_steps, fpi, *scalars,
+        *((None, 0) if getattr(lib, "takes_workspace", False) else ()), stream)
     if rc != 0:
         raise RuntimeError(f"the {entry} build failed to launch ({rc})")
     return theta_out, p_out, outs[0], outs[1], outs[2], outs[3]
@@ -113,6 +118,8 @@ def main() -> int:
            "new": lambda: new(theta, xi, eps, mask, 1.0)}
 
     a, b = run["old"](), run["new"]()
+    same = chip_smoke._same_bits(a, b)
+    print(f"old vs new: the same bits on every chain: {same}")
     tight = (a[5] < chip_smoke.TIGHT) & (b[5] < chip_smoke.TIGHT)
     apart = {nm: float(chip_smoke._per_chain((x - y).abs())[tight].max())
              for nm, x, y in zip(("theta", "p", "h0", "h1", "u1"), a, b)}
@@ -132,7 +139,7 @@ def main() -> int:
           f"{mean['old'] / mean['new']:.3f}; bound of the {live} live stars {bound:.4f} ms "
           f"(new {100 * bound / mean['new']:.1f}%, old {100 * bound / mean['old']:.1f}%)")
     print(json.dumps({"card": smi.splitlines()[0], "turns": times, "mean_ms": mean,
-                      "live_stars": live, "bound_ms": bound}))
+                      "live_stars": live, "bound_ms": bound, "same_bits": same}))
     return 0
 
 

@@ -3,6 +3,12 @@ card: an earlier source given by path, and the checkout's (or a second one
 given by path).
 
     python scripts/b5_before_after.py --old PATH/fused_leapfrog_crowded.cu [--new PATH]
+    python scripts/b5_before_after.py --force-wide [--new PATH]
+
+With --force-wide the "old" build is the source's own, whose launches at
+these shapes take its one-tile path, and the "new" build a copy of the same
+source whose one_tile() returns false, so that every launch takes the wide
+path: the two paths timed in turns on the same inputs.
 
 Both take B5's C interface (csrc/fused_leapfrog_crowded.cu, entry
 starcat_fused_leapfrog_crowded).  At chip_smoke.py's two timed B5 shapes
@@ -11,7 +17,8 @@ K = 10, 32x32, L = 20) and at two that only B5 serves (the crowded field's
 64x64 corner at K = 30, L = 10; the flagship scene at K = 20, L = 20;
 shared mask, entry gradient in, 1024 chains) it prints the card's
 name and power limit, each build's ptxas report, how far the two kernels'
-outputs are apart and whether the new one gives the same bits on a rerun,
+outputs are apart, whether they hold the same bits, and whether the new
+one gives the same bits on a rerun,
 then the time of one trajectory with CUDA events in the order old, new,
 new, old, with the mean of each kernel, the ratio and the share of
 chip_smoke's bound.  The last line is one JSON object with the times.
@@ -25,6 +32,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -83,6 +91,21 @@ def launch(lib, image, kmax, scalars, theta, p, eps, inv_mass, mask, n_steps: in
     return theta_out, p_out, u_out, grad_out
 
 
+def wide_copy(source: Path) -> Path:
+    """A copy of a B5 source whose one_tile() returns false, written into the
+    build directory: its every launch takes the wide path."""
+    from starcat_torch import build
+
+    text, n = re.subn(r"(inline bool one_tile\(int K, int H, int W\) \{\s*return )[^;]*;",
+                      r"\1false;", source.read_text(), count=1)
+    if n != 1:
+        raise ValueError(f"{source} has no one_tile() to force")
+    out = build.BUILD_DIR / "variants" / "fused_leapfrog_crowded_wide_forced.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
 def _crop(spec, truth, image, side: int):
     """The top-left side x side corner of a scene: its image and the true
     stars inside it, their logits taken to the corner's width."""
@@ -133,12 +156,17 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", type=Path, required=True, help="the earlier B5 source")
+    ap.add_argument("--old", type=Path, help="the earlier B5 source")
+    ap.add_argument("--force-wide", action="store_true",
+                    help="time the --new source's one-tile path (as old) against its wide "
+                         "path forced (as new) instead of --old")
     ap.add_argument("--new", type=Path,
                     default=ROOT / "starcat_torch" / "csrc" / "fused_leapfrog_crowded.cu",
                     help="the later B5 source (default: the checkout's)")
     ap.add_argument("--reps", type=int, default=10, help="trajectories per timed turn")
     args = ap.parse_args()
+    if (args.old is None) == (not args.force_wide):
+        ap.error("give --old or --force-wide")
     if not torch.cuda.is_available():
         print("b5_before_after: CUDA is not available", file=sys.stderr)
         return 1
@@ -150,6 +178,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     libs = {}
+    if args.force_wide:
+        args.old, args.new = args.new, wide_copy(args.new)
     for tag, path in (("old", args.old), ("new", args.new)):
         digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
         libs[tag], report = build_leapfrog(path, f"b5_{tag}_{digest}")
@@ -169,12 +199,12 @@ def main() -> int:
         a, b = run["old"](), run["new"]()
         apart = {nm: float((x - y).abs().max())
                  for nm, x, y in zip(("theta", "p", "u", "grad"), a, b)}
-        again = run["new"]()
-        repeat = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                     for x, y in zip(b, again))
+        same = chip_smoke._same_bits(a, b)
+        repeat = chip_smoke._same_bits(b, run["new"]())
         c = theta.shape[0]
         print(f"{name} ({c} chains, K={k}, {spec.height}x{spec.width}, L={L}): old vs new "
-              f"{json.dumps(apart)}; new run twice bitwise equal: {repeat}")
+              f"{json.dumps(apart)}, the same bits: {same}; new run twice bitwise equal: "
+              f"{repeat}")
         times = []
         for tag in ("old", "new", "new", "old"):
             ms = chip_smoke._time_ms(run[tag], args.reps, warmup=2)
@@ -188,7 +218,8 @@ def main() -> int:
               f"{mean['old'] / mean['new']:.3f}; bound {bound:.4f} ms (new "
               f"{100 * bound / mean['new']:.1f}%, old {100 * bound / mean['old']:.1f}%)")
         result["shapes"][name] = {"turns": times, "mean_ms": mean, "bound_ms": bound,
-                                  "apart": apart, "bitwise_repeat": repeat}
+                                  "apart": apart, "same_bits": same,
+                                  "bitwise_repeat": repeat}
     print(json.dumps(result))
     return 0
 

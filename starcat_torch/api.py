@@ -76,6 +76,7 @@ class SampleOutput:
     thetas: np.ndarray          # (C, N, K, 3) draws
     masks: np.ndarray           # (K,); per particle (P, K) for smc; per draw (C, N, K) for transdim
     stats: dict[str, Any] = field(default_factory=dict)
+    inv_mass: np.ndarray | None = None  # the ChEES head's adapted diagonal (K, 3); else None
 
 
 def _check_head(cfg: RunConfig) -> None:
@@ -194,6 +195,7 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     theta0 = (dist.shard(_init_chains(generator, cfg, truth_theta.to(device)), mesh)
               if cfg.head not in ("smc", "advi", "transdim") else None)
     masks = mask.cpu().numpy()
+    inv_mass = None
 
     if cfg.head in ("hmc", "oracle"):
         if kernel == "cuda":
@@ -220,6 +222,7 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
         res, ad = run_chees(generator, grad_fn, theta0, mask, cfg.n_samples,
                             cfg.n_warmup, cfg.chees, leapfrog_impl=impl,
                             relocate_fn=reloc, **ck)
+        inv_mass = ad["inv_mass"].cpu().numpy()
         stats.update(step_size=float(ad["step_size"]),
                      traj_length=float(ad["traj_length"]),
                      warmup_divergences=ad["warmup_divergences"])
@@ -304,7 +307,7 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else str(device))
     stats["truth"] = {k: v.numpy() for k, v in zip("xyf", constrain(truth_theta, spec))}
-    return SampleOutput(cfg, thetas, masks, stats)
+    return SampleOutput(cfg, thetas, masks, stats, inv_mass)
 
 
 def _init_chains(generator: torch.Generator, cfg: RunConfig,

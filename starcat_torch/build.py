@@ -8,7 +8,7 @@ one launch of the two leapfrog trajectory kernels (B1/B2, B5), behind
 B1's and B2's contracts in :class:`LeapfrogKernel`, and
 :func:`launch_riemannian` that of the four Riemannian trajectory kernels
 (B3, B4, B6, B6c): the kernels of each family share their C interface, B6c's
-with a workspace and its grid besides.
+with a workspace and its grid besides (B4's on its wide path).
 """
 from __future__ import annotations
 
@@ -209,8 +209,9 @@ class LeapfrogKernel:
 
 
 # the Riemannian kernels whose entry takes a workspace's pointer and the
-# grid it is sized for, before the stream
-WORKSPACE_KERNELS = frozenset({"fused_rhmc_crowded"})
+# grid it is sized for, before the stream (B4's one-tile path takes a null
+# pointer and 0)
+WORKSPACE_KERNELS = frozenset({"fused_rhmc_crowded", "fused_rhmc_diag_crowded"})
 
 
 @functools.cache
@@ -256,8 +257,9 @@ def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
     after checking what it is given: theta, xi (C, K, 3), eps a scalar or
     (C,), mask (K,) or (C, K), beta a float or one float32 on the device;
     ``workspace``, for a kernel that takes one, (a float32 tensor on the
-    device, the grid it is sized for).  Returns (theta', p', h0, h1, u1,
-    resid); raises if the launch fails."""
+    device, the grid it is sized for; (None, 0) on B4's one-tile path).
+    Returns (theta', p', h0, h1, u1, resid); raises if the launch
+    fails."""
     dev, k = theta.device, kmax
     c = theta.shape[0]
     if c < 1:
@@ -290,10 +292,11 @@ def launch_riemannian(name: str, image: torch.Tensor, kmax: int, n_steps: int,
         raise ValueError(f"{name} takes {'a' if name in WORKSPACE_KERNELS else 'no'} workspace")
     if workspace is not None:
         work, grid = workspace
-        if work.device != dev or work.dtype != torch.float32 or not work.is_contiguous():
+        if work is not None and (work.device != dev or work.dtype != torch.float32
+                                 or not work.is_contiguous()):
             raise ValueError("the workspace must be a contiguous float32 tensor on the "
                              "chains' device")
-        extra = (work.data_ptr(), int(grid))
+        extra = (None if work is None else work.data_ptr(), int(grid))
     lib = riemannian_library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

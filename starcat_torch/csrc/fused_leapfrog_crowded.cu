@@ -76,9 +76,19 @@
 // the 16384 pixels.  A dead slot (m = 0) has flux 0 by selection, not
 // exp(s) * 0, so an extreme theta in a dead slot cannot make NaN.
 //
-// Domain (checked by the wrapper): 1 <= K <= 128, H and W at most 128, and
-// the block's shared memory (smem_floats) within the card's 227 KB.
+// Beyond that one-tile domain (a side above 128 pixels, or K > 128) the
+// launch takes the wide path at the end of this file (namespace wide): the
+// field in tiles of at most 128 x 128 pixels and the catalog in chunks of
+// 128 slots, the chain's state in device memory.  Inside it, the launch
+// takes the code above, unchanged.
+//
+// Domain (checked by the wrapper): the one-tile path takes 1 <= K <= 128
+// and H, W at most 128; the wide path every (H, W, K) that the TPU kernel's
+// VMEM gate takes (fused_leapfrog_crowded.tpu_gate, the mirror of
+// starcat/pallas_mxu.py:mxu_fused_supported at an 8-chain tile).
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
@@ -96,7 +106,8 @@ struct Tile {
   static constexpr int kPartFloats = 3 * 4 * kGroups;       // column-half partial sums, S <= 4
 };
 
-constexpr int kMaxSide = 128;
+constexpr int kMaxSide = 128;   // the one-tile path's sides
+constexpr int kMaxStars = 128;  // and slots
 
 struct Params {
   const float* theta;     // (C, K, 3)
@@ -567,8 +578,469 @@ cudaError_t run(const Params& P, int C, cudaStream_t st, int* blocks_per_sm) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide path: fields with a side above 128 pixels and catalogs of more
+// than 128 slots, up to the TPU kernel's own domain.
+//
+// What changes: one block of 512 threads a chain, as at T = 128, walks the
+// field in pixel tiles of at most 128 x 128 (tile i of a row-major grid of
+// 128-pixel bands; the last band of each axis ragged) and the catalog in
+// chunks of kChunk = 128 slots, whose live stars (m != 0) it compacts in
+// slot order at each load (a ballot a warp).  For each gradient evaluation
+// and tile, the render adds each chunk's stars to lam in the same register
+// tile (8 rows x 4 columns a thread), its epilogue writes the tile's
+// residual field and adds the tile's log-likelihood to a per-thread double;
+// then each chunk's contraction over the tile adds its sums to the stars'
+// sums in device memory.  When one chunk holds the catalog, its profiles
+// serve both passes of a tile; otherwise a chunk's are made again for the
+// contraction (K (T + T) exponentials against 3 K T T FMAs).
+//
+// The chain's state lives in device memory, in the launch's own outputs:
+// theta in theta_out, p in p_out, grad in grad_out, where the contraction
+// sums (flux, x, y) of a star sit until the chain rule turns them into its
+// gradient in place.  The tiles and chunks run in a fixed order and one
+// thread adds a star's sums, so a run is deterministic and a chain's result
+// does not depend on the others; a dead slot's sums stay 0, so its gradient
+// is 0 and, with zero momentum, its theta comes back bit for bit.  The
+// shared memory is the tile's residual field, one chunk's profiles and
+// per-star scalars (smem_floats, 199 KB whatever the scene), one block an SM.
+namespace wide {
+
+constexpr int T = 128;
+using G = Tile<T>;
+constexpr int kThreads = G::kThreads;  // 512
+constexpr int kChunk = 128;            // catalog slots a chunk
+
+// A pixel tile: rows r0 .. r0 + th - 1 and columns c0 .. c0 + tw - 1.
+struct Geom {
+  int r0, c0, th, tw;
+};
+
+__host__ __device__ inline int tiles_across(int n) { return (n + T - 1) / T; }
+
+__device__ inline Geom tile_geom(int H, int W, int i) {
+  const int nc = (W + T - 1) / T;
+  const int tr = i / nc, tc = i - tr * nc;
+  Geom t;
+  t.r0 = tr * T;
+  t.c0 = tc * T;
+  t.th = min(T, H - t.r0);
+  t.tw = min(T, W - t.c0);
+  return t;
+}
+
+// mirrored by wide_smem_bytes() in fused_leapfrog_crowded.py
+inline int smem_floats() {
+  return T * T + (kChunk + 3) * G::kGx + kChunk * T + 2 * G::kWarps + G::kPartFloats
+         + 4 * kChunk + G::kWarps + 4;
+}
+
+struct Smem {
+  float* fld;            // (T, T) by column: pixel (r0 + h, c0 + w) at w T + h
+  float* gx;             // (kChunk + 3, kGx), the chunk's live stars; zero past them
+  float* gyw;            // (kChunk, T)
+  double* red;           // kWarps
+  float* part;           // kPartFloats
+  float *px, *py, *cw;   // kChunk each: the chunk's live stars' x, y and flux
+  int* live;             // kChunk: their slots
+  int* cnt;              // kWarps: the compaction's counts by warp
+  float* scal;           // u
+};
+
+__device__ inline Smem carve(float* base) {
+  Smem s;
+  float* q = base;
+  auto take = [&q](int n) { float* r = q; q += n; return r; };
+  s.fld = take(T * T);
+  s.gx = take((kChunk + 3) * G::kGx); s.gyw = take(kChunk * T);
+  s.red = reinterpret_cast<double*>(take(2 * G::kWarps));
+  s.part = take(G::kPartFloats);
+  s.px = take(kChunk); s.py = take(kChunk); s.cw = take(kChunk);
+  s.live = reinterpret_cast<int*>(take(kChunk));
+  s.cnt = reinterpret_cast<int*>(take(G::kWarps));
+  s.scal = take(4);
+  return s;
+}
+
+// The live slots of kb .. kb + kChunk - 1 in slot order into s.live, a
+// slot a thread of the first kChunk / 32 warps; their count to every
+// thread.  Ends synchronised.
+__device__ int compact_chunk(const float* mask, int K, int kb, const Smem& s) {
+  constexpr int kW = kChunk / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bool on = false;
+  unsigned b = 0u;
+  if (warp < kW) {
+    on = kb + tid < K && mask[kb + tid] != 0.0f;
+    b = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) s.cnt[warp] = __popc(b);
+  }
+  __syncthreads();
+  int n = 0, off = 0;
+  for (int i = 0; i < kW; ++i) {
+    if (i < warp) off += s.cnt[i];
+    n += s.cnt[i];
+  }
+  if (on) s.live[off + __popc(b & ((1u << lane) - 1u))] = kb + tid;
+  __syncthreads();
+  return n;
+}
+
+// Chunk kb's live stars at theta on tile t: their slots, positions and
+// fluxes, and their profiles gx over the tile's columns and gyw over its
+// rows, T long (zero past the tile, and gx in the three rows past the live
+// stars).  Returns their count to every thread; starts and ends
+// synchronised.
+__device__ int load_chunk(const Params& P, const Smem& s, const float* theta,
+                          const float* mask, int kb, const Geom& t) {
+  __syncthreads();  // the previous chunk's readers are done
+  const int n = compact_chunk(mask, P.K, kb, s);
+  const int tid = threadIdx.x;
+  const float sig = P.psf_sigma;
+  if (tid < n) {
+    const int k = s.live[tid];
+    s.px[tid] = P.W * sigmoidf(theta[3 * k]);
+    s.py[tid] = P.H * sigmoidf(theta[3 * k + 1]);
+    s.cw[tid] = expf(theta[3 * k + 2]) * mask[k];
+  }
+  __syncthreads();
+  const int pix = tid % T;
+#pragma unroll 4
+  for (int j = tid / T; j < n + 3; j += kThreads / T) {
+    float v = 0.0f;
+    if (j < n && pix < t.tw) {
+      const float z = ((static_cast<float>(t.c0 + pix) + 0.5f) - s.px[j]) / sig;
+      v = expf(-0.5f * z * z) * P.psf_norm;
+    }
+    s.gx[j * G::kGx + pix] = v;
+  }
+#pragma unroll 4
+  for (int j = tid / T; j < n; j += kThreads / T) {
+    float v = 0.0f;
+    if (pix < t.th) {
+      const float z = ((static_cast<float>(t.r0 + pix) + 0.5f) - s.py[j]) / sig;
+      v = expf(-0.5f * z * z) * P.psf_norm * s.cw[j];
+    }
+    s.gyw[j * T + pix] = v;
+  }
+  __syncthreads();
+  return n;
+}
+
+// The thread's render pixels in a tile: rows h0 .. h0 + 7, columns c0 ..
+// c0 + 3, as render<128> lays them out.
+struct Px {
+  int h0, c0;
+};
+
+__device__ __forceinline__ Px px_of() {
+  constexpr int kB = T / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Px q;
+  q.h0 = 8 * ((lane & 3) + 4 * (warp % kB));
+  q.c0 = 4 * ((lane >> 2) + 8 * (warp / kB));
+  return q;
+}
+
+// lam += Gyw^T Gx over the loaded chunk's n stars.
+__device__ __forceinline__ void render_acc(float (&acc)[4][8], const Smem& s, const Geom& t,
+                                           const Px& q, int n) {
+  if (q.c0 >= t.tw || q.h0 >= t.th) return;
+  const float* py = s.gyw + q.h0;
+  const float* px = s.gx + q.c0;
+  for (int j = 0; j < n; ++j) {
+    const float4 ya = ld4(py), yb = ld4(py + 4), xv = ld4(px);
+    const float y[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
+    const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[c][r] = fmaf(y[r], x[c], acc[c][r]);
+    py += T;
+    px += G::kGx;
+  }
+}
+
+// The tile's epilogue: s.fld = D / lam - 1 (0 in the rows past the tile)
+// and, with `with_u`, the tile's sum_p D log lam - lam added to ll.  Ends
+// synchronised.
+__device__ void render_out(const Params& P, const Smem& s, const Geom& t, const Px& q,
+                           const float (&acc)[4][8], bool with_u, double& ll) {
+  if (q.c0 < t.tw) {
+    float img[8][4];
+    const bool vec = (P.W & 3) == 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int h = q.h0 + r;
+      const float* row = P.image + static_cast<size_t>(t.r0 + h) * P.W + t.c0 + q.c0;
+      if (h < t.th && vec) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+        img[r][0] = v.x; img[r][1] = v.y; img[r][2] = v.z; img[r][3] = v.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          img[r][c] = (h < t.th && q.c0 + c < t.tw) ? __ldg(row + c) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (q.c0 + c < t.tw) {
+        float res[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          res[r] = 0.0f;
+          if (q.h0 + r < t.th) {
+            const float lam = acc[c][r], d = img[r][c];
+            res[r] = d / lam - 1.0f;
+            if (with_u) ll += static_cast<double>(d * logf(lam) - lam);
+          }
+        }
+        float* o = s.fld + (q.c0 + c) * T + q.h0;
+        st4(o, res[0], res[1], res[2], res[3]);
+        st4(o + 4, res[4], res[5], res[6], res[7]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// contract_block<128, S> on tile t for the loaded chunk's stars sb .. sb +
+// kGroups S - 1: the same register tiles, the columns and rows at the
+// tile's offsets, the sums added to the stars' in dl (device memory, 3 a
+// slot: flux, x, y).
+template <int S>
+__device__ void contract_block(const Params& P, const Smem& s, const Geom& t, int n, int sb,
+                               float* dl) {
+  constexpr int kBlock = G::kGroups * S;
+  constexpr int kWh = G::kWarps / G::kHalves;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane % G::kRg;
+  const int sg = G::kSgw * (warp % kWh) + lane / G::kRg;
+  const int half = warp / kWh;
+  const int lo = 4 * rg;  // the second quad is lo + T/2
+  const int j0 = sb + S * sg;
+  const int wmid = (t.tw + 1) / 2;
+  const int wbeg = half ? wmid : 0, wend = half ? t.tw : wmid;
+  const float inv_sig = 1.0f / P.psf_sigma;
+  const float inv_sig2 = inv_sig * inv_sig;
+
+  float acc[S][2][8];
+  float xh[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    xh[i] = s.px[min(j0 + i, n - 1)] - 0.5f;
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[i][o][r] = 0.0f;
+  }
+  const bool work = lo < t.th && j0 < n;
+  if (work) {
+    const float* a = s.fld + wbeg * T + lo;
+    const float* g = s.gx + j0 * G::kGx + wbeg;
+    float wf = static_cast<float>(t.c0 + wbeg);
+#pragma unroll 1
+    for (int w = wbeg; w < wend; ++w) {
+      const float4 a0 = ld4(a), a1 = ld4(a + T / 2);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const float gx = g[i * G::kGx];
+        const float gxz = gx * ((wf - xh[i]) * inv_sig2);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          acc[i][0][r] = fmaf(av[r], gx, acc[i][0][r]);
+          acc[i][1][r] = fmaf(av[r], gxz, acc[i][1][r]);
+        }
+      }
+      a += T;
+      ++g;
+      wf += 1.0f;
+    }
+  }
+  float sums[S][3];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) sums[i][q] = 0.0f;
+    if (work) {
+      const int j = min(j0 + i, n - 1);
+      const float4 g0 = ld4(s.gyw + j * T + lo), g1 = ld4(s.gyw + j * T + lo + T / 2);
+      const float gyv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float yh = s.py[j] - 0.5f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float dy = static_cast<float>(t.r0 + lo + r + (r < 4 ? 0 : T / 2 - 4)) - yh;
+        sums[i][0] = fmaf(gyv[r], acc[i][0][r], sums[i][0]);
+        sums[i][1] = fmaf(gyv[r], acc[i][1][r], sums[i][1]);
+        sums[i][2] = fmaf(gyv[r] * (dy * inv_sig2), acc[i][0][r], sums[i][2]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) sums[i][q] = lane_sum<G::kRg>(sums[i][q]);
+  }
+  if (half == 1 && rg == 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) s.part[q * kBlock + S * sg + i] = sums[i][q];
+  }
+  __syncthreads();
+  if (half == 0 && rg == 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int j = j0 + i;
+      if (j < n) {
+        const int k = s.live[j];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) dl[3 * k + q] += sums[i][q] + s.part[q * kBlock + S * sg + i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The loaded chunk's n stars on tile t, in passes as contract<128>.  Ends
+// synchronised.
+__device__ void contract(const Params& P, const Smem& s, const Geom& t, int n, float* dl) {
+  constexpr int kG = G::kGroups;
+  for (int sb = 0; sb < n;) {
+    const int S = min(4, (n - sb + kG - 1) / kG);
+    if (S == 1) contract_block<1>(P, s, t, n, sb, dl);
+    else if (S == 2) contract_block<2>(P, s, t, n, sb, dl);
+    else if (S == 3) contract_block<3>(P, s, t, n, sb, dl);
+    else contract_block<4>(P, s, t, n, sb, dl);
+    sb += kG * S;
+  }
+}
+
+// chain_rule<128> on the state in device memory: grad holds the sums on
+// entry and the gradient on exit; with `with_u`, U = -(ll + log prior)
+// into s.scal[0] (ll the thread's share).  Ends synchronised.
+__device__ void chain_rule(const Params& P, const Smem& s, const float* theta,
+                           const float* mask, float* grad, bool with_u, double ll) {
+  const int tid = threadIdx.x;
+  double lp = 0.0;
+  for (int k = tid; k < P.K; k += kThreads) {
+    const float ux = theta[3 * k], uy = theta[3 * k + 1], sl = theta[3 * k + 2];
+    const float m = mask[k];
+    const float d_s = grad[3 * k], d_x = grad[3 * k + 1], d_y = grad[3 * k + 2];
+    const float sx = sigmoidf(ux), sy = sigmoidf(uy);
+    const float gl_ux = d_x * P.W * sx * (1.0f - sx);
+    const float gl_uy = d_y * P.H * sy * (1.0f - sy);
+    const float zf = (sl - P.logf_mean) / P.logf_sigma;
+    grad[3 * k] = -(gl_ux * m + (1.0f - 2.0f * sx) * m);
+    grad[3 * k + 1] = -(gl_uy * m + (1.0f - 2.0f * sy) * m);
+    grad[3 * k + 2] = -(d_s * m + (-zf / P.logf_sigma) * m);
+    if (with_u) {
+      const float lp_pos = -(softplusf(ux) + softplusf(-ux) + softplusf(uy) + softplusf(-uy));
+      const float lp_flux = -0.5f * zf * zf + P.lp_flux_const;
+      lp += static_cast<double>((lp_pos + lp_flux) * m);
+    }
+  }
+  if (with_u) {
+    ll = block_sum_d<T>(ll, s.red);  // synchronises
+    lp = block_sum_d<T>(lp, s.red);
+    if (tid == 0) s.scal[0] = static_cast<float>(-(ll + lp));
+  }
+  __syncthreads();
+}
+
+// dU/dtheta at theta into grad and, when with_u, U into s.scal[0], tile by
+// tile and chunk by chunk.  Every thread of the block calls it.
+__device__ void grad_eval(const Params& P, const Smem& s, const float* theta, const float* mask,
+                          float* grad, bool with_u) {
+  const int d3 = 3 * P.K;
+  for (int a = threadIdx.x; a < d3; a += kThreads) grad[a] = 0.0f;  // the sums
+  const bool one_chunk = P.K <= kChunk;
+  const int n_tiles = tiles_across(P.H) * tiles_across(P.W);
+  const Px q = px_of();
+  double ll = 0.0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const Geom t = tile_geom(P.H, P.W, i);
+    float acc[4][8];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[c][r] = P.background;
+    int n = 0;
+    for (int kb = 0; kb < P.K; kb += kChunk) {
+      n = load_chunk(P, s, theta, mask, kb, t);
+      render_acc(acc, s, t, q, n);
+    }
+    render_out(P, s, t, q, acc, with_u, ll);
+    for (int kb = 0; kb < P.K; kb += kChunk) {
+      if (!one_chunk) n = load_chunk(P, s, theta, mask, kb, t);
+      contract(P, s, t, n, grad);
+    }
+  }
+  chain_rule(P, s, theta, mask, grad, with_u, ll);
+}
+
+// One chain a block of 512 threads; the step loop of
+// fused_leapfrog_crowded_kernel on the state in device memory.
+__global__ void __launch_bounds__(kThreads, 1) fused_leapfrog_crowded_wide_kernel(Params P) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const int d3 = 3 * P.K;
+  const size_t base = static_cast<size_t>(c) * d3;
+  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  float* theta = P.theta_out + base;
+  float* p = P.p_out + base;
+  float* grad = P.grad_out + base;
+  const float* mask = P.mask + static_cast<size_t>(c) * P.mask_stride;
+  const float eps = P.eps[c];
+  const int n = max(*P.n_steps, 0);
+  const bool grad_in = P.grad_in != nullptr && n > 0;
+
+  for (int a = tid; a < d3; a += kThreads) {
+    theta[a] = P.theta[base + a];
+    p[a] = P.p[base + a];
+    if (grad_in) grad[a] = P.grad_in[base + a];
+  }
+  __syncthreads();
+  if (!grad_in) grad_eval(P, s, theta, mask, grad, n == 0);
+  for (int step = 0; step < n; ++step) {
+    for (int a = tid; a < d3; a += kThreads) {
+      const float p_half = p[a] - 0.5f * eps * grad[a];
+      p[a] = p_half;
+      theta[a] = theta[a] + eps * P.inv_mass[a] * p_half;
+    }
+    __syncthreads();
+    grad_eval(P, s, theta, mask, grad, step == n - 1);
+    for (int a = tid; a < d3; a += kThreads) p[a] = p[a] - 0.5f * eps * grad[a];
+  }
+  if (tid == 0) P.u_out[c] = s.scal[0];
+}
+
+// The launch of C chains (or, with blocks_per_sm, its occupancy).
+cudaError_t run(const Params& P, int C, cudaStream_t st, int* blocks_per_sm) {
+  const size_t smem = static_cast<size_t>(smem_floats()) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(fused_leapfrog_crowded_wide_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_leapfrog_crowded_wide_kernel, kThreads, smem);
+  fused_leapfrog_crowded_wide_kernel<<<C, kThreads, smem, st>>>(P);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
+// The one-tile path's domain (mirrored by one_tile() in
+// fused_leapfrog_crowded.py); every other launch takes the wide path.
+inline bool one_tile(int K, int H, int W) {
+  return K <= kMaxStars && H <= kMaxSide && W <= kMaxSide;
+}
+
 // The launch (or its occupancy) at the scene's tile; the threads a block.
 cudaError_t dispatch(const Params& P, int C, cudaStream_t st, int* threads, int* blocks_per_sm) {
+  if (!one_tile(P.K, P.H, P.W)) {
+    *threads = wide::kThreads;
+    return wide::run(P, C, st, blocks_per_sm);
+  }
   switch (tile_side(P.H, P.W)) {
     case 32:
       *threads = Tile<32>::kThreads;
@@ -617,7 +1089,7 @@ int starcat_fused_leapfrog_crowded(
   P.logf_sigma = logf_sigma;
   P.lp_flux_const = lp_flux_const;
 
-  if (H > kMaxSide || W > kMaxSide) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   int threads = 0;
   return static_cast<int>(dispatch(P, C, static_cast<cudaStream_t>(stream), &threads, nullptr));
 }

@@ -16,16 +16,19 @@ is (K, 3); mask is (K,) shared or (C, K) per chain.  ``n_steps == 0``
 returns (U, grad U) at theta; without an entry gradient the trajectory
 evaluates it first.
 
-The kernel takes scenes of at most 128 x 128 pixels and 1 <= K <= 128:
-its GEMM passes tile the scene in the smallest square of 32, 64 or 128
-pixels a side that holds it (:func:`tile_side`), with a block of 32, 128
-or 512 threads a chain, and the residual field and the live stars' two
-profile sets fit one block's shared memory at every such K (206 KB at
-128x128 with K = 128), the crowded field's K = 50 and 64 among them.  A
-scene with a side above 128 pixels, which the kernel's first design took
-while its field fitted, is refused.  Scenes and catalogs inside B1's
-domain run on B1 (fused_leapfrog.py); :func:`dispatch.leapfrog_module`
-chooses.
+The kernel takes every scene and catalog that its TPU kernel takes
+(:func:`tpu_gate`, the JAX package's VMEM gate).  Inside its first domain
+(:func:`one_tile`: at most 128 x 128 pixels and 1 <= K <= 128) a launch
+takes that one-tile code, unchanged: its GEMM passes tile the scene in the
+smallest square of 32, 64 or 128 pixels a side that holds it
+(:func:`tile_side`), with a block of 32, 128 or 512 threads a chain, and
+the residual field and the live stars' two profile sets fit one block's
+shared memory at every such K (206 KB at 128x128 with K = 128), the
+crowded field's K = 50 and 64 among them.  Beyond it the wide path walks
+the field in tiles of at most 128 x 128 pixels and the catalog in chunks
+of WIDE_CHUNK slots, 512 threads a chain, the chain's state in the
+launch's outputs.  Scenes and catalogs inside B1's domain run on B1
+(fused_leapfrog.py); :func:`dispatch.leapfrog_module` chooses.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_leapfrog.fused_leapfrog_reference` (the same
@@ -36,13 +39,14 @@ from __future__ import annotations
 
 import torch
 
-from .build import MAX_SMEM_BYTES, LeapfrogKernel
+from .build import LeapfrogKernel
 from .fused_leapfrog import fused_leapfrog_reference
 from .potential import PriorSpec
 from .scene import SceneSpec
 
-MAX_STARS = 128   # the state's slots
-MAX_SIDE = 128    # kMaxSide in the source: H, W <= 128
+MAX_STARS = 128   # kMaxStars in the source: the one-tile path's slots
+MAX_SIDE = 128    # kMaxSide in the source: the one-tile path's H, W <= 128
+WIDE_CHUNK = 128  # wide::kChunk in the source: catalog slots a chunk
 
 # Launch count of the CUDA kernel, through either contract.
 LAUNCHES = 0
@@ -67,14 +71,14 @@ def tile_threads(side: int) -> int:
 
 
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source):
-    the residual field, T rows by W columns; the profiles gx (K + 3 rows
-    of T + 4) and gyw (K, T); the block sum's doubles (two floats a warp),
-    the column halves' partial sums (3 sums of 4 stars for each of the
-    pass's star groups: T / 8 lanes hold a group's rows, the warps hold
-    32 / (T / 8) groups each and, from two warps up, split the columns in
-    halves), 20 K floats of state and per-star scalars, 4 of scratch.  The
-    height enters only through T."""
+    """Shared memory one block of the one-tile path needs (mirrors
+    smem_floats in the source): the residual field, T rows by W columns;
+    the profiles gx (K + 3 rows of T + 4) and gyw (K, T); the block sum's
+    doubles (two floats a warp), the column halves' partial sums (3 sums
+    of 4 stars for each of the pass's star groups: T / 8 lanes hold a
+    group's rows, the warps hold 32 / (T / 8) groups each and, from two
+    warps up, split the columns in halves), 20 K floats of state and
+    per-star scalars, 4 of scratch.  The height enters only through T."""
     side = tile_side(height, width)
     warps = tile_threads(side) // 32
     halves = 2 if warps >= 2 else 1
@@ -83,19 +87,42 @@ def smem_bytes(kmax: int, height: int, width: int) -> int:
                 + 3 * 4 * groups + 20 * kmax + 4)
 
 
+def one_tile(kmax: int, height: int, width: int) -> bool:
+    """Whether a launch takes the one-tile path (one_tile in the source):
+    K <= 128 and H, W <= 128, where smem_bytes fits the card at every K."""
+    return kmax <= MAX_STARS and height <= MAX_SIDE and width <= MAX_SIDE
+
+
+def wide_smem_bytes() -> int:
+    """Shared memory one block of the wide path needs (mirrors
+    wide::smem_floats in the source), whatever the scene: the tile's
+    residual field (128 x 128), one chunk's profiles gx (WIDE_CHUNK + 3,
+    132) and gyw (WIDE_CHUNK, 128), the block sum's doubles and the column
+    halves' partial sums as at T = 128, 4 floats a chunk slot, the
+    compaction's counts a warp and 4 of scratch."""
+    side, warps = 128, tile_threads(128) // 32
+    return 4 * (side * side + (WIDE_CHUNK + 3) * (side + 4) + WIDE_CHUNK * side + 2 * warps
+                + 3 * 4 * 16 + 4 * WIDE_CHUNK + warps + 4)
+
+
+def tpu_gate(spec: SceneSpec, kmax: int) -> bool:
+    """The scenes and catalogs the TPU's kernel takes, at any chain count
+    the port runs: the VMEM budget of starcat/pallas_mxu.py's
+    mxu_fused_supported at its 8-chain tile, computed here without the JAX
+    package."""
+    hw, side = spec.height * spec.width, max(spec.height, spec.width)
+    return 4 * 8 * kmax * side * 4 + 3 * 8 * hw * 4 + hw * 4 < 12 * 2**20
+
+
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     """Why the kernel does not take this scene and catalog, or None."""
-    if not 1 <= kmax <= MAX_STARS:
-        return f"the crowded-field CUDA leapfrog (B5) takes 1 <= K <= {MAX_STARS}, got K={kmax}"
-    if spec.height > MAX_SIDE or spec.width > MAX_SIDE:
-        return (f"the crowded-field CUDA leapfrog (B5) tiles at most {MAX_SIDE}x{MAX_SIDE} "
-                f"pixels in one block's shared memory, got {spec.height}x{spec.width}")
-    need = smem_bytes(kmax, spec.height, spec.width)
-    if need > MAX_SMEM_BYTES:
-        return (f"the crowded-field CUDA leapfrog (B5) holds a {spec.height}x{spec.width} "
-                f"field and K={kmax} profiles in {need} bytes of shared memory per "
-                f"block, more than the card's {MAX_SMEM_BYTES}")
-    return None
+    if kmax < 1:
+        return f"the crowded-field CUDA leapfrog (B5) takes K >= 1, got K={kmax}"
+    if tpu_gate(spec, kmax):  # the one-tile domain lies inside the gate
+        return None
+    return (f"the crowded-field CUDA leapfrog (B5) takes the scenes and catalogs of its "
+            f"TPU kernel's VMEM gate (mxu_fused_supported at an 8-chain tile), got "
+            f"{spec.height}x{spec.width} with K={kmax}")
 
 
 def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:

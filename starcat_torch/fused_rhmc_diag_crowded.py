@@ -14,11 +14,17 @@ chain; beta is a float or a device scalar tensor, which the kernel reads
 without a host sync.  resid is the per-chain solver residual, NaN when the
 trajectory blew up.
 
-The kernel takes scenes of at most 128 x 128 pixels (its GEMM passes tile
-one such block of pixels) whose two fields and two profile sets fit one
-block's shared memory: at 128x128, K up to 78, cfg4's K = 64 among them.
-Smaller scenes run on B3 (fused_rhmc_diag.py);
-:func:`dispatch.rhmc_diag_module` chooses.
+The kernel takes every scene and catalog that its TPU kernel takes
+(:func:`tpu_gate`, the JAX package's VMEM gates).  Inside its first domain
+(:func:`one_tile`: at most 128 x 128 pixels, which its GEMM passes tile in
+one block of pixels, and two fields and two profile sets that fit one
+block's shared memory: at 128x128, K up to 78, cfg4's K = 64 among them) a
+launch takes that one-tile code, unchanged; beyond it the wide path, which
+walks the field in tiles of at most 128 x 128 pixels and the live stars in
+chunks of WIDE_CHUNK, the chain's state in a workspace in device memory
+that the wrapper allocates (:func:`workspace_floats` a chain).  Smaller
+scenes run on B3 (fused_rhmc_diag.py); :func:`dispatch.rhmc_diag_module`
+chooses.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_rhmc_diag.fused_rhmc_diag_reference` (the same
@@ -34,10 +40,12 @@ from .fused_rhmc_diag import fused_rhmc_diag_reference
 from .potential import PriorSpec
 from .scene import SceneSpec
 
-MAX_STARS = 128   # one thread per element of the (K, 3) state
-MAX_SIDE = 128    # kTile in the source: H, W <= 128
+MAX_STARS = 128   # the one-tile path: one thread per element of the (K, 3) state
+MAX_SIDE = 128    # kTile in the source: the one-tile path's H, W <= 128, the wide path's tile
 THREADS = 512     # kThreads in the source
 PART_FLOATS = 288  # kPartFloats in the source
+GX_STRIDE = MAX_SIDE + 4  # kGx in the source
+WIDE_CHUNK = 64   # wide::kChunk in the source: live stars a chunk
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -49,31 +57,67 @@ def reset_launch_counts() -> None:
 
 
 def smem_bytes(kmax: int, height: int, width: int) -> int:
-    """Shared memory one block needs (mirrors smem_floats in the source):
-    1/lam and the working field, 128 rows by W columns each (the working
-    field at least one star's 512 q-field operands); the profiles gx (K +
-    3, 132) and gy (K, 128); the state and per-star scalars, 55 K floats.
-    The height does not enter: every field is 128 rows tall."""
+    """Shared memory one block of the one-tile path needs (mirrors
+    smem_floats in the source): 1/lam and the working field, 128 rows by
+    W columns each (the working field at least one star's 512 q-field
+    operands); the profiles gx (K + 3, 132) and gy (K, 128); the state and
+    per-star scalars, 55 K floats.  The height does not enter: every field
+    is 128 rows tall."""
     field = MAX_SIDE * width
     return 4 * (field + max(field, 4 * MAX_SIDE) + (kmax + 3) * (MAX_SIDE + 4)
                 + kmax * MAX_SIDE + 2 * (THREADS // 32) + 55 * kmax + PART_FLOATS + 8)
 
 
+def one_tile(kmax: int, height: int, width: int) -> bool:
+    """Whether a launch takes the one-tile path (the source's launch takes
+    it when the wrapper passes a null workspace): K <= 128, H and W <= 128 and
+    the block's shared memory within the card's."""
+    return (kmax <= MAX_STARS and height <= MAX_SIDE and width <= MAX_SIDE
+            and smem_bytes(kmax, height, width) <= MAX_SMEM_BYTES)
+
+
+def wide_smem_bytes() -> int:
+    """Shared memory one block of the wide path needs (mirrors
+    wide::smem_floats in the source), whatever the scene: the tile's 1/lam
+    and working field (128 x 128 each), one chunk's profiles gx (WIDE_CHUNK
+    + 3, 132) and gy (WIDE_CHUNK, 128), the block sum's doubles, the column
+    halves' partial sums, 7 floats a chunk star and 8 of scratch."""
+    return 4 * (2 * MAX_SIDE * MAX_SIDE + (WIDE_CHUNK + 3) * GX_STRIDE + WIDE_CHUNK * MAX_SIDE
+                + 2 * (THREADS // 32) + PART_FLOATS + 7 * WIDE_CHUNK + 8)
+
+
+def workspace_floats(kmax: int, height: int, width: int) -> int:
+    """A chain's slice of the wide path's workspace, in floats (mirrors
+    wide::work_floats in the source): a build's 1/lam, 128 rows by W
+    columns a band of 128 rows, and 49 K floats of state and per-star
+    scalars, rounded up to 4."""
+    bands = -(-height // MAX_SIDE)
+    return (bands * width * MAX_SIDE + 49 * kmax + 3) & ~3
+
+
+def tpu_gate(spec: SceneSpec, kmax: int) -> bool:
+    """The scenes and catalogs the TPU's kernels of the pair take, at any
+    chain count the port runs: the VMEM budgets of
+    starcat/pallas_rhmc_diag.py's diag_mxu_supported (B4's, at its 8-chain
+    tile) and diag_fused_supported (B3's, at 1024 chains, a 128-chain
+    tile), computed here without the JAX package."""
+    hw, side = spec.height * spec.width, max(spec.height, spec.width)
+    mxu = 10 * 8 * kmax * side * 4 + 4 * 8 * hw * 4 + hw * 4 < 12 * 2**20
+    lanes = 3 * hw * 128 * 4 + 6 * kmax * side * 128 * 4 < 24 * 2**20
+    return mxu or lanes
+
+
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     """Why the kernel does not take this scene and catalog, or None."""
-    if not 1 <= kmax <= MAX_STARS:
-        return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes "
-                f"1 <= K <= {MAX_STARS}, got K={kmax}")
-    if spec.height > MAX_SIDE or spec.width > MAX_SIDE:
-        return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) tiles at most "
-                f"{MAX_SIDE}x{MAX_SIDE} pixels in one block's shared memory, got "
-                f"{spec.height}x{spec.width}")
-    need = smem_bytes(kmax, spec.height, spec.width)
-    if need > MAX_SMEM_BYTES:
-        return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) holds two "
-                f"{spec.height}x{spec.width} fields and K={kmax} profiles in {need} bytes "
-                f"of shared memory per block, more than the card's {MAX_SMEM_BYTES}")
-    return None
+    if kmax < 1:
+        return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes K >= 1, "
+                f"got K={kmax}")
+    if tpu_gate(spec, kmax):  # the one-tile domain lies inside the gate
+        return None
+    return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes the scenes and "
+            f"catalogs of its TPU kernel's VMEM gates (diag_mxu_supported at an 8-chain "
+            f"tile, diag_fused_supported at 1024 chains), got {spec.height}x{spec.width} "
+            f"with K={kmax}")
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:
@@ -108,8 +152,13 @@ def make_fused_rhmc_diag(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                 beta, n_steps, fpi, jitter)
         if theta.device.type != "cuda":
             raise ValueError(f"no fused RHMC trajectory for device {theta.device}")
+        work = (None, 0)  # the one-tile path takes no workspace
+        if not one_tile(kmax, spec.height, spec.width):
+            c = theta.shape[0]
+            work = (torch.empty(c * workspace_floats(kmax, spec.height, spec.width),
+                                dtype=torch.float32, device=theta.device), c)
         out = launch_riemannian("fused_rhmc_diag_crowded", image, kmax, n_steps, fpi,
-                                scalars, theta, xi, eps, mask, beta)
+                                scalars, theta, xi, eps, mask, beta, workspace=work)
         LAUNCHES += 1
         return out
 

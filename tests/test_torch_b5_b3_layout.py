@@ -2,9 +2,9 @@
 the shared-memory layouts of csrc/fused_leapfrog_crowded.cu and
 csrc/fused_rhmc_diag.cu term by term, domain_error takes exactly the
 scenes and catalogs that fit them (and every one the first designs took,
-but B5's scenes with a side above 128 pixels), and B3's scenes sit in the
-row tile that holds them.  The kernels themselves run only on the card
-(tests/test_torch_cuda.py)."""
+B5's scenes with a side above 128 pixels on its wide path), and B3's
+scenes sit in the row tile that holds them.  The kernels themselves run
+only on the card (tests/test_torch_cuda.py)."""
 import pytest
 
 from starcat_torch import fused_leapfrog_crowded as flc
@@ -64,11 +64,11 @@ def test_b5_domain_takes_scenes_that_fit(h, w, k):
 
 
 @pytest.mark.parametrize("h,w,k,match", [
-    (128, 128, 129, "1 <= K <= 128"),
-    (128, 128, 0, "1 <= K <= 128"),
-    (129, 128, 8, "at most 128x128 pixels in one block's shared memory, got 129x128"),
-    (128, 129, 8, "at most 128x128 pixels in one block's shared memory, got 128x129"),
-    (256, 256, 64, "shared memory"),
+    (128, 128, 668, "got 128x128 with K=668"),
+    (128, 128, 0, "K >= 1, got K=0"),
+    (192, 192, 362, "got 192x192 with K=362"),
+    (352, 128, 180, "got 352x128 with K=180"),
+    (256, 256, 184, "VMEM gate"),
 ])
 def test_b5_domain_rejects_the_edges(h, w, k, match):
     err = flc.domain_error(_spec(h, w), k)
@@ -79,15 +79,16 @@ def test_b5_domain_rejects_the_edges(h, w, k, match):
 
 def test_b5_domain_is_no_narrower_up_to_128_a_side():
     """Every scene of at most 128 pixels a side and every K that the first
-    B5 took, the block GEMMs take too; above 128 a side they take none
-    (the first design took those whose field fitted, e.g. 200x100)."""
+    B5 took, the block GEMMs take too; above 128 a side the one-tile path
+    takes none, and the wide path takes those the first design took while
+    its field fitted, e.g. 200x100."""
     for h in range(1, 129, 3):
         for w in range(1, 129, 5):
             for k in range(1, 129, 7):
                 if _b5_first_design_bytes(k, h, w) <= MAX_SMEM_BYTES:
                     assert flc.domain_error(_spec(h, w), k) is None, (h, w, k)
     assert _b5_first_design_bytes(4, 200, 100) <= MAX_SMEM_BYTES
-    assert "at most 128x128" in flc.domain_error(_spec(200, 100), 4)
+    assert not flc.one_tile(4, 200, 100) and flc.domain_error(_spec(200, 100), 4) is None
 
 
 # -- B3, the diagonal-Fisher trajectory on small scenes -----------------------

@@ -153,22 +153,27 @@ def test_kernel_choice_by_shape(spec, kmax, leapfrog, diag):
 
 
 def test_kernel_choice_raises_beyond_both_domains():
-    big = SceneSpec(256, 256, 1.5, 20.0)
-    with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\).*shared memory"):
+    """The crowded-field kernels take what their TPU kernels' VMEM gates
+    take (tests/test_torch_wide_fields.py holds the edges on a grid):
+    beyond that, the choice raises naming both kernels of the pair."""
+    big = SceneSpec(384, 384, 1.5, 20.0)
+    with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\).*VMEM gate"):
         dispatch.leapfrog_module(big, 64)
-    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\).*shared memory"):
+    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\).*VMEM gates"):
         dispatch.rhmc_diag_module(big, 64)
-    with pytest.raises(ValueError, match=r"1 <= K <= 128"):
-        dispatch.rhmc_diag_module(CROWDED, 129)
-    # B4's shared memory holds K <= 78 at 128x128; B5's every K it takes
-    # (K <= 128)
+    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\).*K=255"):
+        dispatch.rhmc_diag_module(CROWDED, 255)
+    # B4's one-tile shared memory holds K <= 78 at 128x128, its wide path
+    # the rest of its gate's K <= 254; B5's one-tile path every K <= 128,
+    # its wide path up to its gate's 667
     assert frdc.smem_bytes(78, 128, 128) <= MAX_SMEM_BYTES < frdc.smem_bytes(79, 128, 128)
     assert flc.smem_bytes(128, 128, 128) <= MAX_SMEM_BYTES
     assert dispatch.leapfrog_module(CROWDED, 128)[1] == "B5"
-    with pytest.raises(ValueError, match=r"1 <= K <= 128"):
-        dispatch.leapfrog_module(CROWDED, 129)
-    with pytest.raises(ValueError, match="B4"):
-        dispatch.rhmc_diag_module(CROWDED, 79)
+    assert dispatch.leapfrog_module(CROWDED, 667)[1] == "B5"
+    with pytest.raises(ValueError, match=r"\(B5\).*K=668"):
+        dispatch.leapfrog_module(CROWDED, 668)
+    assert dispatch.rhmc_diag_module(CROWDED, 79)[1] == "B4"
+    assert dispatch.rhmc_diag_module(CROWDED, 254)[1] == "B4"
     # the full metric runs on B6c, its crowded-field kernel, there and
     # raises only beyond both full-metric kernels, naming both; ChEES's
     # runtime step count (B2's contract) runs on B5 there and raises only
@@ -185,8 +190,9 @@ def test_b4_shared_memory_follows_its_gemm_layout():
     """smem_bytes mirrors the source's layout: 1/lam and the working field,
     128 rows by W columns each; the profiles gx (K + 3 rows of 132) and gy
     (K, 128); 55 floats of state per star, the partial sums and scratch.
-    cfg4 (K = 64) and the crowded rhmc head (K = 50) fit at 128x128, K = 79
-    does not and is named; a side above 128 is refused."""
+    cfg4 (K = 64) and the crowded rhmc head (K = 50) fit at 128x128 and
+    take the one-tile path; K = 79 does not fit and, like a side above
+    128, takes the wide path."""
     fields = 2 * 128 * 128
     assert frdc.smem_bytes(64, 128, 128) == 4 * (fields + 67 * 132 + 64 * 128 + 32 + 55 * 64
                                                  + 288 + 8) == 214608
@@ -198,12 +204,13 @@ def test_b4_shared_memory_follows_its_gemm_layout():
     # a field smaller than one star's 512 q-field operands is raised to it
     assert frdc.smem_bytes(1, 2, 2) == 4 * (256 + 512 + 4 * 132 + 128 + 32 + 55 + 296)
     for k in (50, 64, 78):
-        assert frdc.domain_error(CROWDED, k) is None
-    err = frdc.domain_error(CROWDED, 79)
-    assert "(B4)" in err and "K=79" in err and str(frdc.smem_bytes(79, 128, 128)) in err
-    err = frdc.domain_error(SceneSpec(136, 128, 1.5, 20.0), 8)
-    assert "(B4)" in err and "at most 128x128" in err
+        assert frdc.domain_error(CROWDED, k) is None and frdc.one_tile(k, 128, 128)
+    assert frdc.smem_bytes(79, 128, 128) > MAX_SMEM_BYTES and not frdc.one_tile(79, 128, 128)
+    assert frdc.domain_error(CROWDED, 79) is None
+    assert not frdc.one_tile(8, 136, 128)
+    assert frdc.domain_error(SceneSpec(136, 128, 1.5, 20.0), 8) is None
     assert frdc.domain_error(SceneSpec(96, 128, 1.5, 20.0), 37) is None
+    assert frdc.one_tile(37, 96, 128)
 
 
 def test_api_resolves_the_crowded_kernels():

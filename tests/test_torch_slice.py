@@ -165,13 +165,15 @@ def test_kernel_selection():
     with pytest.raises(ValueError, match="kernel must be"):
         api.resolve_kernel("pallas", cpu, cfg)
     # ChEES's runtime step count runs on B2 inside its domain and on the
-    # crowded-field kernel B5 beyond it, as the hmc head does; beyond both
-    # it raises, naming B5
+    # crowded-field kernel B5 beyond it, as the hmc head does, up to B5's
+    # TPU gate (K <= 183 at 256x256); beyond both it raises, naming B5
     crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128))
     assert api.resolve_kernel("cuda", torch.device("cuda"), crowded) == "cuda"
+    wide = dataclasses.replace(crowded, scene=cfg.scene._replace(height=256, width=256))
+    assert api.resolve_kernel("cuda", torch.device("cuda"),
+                              dataclasses.replace(wide, kmax=183)) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(
-            crowded, scene=cfg.scene._replace(height=256, width=256), kmax=64))
+        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(wide, kmax=184))
     hmc_crowded = dataclasses.replace(crowded, head="hmc")
     assert api.resolve_kernel("cuda", torch.device("cuda"), hmc_crowded) == "cuda"
     # the Riemannian heads run kernel B3, and B4 beyond its domain; beyond
@@ -188,7 +190,8 @@ def test_kernel_selection():
     assert api.resolve_kernel("cuda", torch.device("cuda"),
                               dataclasses.replace(hmc_td, kmax=64)) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(hmc_td, **huge))
+        api.resolve_kernel("cuda", torch.device("cuda"),
+                           dataclasses.replace(hmc_td, **dict(huge, kmax=184)))
 
 
 def test_unported_head_raises():
@@ -233,7 +236,8 @@ def test_short_cfg7_advi_run_on_the_plain_path(full_rank):
 @pytest.mark.parametrize("name", ["cfg2_nuts", "cfg7_advi"])
 def test_nuts_and_advi_run_on_the_plain_leapfrog_kernels(name):
     """NUTS leaves and ADVI gradients take B1 on the flagship scene and B5 on
-    a crowded one; kernel=cuda beyond both, or off a card, raises."""
+    a crowded one, up to B5's TPU gate (K <= 183 at 256x256); kernel=cuda
+    beyond both, or off a card, raises."""
     from starcat_torch import dispatch
 
     cfg = CONFIGS[name]
@@ -247,9 +251,10 @@ def test_nuts_and_advi_run_on_the_plain_leapfrog_kernels(name):
                                   kmax=50)
     assert dispatch.trajectory_kernel(cfg.head, None, crowded.scene, 50) == "B5"
     assert api.resolve_kernel("cuda", cuda, crowded) == "cuda"
+    wide = dataclasses.replace(crowded, scene=cfg.scene._replace(height=256, width=256))
+    assert api.resolve_kernel("cuda", cuda, wide) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", cuda, dataclasses.replace(
-            crowded, scene=cfg.scene._replace(height=256, width=256)))
+        api.resolve_kernel("cuda", cuda, dataclasses.replace(wide, kmax=184))
 
 
 def test_cli_validate_gates_all_eight_heads():
