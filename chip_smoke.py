@@ -167,12 +167,28 @@
    192x192 field of 112 stars at K_max 125 (4096 particles, 2 temperature
    steps) on B4 and the crowded ChEES head on it (1024 chains, K = 112,
    100 + 100) on B5, each kernel then held at its run's last state;
-20. prints one JSON line with a row per kernel (launches on its paths, the
+20. the full metric beyond B6c's one-tile domain, on its wide path: (a)
+   B6c against its plain version chain by chain, float64 as arbiter, on
+   drawn fields at cfg4's density at the new domain's edges (128x128 K =
+   254, 192x192 K = 125, 256x256 K = 47, 304x96 K = 89), at 200x136 and
+   one past each one-tile edge (32x32 K = 65, 129x128 K = 10), 3-8
+   chains, both mask forms, beta 1 and 0.7; the same bits on a rerun and
+   for chains alone or among others, and a chain that overflows, at
+   192x192 K = 125; one trajectory timed at the slice's shape (4096
+   particles, K = 125), its first 16 particles held against the plain
+   version, which is timed on those, as is the kernel; the 128x128 K = 254
+   edge timed on 4 chains; (b) through the public API, B6c's launch count
+   set to 0 just before each run and read just after: cfg4's SMC with the
+   full-metric mutation on phase 19's 192x192 field (K_max 125, 4096
+   particles, 2 temperature steps) and cfg1_rhmc on a drawn 128x128 field
+   of 80 stars at K = 80 (64 chains, 100 + 100), whose total flux must lie
+   within 4 posterior sd of the drawn truth;
+21. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work; B6c's row
    also gives the particles of its timed launch, the plain version's, and
-   the kernel's time on the plain version's, ms_same; B4's and B5's rows
-   the same at the slice's shapes under "wide").
+   the kernel's time on the plain version's, ms_same; B4's, B5's and B6c's
+   rows the same at the slice's shapes under "wide").
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -2275,6 +2291,79 @@ def _hold_b6c(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mas
     return e
 
 
+def _hold_b6c_wide(frc, fr, name, spec, img, pr, k, n_steps, fpi, theta, xi, eps, mask, beta):
+    """B6c's wide path against its plain version, float64 arbitrating:
+    the kernel's and the float32 plain version's solver verdicts agree on
+    at least 99% of all chains; of the chains the float64 plain version
+    brings to TIGHT, at least 80% are tight in both float32 programs too,
+    and on those each output of the kernel lies within _compare_chains'
+    bar of the plain version's (RTOL; the energies eight float32 spacings
+    at their magnitude; p relative to 1 + |p|) or nearer float64 than the
+    plain version's, chain by chain.  A chain float64 itself does not
+    bring to TIGHT (a trajectory that blows up in every program: at
+    128x128 K = 254 one of 6 drawn chains goes NaN in float64 at a twelfth
+    of B4's step) tells nothing of float32's rounding, so it counts only
+    in the verdicts.  Dead slots frozen.  Returns the largest theta
+    distance from the plain version on the tight chains."""
+    import torch
+
+    out = frc.make_fused_rhmc(spec, img, pr, k, n_steps, fpi)(
+        theta, xi, eps, mask, torch.tensor(beta, device=theta.device))
+    ref = fr.fused_rhmc_reference(spec, img, pr, theta, xi, eps, mask, beta, n_steps, fpi)
+    ref64 = fr.fused_rhmc_reference(spec, img.double(), pr, theta.double(), xi.double(),
+                                    eps.double(), mask.double(), beta, n_steps, fpi)
+    return _judge_b6c_wide(name, out, ref, ref64, theta, mask)
+
+
+def _judge_b6c_wide(name, out, ref, ref64, theta, mask):
+    """_hold_b6c_wide's verdict on given outputs of the kernel, the float32
+    plain version and the float64 one."""
+    import torch
+
+    c, k = theta.shape[0], theta.shape[1]
+    fail_k, fail_r = ~(out[5] < SOLVER_TOL), ~(ref[5] < SOLVER_TOL)
+    disagree = int((fail_k != fail_r).sum())
+    ok64 = ref64[5] < TIGHT
+    tight = ok64 & (out[5] < TIGHT) & (ref[5] < TIGHT)
+    print(f"B6c {name}: solver failures kernel {int(fail_k.sum())}, plain "
+          f"{int(fail_r.sum())}, float64 {int((~(ref64[5] < SOLVER_TOL)).sum())}, "
+          f"disagreeing {disagree} of {c}; float64 tight on {int(ok64.sum())}, all three on "
+          f"{int(tight.sum())}")
+    if disagree > 0.01 * c:
+        raise AssertionError(f"B6c {name}: {disagree} chains' solver verdicts disagree")
+    if int(ok64.sum()) < 2 or int(tight.sum()) < 0.8 * int(ok64.sum()):
+        raise AssertionError(f"B6c {name}: tight on {int(tight.sum())} of the "
+                             f"{int(ok64.sum())} chains float64 brings to TIGHT")
+    names = ("theta", "p", "h0", "h1", "u1", "resid")
+
+    def dist(nm, x, z):
+        d = (x.double() - z.double()).abs()
+        return _per_chain(d / (1.0 + z.double().abs()) if nm == "p" else d)[tight]
+
+    report, e_theta = {}, 0.0
+    for nm, a, b, z in zip(names, out, ref, ref64):
+        tol = _h_tol(b[tight], 8) if nm in ("h0", "h1", "u1") else RTOL[nm]
+        e, dk, dp = dist(nm, a, b), dist(nm, a, z), dist(nm, b, z)
+        bad = (e > tol) & (dk > dp)
+        report[nm] = {"max": float(e.max()), "tol": tol, "by_float64": int((e > tol).sum()),
+                      "kernel_f64": float(dk.max()), "plain_f64": float(dp.max())}
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            raise AssertionError(f"B6c {name}: {nm} {float(e[i])} from the plain version "
+                                 f"(bar {tol}) and {float(dk[i])} from float64, the plain "
+                                 f"version {float(dp[i])}")
+        if nm == "theta":
+            e_theta = float(e.max())
+    print(f"B6c {name}: on the {int(tight.sum())} tight chains (max from the plain version, "
+          f"bar, chains beyond it that float64 decided for the kernel, max from float64 of "
+          f"kernel and plain) {json.dumps(report)}")
+    live = mask if mask.ndim == 2 else mask.expand(c, k)
+    dead = (live == 0) & (~fail_k)[:, None]
+    if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+        raise AssertionError(f"B6c {name}: a dead slot moved")
+    return e_theta
+
+
 def _arbitrate(label, make_fused, reference, name, spec, img, pr, k, n_steps, fpi, theta, xi,
                eps, mask, beta, crowded, min_conv):
     """A Riemannian kernel (``label``, built by ``make_fused``: B6c, B4) on
@@ -2648,12 +2737,12 @@ B4_WIDE = ((128, 128, 254, 5), (192, 192, 125, 7), (256, 256, 47, 9), (304, 96, 
            (200, 136, 100, 8))
 
 
-def _wide_scene(configs, h, w):
-    """A drawn h x w field at cfg4's star density: (the config, the truth,
-    the image on the host)."""
+def _wide_scene(configs, h, w, n=None):
+    """A drawn h x w field at cfg4's star density, or of n stars: (the
+    config, the truth, the image on the host)."""
     from starcat_torch.configs import apply_overrides
 
-    n = max(1, round(50 * h * w / (128 * 128)))
+    n = max(1, round(50 * h * w / (128 * 128))) if n is None else n
     cfg = apply_overrides(configs["cfg4_crowded"],
                           {"scene.height": h, "scene.width": w, "n_stars": n})
     truth, image = cfg.make_data()
@@ -2994,6 +3083,175 @@ def run_wide_slice(api, configs, dev, flc, frdc, fl, frd):
     return {"b4": n4, "b5": n5}, err
 
 
+# phase 20: the full metric beyond B6c's one-tile domain, on its wide path.
+# (H, W, K, chains, per-chain masks) at the edges of the new domain (B4's
+# gate at K <= 256: 128x128 K = 254, 192x192 K = 125, 256x256 K = 47,
+# 304x96 K = 89), at 200x136, and one past each one-tile edge (32x32 K =
+# 65, 129x128 K = 10), each on a drawn field at cfg4's density.  R1 is
+# cfg4's SMC with the full-metric mutation on the 192x192 slice of phase
+# 19 (4096 particles, K_max 125), cut from up to 250 temperature steps to
+# 2; R2 the rhmc head on a drawn 128x128 field of 80 stars at K = 80 and
+# the preset's 64 chains, cut from 400 + 1000 to 100 + 100.  The uncut
+# runs (scripts/wide_runs.py --only smc_full|rhmc_full): PERF.md.
+# (H, W, K, chains, per-chain masks, the fraction of b4_inputs' step, the
+# drawn field's stars: None at cfg4's density)
+B6C_WIDE = ((192, 192, 125, 8, True, 6, None), (128, 128, 254, 6, True, 12, 254),
+            (256, 256, 47, 6, False, 6, None), (304, 96, 89, 5, True, 6, None),
+            (200, 136, 100, 6, False, 6, None), (32, 32, 65, 6, True, 6, None),
+            (129, 128, 10, 7, False, 6, None))
+B6C_R1 = {**WIDE_SLICE, "kmax": 125, "smc.mutation": "rhmc", "smc.max_steps": 2}
+B6C_R2 = {"scene.height": 128, "scene.width": 128, "n_stars": 80, "kmax": 80, "n_warmup": 100,
+          "n_samples": 100}
+B6C_WIDE_HELD = 16  # the slice's particles held against the plain version when timed
+
+
+def check_b6c_wide(frc, fr, configs, dev):
+    """Phase 20a: B6c's wide path against its plain version, chain by
+    chain with float64 sorting the chains (_hold_b6c_wide), a 6 x 4
+    trajectory at a sixth of b4_inputs' step (phase 18a holds B6c at
+    cfg4's shape at a third; on the H100 at a third 2 of 8 chains at
+    192x192 K = 125 did not converge to TIGHT, the kernel and the plain
+    version alike, below _compare_chains' 80%: there more stars share each
+    chain's solve), at the 128x128 K = 254 edge a twelfth on a drawn field
+    of 254 stars (at cfg4's 50 stars, 204 slots would hold prior-like
+    draws), beta 1 (per-chain masks, 30..K live) or 0.7 (shared), at
+    B6C_WIDE; the same bits on a rerun and for chains alone or among
+    others, and a chain that overflows, at the slice's 192x192 K = 125;
+    then one trajectory timed at the slice's shape (4096 particles, K = 125
+    with 30..125 live), its first B6C_WIDE_HELD particles held against the
+    plain version, which is timed on those, as is the kernel; and the
+    128x128 K = 254 edge timed on 4 chains.  Returns the largest theta
+    error and the times."""
+    import torch
+
+    err = 0.0
+    for i, (h, w, k, c, per_chain, frac, n) in enumerate(B6C_WIDE):
+        cfg, truth, image = _wide_scene(configs, h, w, n)
+        if frc.one_tile(k, h, w) or frc.domain_error(cfg.scene, k) is not None:
+            raise AssertionError(f"B6c wide: {h}x{w} K={k} is not on the wide path")
+        theta, xi, eps, mask = b4_inputs(truth, c, k, dev, 110 + i, per_chain)
+        beta = 1.0 if per_chain else 0.7
+        err = max(err, _hold_b6c_wide(
+            frc, fr, f"wide {h}x{w} K={k} ({c} chains, {'per-chain' if per_chain else 'shared'} "
+            f"mask, beta {beta})", cfg.scene, image.to(dev), cfg.prior, k, 6, 4, theta, xi,
+            eps / frac, mask, beta))
+
+    cfg, truth, image = _wide_scene(configs, 192, 192)
+    img, spec, prior = image.to(dev), cfg.scene, cfg.prior
+    theta, xi, eps, mask = b4_inputs(truth, 9, 125, dev, 120, True)
+    eps = eps / 6.0
+    fused = frc.make_fused_rhmc(spec, img, prior, 125, 6, 4)
+    full = fused(theta, xi, eps, mask)
+    if not _same_bits(full, fused(theta, xi, eps, mask)):
+        raise AssertionError("B6c wide: a rerun gave other bits")
+    for idx in ([4], [0, 8, 4, 2]):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(),
+                     mask[sel].contiguous())
+        if not _same_bits(part, [o[sel] for o in full]):
+            raise AssertionError(f"B6c wide: chains {idx} differ from the 9-chain launch")
+    th_o = theta.clone()
+    th_o[0, :, 2] = 95.0  # exp(95) overflows float32
+    o = fused(th_o, xi, eps, mask)
+    if not (bool(torch.isnan(o[5][0])) and bool(torch.isfinite(o[5][1:]).all())):
+        raise AssertionError(f"B6c wide: the overflowing chain gave resid {o[5].tolist()}")
+    print("B6c wide at 192x192 K=125: the same bits on a rerun and for chains alone or among "
+          f"others ({frc.launch_layout(9, 125, 192, 192)}); an overflowing chain NaN, the "
+          "others finite")
+
+    p_all = configs["cfg4_crowded"].smc.n_particles
+    theta, xi, eps, mask = b4_inputs(truth, p_all, 125, dev, 121, True)
+    eps = eps / 6.0
+    last = []
+    ms = {"b6c": _time_ms(lambda: last.append(fused(theta, xi, eps, mask, 1.0)), 2, warmup=1),
+          "particles": p_all, "live": int(mask.sum()),
+          "ops": rhmc_full_sparse_ops(theta, mask, spec, 6, 4),
+          "layout": frc.launch_layout(p_all, 125, 192, 192)}
+    sub = tuple(t[:B6C_WIDE_HELD].contiguous() for t in (theta, xi, eps, mask))
+    plain = []
+    ms["b6c_plain"] = _time_ms(lambda: plain.append(_plain_chunked(
+        fr.fused_rhmc_reference, spec, img, prior, *sub, 1.0, 6, 4)), 1, warmup=0)
+    ms["plain_particles"] = B6C_WIDE_HELD
+    ms["b6c_same"] = _time_ms(lambda: fused(*sub, 1.0), 2, warmup=1)
+    fails = int((~(last[-1][5] < SOLVER_TOL)).sum())
+    ms["solver_failures"] = fails
+    ref64 = fr.fused_rhmc_reference(spec, img.double(), prior, *(t.double() for t in sub), 1.0,
+                                    6, 4)
+    err = max(err, _judge_b6c_wide(
+        f"wide timed launch, the first {B6C_WIDE_HELD} of {p_all} particles",
+        [o[:B6C_WIDE_HELD] for o in last[-1]], plain[-1], ref64, sub[0], sub[3]))
+    b = bound_ms(ms["ops"], rhmc_bytes(p_all, 125, 192, 192, True))
+    ms["bound_ms"], ms["bound_by"] = b
+    print(f"B6c wide ({p_all} particles, K=125, {ms['live']} live stars, 192x192, 6 x 4): "
+          f"kernel {ms['b6c']:.3f} ms per trajectory ({fails} solver failures), bound "
+          f"{b[0]:.4f} ms ({b[1]}), {100 * b[0] / ms['b6c']:.2f}% of it; on "
+          f"{B6C_WIDE_HELD} of them kernel {ms['b6c_same']:.3f} ms, plain "
+          f"{ms['b6c_plain']:.3f} ms; layout {ms['layout']}")
+
+    e_cfg, e_truth, e_image = _wide_scene(configs, 128, 128, 254)
+    theta, xi, eps, mask = b4_inputs(e_truth, 4, 254, dev, 122, True)
+    edge = frc.make_fused_rhmc(e_cfg.scene, e_image.to(dev), e_cfg.prior, 254, 6, 4)
+    t = _time_ms(lambda: edge(theta, xi, eps / 6.0, mask, 1.0), 1, warmup=1)
+    b = bound_ms(rhmc_full_sparse_ops(theta, mask, e_cfg.scene, 6, 4),
+                 rhmc_bytes(4, 254, 128, 128, True))
+    ms["edge_254"] = {"chains": 4, "live": int(mask.sum()), "ms": t, "bound_ms": b[0],
+                      "bound_by": b[1], "workspace_bytes":
+                      frc.launch_layout(4, 254, 128, 128)["workspace_bytes"]}
+    print(f"B6c wide at the 128x128 K=254 edge (4 chains, {int(mask.sum())} live stars, 6 x 4): "
+          f"kernel {t:.3f} ms per trajectory, bound {b[0]:.4f} ms ({b[1]})")
+    return err, ms
+
+
+def run_b6c_wide_slice(api, configs, dev, frc):
+    """Phase 20b: R1 (cfg4's SMC with the full-metric mutation on the
+    192x192 slice, B6C_R1) and R2 (the rhmc head at K = 80 on 128x128,
+    B6C_R2) through the public API, B6c's launch count set to 0 just
+    before each run and read just after, equal to the run's own count;
+    each must run through B6c with finite draws.  R2's total flux must lie
+    within 4 posterior sd of the drawn truth, as phase 18b holds the rhmc
+    head's.  Returns B6c's launches."""
+    import numpy as np
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    launches = 0
+    for name, over in (("cfg4_crowded", B6C_R1), ("cfg1_rhmc", B6C_R2)):
+        cfg = apply_overrides(configs[name], over)
+        frc.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, st = frc.LAUNCHES, out.stats
+        if st["trajectory_kernel"] != "B6c" or n <= 0 or n != st["kernel_launches"]:
+            raise AssertionError(f"{name} {json.dumps(over)} did not run through B6c: "
+                                 f"{st['trajectory_kernel']} x{st['kernel_launches']}, B6c "
+                                 f"launches {n}")
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{name} {json.dumps(over)}: non-finite draws")
+        launches += n
+        summ = api.summarize_output(out)
+        tf = summ["total_flux"]
+        truth = float(np.sum(st["truth"]["f"]))
+        print(f"B6c wide slice {name} {json.dumps(over)}: {wall:.3f} s wall, B6c x{n}, accept "
+              f"{st['accept']:.3f}, step {st['step_size']:.5f}, solver rejections "
+              f"{st.get('solver_rejections')}; total flux {tf['mean']:.1f} ± {tf['sd']:.1f} "
+              f"(R-hat {tf['rhat']:.4f}), truth {truth:.1f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if name == "cfg4_crowded":
+            if not (0.0 < st["beta"] and np.isfinite(st["log_z"]) and st["n_temp_steps"] == 2):
+                raise AssertionError(f"R1: beta {st['beta']}, log Z {st['log_z']} after "
+                                     f"{st['n_temp_steps']} steps")
+            print(f"R1 after 2 temperature steps: beta {st['beta']:.6f}, log Z "
+                  f"{st['log_z']:.3f}, mean star count {summ['star_count']['mean']:.3f}")
+        elif not abs(tf["mean"] - truth) <= 4 * tf["sd"]:
+            raise AssertionError(f"R2: total flux {tf['mean']} ± {tf['sd']} vs the drawn "
+                                 f"truth {truth}")
+    return launches
+
+
 def leapfrog_ops(c, k, h, w, n_steps, grad_in):
     """B1/B2/B5: the render (one FMA) and the contraction (two FMAs) per
     star and pixel of every gradient evaluation."""
@@ -3288,6 +3546,17 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the wide path: {wide}")
         launches[name] += n
+    t0 = time.perf_counter()
+    err_b6cw, ms_b6cw = check_b6c_wide(frc, fr, CONFIGS, dev)
+    err_b6c = max(err_b6c, err_b6cw)
+    print(f"B6c wide checks: {time.perf_counter() - t0:.3f} s wall")
+    t0 = time.perf_counter()
+    b6c_wide = run_b6c_wide_slice(api, CONFIGS, dev, frc)
+    print(f"the full metric beyond B6c's one-tile domain: {time.perf_counter() - t0:.3f} s "
+          f"wall; B6c launches {b6c_wide}")
+    if b6c_wide <= 0:
+        raise AssertionError("B6c's wide path was never launched on its path")
+    launches["b6c"] += b6c_wide
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
@@ -3366,6 +3635,15 @@ def main() -> int:
                                 f"192x192, L=10",
                        "launches": wide["b5"], "ms": ms_wide["b5"],
                        "plain_ms": ms_wide["b5_plain"], "bound_ms": b5w[0], "bound_by": b5w[1]}
+    # B6c's wide path at the slice's shape (phase 20): its plain time is of
+    # the first plain_particles of the launch (the kernel on those: ms_same)
+    rows[-1]["wide"] = {"shape": f"{ms_b6cw['particles']} particles, K=125 "
+                                 f"({ms_b6cw['live']} live), 192x192, 6 x 4",
+                        "launches": b6c_wide, "ms": ms_b6cw["b6c"],
+                        "plain_ms": ms_b6cw["b6c_plain"],
+                        "plain_particles": ms_b6cw["plain_particles"],
+                        "ms_same": ms_b6cw["b6c_same"], "bound_ms": ms_b6cw["bound_ms"],
+                        "bound_by": ms_b6cw["bound_by"], "edge_254": ms_b6cw["edge_254"]}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,8 @@ PASSES = (
     ("assemble", ("assemble_metric",)), ("cholesky", ("cholesky",)),
     ("inverse", ("inverse",)), ("chol_solve", ("chol_solve",)), ("q field", ("q_field",)),
     ("contract<kQ>", ("contract<kQ>",)), ("phi field", ("phi_field",)),
-    ("contract<kSweep>", ("contract<kSweep>",)),
+    ("contract<kSweep>", ("contract<kSweep>",)), ("G^-1 p", ("ginv_matvec",)),
+    ("metric terms", ("metric_terms",)),
 )
 REST = len(PASSES)
 N_IDS = REST + 1
@@ -74,9 +75,9 @@ def _call_re(fn: str) -> re.Pattern:
     """A one-line call statement of fn, its value assigned (to a declared
     variable or not) or not, alone or in a one-line block that makes the
     pass's Work first (B6c's ``{ const Work s = make_work(P); fn(P, s);
-    }``)."""
-    return re.compile(r"^(\s*)(?:\{ const Work s = make_work\(P\); )?"
-                      r"(?:(?:(?:const\s+)?[\w:]+\s+)?\w+\s*=\s*)?" + re.escape(fn)
+    }``), the names qualified by B6c's ``wide::`` or not."""
+    return re.compile(r"^(\s*)(?:\{ const Work s = (?:wide::)?make_work\(P\); )?"
+                      r"(?:(?:(?:const\s+)?[\w:]+\s+)?\w+\s*=\s*)?(?:wide::)?" + re.escape(fn)
                       + r"\(.*\);(?: \})?\s*(?://.*)?$")
 
 
@@ -91,7 +92,9 @@ def instrumented_source(src: str) -> tuple[str, dict]:
     sites = {name: 0 for name, _ in PASSES}
     out, started = [], False
     for line in lines:
-        if not started and first_build.match(line):
+        # the clocks restart at each kernel's first rebuild (B6c's wide
+        # kernel has its own)
+        if first_build.match(line) and (not started or "wide::build_structs(P, true)" in line):
             out.append(first_build.match(line).group(1) + "probe(-1);")
             started = True
         for pid, pat in pats:

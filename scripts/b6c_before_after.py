@@ -2,7 +2,7 @@
 one card: an earlier source given by path, and the checkout's (or a second
 one given by path).
 
-    python scripts/b6c_before_after.py --old PATH/fused_rhmc_crowded.cu [--new PATH]
+    python scripts/b6c_before_after.py --old PATH/fused_rhmc_crowded.cu [--new PATH] [--wide]
 
 Both take B6c's C interface (csrc/fused_rhmc_crowded.cu: B6's entry with a
 workspace and its grid; a build's workspace per block comes from its own
@@ -95,11 +95,26 @@ def launcher(lib, image, k, n_steps, fpi, scalars, theta, xi, eps, mask, beta=1.
                      workspace_mb=4 * (HEADER + grid * floats.value) / 1e6)
 
 
-def shapes(dev):
+def shapes(dev, wide_path=False):
     """(name, scene, prior, image, K, n_steps, fpi, inputs) of the three
-    shapes."""
+    shapes, or with ``wide_path`` the wide path's two: the 192x192 slice
+    at cfg4's density (1024 particles, K = 125 with 30..125 live, 6 x 4,
+    a sixth of B4's step, as chip_smoke.py phase 20a holds it) and the rhmc
+    head's drawn 128x128 field (64 chains, K = 80, 16 x 6, shared mask)."""
     import chip_smoke
     from starcat_torch.configs import CONFIGS, apply_overrides
+
+    if wide_path:
+        cfg, truth, image = chip_smoke._wide_scene(CONFIGS, 192, 192)
+        theta, xi, eps, mask = chip_smoke.b4_inputs(truth, 1024, 125, dev, 103, True)
+        out = [("192x192", cfg.scene, cfg.prior, image.to(dev), 125, 6, 4,
+                (theta, xi, eps / 6.0, mask))]
+        rh = apply_overrides(CONFIGS["cfg1_rhmc"], chip_smoke.B6C_R2)
+        truth, image = rh.make_data()
+        theta, xi, eps, mask = chip_smoke._rhmc_inputs(truth, 64, 80, dev, 60, False)
+        out.append(("128x128 K=80", rh.scene, rh.prior, image.to(dev), 80, rh.rhmc.n_leapfrog,
+                    rh.rhmc.fixed_point_iters, (theta, xi, eps / 3.0, mask)))
+        return out
 
     cfg4 = CONFIGS["cfg4_crowded"]
     c_truth, c_image = cfg4.make_data()
@@ -128,6 +143,7 @@ def main() -> int:
                     help="the later B6c source (default: the checkout's)")
     ap.add_argument("--reps", type=int, default=1, help="trajectories per timed turn")
     ap.add_argument("--only", default=None, help="run only the shape of this name")
+    ap.add_argument("--wide", action="store_true", help="the wide path's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b6c_before_after: CUDA is not available", file=sys.stderr)
@@ -150,7 +166,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     result = {"card": smi.splitlines()[0], "old": str(args.old), "new": str(args.new),
               "shapes": {}}
-    for name, spec, prior, img, k, n_steps, fpi, (theta, xi, eps, mask) in shapes(dev):
+    for name, spec, prior, img, k, n_steps, fpi, inputs in shapes(dev, args.wide):
+        theta, xi, eps, mask = inputs
         if args.only is not None and name != args.only:
             continue
         c = theta.shape[0]
@@ -168,8 +185,8 @@ def main() -> int:
                  for nm, x, y in zip(("theta", "p", "h0", "h1", "u1"), a, b)}
         # the same distances against phase 18's kernel-versus-plain bars:
         # theta RTOL, p relative to 1 + |p|, the energies in _h_tol (eight
-        # float32 spacings on the 128x128 field, four on the others)
-        spacings = 8 if spec.height == 128 else 4
+        # float32 spacings on fields of 128 rows or more, four on the others)
+        spacings = 8 if spec.height >= 128 else 4
         within = {}
         for nm, x, y in zip(("theta", "p", "h0", "h1", "u1"), a, b):
             if not bool(tight.any()):

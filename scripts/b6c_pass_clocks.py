@@ -1,6 +1,6 @@
 """Where one B6c trajectory spends its time, pass by pass, on the card.
 
-    python scripts/b6c_pass_clocks.py [--source PATH/fused_rhmc_crowded.cu]
+    python scripts/b6c_pass_clocks.py [--source PATH/fused_rhmc_crowded.cu] [--wide]
 
 Builds a copy of a B6c source (the checkout's csrc/fused_rhmc_crowded.cu by
 default) with scripts/b6_pass_clocks.py's probes: thread 0 of every block
@@ -11,8 +11,12 @@ one trajectory at each of chip_smoke.py phase 18's two shapes (cfg4's:
 4096 particles, K = 64 with 30..64 live, 128x128, 6 x 4; the drawn 64x64
 field: 64 chains, K = 20, 16 x 6, shared mask); the script prints the
 card, each trajectory's time with CUDA events and each pass's share of the
-summed block cycles, and ends with one JSON line.  The shipped kernel is
-not changed.  Needs a CUDA card and nvcc.
+summed block cycles, and ends with one JSON line.  With --wide it runs
+the wide path's shapes instead (chip_smoke.py phase 20's: the 192x192
+slice at cfg4's density, 1024 particles, K = 125 with 30..125 live, 6 x 4;
+the rhmc head's drawn 128x128 field, 64 chains, K = 80, 16 x 6, shared
+mask), each pass's probes in both kernels.  The shipped kernel is not
+changed.  Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", type=Path,
                     default=ROOT / "starcat_torch" / "csrc" / "fused_rhmc_crowded.cu")
+    ap.add_argument("--wide", action="store_true", help="the wide path's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b6c_pass_clocks: CUDA is not available", file=sys.stderr)
@@ -87,12 +92,16 @@ def main() -> int:
     cfg4 = CONFIGS["cfg4_crowded"]
     wide = apply_overrides(CONFIGS["cfg1_rhmc"], chip_smoke.B6C_RHMC)
     result = {"card": smi.splitlines()[0], "source": str(args.source), "shapes": {}}
-    for name, cfg, c, k, n_steps, fpi in (("cfg4", cfg4, 4096, 64, 6, 4),
-                                          ("64x64", wide, 64, 20, 16, 6)):
+    shapes = (("cfg4", cfg4, 4096, 64, 6, 4), ("64x64", wide, 64, 20, 16, 6))
+    if args.wide:
+        shapes = (("192x192", chip_smoke._wide_scene(CONFIGS, 192, 192)[0], 1024, 125, 6, 4),
+                  ("128x128 K=80", apply_overrides(CONFIGS["cfg1_rhmc"], chip_smoke.B6C_R2),
+                   64, 80, 16, 6))
+    for name, cfg, c, k, n_steps, fpi in shapes:
         truth, image = cfg.make_data()
         img = image.to(dev)
         spec = cfg.scene
-        if name == "cfg4":
+        if cfg.head == "smc":
             theta, xi, eps, mask = chip_smoke.b4_inputs(truth, c, k, dev, 70, True)
         else:
             theta, xi, eps, mask = chip_smoke._rhmc_inputs(truth, c, k, dev, 60, False)

@@ -1,25 +1,35 @@
-"""The two runs of the wide-field slice on the card, uncut: cfg4's SMC on a
+"""The runs of the wide-field slice on the card, uncut: cfg4's SMC on a
 192x192 field at cfg4's star density (112 stars, K_max 125, the preset's
 4096 particles, twelve residual-birth sweeps and two 6 x 4 diagonal
 mutations a step, on B4), and the crowded ChEES head on the same scene
 (1024 chains, K = 112, the preset's 500 + 1000, on B5 through B2's
-contract).  They are the CLI's
+contract); and on the full metric, B6c's wide path: the same SMC with the
+full-metric mutation cut to 8 temperature steps (smc_full), and the rhmc
+head on a drawn 128x128 field of 80 stars at K = 80 and the preset's 64
+chains, cut from 400 + 1000 to 300 + 300 (rhmc_full), beside the same run
+on the diagonal metric, B4 (rhmc_diag).  They are the CLI's
 
     python -m starcat_torch run --config cfg4_crowded scene.height=192 \\
         scene.width=192 n_stars=112 kmax=125 --device cuda
     python -m starcat_torch run --config cfg4_crowded scene.height=192 \\
         scene.width=192 n_stars=112 kmax=112 head=chees n_chains=1024 --device cuda
+    python -m starcat_torch run --config cfg4_crowded scene.height=192 \\
+        scene.width=192 n_stars=112 kmax=125 smc.mutation=rhmc smc.max_steps=8 --device cuda
+    python -m starcat_torch run --config cfg1_rhmc scene.height=128 \\
+        scene.width=128 n_stars=80 kmax=80 n_warmup=300 n_samples=300 --device cuda
+    (the last also with rhmc.metric=diag)
 
 run through api.sample as the CLI runs them (seed 0), with the kernel's
 launch count set to 0 just before each run and read just after.
 
-    python scripts/wide_runs.py [--only smc|chees] [--out chiprun_out/wide_runs.jsonl]
+    python scripts/wide_runs.py [--only NAME ...] [--out PATH]
 
 Each run appends one JSON line to --out as soon as it ends and prints it:
 the card's name and power limit, the wall, the kernel and its launches,
 the head's stats, the total flux (mean, sd, ESS, split R-hat) and star
-count against the drawn truth, and the peak device memory.  Needs a CUDA
-card and nvcc.
+count against the drawn truth, the peak device memory, and for the SMC
+runs each temperature step's beta, accept rate, step size, divergences,
+solver rejections and seconds.  Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -34,8 +44,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SCENE = {"scene.height": 192, "scene.width": 192, "n_stars": 112}
-RUNS = {"smc": ({**SCENE, "kmax": 125}, "B4"),
-        "chees": ({**SCENE, "kmax": 112, "head": "chees", "n_chains": 1024}, "B5")}
+RHMC = {"scene.height": 128, "scene.width": 128, "n_stars": 80, "kmax": 80, "n_warmup": 300,
+        "n_samples": 300}
+# name: (preset, overrides, kernel)
+RUNS = {"smc": ("cfg4_crowded", {**SCENE, "kmax": 125}, "B4"),
+        "chees": ("cfg4_crowded", {**SCENE, "kmax": 112, "head": "chees", "n_chains": 1024},
+                  "B5"),
+        "smc_full": ("cfg4_crowded", {**SCENE, "kmax": 125, "smc.mutation": "rhmc",
+                                      "smc.max_steps": 8}, "B6c"),
+        "rhmc_full": ("cfg1_rhmc", RHMC, "B6c"),
+        "rhmc_diag": ("cfg1_rhmc", {**RHMC, "rhmc.metric": "diag"}, "B4")}
 
 
 def main() -> int:
@@ -43,7 +61,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=sorted(RUNS), help="run one of the two")
+    ap.add_argument("--only", choices=sorted(RUNS), nargs="+", help="run these only")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "wide_runs.jsonl")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -52,6 +70,7 @@ def main() -> int:
 
     from starcat_torch import api
     from starcat_torch import fused_leapfrog_crowded as flc
+    from starcat_torch import fused_rhmc_crowded as frc
     from starcat_torch import fused_rhmc_diag_crowded as frdc
     from starcat_torch.configs import CONFIGS, apply_overrides
 
@@ -62,26 +81,41 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.zeros((), device=dev)  # the context, before the memory counters are reset
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    for name, (over, kernel) in RUNS.items():
-        if args.only not in (None, name):
+    for name, (preset, over, kernel) in RUNS.items():
+        if args.only is not None and name not in args.only:
             continue
-        cfg = apply_overrides(CONFIGS["cfg4_crowded"], over)
-        mod = frdc if kernel == "B4" else flc
+        cfg = apply_overrides(CONFIGS[preset], over)
+        mod = {"B4": frdc, "B5": flc, "B6c": frc}[kernel]
         mod.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out = api.sample(cfg, dev, seed=0)
+        steps, last = [], [time.perf_counter(), 0, 0]
+
+        def on_step(s):
+            """A temperature step's schedule and its mutations' counts."""
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            div, rej = int(s.divergences), int(s.solver_rejections)
+            steps.append({"step": int(s.n_steps), "beta": float(s.beta),
+                          "accept": float(s.mean_accept), "step_size": float(s.eps),
+                          "divergences": div - last[1], "solver_rejections": rej - last[2],
+                          "seconds": now - last[0]})
+            last[:] = [now, div, rej]
+
+        t0 = last[0] = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0, on_step=on_step if cfg.head == "smc" else None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = out.stats
         summ = api.summarize_output(out)
         truth_f = st.pop("truth")["f"]
-        rec = {"run": name, "card": card, "overrides": over, "wall_s": wall,
-               "kernel": kernel, "launches": mod.LAUNCHES,
+        rec = {"run": name, "card": card, "preset": preset, "overrides": over,
+               "wall_s": wall, "kernel": kernel, "launches": mod.LAUNCHES,
                "stats": {k: v for k, v in st.items() if not isinstance(v, np.ndarray)},
                "summary": summ, "truth": {"n_stars": int(truth_f.shape[0]),
                                           "total_flux": float(np.sum(truth_f))},
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if steps:
+            rec["steps"] = steps
         if st["trajectory_kernel"] != kernel or mod.LAUNCHES != st["kernel_launches"]:
             raise AssertionError(f"{name} ran {st['trajectory_kernel']} "
                                  f"x{st['kernel_launches']}, {kernel} x{mod.LAUNCHES}")

@@ -1,6 +1,9 @@
 // Full-Fisher Riemannian trajectory on crowded fields on Hopper (sm_90a):
-// B6c, for the scenes kernel B6 (csrc/fused_rhmc.cu) does not take, up to
-// 128 x 128 pixels and K <= 64 catalog slots.
+// B6c, for the scenes kernel B6 (csrc/fused_rhmc.cu) does not take: up to
+// 256 catalog slots on every scene that B4 (csrc/fused_rhmc_diag_crowded.cu)
+// takes.  Two paths: the one-tile path (this header's first part) for
+// fields up to 128 x 128 pixels and K <= 64, and the wide path (namespace
+// wide, its note there) beyond it.
 //
 // The JAX package runs the full metric beyond its Pallas kernel's gate on
 // XLA (starcat/api.py:205, the smc and trans-d "rhmc" mutations); its
@@ -99,8 +102,10 @@
 // the chain's live stars only, not on the chain count or the block, so a
 // chain gives the same bits alone, among others and at any chain count.
 //
-// Domain (checked by the wrapper, fused_rhmc_crowded.py): H, W <= 128 and
-// 1 <= K <= 64; the shared memory (smem_floats) then stays within 216 KB.
+// Domain (checked by the wrapper, fused_rhmc_crowded.py, and by in_domain
+// here): the one-tile path for H, W <= 128 and 1 <= K <= 64, where the
+// shared memory (smem_floats) stays within 216 KB; the wide path for
+// 1 <= K <= 256 wherever B4's TPU gate (tpu_gate) takes the scene.
 #include <cuda_runtime.h>
 
 // the block's dynamic shared memory, which carve() divides
@@ -295,26 +300,11 @@ __device__ void init_layout(const Params& P) {
   ly[kLyK] = K;
 }
 
-// The arrays at the block's layout and the chain's live stars.  Each pass
-// makes its own, so that no address stays in registers across passes.
-__device__ __forceinline__ Work make_work(const Params& P) {
-  const int* ly = b6c_lay;
-  const int Ks = P.K, Ds = 3 * Ks;
-  Work s;
-  s.fs = ly[kLyFs];
-  s.hp = ly[kLyHp];
-  s.Hq = ly[kLyHq];
-  s.Wq = ly[kLyWq];
-  float* sm = b6c_smem;
-  s.r1 = sm;
-  s.qbuf = sm;
-  s.dense = sm;
-  s.gyy = sm + ly[kLyGyy];
-  s.gx = sm + ly[kLyGx];
-  s.gx1 = sm + ly[kLyGx1];
-  s.gy2 = s.gx;
-  s.qc = sm + ly[kLyQc];
-  float* v = sm + ly[kLySmall];
+// The per-star scalars and per-parameter vectors at v (67 floats a slot of
+// Ks: 25 per-star scalars, 12 vectors of 3 Ks, 12 per-chain scalars, 6
+// per-star ints), in both paths' shared memory.
+__device__ __forceinline__ void place_vectors(Work& s, float* v, int Ks) {
+  const int Ds = 3 * Ks;
   s.su = v; s.sv = v + Ks; s.x = v + 2 * Ks; s.y = v + 3 * Ks; s.w = v + 4 * Ks;
   s.wcx = v + 5 * Ks; s.wcy = v + 6 * Ks; s.wcx2 = v + 7 * Ks; s.wcy2 = v + 8 * Ks;
   s.wcxx = v + 9 * Ks; s.wcyy = v + 10 * Ks; s.wcxcy = v + 11 * Ks; s.m = v + 12 * Ks;
@@ -331,6 +321,28 @@ __device__ __forceinline__ Work make_work(const Params& P) {
   s.xhi = s.ylo + 3 * Ks;
   s.ord = s.ylo + 4 * Ks;
   s.qrow = s.ylo + 5 * Ks;
+}
+
+// The arrays at the block's layout and the chain's live stars.  Each pass
+// makes its own, so that no address stays in registers across passes.
+__device__ __forceinline__ Work make_work(const Params& P) {
+  const int* ly = b6c_lay;
+  const int Ks = P.K;
+  Work s;
+  s.fs = ly[kLyFs];
+  s.hp = ly[kLyHp];
+  s.Hq = ly[kLyHq];
+  s.Wq = ly[kLyWq];
+  float* sm = b6c_smem;
+  s.r1 = sm;
+  s.qbuf = sm;
+  s.dense = sm;
+  s.gyy = sm + ly[kLyGyy];
+  s.gx = sm + ly[kLyGx];
+  s.gx1 = sm + ly[kLyGx1];
+  s.gy2 = s.gx;
+  s.qc = sm + ly[kLyQc];
+  place_vectors(s, sm + ly[kLySmall], P.K);
   float* g = P.work + ly[kLySlice];
   s.fld = g;
   s.gxg = g + ly[kLyGxg];
@@ -1171,53 +1183,14 @@ __device__ void chol_solve(const Work& s, float* out) {
   __syncthreads();
 }
 
-// L^-1 packed by columns after L in shared memory, one column per warp at a
-// time by forward substitution on L e_c (x_k = r_k / L_kk as r_k / sqrt(s_kk)
-// with the factorisation's 1 / sqrt(s_kk)); then G^-1 = L^-T L^-1 into s.ginv
-// (its lower half computed, both written) and the q field's coefficient
-// table: for each star pair i <= j, the nine G^-1 (ta K + i, tb K + j)
-// coef_ta,i coef_tb,j, doubled for i < j, then i and j.  Every thread calls
-// it; it ends synchronised.
-__device__ void inverse(const Work& s) {
+// The q field's coefficient table from s.ginv: the star pairs that share a
+// pixel where both stars' profiles are non-zero (every other pair's terms
+// are exact zeros), in (i, j) order, their number into s.scal[4]; for each,
+// the nine G^-1 (ta K + i, tb K + j) coef_ta,i coef_tb,j, doubled for i < j,
+// then i and j.  Every thread calls it; it ends synchronised.
+__device__ void q_table(const Work& s) {
   const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, D = s.D, n1 = D + 1;
-  const float* A = s.dense;
-  float* X = s.dense + packed_l(D);
-  for (int c = warp; c < D; c += kWarps) {
-    float acc[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = lane + 32 * q == c ? 1.0f : 0.0f;
-    float* xc = X + col_off(c, D) - c;  // xc[r] = L^-1(r, c)
-    for (int k = c; k < D; ++k) {
-      const int qk = k >> 5;  // a select chain, as chol_solve's
-      float own = acc[0];
-#pragma unroll
-      for (int q = 1; q < kRows; ++q) own = qk == q ? acc[q] : own;
-      const float xk = __shfl_sync(kFull, own, k & 31) * s.dinv[k];
-      if (lane == (k & 31)) xc[k] = xk;
-      const float* lk = A + col_off(k, n1) - k;  // column k of L
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int r = lane + 32 * q;
-        if (r > k && r < D) acc[q] -= lk[r] * xk;
-      }
-    }
-  }
-  __syncthreads();
-  for (int a = warp; a < D; a += kWarps) {
-    const float* xa = X + col_off(a, D) - a;
-    for (int b = lane; b <= a; b += 32) {
-      const float* xb = X + col_off(b, D) - b;
-      float acc = 0.0f;
-      for (int k = a; k < D; ++k) acc += xa[k] * xb[k];
-      s.ginv[a * D + b] = acc;
-      s.ginv[b * D + a] = acc;
-    }
-  }
-  __syncthreads();
-  // the q field's star pairs: those that share a pixel where both stars'
-  // profiles are non-zero (every other pair's terms are exact zeros), in
-  // (i, j) order; their number into s.scal[4]
+  const int K = s.K, D = s.D;
   for (int i = warp; i < K; i += kWarps) {
     int n = 0;
     for (int j0 = i; j0 < K; j0 += 32) {
@@ -1269,6 +1242,51 @@ __device__ void inverse(const Work& s) {
     }
   }
   __syncthreads();
+}
+
+// L^-1 packed by columns after L in shared memory, one column per warp at a
+// time by forward substitution on L e_c (x_k = r_k / L_kk as r_k / sqrt(s_kk)
+// with the factorisation's 1 / sqrt(s_kk)); then G^-1 = L^-T L^-1 into s.ginv
+// (its lower half computed, both written) and the q field's coefficient
+// table (q_table).  Every thread calls it; it ends synchronised.
+__device__ void inverse(const Work& s) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int D = s.D, n1 = D + 1;
+  const float* A = s.dense;
+  float* X = s.dense + packed_l(D);
+  for (int c = warp; c < D; c += kWarps) {
+    float acc[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) acc[q] = lane + 32 * q == c ? 1.0f : 0.0f;
+    float* xc = X + col_off(c, D) - c;  // xc[r] = L^-1(r, c)
+    for (int k = c; k < D; ++k) {
+      const int qk = k >> 5;  // a select chain, as chol_solve's
+      float own = acc[0];
+#pragma unroll
+      for (int q = 1; q < kRows; ++q) own = qk == q ? acc[q] : own;
+      const float xk = __shfl_sync(kFull, own, k & 31) * s.dinv[k];
+      if (lane == (k & 31)) xc[k] = xk;
+      const float* lk = A + col_off(k, n1) - k;  // column k of L
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int r = lane + 32 * q;
+        if (r > k && r < D) acc[q] -= lk[r] * xk;
+      }
+    }
+  }
+  __syncthreads();
+  for (int a = warp; a < D; a += kWarps) {
+    const float* xa = X + col_off(a, D) - a;
+    for (int b = lane; b <= a; b += 32) {
+      const float* xb = X + col_off(b, D) - b;
+      float acc = 0.0f;
+      for (int k = a; k < D; ++k) acc += xa[k] * xb[k];
+      s.ginv[a * D + b] = acc;
+      s.ginv[b * D + a] = acc;
+    }
+  }
+  __syncthreads();
+  q_table(s);
 }
 
 // out = G^-1 p with the carried s.ginv (D threads; G^-1 is symmetric, so
@@ -1527,77 +1545,36 @@ __device__ void phi_field(const Params& P, const Work& s) {
   else phi_tiles<4, 8>(P, s);
 }
 
-// Everything theta-dependent at th_b: profiles, 1/lam, U_beta (scal[0]),
-// log det G (scal[1]), the factor L's diagonal (ldiag, dinv), G^-1, info'
-// and t1; with `p0`, also p0 = (L xi) m into p_b from the factor, xi in vec.
-// Every thread calls it; it ends synchronised, the field phase's arrays in
-// place.  Each pass makes its own Work (make_work).
-__device__ void build_structs(const Params& P, bool p0) {
-  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
-  const float beta = make_work(P).scal[8];
-  double ll;
-  { const Work s = make_work(P); profiles(P, s, s.th_b, true); }
-  { const Work s = make_work(P); ll = render(P, s, beta, true); }
-  {
-    // gy'' over the column profiles for the pair contractions, which read
-    // the column profiles' copies
-    const Work s = make_work(P);
-    for (int n = tid; n < s.K * s.hp; n += kThreads) s.gy2[n] = s.gy2g[n];
+// Warp 0, after the rho contraction at th_b: the prior's terms, grad U_beta
+// into t1 (to which the metric terms are added) and U_beta, from the
+// log-likelihood `ll`, into s.scal[0].
+__device__ void potential_terms(const Params& P, const Work& s, float beta, double ll) {
+  const int lane = thread_index() & 31;
+  const int K = s.K;
+  double lp = 0.0;
+  for (int i = lane; i < K; i += 32) {
+    const float u = s.th_b[i], v = s.th_b[K + i], sl = s.th_b[2 * K + i];
+    const float m = s.m[i];
+    const float lp_pos = -(softplusf(u) + softplusf(-u) + softplusf(v) + softplusf(-v));
+    const float zf = (sl - P.logf_mean) / P.logf_sigma;
+    const float lp_flux = -0.5f * zf * zf + P.lp_flux_const;
+    lp += static_cast<double>((lp_pos + lp_flux) * m);
+    // grad U_beta into t1, to which metric_terms adds the metric terms
+    s.t1[i] = -(s.wcx[i] * s.dots[i] + (1.0f - 2.0f * s.su[i]) * m);
+    s.t1[K + i] = -(s.wcy[i] * s.dots[3 * K + i] + (1.0f - 2.0f * s.sv[i]) * m);
+    s.t1[2 * K + i] = -(s.w[i] * s.dots[5 * K + i] + (-zf / P.logf_sigma) * m);
   }
-  __syncthreads();
-  { const Work s = make_work(P); pair_contract(P, s); }
-  { const Work s = make_work(P); contract<kGrad>(P, s); }
-  if (warp == 0) {
-    const Work s = make_work(P);
-    const int K = s.K;
-    double lp = 0.0;
-    for (int i = lane; i < K; i += 32) {
-      const float u = s.th_b[i], v = s.th_b[K + i], sl = s.th_b[2 * K + i];
-      const float m = s.m[i];
-      const float lp_pos = -(softplusf(u) + softplusf(-u) + softplusf(v) + softplusf(-v));
-      const float zf = (sl - P.logf_mean) / P.logf_sigma;
-      const float lp_flux = -0.5f * zf * zf + P.lp_flux_const;
-      lp += static_cast<double>((lp_pos + lp_flux) * m);
-      // grad U_beta into t1, to which the metric terms are added below
-      s.t1[i] = -(s.wcx[i] * s.dots[i] + (1.0f - 2.0f * s.su[i]) * m);
-      s.t1[K + i] = -(s.wcy[i] * s.dots[3 * K + i] + (1.0f - 2.0f * s.sv[i]) * m);
-      s.t1[2 * K + i] = -(s.w[i] * s.dots[5 * K + i] + (-zf / P.logf_sigma) * m);
-    }
-    lp = warp_sum_d(lp);
-    if (lane == 0) s.scal[0] = static_cast<float>(-(static_cast<double>(beta) * ll + lp));
-  }
-  // the dense phase over the field phase's arrays
-  { const Work s = make_work(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
-  {
-    // a dead slot's diagonal of L: its identity row of G plus the jitter,
-    // factored as the kernel factors a pivot
-    const float gdead = 1.0f + P.jitter;
-    const Work s = make_work(P);
-    cholesky(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
-  }
-  if (p0) {
-    // p0 = (L xi) m, L the factor of G(theta0)
-    const Work s = make_work(P);
-    const int K = s.K, D = s.D, n1 = D + 1;
-    if (tid < D) {
-      float acc = s.ldiag[tid] * s.vec[tid];
-      for (int k = 0; k < tid; ++k) acc += s.dense[col_off(k, n1) - k + tid] * s.vec[k];
-      s.p_b[tid] = acc * s.m[tid - type_of(tid, K) * K];
-    }
-    __syncthreads();
-  }
-  { const Work s = make_work(P); inverse(s); }
-  // the field phase again: profiles and 1/lam around the q field, whose
-  // operand stages take 1/lam's place
-  { const Work s = make_work(P); profiles(P, s, s.th_b, false); }
-  { const Work s = make_work(P); q_field(P, s); }
-  { const Work s = make_work(P); render(P, s, beta, false); }
-  { const Work s = make_work(P); contract<kQ>(P, s); }
-  // t1_c += beta sum_{a in star i} sum_b Ginv_ab S_acb - beta/2 sum_p q J_c R2
-  //         + 1/2 Ginv_cc info'_c, one warp a parameter c, lanes over stars j,
-  // with S assembled from Sraw: S[m][tb][i][j] = coef_tb,j sum_terms coefH_i
-  // Sraw[hp][tb][i][j]
-  const Work s = make_work(P);
+  lp = warp_sum_d(lp);
+  if (lane == 0) s.scal[0] = static_cast<float>(-(static_cast<double>(beta) * ll + lp));
+}
+
+// After the q contraction:
+// t1_c += beta sum_{a in star i} sum_b Ginv_ab S_acb - beta/2 sum_p q J_c R2
+//         + 1/2 Ginv_cc info'_c, one warp a parameter c, lanes over stars j,
+// with S assembled from Sraw: S[m][tb][i][j] = coef_tb,j sum_terms coefH_i
+// Sraw[hp][tb][i][j].  Ends synchronised.
+__device__ void metric_terms(const Params& P, const Work& s, float beta) {
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
   const int K = s.K, D = s.D, KK = K * K;
   for (int c = warp; c < D; c += kWarps) {
     const int tc = type_of(c, K), i = c - tc * K;
@@ -1634,37 +1611,92 @@ __device__ void build_structs(const Params& P, bool p0) {
   __syncthreads();
 }
 
-// The terms of dH/dtheta that depend on a = G^-1 p (in s.a) after the phi
-// field's contraction: out = t1 + t2(a).
+// Everything theta-dependent at th_b: profiles, 1/lam, U_beta (scal[0]),
+// log det G (scal[1]), the factor L's diagonal (ldiag, dinv), G^-1, info'
+// and t1; with `p0`, also p0 = (L xi) m into p_b from the factor, xi in vec.
+// Every thread calls it; it ends synchronised, the field phase's arrays in
+// place.  Each pass makes its own Work (make_work).
+__device__ void build_structs(const Params& P, bool p0) {
+  const int tid = thread_index(), warp = tid >> 5;
+  const float beta = make_work(P).scal[8];
+  double ll;
+  { const Work s = make_work(P); profiles(P, s, s.th_b, true); }
+  { const Work s = make_work(P); ll = render(P, s, beta, true); }
+  {
+    // gy'' over the column profiles for the pair contractions, which read
+    // the column profiles' copies
+    const Work s = make_work(P);
+    for (int n = tid; n < s.K * s.hp; n += kThreads) s.gy2[n] = s.gy2g[n];
+  }
+  __syncthreads();
+  { const Work s = make_work(P); pair_contract(P, s); }
+  { const Work s = make_work(P); contract<kGrad>(P, s); }
+  if (warp == 0) potential_terms(P, make_work(P), beta, ll);
+  // the dense phase over the field phase's arrays
+  { const Work s = make_work(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
+  {
+    // a dead slot's diagonal of L: its identity row of G plus the jitter,
+    // factored as the kernel factors a pivot
+    const float gdead = 1.0f + P.jitter;
+    const Work s = make_work(P);
+    cholesky(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
+  }
+  if (p0) {
+    // p0 = (L xi) m, L the factor of G(theta0)
+    const Work s = make_work(P);
+    const int K = s.K, D = s.D, n1 = D + 1;
+    if (tid < D) {
+      float acc = s.ldiag[tid] * s.vec[tid];
+      for (int k = 0; k < tid; ++k) acc += s.dense[col_off(k, n1) - k + tid] * s.vec[k];
+      s.p_b[tid] = acc * s.m[tid - type_of(tid, K) * K];
+    }
+    __syncthreads();
+  }
+  { const Work s = make_work(P); inverse(s); }
+  // the field phase again: profiles and 1/lam around the q field, whose
+  // operand stages take 1/lam's place
+  { const Work s = make_work(P); profiles(P, s, s.th_b, false); }
+  { const Work s = make_work(P); q_field(P, s); }
+  { const Work s = make_work(P); render(P, s, beta, false); }
+  { const Work s = make_work(P); contract<kQ>(P, s); }
+  metric_terms(P, make_work(P), beta);
+}
+
+// Parameter c's term of dH/dtheta that depends on a = G^-1 p (in s.a)
+// after the phi field's contraction: out[c] = t1 + t2(a).
+__device__ __forceinline__ void sweep_term(const Work& s, float beta, float* out, int c) {
+  const int K = s.K;
+  const int tc = type_of(c, K), i = c - tc * K;
+  const float* d = s.dots;
+  const float a1 = d[i], a2 = d[K + i], a3 = d[2 * K + i], a4 = d[3 * K + i],
+              a5 = d[4 * K + i], a6 = d[5 * K + i];
+  const float huu = s.wcx2[i] * a1 + s.wcxx[i] * a2;
+  const float huv = s.wcxcy[i] * a3;
+  const float hus = s.wcx[i] * a1;
+  const float hvv = s.wcy2[i] * a4 + s.wcyy[i] * a5;
+  const float hvs = s.wcy[i] * a4;
+  const float hss = s.w[i] * a6;
+  const float au = s.a[i], av = s.a[K + i], as = s.a[2 * K + i];
+  float sv, ct;
+  if (tc == 0) {
+    sv = au * huu + av * huv + as * hus;
+    ct = s.wcx[i] * d[6 * K + i];
+  } else if (tc == 1) {
+    sv = au * huv + av * hvv + as * hvs;
+    ct = s.wcy[i] * d[7 * K + i];
+  } else {
+    sv = au * hus + av * hvs + as * hss;
+    ct = s.w[i] * d[8 * K + i];
+  }
+  const float ac = s.a[c];
+  out[c] = s.t1[c] + (-beta * sv + 0.5f * beta * ct - 0.5f * (ac * ac) * s.infod[c]);
+}
+
+// The terms of dH/dtheta that depend on a = G^-1 p: out = t1 + t2(a), a
+// thread a parameter.
 __device__ void sweep_terms(const Work& s, float beta, float* out) {
   const int tid = thread_index();
-  const int K = s.K, D = s.D;
-  if (tid < D) {
-    const int tc = type_of(tid, K), i = tid - tc * K;
-    const float* d = s.dots;
-    const float a1 = d[i], a2 = d[K + i], a3 = d[2 * K + i], a4 = d[3 * K + i],
-                a5 = d[4 * K + i], a6 = d[5 * K + i];
-    const float huu = s.wcx2[i] * a1 + s.wcxx[i] * a2;
-    const float huv = s.wcxcy[i] * a3;
-    const float hus = s.wcx[i] * a1;
-    const float hvv = s.wcy2[i] * a4 + s.wcyy[i] * a5;
-    const float hvs = s.wcy[i] * a4;
-    const float hss = s.w[i] * a6;
-    const float au = s.a[i], av = s.a[K + i], as = s.a[2 * K + i];
-    float sv, ct;
-    if (tc == 0) {
-      sv = au * huu + av * huv + as * hus;
-      ct = s.wcx[i] * d[6 * K + i];
-    } else if (tc == 1) {
-      sv = au * huv + av * hvv + as * hvs;
-      ct = s.wcy[i] * d[7 * K + i];
-    } else {
-      sv = au * hus + av * hvs + as * hss;
-      ct = s.w[i] * d[8 * K + i];
-    }
-    const float ac = s.a[tid];
-    out[tid] = s.t1[tid] + (-beta * sv + 0.5f * beta * ct - 0.5f * (ac * ac) * s.infod[tid]);
-  }
+  if (tid < s.D) sweep_term(s, beta, out, tid);
   __syncthreads();
 }
 
@@ -1882,6 +1914,1027 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide path: every launch beyond the one-tile domain (H or W > 128, or
+// K > 64), up to K = 256 wherever B4 takes the scene (tpu_gate below).  It
+// replaces no TPU kernel: the JAX package runs the full metric there on XLA
+// (starcat/api.py:191-205, the smc and trans-d rhmc mutations), since its
+// Pallas kernel's gate is H W <= 48^2, K <= 16.  What bounds it is what
+// bounds the one-tile path (chip_smoke.rhmc_full_sparse_ops: the star-pair
+// terms over their footprints' overlaps and the D^3 dense algebra), but at
+// D = 3 K_live up to 768 the dense algebra is the larger part, and a chain's
+// state (about 3.8 MB at K = 125 on 192 x 192, 12.9 MB at K = 254 on
+// 128 x 128) lives in device memory and, over 132 blocks, beyond the 50 MB
+// L2.  The passes, their order and their math are the one-tile path's;
+// what no longer fits a block's shared memory lives in the block's
+// workspace slice, read through L1 and L2, and the passes that held a
+// whole field or a whole factor in one block walk them in pieces:
+//   * the workspace holds 1/lam and the working field (rho, q, then phi /
+//     lam, so no render restores 1/lam after a momentum sweep), the row
+//     profiles gy, gy' and gy'', the column profiles gx, gx', gx'' (one copy:
+//     the one-tile path's shared set and its copies are the same array here),
+//     the 18 K^2 pair sums, G^-1, the q coefficient table, packed L (D + 1
+//     rows) and L^-1 (dense, D x D by rows);
+//   * shared memory holds the per-star and per-parameter vectors (as the
+//     one-tile path), the q coefficient ring and one region that is, by
+//     phase, the q field's two operand stages over a 128 x 128 pixel tile,
+//     the Cholesky's 32-column panel by rows (D + 1 rows), or L^-1's
+//     columns under way (a D vector a warp);
+//   * the q and phi fields walk the field in 128 x 128 tiles, a 4 x 8 pixel
+//     tile a thread, a pair (or star) whose footprint misses the tile
+//     skipped; the contractions walk it in 128-column blocks, skipping the
+//     blocks where both stars' column profiles are 0, each block's warp sums
+//     added to the star's in block order;
+//   * the pair passes take a star pair a group of kGroup lanes, each lane 4
+//     columns (the rebuild's pair contractions 2) of the pair's footprint
+//     overlap at a time (the overlap's width is not bounded by 128), the
+//     lanes' sums added across the group in a fixed order;
+//   * the Cholesky is right-looking in panels of 32 columns: the panel is
+//     read into shared memory, factored there a column at a time (one block
+//     barrier a column), written back scaled, and updates the trailing
+//     matrix in the workspace, a warp a column and lanes over its rows, each
+//     entry taking its updates in column order; the back substitution runs
+//     in one warp by columns of L, L^-1 a column a warp by forward
+//     substitution with the column's vector in shared memory, and G^-1 =
+//     L^-T L^-1 reads L^-1 by rows, so a warp's loads are contiguous.
+// Every sum runs in an order fixed by the scene and the chain's live stars,
+// so a chain gives the same bits alone, among others and at any chain count;
+// every skipped term is an exact zero.  The bits differ from the one-tile
+// path's (other summation orders); both are held against the plain version.
+namespace wide {
+
+constexpr int kMaxStars = 256;  // K <= 256, D <= 768
+constexpr int kTile = 128;      // the q and phi fields' pixel tile, the contractions' column block
+constexpr int kStage = kQK * 2 * kTile + 2 * kQPairs;  // one q operand stage over a tile
+constexpr int kGroup = 8;       // lanes a star pair in the pair passes
+constexpr int kPLd = kPanel + 1;  // floats a row of the Cholesky's panel
+
+// the shared region: the q field's two operand stages or the Cholesky's
+// panel (D + 1 rows), whichever is larger; L^-1's kWarps column vectors of
+// D fit in the panel's
+__host__ __device__ inline int region_floats(int K) {
+  return round4(imax(2 * kStage, kPLd * (3 * K + 1)));
+}
+
+// mirrored by wide_smem_bytes() in fused_rhmc_crowded.py: the region, the q
+// coefficient ring, 67 floats a star and 12 of per-chain scalars
+__host__ __device__ inline int smem_floats(int K) {
+  return region_floats(K) + 2 * kQPairs * kCoef + 67 * K + 12;
+}
+
+// mirrored by wide_workspace_floats() in fused_rhmc_crowded.py: the working
+// field and 1/lam, gy and gy' interleaved, gx, gx', gx'', gy'', the 18 K^2
+// pair sums, G^-1, the q coefficient table, packed L and L^-1 (D x D)
+__host__ __device__ inline int work_floats(int K, int H, int W) {
+  const int fs = field_stride(W), hp = prof_ld(H), D = 3 * K;
+  return 2 * H * fs + round4(2 * K * hp) + 3 * K * fs + round4(K * hp) + round4(18 * K * K)
+         + round4(D * D) + kCoef * q_table_pairs(K) + round4(packed_l(D)) + round4(D * D);
+}
+
+enum {
+  kWFs, kWHp, kWQc, kWSmall, kWSlice, kWR1, kWGyy, kWGx, kWGx1, kWGx2, kWGy2, kWSraw,
+  kWGinv, kWQcoef, kWDense, kWK, kWCount
+};
+__shared__ int lay[kWCount];
+
+// the wide layout into lay (one thread; the chain's K is set per chain)
+__device__ void init_layout(const Params& P) {
+  int* ly = lay;
+  const int K = P.K, H = P.H, W = P.W, D = 3 * K;
+  const int fs = field_stride(W), hp = prof_ld(H);
+  ly[kWFs] = fs;
+  ly[kWHp] = hp;
+  ly[kWQc] = region_floats(K);
+  ly[kWSmall] = ly[kWQc] + 2 * kQPairs * kCoef;
+  ly[kWSlice] = kHeader + static_cast<int>(blockIdx.x) * work_floats(K, H, W);
+  ly[kWR1] = H * fs;  // the working field first
+  ly[kWGyy] = 2 * H * fs;
+  ly[kWGx] = ly[kWGyy] + round4(2 * K * hp);
+  ly[kWGx1] = ly[kWGx] + K * fs;
+  ly[kWGx2] = ly[kWGx1] + K * fs;
+  ly[kWGy2] = ly[kWGx2] + K * fs;
+  ly[kWSraw] = ly[kWGy2] + round4(K * hp);
+  ly[kWGinv] = ly[kWSraw] + round4(18 * K * K);
+  ly[kWQcoef] = ly[kWGinv] + round4(D * D);  // 16-byte aligned
+  ly[kWDense] = ly[kWQcoef] + kCoef * q_table_pairs(K);
+  ly[kWK] = K;
+}
+
+__device__ __forceinline__ Work make_work(const Params& P) {
+  const int* ly = lay;
+  Work s;
+  s.fs = ly[kWFs];
+  s.hp = ly[kWHp];
+  s.Hq = kTile;
+  s.Wq = kTile;
+  float* sm = b6c_smem;
+  s.qbuf = sm;
+  s.qc = sm + ly[kWQc];
+  place_vectors(s, sm + ly[kWSmall], P.K);
+  float* g = P.work + ly[kWSlice];
+  s.fld = g;
+  s.r1 = g + ly[kWR1];
+  s.gyy = g + ly[kWGyy];
+  s.gx = s.gxg = g + ly[kWGx];
+  s.gx1 = s.gx1g = g + ly[kWGx1];
+  s.gx2g = g + ly[kWGx2];
+  s.gy2 = s.gy2g = g + ly[kWGy2];
+  s.sraw = g + ly[kWSraw];
+  s.ginv = g + ly[kWGinv];
+  s.qcoef = g + ly[kWQcoef];
+  s.dense = g + ly[kWDense];
+  s.K = ly[kWK];
+  s.D = 3 * s.K;
+  s.n_dead = P.K - s.K;
+  return s;
+}
+
+// unordered pair u of n items (i <= j, row by row), from the row offsets
+// i n - i (i - 1) / 2 rather than a walk over the rows
+__device__ __forceinline__ void pair_of_fast(int u, int n, int& i, int& j) {
+  const float b = 2.0f * n + 1.0f;
+  int r = static_cast<int>(0.5f * (b - sqrtf(fmaxf(b * b - 8.0f * u, 0.0f))));
+  r = max(0, min(r, n - 1));
+  while (r > 0 && r * n - r * (r - 1) / 2 > u) --r;
+  while (r + 1 < n && (r + 1) * n - (r + 1) * r / 2 <= u) ++r;
+  i = r;
+  j = r + u - (r * n - r * (r - 1) / 2);
+}
+
+// The one-tile contract<MODE> over 128-column blocks: two stars a warp, the
+// field (rho, q times 1/lam^2, or phi / lam, all in the working field) read
+// once for both down the rows where either star's profiles are non-zero, a
+// block's dots reduced by warp shuffles and added to the star's in block
+// order, the blocks where both stars' column profiles are 0 skipped.
+template <int MODE>
+__device__ void contract(const Params& P, const Work& s) {
+  constexpr int kCols = kTile / 32;  // a lane's columns cb + lane + 32 u
+  constexpr int kAcc = MODE == kSweep ? 5 : 2;
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int K = s.K, W = P.W, fs = s.fs, hp = s.hp;
+  for (int m = warp; 2 * m < K; m += kWarps) {
+    const int st[2] = {s.ord[2 * m], s.ord[2 * m + 1 < K ? 2 * m + 1 : 2 * m]};
+    const int lo = min(s.ylo[st[0]], s.ylo[st[1]]), hi = max(s.yhi[st[0]], s.yhi[st[1]]);
+    const int clo = min(s.xlo[st[0]], s.xlo[st[1]]), chi = max(s.xhi[st[0]], s.xhi[st[1]]);
+    // the dots n = 0 .. 8 of each star (csrc/fused_rhmc.cu's order) are
+    // summed over the blocks in s.dots, by lane 0 (a star is in one pair)
+    if (lane == 0) {
+#pragma unroll
+      for (int n = 0; n < 9; ++n) s.dots[n * K + st[0]] = s.dots[n * K + st[1]] = 0.f;
+    }
+    for (int cb = clo & ~(kTile - 1); cb <= chi; cb += kTile) {
+      float acc[2][kCols][kAcc];
+#pragma unroll
+      for (int n = 0; n < 2 * kCols * kAcc; ++n) (&acc[0][0][0])[n] = 0.f;
+#pragma unroll 2
+      for (int h = lo; h <= hi; ++h) {
+        float f1[kCols];
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int col = cb + lane + 32 * u, pix = h * fs + col;
+          float f = 0.f;
+          if (col < W) {
+            f = s.fld[pix];
+            if (MODE == kQ) {
+              const float r = s.r1[pix];
+              f = f * (r * r);
+            }
+          }
+          f1[u] = f;
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const float2 y = load2(s.gyy + 2 * (st[t] * hp + h));
+          const float y2 = MODE == kSweep ? s.gy2g[st[t] * hp + h] : 0.f;
+#pragma unroll
+          for (int u = 0; u < kCols; ++u) {
+            acc[t][u][0] += f1[u] * y.x;
+            acc[t][u][1] += f1[u] * y.y;
+            if (MODE == kSweep) {
+              acc[t][u][2] += f1[u] * y2;
+              const float f2 = f1[u] * f1[u];
+              acc[t][u][3] += f2 * y.x;
+              acc[t][u][4] += f2 * y.y;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = st[t];
+        float a[9];
+#pragma unroll
+        for (int n = 0; n < 9; ++n) a[n] = 0.f;
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int col = cb + lane + 32 * u;
+          if (col < W) {
+            const float rg = acc[t][u][0], rg1 = acc[t][u][1];
+            const int n = i * fs + col;
+            const float gx = s.gxg[n], gx1 = s.gx1g[n];
+            a[0] += gx1 * rg;
+            a[3] += gx * rg1;
+            a[5] += gx * rg;
+            if (MODE == kSweep) {
+              const float rg2 = acc[t][u][2], rb = acc[t][u][3], rb1 = acc[t][u][4];
+              a[1] += s.gx2g[n] * rg;
+              a[2] += gx1 * rg1;
+              a[4] += gx * rg2;
+              a[6] += gx1 * rb;
+              a[7] += gx * rb1;
+              a[8] += gx * rb;
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 9; ++n) {
+          if (MODE == kSweep || n == 0 || n == 3 || n == 5) {
+            const float v = warp_sum(a[n]);
+            if (lane == 0 && (t == 0 || st[1] != st[0])) s.dots[n * K + i] += v;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The lane group of a pair pass: kGroup lanes a star pair, g the lane's
+// place in it, slot the group's place in the block.
+struct Group {
+  int g, slot;
+};
+
+__device__ __forceinline__ Group group_of() {
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
+  return Group{lane & (kGroup - 1), warp * (32 / kGroup) + lane / kGroup};
+}
+constexpr int kPerRound = kWarps * (32 / kGroup);  // star pairs a round
+
+// The rebuild's pair contractions (the one-tile pair_contract's 18 sums of
+// both orders a pair, the same 8 row products), a star pair a lane group,
+// each lane the 2-column chunks g, g + kGroup, .. of the pair's footprint
+// overlap (2 columns rather than the Fisher pairs' 4, so that the row
+// products and all 36 sums stay in registers), the sums kept across the
+// chunks, then added across the group.
+__device__ void pair_contract(const Params& P, const Work& s) {
+  const int K = s.K, fs = s.fs, hp = s.hp, KK = K * K;
+  const int n_pairs = K * (K + 1) / 2;
+  const Group q = group_of();
+  for (int base = 0; base < n_pairs; base += kPerRound) {
+    const int u = base + q.slot;
+    const bool has = u < n_pairs;
+    int i, j;
+    pair_of_fast(has ? u : 0, K, i, j);
+    const bool touch = has && overlap(s, i, j);
+    float acc[18], acm[18];  // (i, j) and (j, i), index hq 3 + tb
+#pragma unroll
+    for (int n = 0; n < 18; ++n) acc[n] = acm[n] = 0.f;
+    if (touch) {
+      const int ylo = max(s.ylo[i], s.ylo[j]), yhi = min(s.yhi[i], s.yhi[j]);
+      const int q1 = min(s.xhi[i], s.xhi[j]) >> 1;
+      // offsets from the slice's start rather than pointers: fewer registers
+      const float* g = s.fld;
+      const int oi = static_cast<int>(s.gyy - g) + 2 * i * hp;
+      const int oj = static_cast<int>(s.gyy - g) + 2 * j * hp;
+      const int oi2 = static_cast<int>(s.gy2 - g) + i * hp;
+      const int oj2 = static_cast<int>(s.gy2 - g) + j * hp;
+      for (int c2 = (max(s.xlo[i], s.xlo[j]) >> 1) + q.g; c2 <= q1; c2 += kGroup) {
+        float t[8][2];
+#pragma unroll
+        for (int n = 0; n < 16; ++n) (&t[0][0])[n] = 0.f;
+        const int orc = static_cast<int>(s.r1 - g) + 2 * c2;
+#pragma unroll 2
+        for (int h = ylo; h <= yhi; ++h) {
+          const float2 ya = load2(g + oi + 2 * h), yb = load2(g + oj + 2 * h);
+          const float a0 = ya.x, a1 = ya.y, a2 = g[oi2 + h];
+          const float b0 = yb.x, b1 = yb.y, b2 = g[oj2 + h];
+          const float pr[8] = {a0 * b0, a0 * b1, a1 * b0, a1 * b1,
+                               a2 * b0, a2 * b1, a0 * b2, a1 * b2};
+          const float2 r2 = load2(g + orc + h * fs);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            t[m][0] += pr[m] * r2.x;
+            t[m][1] += pr[m] * r2.y;
+          }
+        }
+        // the column profiles a column at a time, so that few are live
+        // beside t and the 36 sums, by offsets from the slice's start (gx,
+        // gx', gx'' lie K_max fs apart)
+        const int kfs = P.K * fs;
+        const int ci = static_cast<int>(s.gxg - g) + i * fs + 2 * c2;
+        const int cj = static_cast<int>(s.gxg - g) + j * fs + 2 * c2;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float xi[3] = {g[ci + k], g[ci + kfs + k], g[ci + 2 * kfs + k]};
+          const float xj[3] = {g[cj + k], g[cj + kfs + k], g[cj + 2 * kfs + k]};
+          const float T[3][3] = {{t[0][k], t[1][k], t[6][k]},
+                                 {t[2][k], t[3][k], t[7][k]},
+                                 {t[4][k], t[5][k], 0.f}};
+#pragma unroll
+          for (int hq = 0; hq < 6; ++hq) {
+            const int yh = hq == 4 ? 2 : ((hq == 2 || hq == 3) ? 1 : 0);
+            const int xh = (hq == 0 || hq == 2) ? 1 : (hq == 1 ? 2 : 0);
+#pragma unroll
+            for (int tb = 0; tb < 3; ++tb) {
+              const int yb = tb == 1 ? 1 : 0;
+              const int xb = tb == 0 ? 1 : 0;
+              acc[hq * 3 + tb] += xi[xh] * xj[xb] * T[yh][yb];
+              acm[hq * 3 + tb] += xj[xh] * xi[xb] * T[yb][yh];
+            }
+          }
+        }
+      }
+    }
+    if (__any_sync(kFull, touch)) {
+      for (int o = 1; o < kGroup; o <<= 1) {
+#pragma unroll
+        for (int n = 0; n < 18; ++n) {
+          acc[n] += __shfl_xor_sync(kFull, acc[n], o);
+          acm[n] += __shfl_xor_sync(kFull, acm[n], o);
+        }
+      }
+    }
+    if (has && q.g == 0) {
+#pragma unroll
+      for (int n = 0; n < 18; ++n) {
+        s.sraw[n * KK + i * K + j] = acc[n];
+        if (i != j) s.sraw[n * KK + j * K + i] = acm[n];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The Fisher pairs of a position sweep (the one-tile fisher_pairs' 9 sums
+// a pair, from 4 row products), a star pair a lane group over its
+// footprint overlap's 4-column chunks, as pair_contract.
+__device__ void fisher_pairs(const Params& P, const Work& s) {
+  const int K = s.K, fs = s.fs, hp = s.hp, KK = K * K;
+  const int n_pairs = K * (K + 1) / 2;
+  const Group q = group_of();
+  for (int base = 0; base < n_pairs; base += kPerRound) {
+    const int u = base + q.slot;
+    const bool has = u < n_pairs;
+    int i, j;
+    pair_of_fast(has ? u : 0, K, i, j);
+    const bool touch = has && overlap(s, i, j);
+    float acc[9];
+#pragma unroll
+    for (int n = 0; n < 9; ++n) acc[n] = 0.f;
+    if (touch) {
+      const int ylo = max(s.ylo[i], s.ylo[j]), yhi = min(s.yhi[i], s.yhi[j]);
+      const int q1 = min(s.xhi[i], s.xhi[j]) >> 2;
+      const float* g = s.fld;  // offsets from the slice's start, as pair_contract's
+      const int oi = static_cast<int>(s.gyy - g) + 2 * i * hp;
+      const int oj = static_cast<int>(s.gyy - g) + 2 * j * hp;
+      for (int c4 = (max(s.xlo[i], s.xlo[j]) >> 2) + q.g; c4 <= q1; c4 += kGroup) {
+        float t[4][4];  // [ya 2 + yb][column]
+#pragma unroll
+        for (int n = 0; n < 16; ++n) (&t[0][0])[n] = 0.f;
+        const int orc = static_cast<int>(s.r1 - g) + 4 * c4;
+#pragma unroll 2
+        for (int h = ylo; h <= yhi; ++h) {
+          const float2 va = load2(g + oi + 2 * h), vb = load2(g + oj + 2 * h);
+          const float a[2] = {va.x, va.y}, b[2] = {vb.x, vb.y};
+          const float4 r4 = load4(g + orc + h * fs);
+#pragma unroll
+          for (int ya = 0; ya < 2; ++ya) {
+#pragma unroll
+            for (int yb = 0; yb < 2; ++yb) {
+              const float pr = a[ya] * b[yb];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) t[ya * 2 + yb][k] += pr * comp(r4, k);
+            }
+          }
+        }
+        const int ci = i * fs + 4 * c4, cj = j * fs + 4 * c4;
+        const float4 xi0 = load4(s.gx + ci), xi1 = load4(s.gx1 + ci);
+        const float4 xj0 = load4(s.gx + cj), xj1 = load4(s.gx1 + cj);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float xi[2] = {comp(xi0, k), comp(xi1, k)};
+          const float xj[2] = {comp(xj0, k), comp(xj1, k)};
+#pragma unroll
+          for (int ta = 0; ta < 3; ++ta) {
+            const int yh = ta == 1 ? 1 : 0, xh = ta == 0 ? 1 : 0;  // hp_of_type(ta)
+#pragma unroll
+            for (int tb = 0; tb < 3; ++tb) {
+              const int yb = tb == 1 ? 1 : 0, xb = tb == 0 ? 1 : 0;
+              acc[ta * 3 + tb] += xi[xh] * xj[xb] * t[yh * 2 + yb][k];
+            }
+          }
+        }
+      }
+    }
+    if (__any_sync(kFull, touch)) {
+      for (int o = 1; o < kGroup; o <<= 1) {
+#pragma unroll
+        for (int n = 0; n < 9; ++n) acc[n] += __shfl_xor_sync(kFull, acc[n], o);
+      }
+    }
+    if (has && q.g == 0) {
+#pragma unroll
+      for (int ta = 0; ta < 3; ++ta) {
+#pragma unroll
+        for (int tb = 0; tb < 3; ++tb) {
+          const float v = acc[ta * 3 + tb];
+          s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j] = v;
+          s.sraw[(hp_of_type(tb) * 3 + ta) * KK + j * K + i] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The one-tile q_operands over the tile at (tr0, tc0): T (kQK, kTile) of the
+// tile's rows, X (kQK, kTile) of its columns, and the pairs' row ranges, a
+// pair whose footprint overlap misses the tile empty (its operands there
+// are exact zeros).
+__device__ void q_operands(const Params& P, const Work& s, int n, int slot, float* buf,
+                           int tr0, int tc0) {
+  const int tid = thread_index();
+  const int H = P.H, fs = s.fs, hp = s.hp;
+  const int n_pairs = static_cast<int>(s.scal[4]);
+  const float* coef = s.qc + slot * kQPairs * kCoef;
+  float* T = buf;
+  float* X = buf + kQK * kTile;
+  if (tid < kQPairs) {
+    int* rng = reinterpret_cast<int*>(X + kQK * kTile);
+    int lo = 1, hi = 0;
+    if (n * kQPairs + tid < n_pairs) {
+      const float* e = coef + tid * kCoef;
+      const int i = static_cast<int>(e[9]), j = static_cast<int>(e[10]);
+      const int clo = max(max(s.xlo[i], s.xlo[j]), tc0);
+      const int chi = min(min(s.xhi[i], s.xhi[j]), tc0 + kTile - 1);
+      if (clo <= chi) {
+        lo = max(max(s.ylo[i], s.ylo[j]), tr0);
+        hi = min(min(s.yhi[i], s.yhi[j]), tr0 + kTile - 1);
+      }
+    }
+    rng[tid] = lo;
+    rng[kQPairs + tid] = hi;
+  }
+  const int r = tid & (kTile - 1);
+  for (int pl = tid / kTile; pl < kQPairs; pl += kThreads / kTile) {
+    const float* e = coef + pl * kCoef;
+    const bool live = n * kQPairs + pl < n_pairs;
+    const int i = live ? static_cast<int>(e[9]) : 0, j = live ? static_cast<int>(e[10]) : 0;
+    {
+      const int row = tr0 + r;
+      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+      if (live && row < H) {
+        const float2 vi = load2(s.gyy + 2 * (i * hp + row)), vj = load2(s.gyy + 2 * (j * hp + row));
+        const float yi = vi.x, yi1 = vi.y, yj = vj.x, yj1 = vj.y;
+        const float p00 = yi * yj, p01 = yi * yj1, p10 = yi1 * yj, p11 = yi1 * yj1;
+        t0 = e[0] * p00;
+        t1 = e[1] * p01 + e[2] * p00;
+        t2 = e[3] * p10 + e[4] * p00;
+        t3 = ((e[5] * p11 + e[6] * p10) + e[7] * p01) + e[8] * p00;
+      }
+      float* tc = T + 4 * pl * kTile + r;
+      tc[0] = t0; tc[kTile] = t1; tc[2 * kTile] = t2; tc[3 * kTile] = t3;
+    }
+    {
+      const int col = tc0 + r;
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;
+      if (live && col < fs) {
+        const float gi = s.gx[i * fs + col], gi1 = s.gx1[i * fs + col];
+        const float gj = s.gx[j * fs + col], gj1 = s.gx1[j * fs + col];
+        x0 = gi1 * gj1; x1 = gi1 * gj; x2 = gi * gj1; x3 = gi * gj;
+      }
+      float* xc = X + 4 * pl * kTile + r;
+      xc[0] = x0; xc[kTile] = x1; xc[2 * kTile] = x2; xc[3 * kTile] = x3;
+    }
+  }
+}
+
+// q into the working field, tile by tile: the one-tile q_gemm<4, 8> over
+// each 128 x 128 tile (a 4 x 8 pixel tile a thread, its column groups of 4
+// 64 columns apart), the coefficient ring and the two operand stages
+// restarted for each tile.  Ends synchronised.
+__device__ void q_field(const Params& P, const Work& s) {
+  const int tid = thread_index();
+  const int H = P.H, fs = s.fs;
+  const int n_pairs = static_cast<int>(s.scal[4]);
+  const int n_chunks = (n_pairs + kQPairs - 1) / kQPairs;
+  const int r0 = 4 * (tid >> 4), c0 = 4 * (tid & 15);
+  const int wrow = 4 * ((tid & ~31) >> 4);  // the warp's first row in the tile (8 rows)
+  for (int tr0 = 0; tr0 < H; tr0 += kTile) {
+    for (int tc0 = 0; tc0 < fs; tc0 += kTile) {
+      const int wlo = tr0 + wrow, whi = wlo + 7;
+      float acc[4][8];
+#pragma unroll
+      for (int n = 0; n < 32; ++n) (&acc[0][0])[n] = 0.f;
+      stage_qcoef(s, 0, 0);
+      cp_async_wait_all();
+      __syncthreads();
+      wide::q_operands(P, s, 0, 0, s.qbuf, tr0, tc0);
+      if (n_chunks > 1) stage_qcoef(s, 1, 1);
+      cp_async_wait_all();
+      __syncthreads();
+      for (int n = 0; n < n_chunks; ++n) {
+        const float* T = s.qbuf + (n & 1) * kStage;
+        const float* X = T + kQK * kTile;
+        if (n + 1 < n_chunks)
+          wide::q_operands(P, s, n + 1, (n + 1) & 1, s.qbuf + ((n + 1) & 1) * kStage, tr0, tc0);
+        if (n + 2 < n_chunks) stage_qcoef(s, n + 2, n & 1);
+        const int* rng = reinterpret_cast<const int*>(X + kQK * kTile);
+        for (int pl = 0; pl < kQPairs; ++pl) {
+          // a pair whose row profiles vanish on the warp's rows, or whose
+          // footprint overlap misses the tile, adds exact zeros
+          if (rng[kQPairs + pl] < wlo || rng[pl] > whi) continue;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = 4 * pl + kk;
+            float tv[4], xv[8];
+            load_n<4>(T + k * kTile + r0, tv);
+            load_n<4>(X + k * kTile + c0, xv);
+            load_n<4>(X + k * kTile + c0 + 64, xv + 4);
+#pragma unroll
+            for (int ri = 0; ri < 4; ++ri) {
+#pragma unroll
+              for (int ci = 0; ci < 8; ++ci) acc[ri][ci] += tv[ri] * xv[ci];
+            }
+          }
+        }
+        cp_async_wait_all();
+        __syncthreads();
+      }
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        const int row = tr0 + r0 + ri;
+        if (row >= H) break;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int col = tc0 + c0 + 64 * g;
+          if (col < fs)
+            store4(s.fld + row * fs + col, acc[ri][4 * g], acc[ri][4 * g + 1],
+                   acc[ri][4 * g + 2], acc[ri][4 * g + 3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// phi / lam into the working field, tile by tile (the one-tile phi_tiles<4,
+// 8> over each 128 x 128 tile), 1/lam read from its own array, which stays.
+__device__ void phi_field(const Params& P, const Work& s) {
+  const int tid = thread_index();
+  const int K = s.K, H = P.H, fs = s.fs, hp = s.hp;
+  const int r0 = 4 * (tid >> 4), c0 = 4 * (tid & 15);
+  const int wrow = 4 * ((tid & ~31) >> 4);
+  for (int tr0 = 0; tr0 < H; tr0 += kTile) {
+    for (int tc0 = 0; tc0 < fs; tc0 += kTile) {
+      const int wlo = tr0 + wrow, whi = wlo + 7;
+      int rows[4];
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) rows[ri] = min(tr0 + r0 + ri, H - 1);
+      float phi[4][8];
+#pragma unroll
+      for (int n = 0; n < 32; ++n) (&phi[0][0])[n] = 0.f;
+      for (int i = 0; i < K; ++i) {
+        // a star whose profiles vanish on the warp's rows or the tile's
+        // columns adds exact zeros
+        if (s.yhi[i] < wlo || s.ylo[i] > whi || s.xhi[i] < tc0 || s.xlo[i] >= tc0 + kTile)
+          continue;
+        const float cu = s.cu[i], cv = s.cv[i], cs = s.cs[i];
+        float gx[8], gx1[8];
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int col = tc0 + c0 + 64 * g;
+          if (col < fs) {
+            load_n<4>(s.gx + i * fs + col, gx + 4 * g);
+            load_n<4>(s.gx1 + i * fs + col, gx1 + 4 * g);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) gx[4 * g + k] = gx1[4 * g + k] = 0.f;
+          }
+        }
+        float tx[8], vx[8];
+#pragma unroll
+        for (int ci = 0; ci < 8; ++ci) {
+          tx[ci] = cu * gx1[ci] + cs * gx[ci];
+          vx[ci] = cv * gx[ci];
+        }
+#pragma unroll
+        for (int ri = 0; ri < 4; ++ri) {
+          const float2 v = load2(s.gyy + 2 * (i * hp + rows[ri]));
+#pragma unroll
+          for (int ci = 0; ci < 8; ++ci) {
+            phi[ri][ci] = phi[ri][ci] + v.x * tx[ci];
+            phi[ri][ci] = phi[ri][ci] + v.y * vx[ci];
+          }
+        }
+      }
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        const int row = tr0 + r0 + ri;
+        if (row >= H) break;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int col = tc0 + c0 + 64 * g;
+          if (col < fs) {
+            const float4 r = load4(s.r1 + row * fs + col);
+            store4(s.fld + row * fs + col, phi[ri][4 * g] * r.x, phi[ri][4 * g + 1] * r.y,
+                   phi[ri][4 * g + 2] * r.z, phi[ri][4 * g + 3] * r.w);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Cholesky of the first D rows of s.dense (packed by columns, D + 1 rows a
+// column, in the workspace), rows D .. nrows - 1 reduced alongside (L^-1 b
+// in row D), right-looking in panels of kPanel columns through shared
+// memory (the header note); s.ldiag, s.dinv and log det G (warp 0, into
+// s.scal[1], the dead slots' rows included) as the one-tile cholesky.
+// Every thread calls it; it ends synchronised but for s.scal[1].
+__device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int D = s.D, n1 = D + 1;
+  float* A = s.dense;
+  float* pr = s.qbuf;  // pr[(r - p0) kPLd + k] = A(r, p0 + k), r >= p0
+  for (int p0 = 0; p0 < D; p0 += kPanel) {
+    const int p1 = min(p0 + kPanel, D);
+    // the panel by rows (0 above the diagonal and past its last column): a
+    // warp a column, lanes over its rows
+    for (int k = warp; k < kPanel; k += kWarps) {
+      const int c = p0 + k;
+      const bool ok = c < p1;
+      const float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      for (int r = p0 + lane; r < nrows; r += 32)
+        pr[(r - p0) * kPLd + k] = (ok && r >= c) ? ac[r] : 0.0f;
+    }
+    __syncthreads();
+    // its columns in turn: the pivot, then A_rc -= (A_rj / L_jj)(A_cj / L_jj)
+    // for j < c < p1, r >= c (lanes over columns, warps over rows)
+    for (int j = p0; j < p1; ++j) {
+      const int jj = j - p0;
+      const float sjj = pr[jj * kPLd + jj];
+      const float dinv = 1.0f / sqrtf(sjj);
+      if (tid == 0) {
+        s.ldiag[j] = sjj * dinv;
+        s.dinv[j] = dinv;
+      }
+      const int c = j + 1 + lane;
+      if (c < p1) {
+        const float lc = pr[(c - p0) * kPLd + jj] * dinv;
+        for (int r = j + 1 + warp; r < nrows; r += kWarps) {
+          if (r < c) continue;
+          float* e = pr + (r - p0) * kPLd + (c - p0);
+          *e -= (pr[(r - p0) * kPLd + jj] * dinv) * lc;
+        }
+      }
+      __syncthreads();
+    }
+    // L's panel, scaled: into A below the diagonal and, for the trailing
+    // update, in place (0 on and above the diagonal)
+    for (int k = warp; k < kPanel; k += kWarps) {
+      const int c = p0 + k;
+      const bool ok = c < p1;
+      const float dv = ok ? s.dinv[c] : 0.0f;
+      float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      for (int r = p0 + lane; r < nrows; r += 32) {
+        float* e = pr + (r - p0) * kPLd + k;
+        const bool below = ok && r > c;
+        const float l = below ? *e * dv : 0.0f;
+        if (below) ac[r] = l;
+        *e = l;
+      }
+    }
+    __syncthreads();
+    if (p1 == D) break;  // nothing trails the last panel
+    // the trailing update A_rc -= sum_k L_rk L_ck over the panel, p1 <= c
+    // <= r: a warp a column, lanes over its rows
+    for (int c = p1 + warp; c < D; c += kWarps) {
+      float lc[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) lc[k] = pr[(c - p0) * kPLd + k];
+      float* ac = A + col_off(c, n1) - c;
+      for (int r = c + lane; r < nrows; r += 32) {
+        const float* lr = pr + (r - p0) * kPLd;
+        float a = ac[r];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) a -= lr[k] * lc[k];
+        ac[r] = a;
+      }
+    }
+    __syncthreads();
+  }
+  if (logdet && warp == 0) {
+    double ld_sum = 0.0;
+    for (int j = lane; j < D; j += 32) ld_sum += static_cast<double>(logf(s.ldiag[j]));
+    ld_sum = warp_sum_d(ld_sum);
+    if (lane == 0)
+      s.scal[1] = static_cast<float>(
+          2.0 * (ld_sum + 3.0 * s.n_dead * static_cast<double>(logf(ldead))));
+  }
+}
+
+// out = G^-1 b by back substitution, L^T out = L^-1 b, after cholesky(nrows
+// = D + 1) left L^-1 b in row D: warp 0, out_k = (y_k - L(k+1.., k) .
+// out(k+1..)) / L_kk for k = D - 1 .. 0, the dot over column k of L by
+// lanes and shuffles, out in shared memory.  Ends synchronised.
+__device__ void chol_solve(const Work& s, float* out) {
+  const int D = s.D, n1 = D + 1;
+  if (thread_index() < 32) {
+    const int lane = thread_index();
+    for (int k = D - 1; k >= 0; --k) {
+      const float* lk = s.dense + col_off(k, n1) - k;  // lk[r] = L(r, k)
+      float acc = 0.0f;
+      for (int r = k + 1 + lane; r < D; r += 32) acc += lk[r] * out[r];
+      acc = warp_sum(acc);
+      if (lane == 0) out[k] = (lk[D] - acc) * s.dinv[k];
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// L^-1 (dense by rows, X[k D + c] = L^-1(k, c), after packed L) a column a
+// warp by forward substitution on L e_c, the column's vector in shared
+// memory; then G^-1 = L^-T L^-1 into s.ginv (its lower half computed, both
+// written), lanes over columns b reading rows of L^-1; then the q field's
+// coefficient table.  Every thread calls it; it ends synchronised.
+__device__ void inverse(const Work& s) {
+  const int lane = thread_index() & 31, warp = thread_index() >> 5;
+  const int D = s.D, n1 = D + 1;
+  const float* A = s.dense;
+  float* X = s.dense + round4(packed_l(D));
+  float* v = s.qbuf + warp * D;
+  for (int c = warp; c < D; c += kWarps) {
+    for (int r = c + lane; r < D; r += 32) v[r] = r == c ? 1.0f : 0.0f;
+    __syncwarp();
+    for (int k = c; k < D; ++k) {
+      const float xk = v[k] * s.dinv[k];
+      if (lane == 0) X[k * D + c] = xk;
+      const float* lk = A + col_off(k, n1) - k;  // column k of L
+      for (int r = k + 1 + lane; r < D; r += 32) v[r] -= lk[r] * xk;
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int a = warp; a < D; a += kWarps) {
+    for (int b0 = 0; b0 <= a; b0 += 32) {
+      const int b = b0 + lane;
+      if (b > a) break;
+      float acc = 0.0f;
+      for (int k = a; k < D; ++k) acc += X[k * D + a] * X[k * D + b];
+      s.ginv[a * D + b] = acc;
+      s.ginv[b * D + a] = acc;
+    }
+  }
+  __syncthreads();
+  q_table(s);
+}
+
+// out = G^-1 p with the carried s.ginv, a thread a parameter (down column
+// a of the symmetric G^-1, so a warp's loads are contiguous).  Ends
+// synchronised.
+__device__ void ginv_matvec(const Work& s, const float* p, float* out) {
+  const int D = s.D;
+  for (int a = thread_index(); a < D; a += kThreads) {
+    float acc = 0.0f;
+    for (int b = 0; b < D; ++b) acc += s.ginv[b * D + a] * p[b];
+    out[a] = acc;
+  }
+  __syncthreads();
+}
+
+// H = U + 1/2 log det G + 1/2 p^T G^-1 p at the structs' theta, momentum p.
+__device__ float hamiltonian(const Work& s, const float* p) {
+  const int tid = thread_index(), lane = tid & 31;
+  wide::ginv_matvec(s, p, s.a);
+  if (tid < 32) {
+    double kin = 0.0;
+    for (int a = lane; a < s.D; a += 32) kin += static_cast<double>(p[a] * s.a[a]);
+    kin = warp_sum_d(kin);
+    if (lane == 0)
+      s.scal[2] = static_cast<float>(static_cast<double>(s.scal[0])
+                                     + 0.5 * static_cast<double>(s.scal[1]) + 0.5 * kin);
+  }
+  __syncthreads();
+  const float h = s.scal[2];
+  __syncthreads();
+  return h;
+}
+
+// The one-tile build_structs on the wide layout: no copies between the
+// shared and the workspace profile sets (they are one), and no rebuild of
+// the profiles and 1/lam around the q field (nothing overwrote them).
+__device__ void build_structs(const Params& P, bool p0) {
+  const int tid = thread_index(), warp = tid >> 5;
+  const float beta = wide::make_work(P).scal[8];
+  double ll;
+  { const Work s = wide::make_work(P); profiles(P, s, s.th_b, true); }
+  { const Work s = wide::make_work(P); ll = render(P, s, beta, true); }
+  { const Work s = wide::make_work(P); wide::pair_contract(P, s); }
+  { const Work s = wide::make_work(P); wide::contract<kGrad>(P, s); }
+  if (warp == 0) potential_terms(P, wide::make_work(P), beta, ll);
+  { const Work s = wide::make_work(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
+  {
+    const float gdead = 1.0f + P.jitter;
+    const Work s = wide::make_work(P);
+    wide::cholesky(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
+  }
+  if (p0) {
+    // p0 = (L xi) m, L the factor of G(theta0)
+    const Work s = wide::make_work(P);
+    const int K = s.K, D = s.D, n1 = D + 1;
+    for (int a = tid; a < D; a += kThreads) {
+      float acc = s.ldiag[a] * s.vec[a];
+      for (int k = 0; k < a; ++k) acc += s.dense[col_off(k, n1) - k + a] * s.vec[k];
+      s.p_b[a] = acc * s.m[a - type_of(a, K) * K];
+    }
+    __syncthreads();
+  }
+  { const Work s = wide::make_work(P); wide::inverse(s); }
+  { const Work s = wide::make_work(P); wide::q_field(P, s); }
+  { const Work s = wide::make_work(P); wide::contract<kQ>(P, s); }
+  metric_terms(P, wide::make_work(P), beta);
+}
+
+// dH/dtheta at the structs' theta and the momentum in ph into dh.
+__device__ void dh_dtheta(const Params& P) {
+  const int tid = thread_index();
+  const float beta = wide::make_work(P).scal[8];
+  {
+    const Work s = wide::make_work(P);
+    wide::ginv_matvec(s, s.ph, s.a);
+    if (tid < s.K) {
+      s.cu[tid] = s.a[tid] * s.wcx[tid];
+      s.cv[tid] = s.a[s.K + tid] * s.wcy[tid];
+      s.cs[tid] = s.a[2 * s.K + tid] * s.w[tid];
+    }
+  }
+  __syncthreads();
+  { const Work s = wide::make_work(P); wide::phi_field(P, s); }
+  { const Work s = wide::make_work(P); wide::contract<kSweep>(P, s); }
+  {
+    const Work s = wide::make_work(P);
+    for (int c = tid; c < s.D; c += kThreads) sweep_term(s, beta, s.dh, c);
+  }
+  __syncthreads();
+}
+
+// G(th)^-1 ph into vec by a fresh metric build at th.
+__device__ void fisher_solve(const Params& P) {
+  const float beta = wide::make_work(P).scal[8];
+  { const Work s = wide::make_work(P); profiles(P, s, s.th, false); }
+  { const Work s = wide::make_work(P); render(P, s, beta, false); }
+  { const Work s = wide::make_work(P); wide::fisher_pairs(P, s); }
+  { const Work s = wide::make_work(P); assemble_metric(P, s, beta, false, s.ph); }
+  { const Work s = wide::make_work(P); wide::cholesky(s, s.D + 1, false, 0.0f); }
+  { const Work s = wide::make_work(P); wide::chol_solve(s, s.vec); }
+}
+
+// The one-tile kernel's trajectory on the wide layout, the loops over the D
+// parameters strided by the block (D may exceed it).
+__global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Params P) {
+  __shared__ int live[kMaxStars];  // the chain's live slots, in order
+  __shared__ float live_m[kMaxStars];
+  const int tid = thread_index();
+  if (tid == 0) wide::init_layout(P);
+
+  for (;;) {
+    __syncthreads();  // the layout is set; the previous chain's outputs are written
+    if (tid == 0) b6c_chain = atomicAdd(reinterpret_cast<int*>(P.work), 1);
+    __syncthreads();
+    if (b6c_chain >= P.C) break;
+    {
+      const int c = b6c_chain, Ks = P.K, Ds = 3 * Ks;
+      if (tid == 0) {
+        int n = 0;
+        for (int i = 0; i < Ks; ++i) {
+          const float m = P.mask[c * P.mask_stride + i];
+          if (m != 0.0f) {
+            live[n] = i;
+            live_m[n] = m;
+            ++n;
+          }
+        }
+        lay[kWK] = n;
+      }
+      for (int n = tid; n < Ds; n += kThreads) {
+        P.theta_out[c * Ds + n] = P.theta[c * Ds + n];
+        P.p_out[c * Ds + n] = 0.0f;
+      }
+    }
+    __syncthreads();
+    {
+      const Work s = wide::make_work(P);
+      const int c = b6c_chain, Ds = 3 * P.K, K = s.K, D = s.D;
+      if (tid < K) s.m[tid] = live_m[tid];
+      for (int a = tid; a < D; a += kThreads) {
+        const int t = type_of(a, K), i = a - t * K, slot = live[i];
+        s.th_b[a] = P.theta[c * Ds + 3 * slot + t];
+        s.vec[a] = P.xi[c * Ds + 3 * slot + t];
+      }
+      if (tid == 0) {
+        s.scal[6] = 0.0f;  // the residual
+        s.scal[8] = *P.beta;
+        s.scal[9] = P.eps[c];
+      }
+    }
+    __syncthreads();
+
+    wide::build_structs(P, true);
+    {
+      const Work s = wide::make_work(P);
+      const float h0 = wide::hamiltonian(s, s.p_b);
+      if (tid == 0) s.scal[5] = h0;
+    }
+
+    if (tid == 0) b6c_iter[0] = 0;
+    __syncthreads();
+    while (b6c_iter[0] < P.n_steps) {
+      // implicit momentum half-step: p_h = p - eps/2 dH/dtheta(theta, p_h)
+      {
+        const Work s = wide::make_work(P);
+        for (int a = tid; a < s.D; a += kThreads) s.ph[a] = s.p_b[a];
+        if (tid == 0) b6c_iter[1] = 0;
+      }
+      __syncthreads();
+      while (b6c_iter[1] < P.fpi) {
+        wide::dh_dtheta(P);
+        const Work s = wide::make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        for (int a = tid; a < s.D; a += kThreads) s.dh[a] = s.p_b[a] - half_eps * s.dh[a];
+        __syncthreads();
+        const float d1 = fp_delta(s, s.dh, s.ph);
+        if (tid == 0) s.scal[7] = d1;
+        for (int a = tid; a < s.D; a += kThreads) s.ph[a] = s.dh[a];
+        __syncthreads();
+        if (tid == 0) ++b6c_iter[1];
+        __syncthreads();
+      }
+      // implicit position step: theta' = theta + eps/2 [G(theta)^-1 + G(theta')^-1] p_h
+      {
+        const Work s = wide::make_work(P);
+        const float eps = s.scal[9];
+        wide::ginv_matvec(s, s.ph, s.vec);
+        for (int a = tid; a < s.D; a += kThreads) {
+          s.base[a] = s.th_b[a] + (0.5f * eps) * s.vec[a];
+          s.th[a] = s.th_b[a] + eps * s.vec[a];
+        }
+        if (tid == 0) b6c_iter[1] = 0;
+      }
+      __syncthreads();
+      while (b6c_iter[1] < P.fpi) {
+        wide::fisher_solve(P);
+        const Work s = wide::make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        for (int a = tid; a < s.D; a += kThreads) s.vec[a] = s.base[a] + half_eps * s.vec[a];
+        __syncthreads();
+        const float d2 = fp_delta(s, s.vec, s.th);
+        if (tid == 0 && b6c_iter[1] == P.fpi - 1)
+          s.scal[6] = nanmax(s.scal[6], nanmax(s.scal[7], d2));
+        for (int a = tid; a < s.D; a += kThreads) s.th[a] = s.vec[a];
+        __syncthreads();
+        if (tid == 0) ++b6c_iter[1];
+        __syncthreads();
+      }
+      // rebuild at theta'; reused by the final half-step, h1 and the next step
+      {
+        const Work s = wide::make_work(P);
+        for (int a = tid; a < s.D; a += kThreads) s.th_b[a] = s.th[a];
+      }
+      __syncthreads();
+      wide::build_structs(P, false);
+      wide::dh_dtheta(P);
+      {
+        const Work s = wide::make_work(P);
+        const float half_eps = 0.5f * s.scal[9];
+        for (int a = tid; a < s.D; a += kThreads) s.p_b[a] = s.ph[a] - half_eps * s.dh[a];
+        if (tid == 0) ++b6c_iter[0];
+      }
+      __syncthreads();
+    }
+    const Work s = wide::make_work(P);
+    const float h1 = wide::hamiltonian(s, s.p_b);
+
+    const int c = b6c_chain, Ds = 3 * P.K;
+    for (int a = tid; a < s.D; a += kThreads) {
+      const int K = s.K, t = type_of(a, K), i = a - t * K, slot = live[i];
+      P.theta_out[c * Ds + 3 * slot + t] = s.th_b[a];
+      P.p_out[c * Ds + 3 * slot + t] = s.p_b[a];
+    }
+    if (tid == 0) {
+      P.h0_out[c] = s.scal[5];
+      P.h1_out[c] = h1;
+      P.u1_out[c] = s.scal[0];
+      P.resid_out[c] = s.scal[6];
+    }
+  }
+}
+
+}  // namespace wide
+
 // The current device's SM count into *sms; returns a CUDA error code.
 cudaError_t device_sms(int* sms) {
   int dev = 0;
@@ -1890,15 +2943,39 @@ cudaError_t device_sms(int* sms) {
   return e;
 }
 
-// The kernel with its dynamic shared memory allowed.
-cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(fused_rhmc_crowded_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+// The one-tile domain: H, W <= 128 and 1 <= K <= 64.
+bool one_tile(int K, int H, int W) {
+  return K >= 1 && K <= kMaxStars && H >= 1 && H <= kMaxSide && W >= 1 && W <= kMaxSide;
 }
 
+// B4's TPU gate (fused_rhmc_diag_crowded.tpu_gate): the VMEM budgets of the
+// JAX package's diag_mxu_supported at an 8-chain tile and
+// diag_fused_supported at a 128-chain tile.
+bool tpu_gate(int K, int H, int W) {
+  const long long hw = static_cast<long long>(H) * W, side = H > W ? H : W;
+  const bool mxu = 10LL * 8 * K * side * 4 + 4LL * 8 * hw * 4 + hw * 4 < (12LL << 20);
+  const bool lanes = 3LL * hw * 128 * 4 + 6LL * K * side * 128 * 4 < (24LL << 20);
+  return mxu || lanes;
+}
+
+// The kernel's domain (fused_rhmc_crowded.domain_error): the one-tile
+// domain, and the wide path's, 1 <= K <= 256 wherever B4 takes the scene.
 bool in_domain(int K, int H, int W) {
-  return K >= 1 && K <= kMaxStars && H >= 1 && H <= kMaxSide && W >= 1 && W <= kMaxSide;
+  return one_tile(K, H, W)
+         || (K >= 1 && K <= wide::kMaxStars && H >= 1 && W >= 1 && tpu_gate(K, H, W));
+}
+
+// The path's shared memory a block, in bytes.
+size_t smem_bytes(int K, int H, int W) {
+  const int floats = one_tile(K, H, W) ? smem_floats(K, H, W) : wide::smem_floats(K);
+  return static_cast<size_t>(floats) * sizeof(float);
+}
+
+// The path's kernel with its dynamic shared memory allowed.
+cudaError_t prepare(int K, int H, int W, void (**kernel)(Params)) {
+  *kernel = one_tile(K, H, W) ? fused_rhmc_crowded_kernel : wide::fused_rhmc_crowded_wide_kernel;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes(K, H, W)));
 }
 
 }  // namespace
@@ -1946,11 +3023,11 @@ int starcat_fused_rhmc_crowded(
   P.lp_flux_const = lp_flux_const;
   P.jitter = jitter;
 
-  const size_t smem = static_cast<size_t>(smem_floats(K, H, W)) * sizeof(float);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = prepare(smem);
+  void (*kernel)(Params) = nullptr;
+  cudaError_t e = prepare(K, H, W, &kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_rhmc_crowded_kernel<<<grid, kThreads, smem, st>>>(P);
+  kernel<<<grid, kThreads, smem_bytes(K, H, W), st>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1960,26 +3037,33 @@ int starcat_fused_rhmc_crowded(
 int starcat_fused_rhmc_crowded_layout(int C, int K, int H, int W, int* threads,
                                       int* blocks_per_sm, int* sms_filled) {
   if (!in_domain(K, H, W)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(smem_floats(K, H, W)) * sizeof(float);
   int sms = 0;
+  void (*kernel)(Params) = nullptr;
   cudaError_t e = device_sms(&sms);
-  if (e == cudaSuccess) e = prepare(smem);
+  if (e == cudaSuccess) e = prepare(K, H, W, &kernel);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_rhmc_crowded_kernel,
-                                                      kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                      smem_bytes(K, H, W));
   if (e != cudaSuccess) return static_cast<int>(e);
   *threads = kThreads;
   *sms_filled = C < sms ? C : sms;
   return 0;
 }
 
-// The source's own sizes for K slots on an H x W scene, which the wrapper
-// holds its mirrors to: shared memory a block and workspace floats a block.
-int starcat_fused_rhmc_crowded_sizes(int K, int H, int W, int* smem_bytes, int* work_floats_out) {
+// The source's own sizes for K slots on an H x W scene on the launch's
+// path, which the wrapper holds its mirrors to: shared memory a block and
+// workspace floats a block.
+int starcat_fused_rhmc_crowded_sizes(int K, int H, int W, int* smem_out, int* work_floats_out) {
   if (!in_domain(K, H, W)) return static_cast<int>(cudaErrorInvalidValue);
-  *smem_bytes = smem_floats(K, H, W) * static_cast<int>(sizeof(float));
-  *work_floats_out = work_floats(K, H, W);
+  *smem_out = static_cast<int>(smem_bytes(K, H, W));
+  *work_floats_out = one_tile(K, H, W) ? work_floats(K, H, W) : wide::work_floats(K, H, W);
   return 0;
+}
+
+// The launch's path: 1 one-tile, 0 wide, -1 outside the domain.
+int starcat_fused_rhmc_crowded_one_tile(int K, int H, int W) {
+  if (!in_domain(K, H, W)) return -1;
+  return one_tile(K, H, W) ? 1 : 0;
 }
 
 const char* starcat_cuda_error_string(int code) {

@@ -9,11 +9,13 @@ fused_leapfrog_crowded.py), the same with a runtime step count for ChEES
 full-Fisher one (B6, fused_rhmc.py; B6c, fused_rhmc_crowded.py): three
 pairs of kernels, the leapfrog's serving two contracts.  The small-scene
 kernel takes what its domain holds, the crowded-field kernel what its own
-holds, and a scene beyond both raises naming both limits.  Each domain is
-the kernel's own (its shared memory, its star count), not the reference's
-VMEM gates.  The heads do not care which kernel of a pair runs: the
-contracts are the same, and on the CPU both wrappers run the same plain
-version.
+holds, and a scene beyond both raises naming both limits.  The small-scene
+kernels' domains are their own (their shared memory, their star counts);
+B5 and B4 take what their TPU kernels' VMEM gates take, and B6c, which
+replaces no TPU kernel, up to K = 256 whatever B4 takes, so the full
+metric runs wherever the diagonal one does.  The heads do not care which
+kernel of a pair runs: the contracts are the same, and on the CPU both
+wrappers run the same plain version.
 
 The crowded-field kernels also run small scenes.  On an NVIDIA H100 80GB
 HBM3 at 700 W (chip_smoke.py) a 6 x 4 diagonal-Fisher trajectory of 256

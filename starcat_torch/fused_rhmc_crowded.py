@@ -8,14 +8,21 @@ contract (fused_rhmc.py) for the scenes B6 does not take:
         -> (theta' (C, K, 3), p' (C, K, 3), h0, h1, u1, resid (C,))
 
 The JAX package has no Pallas kernel here: beyond its B6 gate it runs the
-full metric on XLA (starcat/api.py:205).  The kernel takes scenes of at most
-128 x 128 pixels with 1 <= K <= 64 catalog slots; :func:`dispatch.rhmc_full_module`
-gives it what B6's domain does not hold.  One launch takes every chain: a
-persistent grid of one block an SM, whose blocks take the chains from a
-counter in the workspace's header, each block in its own slice of that
-workspace in device memory, which the wrapper allocates
-(:func:`workspace_bytes`) and whose counter it zeroes before each launch,
-so the memory follows the card, not the chain count.
+full metric on XLA (starcat/api.py:205).  The kernel takes 1 <= K <= 256
+catalog slots on every scene that B4 takes
+(:func:`fused_rhmc_diag_crowded.tpu_gate`); :func:`dispatch.rhmc_full_module`
+gives it what B6's domain does not hold.  Inside its first domain
+(:func:`one_tile`: at most 128 x 128 pixels and K <= 64, where a chain's
+field and dense algebra fit one block's shared memory) a launch takes that
+one-tile code; beyond it the wide path, which keeps the fields and the
+dense algebra in the block's workspace slice and walks the field in
+128 x 128 tiles.  One launch takes every chain: a persistent grid of one
+block an SM, whose blocks take the chains from a counter in the
+workspace's header, each block in its own slice of that workspace in
+device memory, which the wrapper allocates (:func:`workspace_bytes`; the
+allocation raises before the launch if the card cannot give it) and whose
+counter it zeroes before each launch, so the memory follows the card, not
+the chain count.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_rhmc.fused_rhmc_reference` (the same function),
@@ -30,17 +37,21 @@ import torch
 
 from .build import launch_riemannian, riemannian_library, riemannian_scalars
 from .fused_rhmc import fused_rhmc_reference
+from .fused_rhmc_diag_crowded import tpu_gate
 from .potential import PriorSpec
 from .scene import SceneSpec
 
-MAX_STARS = 64    # kMaxStars in the source
-MAX_SIDE = 128    # kMaxSide in the source: H, W <= 128
+MAX_STARS = 64    # kMaxStars in the source: the one-tile path's K
+MAX_SIDE = 128    # kMaxSide in the source: the one-tile path's H, W <= 128
+WIDE_MAX_STARS = 256  # wide::kMaxStars in the source: K <= 256, D <= 768
+WIDE_TILE = 128   # wide::kTile: the q and phi fields' pixel tile
 THREADS = 512     # kThreads in the source
 Q_PAIRS = 8       # kQPairs in the source: star pairs of a q-field chunk
 Q_DEPTH = 4 * Q_PAIRS  # kQK: that chunk's GEMM depth
 Q_COEF = 12       # kCoef: floats a pair in the q coefficient table
 HEADER_FLOATS = 4  # kHeader: the workspace's header, the chain counter first
 CHOL_PANEL_LD = 36  # kPanelLd: floats a row of the Cholesky's panel by rows
+WIDE_PANEL_LD = 33  # wide::kPLd: floats a row of the wide Cholesky's 32-column panel
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -112,21 +123,72 @@ def workspace_floats(kmax: int, height: int, width: int) -> int:
             + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs)
 
 
+def one_tile(kmax: int, height: int, width: int) -> bool:
+    """Whether a launch takes the one-tile path (one_tile in the source):
+    H, W <= 128 and K <= 64; beyond it the wide path."""
+    return 1 <= kmax <= MAX_STARS and height <= MAX_SIDE and width <= MAX_SIDE
+
+
+def wide_region_floats(kmax: int) -> int:
+    """The wide path's shared region (wide::region_floats in the source):
+    the q field's two operand stages over a 128 x 128 tile (depth Q_DEPTH,
+    T and X of 128 each, and 16 floats of row ranges) or the Cholesky's
+    32-column panel by rows (D + 1 rows of WIDE_PANEL_LD floats),
+    whichever is larger, rounded up to 4."""
+    stage = Q_DEPTH * 2 * WIDE_TILE + 2 * Q_PAIRS
+    return _round4(max(2 * stage, WIDE_PANEL_LD * (3 * kmax + 1)))
+
+
+def wide_smem_bytes(kmax: int) -> int:
+    """Shared memory one block of the wide path needs (mirrors
+    wide::smem_floats in the source), whatever the scene: the region, the
+    q coefficient ring, 67 floats a star and 12 of per-chain scalars."""
+    return 4 * (wide_region_floats(kmax) + 2 * Q_PAIRS * Q_COEF + 67 * kmax + 12)
+
+
+def wide_workspace_floats(kmax: int, height: int, width: int) -> int:
+    """Device memory one block of the wide path works in, in floats
+    (mirrors wide::work_floats in the source): the working field and 1/lam,
+    gy and gy' interleaved at the odd star stride H | 1, gx, gx', gx'',
+    gy'', the 18 K^2 pair sums, G^-1 (D^2), the q coefficient table, packed
+    L (D + 1 rows) and L^-1 (D^2), each a multiple of 4."""
+    fs, hp, d = field_stride(width), height | 1, 3 * kmax
+    pairs = (kmax * (kmax + 1) // 2 + Q_PAIRS - 1) // Q_PAIRS * Q_PAIRS
+    return (2 * height * fs + _round4(2 * kmax * hp) + 3 * kmax * fs + _round4(kmax * hp)
+            + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs
+            + _round4((d + 1) * (d + 2) // 2) + _round4(d * d))
+
+
+def launch_smem_bytes(kmax: int, height: int, width: int) -> int:
+    """Shared memory a block of the launch's path takes."""
+    if one_tile(kmax, height, width):
+        return smem_bytes(kmax, height, width)
+    return wide_smem_bytes(kmax)
+
+
+def launch_workspace_floats(kmax: int, height: int, width: int) -> int:
+    """A block's workspace slice on the launch's path, in floats."""
+    if one_tile(kmax, height, width):
+        return workspace_floats(kmax, height, width)
+    return wide_workspace_floats(kmax, height, width)
+
+
 def workspace_bytes(kmax: int, height: int, width: int, blocks: int = 1) -> int:
     """The workspace a launch of ``blocks`` blocks takes: the header and a
-    slice a block."""
-    return 4 * (HEADER_FLOATS + blocks * workspace_floats(kmax, height, width))
+    slice a block, on the launch's path."""
+    return 4 * (HEADER_FLOATS + blocks * launch_workspace_floats(kmax, height, width))
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     """Why the kernel does not take this scene and catalog, or None."""
-    if not 1 <= kmax <= MAX_STARS:
+    if not 1 <= kmax <= WIDE_MAX_STARS:
         return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes "
-                f"1 <= K <= {MAX_STARS}, got K={kmax}")
-    if spec.height > MAX_SIDE or spec.width > MAX_SIDE:
-        return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes fields of at "
-                f"most {MAX_SIDE}x{MAX_SIDE} pixels, got {spec.height}x{spec.width}")
-    return None
+                f"1 <= K <= {WIDE_MAX_STARS}, got K={kmax}")
+    if one_tile(kmax, spec.height, spec.width) or tpu_gate(spec, kmax):
+        return None
+    return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes the scenes and "
+            f"catalogs that B4 takes (its TPU kernel's VMEM gates), got "
+            f"{spec.height}x{spec.width} with K={kmax}")
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:
@@ -147,17 +209,21 @@ def _library_layout(device_index: int, kmax: int, height: int, width: int) -> di
     ci = ctypes.c_int
     fn.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
     fn.restype = ci
+    lib.starcat_fused_rhmc_crowded_one_tile.argtypes = [ci] * 3
+    lib.starcat_fused_rhmc_crowded_one_tile.restype = ci
     smem, work = ci(), ci()
+    want = (int(one_tile(kmax, height, width)), launch_smem_bytes(kmax, height, width),
+            launch_workspace_floats(kmax, height, width))
     with torch.cuda.device(device_index):
         rc = fn(kmax, height, width, ctypes.byref(smem), ctypes.byref(work))
         if rc != 0:
             raise RuntimeError(f"starcat_fused_rhmc_crowded_sizes failed ({rc})")
-        if (smem.value, work.value) != (smem_bytes(kmax, height, width),
-                                        workspace_floats(kmax, height, width)):
+        got = (lib.starcat_fused_rhmc_crowded_one_tile(kmax, height, width), smem.value,
+               work.value)
+        if got != want:
             raise RuntimeError(
-                f"B6c's build sizes a block at {smem.value} bytes of shared memory and "
-                f"{work.value} workspace floats; fused_rhmc_crowded.py says "
-                f"{smem_bytes(kmax, height, width)} and {workspace_floats(kmax, height, width)}")
+                f"B6c's build takes (one-tile path, shared bytes, workspace floats a block) "
+                f"{got}; fused_rhmc_crowded.py says {want}")
         lay = query_layout(lib, "starcat_fused_rhmc_crowded_layout", 1, kmax, height, width)
         sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return dict(threads=lay["threads"], blocks_per_sm=lay["blocks_per_sm"], sms=sms)

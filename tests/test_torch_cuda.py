@@ -640,10 +640,85 @@ def test_b6c_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="theta"):
         fused(theta[0], xi, eps, mask)
     with pytest.raises(ValueError, match="B6c"):
-        frc.make_fused_rhmc(spec._replace(height=136, width=64),
-                            torch.zeros((136, 64), device=dev), prior, 20, 2, 2)
+        frc.make_fused_rhmc(spec._replace(height=400, width=400),
+                            torch.zeros((400, 400), device=dev), prior, 20, 2, 2)
     with pytest.raises(ValueError, match="B6c"):
-        frc.make_fused_rhmc(spec, img, prior, 65, 2, 2)
+        frc.make_fused_rhmc(spec, img, prior, 257, 2, 2)
+
+
+def _b6c_wide_inputs(h, w, k, c, dev, seed):
+    """A drawn h x w field at cfg4's star density, theta near its truth in
+    the first slots (prior-like draws in the rest), standard-normal xi, eps
+    0.005 and per-chain masks with 1..k live stars in shuffled slots."""
+    from starcat_torch.configs import apply_overrides
+
+    n = max(1, round(50 * h * w / (128 * 128)))
+    cfg = apply_overrides(CONFIGS["cfg4_crowded"],
+                          {"scene.height": h, "scene.width": w, "n_stars": n})
+    truth, img = cfg.make_data()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = min(n, k)
+    theta = torch.empty((c, k, 3), device=dev)
+    theta[:, :m] = truth[:m].to(dev)[None] + 0.02 * torch.randn((c, m, 3), generator=gen,
+                                                                device=dev)
+    theta[:, m:, :2] = 2.0 * torch.randn((c, k - m, 2), generator=gen, device=dev)
+    theta[:, m:, 2] = 5.0 + 0.7 * torch.randn((c, k - m), generator=gen, device=dev)
+    xi = torch.randn((c, k, 3), generator=gen, device=dev)
+    alive = torch.randint(1, k + 1, (c,), generator=gen, device=dev)
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < alive[:, None]).to(torch.float32)
+    eps = torch.full((c,), 0.005, device=dev)
+    return cfg.scene, cfg.prior, img.to(dev), theta, xi, eps, mask
+
+
+@pytest.mark.parametrize("h,w,k,c", [
+    (129, 128, 10, 8),   # one row past the one-tile path's 128
+    (64, 136, 12, 8),    # columns past it
+    (32, 32, 65, 6),     # one star past its K = 64
+    (200, 136, 40, 6),   # both sides past it
+])
+def test_b6c_wide_path_matches_plain(dev, h, w, k, c):
+    """B6c's wide path against its plain version on the chains whose fixed
+    points converged tightly in both, solver verdicts equal on every chain,
+    energies within RTOL plus eight float32 spacings at their magnitude,
+    dead slots frozen bit for bit."""
+    from starcat_torch import fused_rhmc as fr
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_wide_inputs(h, w, k, c, dev, 17)
+    assert not frc.one_tile(k, h, w) and frc.domain_error(spec, k) is None
+    out = frc.make_fused_rhmc(spec, img, prior, k, 6, 4)(theta, xi, eps, mask,
+                                                         torch.tensor(0.8, device=dev))
+    ref = fr.fused_rhmc_reference(spec, img, prior, theta, xi, eps, mask, 0.8, 6, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[5] < 0.05, ref[5] < 0.05)
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    assert int(tight.sum()) >= int(0.8 * c)
+    _assert_rhmc_close([o[tight] for o in out], [r[tight] for r in ref], spacings=8)
+    dead = (mask == 0) & (out[5] < 0.05)[:, None]
+    assert bool(dead.any())
+    assert torch.equal(out[0][dead], theta[dead]) and bool((out[1][dead] == 0).all())
+
+
+def test_b6c_wide_path_gives_a_chain_the_same_bits_at_any_chain_count(dev):
+    """The wide path's blocks take chains from the counter too: a chain's
+    outputs are the same bits alone, among others and among 300, and on a
+    rerun; a chain that overflows is a NaN residual alone."""
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    spec, prior, img, theta, xi, eps, mask = _b6c_wide_inputs(129, 128, 10, 300, dev, 18)
+    fused = frc.make_fused_rhmc(spec, img, prior, 10, 2, 2)
+    assert frc.launch_layout(300, 10, 129, 128, dev)["chains_per_block"] >= 2
+    full = fused(theta, xi, eps, mask)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(full, fused(theta, xi, eps, mask)))
+    for idx in ([5], [0, 9, 17, 5, 41, 52, 63, 299]):
+        sel = torch.tensor(idx, device=dev)
+        part = fused(theta[sel].contiguous(), xi[sel].contiguous(), eps[sel].contiguous(),
+                     mask[sel].contiguous())
+        assert all(torch.equal(_bits(a), _bits(b[sel])) for a, b in zip(part, full))
+    theta[0, :, 2] = 95.0  # exp(95) overflows float32
+    out = fused(theta, xi, eps, mask)
+    assert bool(torch.isnan(out[5][0])) and bool(torch.isfinite(out[5][1:]).all())
 
 
 WIDE_FIELD = {"scene.height": 64, "scene.width": 64, "n_stars": 20, "truth_seed": 41,

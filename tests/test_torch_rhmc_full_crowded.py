@@ -203,9 +203,9 @@ def test_full_metric_kernel_choice(h, w, k, kernel):
 
 
 @pytest.mark.parametrize("h,w,k,match", [
-    (256, 256, 16, r"\(B6\).*256x256.*\(B6c\).*at most 128x128"),
-    (129, 128, 10, r"\(B6\).*\(B6c\).*at most 128x128"),
-    (128, 128, 65, r"\(B6\).*K <= 16.*\(B6c\).*1 <= K <= 64, got K=65"),
+    (400, 400, 16, r"\(B6\).*400x400.*\(B6c\).*B4 takes.*400x400 with K=16"),
+    (256, 256, 48, r"\(B6\).*\(B6c\).*B4 takes.*256x256 with K=48"),
+    (128, 128, 257, r"\(B6\).*K <= 16.*\(B6c\).*1 <= K <= 256, got K=257"),
     (32, 32, 0, r"\(B6\).*\(B6c\).*1 <= K"),
 ])
 def test_full_metric_beyond_both_domains_names_both_kernels(h, w, k, match):
@@ -233,7 +233,7 @@ def test_api_resolves_b6c_for_the_full_metric_on_crowded_fields():
         cfg = CONFIGS[name]
         assert dispatch.trajectory_kernel(cfg.head, api._metric_of(cfg), cfg.scene,
                                           cfg.kmax) == "B6"
-    huge = dataclasses.replace(wide, scene=wide.scene._replace(height=256, width=256))
+    huge = dataclasses.replace(wide, scene=wide.scene._replace(height=400, width=400))
     with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
         api.resolve_kernel("cuda", cuda, huge)
 
@@ -358,10 +358,10 @@ def test_b6c_domain_takes_its_edges(h, w, k):
 
 
 @pytest.mark.parametrize("h,w,k,match", [
-    (128, 128, 65, "1 <= K <= 64, got K=65"),
-    (32, 32, 0, "1 <= K <= 64, got K=0"),
-    (129, 128, 8, "at most 128x128 pixels, got 129x128"),
-    (64, 136, 8, "at most 128x128 pixels, got 64x136"),
+    (128, 128, 257, "1 <= K <= 256, got K=257"),
+    (32, 32, 0, "1 <= K <= 256, got K=0"),
+    (400, 400, 8, "that B4 takes (its TPU kernel's VMEM gates), got 400x400 with K=8"),
+    (256, 256, 48, "that B4 takes (its TPU kernel's VMEM gates), got 256x256 with K=48"),
 ])
 def test_b6c_domain_rejects_beyond_its_edges(h, w, k, match):
     err = frc.domain_error(_spec(h, w), k)
