@@ -160,7 +160,9 @@
    chains, both mask forms, B5 with and without an entry gradient, B4 at
    beta 1 and 0.7; the same bits on a rerun and for chains alone or among
    others, and a chain that overflows, at 192x192 K = 125; B4's wide path
-   forced onto cfg4's shape against its one-tile path; both kernels timed
+   forced onto cfg4's shape against its one-tile path (float64 deciding
+   where their roundings part: the wide path's pixel offsets are exact
+   differences); both kernels timed
    at the slice's shapes (B4 4096 particles at K = 125, B5 1024 chains at
    K = 112, L = 10); (b) through the public API, each launch count set to
    0 just before its run and read just after: cfg4's SMC on a drawn
@@ -183,12 +185,35 @@
    particles, 2 temperature steps) and cfg1_rhmc on a drawn 128x128 field
    of 80 stars at K = 80 (64 chains, 100 + 100), whose total flux must lie
    within 4 posterior sd of the drawn truth;
-21. prints one JSON line with a row per kernel (launches on its paths, the
+21. B5, B4 and B6c beyond their TPU kernels' VMEM gates, where the JAX
+   package runs XLA: (a) each against its plain version, float64 as
+   arbiter, one past every old edge and at the JAX package's own examples
+   (B5: 128x128 K = 668 and 1000, 256x256 K = 200, 512x512 K = 64; B4:
+   128x128 K = 255 and 1000, 256x256 K = 256, 512x512 K = 64; B6c:
+   256x256 K = 256, 128x128 K = 257, 300 and 700, 512x512 K = 32), 3-6
+   chains, both mask forms, B5 with and without an entry gradient, B4 and
+   B6c at beta 1 and 0.7; the same bits on a rerun and for chains alone or
+   among others, and B6c's 132 chains the same bits at a grid of 132
+   blocks and of 8; each kernel timed at the slice's shapes (B4 and B6c
+   4096 particles at K = 256 on 256x256, B5 1024 chains at K = 200, B6c
+   64 chains at K = 300 on 128x128), the plain versions on the first few
+   chains of each launch, as is the kernel; (b) through the public API,
+   each launch count set to 0 just before its run and read just after:
+   W1 (cfg4's SMC on a drawn 256x256 field of 200 stars at K_max 256, 2
+   temperature steps) on B4, W2 (crowded ChEES there at K = 200, 1024
+   chains, 20 + 20) on B5, W3 (W1 with the full-metric mutation) and W4
+   (the rhmc head on a drawn 128x128 field of 300 stars at K = 300, 2 + 2)
+   on B6c, W4's total flux within 4 posterior sd of the truth (where its
+   chains start: the truth plus 0.01 jitter, a step near 1e-6 after 2 + 2,
+   so a finite run on B6c, not a posterior, is what it shows); B4 and B5
+   then held at W1's and W2's last states;
+22. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work; B6c's row
    also gives the particles of its timed launch, the plain version's, and
    the kernel's time on the plain version's, ms_same; B4's, B5's and B6c's
-   rows the same at the slice's shapes under "wide").
+   rows the same at the slice's shapes under "wide", and beyond the TPU
+   gates under "beyond").
 
 Every failure raises.  Exits nonzero, printing no result, without CUDA or
 outside a checkout.  The last line is {"ok": true, "device": {...}}.
@@ -684,19 +709,39 @@ def _b5_errors(out, want):
             "grad_rel": float(((g - want[3]).abs() / (1.0 + want[3].abs())).max())}
 
 
-def _b5_compare(case, out, want, want64=None, kernel="B5"):
+def _b5_compare(case, out, want, want64=None, kernel="B5", at_own=None):
     """B5 within TOL of its plain version (U with eight float32 spacings at
     its magnitude); on a long trajectory, where the field's stiffness
     amplifies float32 rounding in both versions, a quantity off TOL passes
     if the kernel is no farther from a float64 run of the plain version
-    than the float32 plain version is, plus TOL.  Returns the theta error
-    and the bound on U."""
+    than the float32 plain version is, plus TOL.  With ``at_own`` (theta ->
+    the float64 plain version's outputs at L = 0 there), the returned
+    gradient off those bars passes where it lies within TOL of float64's
+    gradient at the kernel's own returned theta: B5's wide path takes its
+    star centres in double, so it no longer shares the plain version's
+    float32 centres, and at a stiff star the gradient at a trajectory's end
+    then moves with that end's theta (held above) by more than TOL in any
+    float32 program (at 512x512 K = 64 on the H100, 10 steps: 0.024 and
+    0.006 from float64 for kernel and plain version here, 0.0008-0.014
+    and 0.021-0.13 on four more draws; at one point the kernel 3.1e-5, the
+    plain version 5.6e-4).  Returns the theta error and the bound on U."""
     tol = dict(TOL, u=TOL["u"] + _spacings(want[2], 8))
     errs = _b5_errors(out, want)
     far = _b5_errors(out, want64) if want64 is not None else None
     near = _b5_errors(want, want64) if want64 is not None else None
     for name, e in errs.items():
         if e <= tol[name]:
+            continue
+        if (name == "grad_rel" and at_own is not None and far is not None
+                and not far[name] <= near[name] + tol[name]):
+            g = at_own(out[0])[3]
+            own = float(((out[3].double() - g).abs() / (1.0 + g.abs())).max())
+            print(f"{kernel} {case}: grad_rel {e:.3g} from the plain version; from float64 "
+                  f"the kernel {far[name]:.3g}, the plain version {near[name]:.3g}; from "
+                  f"float64's gradient at the kernel's own theta {own:.3g}")
+            if not own <= tol[name]:
+                raise AssertionError(f"{kernel} {case}: the gradient lies {own} from float64's "
+                                     f"at the kernel's own theta")
             continue
         if far is None or not far[name] <= near[name] + tol[name]:
             raise AssertionError(f"{kernel} {case}: {name} error {e} > {tol[name]}"
@@ -2435,6 +2480,9 @@ def _arbitrate(label, make_fused, reference, name, spec, img, pr, k, n_steps, fp
           f"{float(dp['theta'][ill].max()) if bool(ill.any()) else 0.0} (plain float32)")
     if int(well.sum()) < 8:
         raise AssertionError(f"{label} {name}: only {int(well.sum())} well-conditioned chains")
+    flagged = {nm: int((well & (dk[nm] > dp[nm] + tol[nm])).sum()) for nm in dk}
+    print(f"{label} {name}: well-conditioned chains on which the kernel lies farther from "
+          f"float64 than the plain version plus its bar, by output: {json.dumps(flagged)}")
     for nm in dk:
         bad = well & (dk[nm] > dp[nm] + tol[nm])
         if bool(bad.any()):
@@ -2790,7 +2838,10 @@ def check_wide_kernels(flc, fl, frdc, frd, configs, dev):
             inv_mass.double(), mask.double(), 10, None if g0 is None else g0.double())
         name = (f"wide {h}x{w} K={k} ({c} chains, "
                 f"{'per-chain mask, gradient in' if i % 2 else 'shared mask'})")
-        err5 = max(err5, _b5_compare(name, out, want, want64)[0])
+        own = lambda th: fl.fused_leapfrog_reference(  # noqa: E731
+            cfg.scene, img.double(), cfg.prior, th.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), 0, None)
+        err5 = max(err5, _b5_compare(name, out, want, want64, at_own=own)[0])
         live = mask if mask.ndim == 2 else mask.expand(c, k)
         dead = live == 0
         if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
@@ -2871,7 +2922,9 @@ def check_wide_kernels(flc, fl, frdc, frd, configs, dev):
               b4_same=_time_ms(lambda: b4(*sub, 1.0), 2, warmup=1),
               b4_particles=p_all, b4_plain_particles=WIDE_HELD, b4_live=int(mask.sum()))
     # B4's wide path forced onto cfg4's shape (a launch with a workspace
-    # takes it), against the one-tile path there: why both stay
+    # takes it), against the one-tile path there, float64 deciding where
+    # their roundings part (the wide path's pixel offsets are exact
+    # differences): why both stay
     from starcat_torch import build
 
     cfg4 = configs["cfg4_crowded"]
@@ -2884,8 +2937,11 @@ def check_wide_kernels(flc, fl, frdc, frd, configs, dev):
         "fused_rhmc_diag_crowded", i4, 64, 6, 4, scal, *args, 1.0,
         workspace=(work, args[0].shape[0]))
     one = frdc.make_fused_rhmc_diag(cfg4.scene, i4, cfg4.prior, 64, 6, 4)
-    _compare_chains("B4 wide path forced at cfg4's shape, against the one-tile path", forced(),
-                    one(*args, 1.0), h_spacings=8, p_rel=True)
+    _hold_two_paths("B4 wide path forced at cfg4's shape, against the one-tile path", forced(),
+                    one(*args, 1.0), lambda idx: frd.fused_rhmc_diag_reference(
+                        cfg4.scene, i4.double(), cfg4.prior,
+                        *(a[idx].double() for a in args), 1.0, 6, 4),
+                    args[3], args[0])
     ms.update(b4_cfg4_one_tile=_time_ms(lambda: one(*args, 1.0), 2, warmup=1),
               b4_cfg4_wide=_time_ms(forced, 2, warmup=1))
     print(f"B4 at cfg4's shape (4096 particles, K=64, 128x128): one-tile path "
@@ -2896,6 +2952,75 @@ def check_wide_kernels(flc, fl, frdc, frd, configs, dev):
           f"kernel {ms['b4']:.3f} ms per trajectory; on {WIDE_HELD} of them kernel "
           f"{ms['b4_same']:.3f} ms, plain {ms['b4_plain']:.3f} ms")
     return err5, err4, ms
+
+
+def _hold_two_paths(name, out, ref, plain64, mask, theta):
+    """Two float32 paths of one kernel on the same inputs (B4's wide path
+    forced onto a shape of its one-tile path, ``out``, against that path,
+    ``ref``), chain by chain: solver verdicts agree on at least 99% of the
+    chains and at least 80% converge tightly in both; on those, every
+    output of ``out`` lies within _compare_chains' bar of ``ref``'s (the
+    energies eight float32 spacings, p relative to 1 + |p|), or float64
+    decides: ``plain64(idx)`` runs the float64 plain version on those
+    chains only, and where ``ref`` lies within the bar of it in every
+    output (a well-conditioned chain), ``out`` must lie no farther from it
+    than ``ref`` plus the bar.  Where ``ref`` itself parts from float64
+    beyond the bar, the chain amplifies float32 rounding in any program and
+    its distances are only printed.  Dead slots frozen.  Returns the
+    largest theta distance between the two on the tight chains."""
+    import torch
+
+    c = theta.shape[0]
+    fail_o, fail_r = ~(out[5] < SOLVER_TOL), ~(ref[5] < SOLVER_TOL)
+    disagree = int((fail_o != fail_r).sum())
+    tight = (out[5] < TIGHT) & (ref[5] < TIGHT)
+    names = ("theta", "p", "h0", "h1", "u1")
+    tol = {nm: _h_tol(ref[i][tight], 8) if nm[0] in "hu" else RTOL[nm]
+           for i, nm in enumerate(names)}
+
+    def dist(nm, a, b):
+        d = (a.double() - b.double()).abs()
+        return _per_chain(d / (1.0 + b.double().abs()) if nm == "p" else d)
+
+    e = {nm: dist(nm, out[i], ref[i]) for i, nm in enumerate(names)}
+    beyond = torch.zeros_like(tight)
+    for nm in names:
+        beyond |= tight & (e[nm] > tol[nm])
+    print(f"{name}: solver failures {int(fail_o.sum())} and {int(fail_r.sum())}, disagreeing "
+          f"{disagree} of {c}; on the {int(tight.sum())} tight chains "
+          f"{json.dumps({nm: float(e[nm][tight].max()) for nm in names})}, beyond a bar on "
+          f"{int(beyond.sum())}; tolerances {json.dumps(tol)}")
+    if disagree > 0.01 * c:
+        raise AssertionError(f"{name}: {disagree} chains' solver verdicts disagree")
+    if int(tight.sum()) < 0.8 * c:
+        raise AssertionError(f"{name}: only {int(tight.sum())} of {c} chains converged")
+    idx = beyond.nonzero()[:, 0]
+    if idx.numel():
+        z = plain64(idx)
+        well = z[5] < TIGHT
+        dk = {nm: dist(nm, out[i][idx], z[i]) for i, nm in enumerate(names)}
+        dr = {nm: dist(nm, ref[i][idx], z[i]) for i, nm in enumerate(names)}
+        for nm in names:
+            well &= dr[nm] <= tol[nm]
+        far = {nm: (float(dk[nm][well].max()), float(dr[nm][well].max()))
+               if bool(well.any()) else None for nm in names}
+        print(f"{name}: of the {idx.numel()} chains beyond a bar, {int(well.sum())} "
+              f"well-conditioned; there from float64 (forced path, other path) "
+              f"{json.dumps(far)}; on the others theta "
+              f"{float(dk['theta'][~well].max()) if bool((~well).any()) else 0.0} and "
+              f"{float(dr['theta'][~well].max()) if bool((~well).any()) else 0.0}")
+        for nm in names:
+            bad = well & (dk[nm] > dr[nm] + tol[nm])
+            if bool(bad.any()):
+                i = int(bad.nonzero()[0, 0])
+                raise AssertionError(f"{name}: chain {int(idx[i])}'s {nm} is "
+                                     f"{float(dk[nm][i])} from float64, the other path's "
+                                     f"{float(dr[nm][i])}")
+    live = mask if mask.ndim == 2 else mask.expand(c, theta.shape[1])
+    dead = (live == 0) & (~fail_o)[:, None]
+    if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+        raise AssertionError(f"{name}: a dead slot moved")
+    return float(e["theta"][tight].max())
 
 
 def _arbitrate_b5(name, out, want, moved, want64, mask, theta, min_well=8):
@@ -2918,9 +3043,9 @@ def _arbitrate_b5(name, out, want, moved, want64, mask, theta, min_well=8):
     alone (no chain flagged) fails the plain version itself: on the H100
     at run 2's last state, 64 steps, the control was flagged on 37 of the
     382 chains, the kernel on 19 (scripts/b5_run_state_accuracy.py).  Dead
-    slots frozen with zero gradient.  Returns the largest theta distance
-    between the kernel and the plain version on the unflagged
-    well-conditioned chains."""
+    slots frozen with zero gradient.  Returns the largest
+    theta distance between the kernel and the plain version on the
+    unflagged well-conditioned chains."""
     import torch
 
     c = theta.shape[0]
@@ -2983,7 +3108,8 @@ def _hold_b5_run(out, dev, flc, fl, seed):
     chees.max_leapfrog steps) from a device int32, the entry gradient in;
     first (U, grad U) at that state (_b5_compare), then the trajectory
     chain by chain (_arbitrate_b5; the control, the plain version from
-    theta one float32 spacing up).  Returns the largest theta error."""
+    theta one float32 spacing up).  Returns the
+    largest theta error."""
     import math
 
     import torch
@@ -3250,6 +3376,327 @@ def run_b6c_wide_slice(api, configs, dev, frc):
             raise AssertionError(f"R2: total flux {tf['mean']} ± {tf['sd']} vs the drawn "
                                  f"truth {truth}")
     return launches
+
+
+# phase 21: B5, B4 and B6c beyond their TPU kernels' VMEM gates, where the
+# JAX package runs XLA and the port its crowded-field kernels.  The slice's
+# scene is cfg4's star density on a 256x256 field (200 stars, truth_seed 11,
+# data_seed 12, RunConfig's defaults).  W1 is cfg4's SMC on it at K_max 256
+# (B4's gate there: K <= 47) and the preset's widths, cut from up to 250
+# temperature steps to 2; W2 the crowded ChEES head on it at K = 200 and
+# 1024 chains (B5's gate: K <= 183), cut from 500 + 1000 to 20 + 20 at most
+# 64 steps a trajectory, no warmup extension or equilibration stage; W3 W1
+# with the full-metric mutation (B6c); W4 the rhmc head on a drawn 128x128
+# field of 300 stars at K = 300 (B6c beyond K = 256, D = 900), its 64
+# chains, cut from 400 + 1000 to 2 + 2 (a 16 x 6 trajectory of its 64
+# chains takes about 9 s on the H100).  The uncut runs
+# (scripts/wide_runs.py --only w1 w2 w3 w4, themselves cut): PERF.md.
+BEYOND_SLICE = {"scene.height": 256, "scene.width": 256, "n_stars": 200}
+W1 = {**BEYOND_SLICE, "kmax": 256, "smc.max_steps": 2}
+W2 = {**BEYOND_SLICE, "kmax": 200, "head": "chees", "n_chains": 1024, "n_warmup": 20,
+      "n_samples": 20, "chees.max_leapfrog": 64, "chees.max_warmup_extensions": 0,
+      "chees.max_eq_stages": 0}
+W2_HOLD_SEED = 161  # the momentum of B5's hold at W2's last state
+W3 = {**W1, "smc.mutation": "rhmc"}
+W4 = {"scene.height": 128, "scene.width": 128, "n_stars": 300, "kmax": 300, "n_warmup": 2,
+      "n_samples": 2}
+# (H, W, K, chains) one past each old edge and at the JAX package's own
+# examples (a 512x512 field, K = 1000 on 128x128), on drawn fields at cfg4's
+# density
+B5_BEYOND = ((128, 128, 668, 5), (128, 128, 1000, 4), (256, 256, 200, 6), (512, 512, 64, 3))
+B4_BEYOND = ((128, 128, 255, 5), (128, 128, 1000, 4), (256, 256, 256, 6), (512, 512, 64, 3))
+# (H, W, K, chains, per-chain masks, the fraction of b4_inputs' step,
+# n_steps, fixed-point sweeps, the drawn field's stars: None at cfg4's
+# density): B6c at the slice's 256x256 K = 256, one past the old K <= 256
+# on 128x128, at K = 300 (the whole Cholesky panel in shared memory), at
+# K = 700 (the panel streamed, the per-star vectors in the workspace) and
+# on a 512x512 field
+B6C_BEYOND = ((256, 256, 256, 4, True, 6, 6, 4, 256), (128, 128, 257, 6, False, 48, 6, 4, 257),
+              (128, 128, 300, 4, True, 12, 6, 4, 300), (128, 128, 700, 3, False, 96, 2, 2, 700),
+              (512, 512, 32, 4, True, 6, 6, 4, None))
+# the chains of each timed launch that the plain version runs and is timed on
+BEYOND_HELD = {"b4": 32, "b6c": 8, "b6c_w4": 4}
+
+
+def check_beyond_gates(flc, fl, frdc, frd, frc, fr, configs, dev):
+    """Phase 21a: B5, B4 and B6c one past their old edges, each against its
+    plain version with float64 as arbiter, on drawn fields at cfg4's
+    density (B6c's at K stars where K passes it): B5 an L = 10 trajectory
+    (_b5_compare), shared masks and per-chain masks with the entry gradient
+    in by turns, at B5_BEYOND; B4 a 6 x 4 trajectory chain by chain
+    (_compare_chains) at a third of b4_inputs' step, per-chain masks at beta
+    1 and shared ones at 0.7 by turns, at B4_BEYOND; B6c chain by chain
+    (_hold_b6c_wide) at B6C_BEYOND.  Then the same bits on a rerun and for
+    chains alone or among others (B5 at 128x128 K = 1000, B4 at 256x256 K =
+    256, B6c at 128x128 K = 300), B6c's 132 chains at 128x128 K = 257 the
+    same bits at a grid of 132 blocks and of 8, and each kernel timed at
+    the slice's shapes: B4 4096 particles at K = 256 on 256x256 (6 x 4,
+    30..256 live), B5 1024 chains at K = 200 (L = 10, entry gradient in),
+    B6c 4096 particles at K = 256 on 256x256 (6 x 4) and W4's 64 chains at
+    K = 300 on 128x128 (16 x 6, all live), the plain versions on the first
+    BEYOND_HELD of each launch, as is the kernel.  Returns the largest
+    theta errors and the times."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(130)
+    err5 = err4 = err6 = 0.0
+    for i, (h, w, k, c) in enumerate(B5_BEYOND):
+        cfg, truth, image = _wide_scene(configs, h, w)
+        if flc.one_tile(k, h, w) or flc.domain_error(cfg.scene, k) is not None:
+            raise AssertionError(f"B5 beyond: {h}x{w} K={k} is not on the wide path")
+        img = image.to(dev)
+        theta, p, eps = _crowded_inputs(truth, c, k, dev, 130 + i)
+        eps = 0.002 * eps
+        inv_mass = torch.full((k, 3), 0.9, device=dev)
+        mask, g0 = torch.ones(k, device=dev), None
+        if i % 2:  # per-chain masks and the entry gradient in
+            mask = (torch.rand((c, k), generator=gen, device=dev) < 0.8).to(torch.float32)
+            p = p * mask[..., None]
+            g0 = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                             mask, 0, None)[3]
+        out = flc.make_fused_leapfrog(cfg.scene, img, cfg.prior, k, 10)(
+            theta, p, eps, inv_mass, mask, grad=g0)
+        want = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass,
+                                           mask, 10, g0)
+        want64 = fl.fused_leapfrog_reference(
+            cfg.scene, img.double(), cfg.prior, theta.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), 10, None if g0 is None else g0.double())
+        name = (f"beyond {h}x{w} K={k} ({c} chains, "
+                f"{'per-chain mask, gradient in' if i % 2 else 'shared mask'})")
+        own = lambda th: fl.fused_leapfrog_reference(  # noqa: E731
+            cfg.scene, img.double(), cfg.prior, th.double(), p.double(), eps.double(),
+            inv_mass.double(), mask.double(), 0, None)
+        err5 = max(err5, _b5_compare(name, out, want, want64, at_own=own)[0])
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = live == 0
+        if not torch.equal(out[0][dead], theta[dead]) or not bool((out[3][dead] == 0).all()):
+            raise AssertionError(f"B5 {name}: a dead slot moved or has a gradient")
+    for i, (h, w, k, c) in enumerate(B4_BEYOND):
+        cfg, truth, image = _wide_scene(configs, h, w)
+        if frdc.one_tile(k, h, w) or frdc.domain_error(cfg.scene, k) is not None:
+            raise AssertionError(f"B4 beyond: {h}x{w} K={k} is not on the wide path")
+        img = image.to(dev)
+        per_chain = i % 2 == 0
+        theta, xi, eps, mask = b4_inputs(truth, c, k, dev, 135 + i, per_chain)
+        eps = eps / 3.0
+        beta = 1.0 if per_chain else 0.7
+        out = frdc.make_fused_rhmc_diag(cfg.scene, img, cfg.prior, k, 6, 4)(
+            theta, xi, eps, mask, torch.tensor(beta, device=dev))
+        ref = frd.fused_rhmc_diag_reference(cfg.scene, img, cfg.prior, theta, xi, eps, mask,
+                                            beta, 6, 4)
+        ref64 = frd.fused_rhmc_diag_reference(cfg.scene, img.double(), cfg.prior,
+                                              theta.double(), xi.double(), eps.double(),
+                                              mask.double(), beta, 6, 4)
+        name = (f"B4 beyond {h}x{w} K={k} ({c} chains, "
+                f"{'per-chain' if per_chain else 'shared'} mask, beta {beta})")
+        err4 = max(err4, _compare_chains(name, out, ref, ref64, h_spacings=8, p_rel=True))
+        live = mask if mask.ndim == 2 else mask.expand(c, k)
+        dead = (live == 0) & (out[5] < SOLVER_TOL)[:, None]
+        if not torch.equal(out[0][dead], theta[dead]) or bool((out[1][dead] != 0).any()):
+            raise AssertionError(f"{name}: a dead slot moved")
+    for i, (h, w, k, c, per_chain, frac, n_steps, fpi, n) in enumerate(B6C_BEYOND):
+        cfg, truth, image = _wide_scene(configs, h, w, n)
+        if frc.one_tile(k, h, w) or frc.domain_error(cfg.scene, k) is not None:
+            raise AssertionError(f"B6c beyond: {h}x{w} K={k} is not on the wide path")
+        theta, xi, eps, mask = b4_inputs(truth, c, k, dev, 140 + i, per_chain)
+        beta = 1.0 if per_chain else 0.7
+        mode = (f"{'whole' if frc.full_panel(k) else 'streamed'} panel, vectors in "
+                f"{'shared memory' if frc.vectors_in_shared(k) else 'the workspace'}")
+        err6 = max(err6, _hold_b6c_wide(
+            frc, fr, f"beyond {h}x{w} K={k} ({c} chains, "
+            f"{'per-chain' if per_chain else 'shared'} mask, beta {beta}, {n_steps} x {fpi}, "
+            f"{mode})", cfg.scene, image.to(dev), cfg.prior, k, n_steps, fpi, theta, xi,
+            eps / frac, mask, beta))
+
+    # the same bits on a rerun and for chains alone or among others
+    def same_bits(name, fused, args, fixed=()):
+        full = fused(*args)
+        if not _same_bits(full, fused(*args)):
+            raise AssertionError(f"{name}: a rerun gave other bits")
+        for idx in ([3], [0, 4, 3, 1]):
+            sel = torch.tensor(idx, device=dev)
+            part = fused(*(a if j in fixed else a[sel].contiguous()
+                           for j, a in enumerate(args)))
+            if not _same_bits(part, [o[sel] for o in full]):
+                raise AssertionError(f"{name}: chains {idx} differ from the 5-chain launch")
+
+    cfg, truth, image = _wide_scene(configs, 128, 128)
+    theta, p, eps = _crowded_inputs(truth, 5, 1000, dev, 145)
+    mask = (torch.rand((5, 1000), generator=gen, device=dev) < 0.8).to(torch.float32)
+    inv_mass = torch.full((1000, 3), 0.9, device=dev)
+    same_bits("B5 beyond 128x128 K=1000",
+              flc.make_fused_leapfrog(cfg.scene, image.to(dev), cfg.prior, 1000, 10),
+              (theta, p * mask[..., None], 0.002 * eps, inv_mass, mask), fixed=(3,))
+    s_cfg, s_truth, s_image = _wide_scene(configs, 256, 256)
+    s_img = s_image.to(dev)
+    theta, xi, eps, mask = b4_inputs(s_truth, 5, 256, dev, 146, True)
+    same_bits("B4 beyond 256x256 K=256",
+              frdc.make_fused_rhmc_diag(s_cfg.scene, s_img, s_cfg.prior, 256, 6, 4),
+              (theta, xi, eps / 3.0, mask))
+    c_cfg, c_truth, c_image = _wide_scene(configs, 128, 128, 300)
+    theta, xi, eps, mask = b4_inputs(c_truth, 5, 300, dev, 147, True)
+    same_bits("B6c beyond 128x128 K=300",
+              frc.make_fused_rhmc(c_cfg.scene, c_image.to(dev), c_cfg.prior, 300, 2, 2),
+              (theta, xi, eps / 12.0, mask))
+    # the wrapper's grid (one block an SM) against a launch of 8 blocks
+    # through build.launch_riemannian with a workspace for 8
+    from starcat_torch import build
+
+    g_cfg, g_truth, g_image = _wide_scene(configs, 128, 128, 257)
+    g_img = g_image.to(dev)
+    theta, xi, eps, mask = b4_inputs(g_truth, 132, 257, dev, 148, True)
+    eps = eps / 12.0
+    grid = frc.launch_layout(132, 257, 128, 128, dev)["grid"]
+    full = frc.make_fused_rhmc(g_cfg.scene, g_img, g_cfg.prior, 257, 2, 2)(theta, xi, eps, mask)
+    work = torch.zeros(frc.workspace_bytes(257, 128, 128, 8) // 4, device=dev)
+    eight = build.launch_riemannian(
+        "fused_rhmc_crowded", g_img, 257, 2, 2,
+        build.riemannian_scalars(g_cfg.scene, g_cfg.prior, 1e-3), theta, xi, eps, mask, 1.0,
+        workspace=(work, 8))
+    if grid != 132 or not _same_bits(full, eight):
+        raise AssertionError(f"B6c 128x128 K=257, 132 chains: grids {grid} and 8 gave other "
+                             "bits")
+    print("B5 (128x128 K=1000), B4 (256x256 K=256) and B6c (128x128 K=300) beyond: the same "
+          "bits on a rerun and for chains alone or among others; B6c's 132 chains at "
+          "128x128 K=257 the same bits at a grid of 132 blocks and of 8")
+
+    # timed at the slice's shapes
+    c5, k5, L = 1024, 200, 10
+    theta, p, e5 = _crowded_inputs(s_truth, c5, k5, dev, 150)
+    e5 = 0.002 * e5
+    m5, im5 = torch.ones(k5, device=dev), torch.full((k5, 3), 0.9, device=dev)
+    b5 = flc.make_fused_leapfrog(s_cfg.scene, s_img, s_cfg.prior, k5, L)
+    g0 = fl.fused_leapfrog_reference(s_cfg.scene, s_img, s_cfg.prior, theta, p, e5, im5, m5, 0,
+                                     None)[3]
+    ms = {"b5": _time_ms(lambda: b5(theta, p, e5, im5, m5, grad=g0), 5, warmup=1),
+          "b5_plain": _time_ms(lambda: fl.fused_leapfrog_reference(
+              s_cfg.scene, s_img, s_cfg.prior, theta, p, e5, im5, m5, L, g0), 1, warmup=1),
+          "b5_chains": c5, "b5_k": k5}
+    p_all = configs["cfg4_crowded"].smc.n_particles
+    theta, xi, eps, mask = b4_inputs(s_truth, p_all, 256, dev, 151, True)
+    b4 = frdc.make_fused_rhmc_diag(s_cfg.scene, s_img, s_cfg.prior, 256, 6, 4)
+    sub = tuple(t[:BEYOND_HELD["b4"]].contiguous() for t in (theta, xi, eps, mask))
+    ms.update(b4=_time_ms(lambda: b4(theta, xi, eps, mask, 1.0), 1, warmup=1),
+              b4_plain=_time_ms(lambda: _plain_chunked(
+                  frd.fused_rhmc_diag_reference, s_cfg.scene, s_img, s_cfg.prior, *sub, 1.0,
+                  6, 4), 1, warmup=0),
+              b4_same=_time_ms(lambda: b4(*sub, 1.0), 2, warmup=1),
+              b4_particles=p_all, b4_live=int(mask.sum()))
+    b6 = frc.make_fused_rhmc(s_cfg.scene, s_img, s_cfg.prior, 256, 6, 4)
+    eps = eps / 6.0
+    sub = tuple(t[:BEYOND_HELD["b6c"]].contiguous() for t in (theta, xi, eps, mask))
+    last, plain = [], []
+    ms.update(b6c=_time_ms(lambda: last.append(b6(theta, xi, eps, mask, 1.0)), 1, warmup=0),
+              b6c_plain=_time_ms(lambda: plain.append(_plain_chunked(
+                  fr.fused_rhmc_reference, s_cfg.scene, s_img, s_cfg.prior, *sub, 1.0, 6, 4)),
+                  1, warmup=0),
+              b6c_same=_time_ms(lambda: b6(*sub, 1.0), 1, warmup=0),
+              b6c_particles=p_all, b6c_live=int(mask.sum()),
+              b6c_ops=rhmc_full_sparse_ops(theta, mask, s_cfg.scene, 6, 4),
+              b6c_failures=int((~(last[-1][5] < SOLVER_TOL)).sum()),
+              b6c_layout=frc.launch_layout(p_all, 256, 256, 256, dev))
+    ref64 = fr.fused_rhmc_reference(s_cfg.scene, s_img.double(), s_cfg.prior,
+                                    *(t.double() for t in sub), 1.0, 6, 4)
+    err6 = max(err6, _judge_b6c_wide(
+        f"beyond timed launch, the first {BEYOND_HELD['b6c']} of {p_all} particles",
+        [o[:BEYOND_HELD["b6c"]] for o in last[-1]], plain[-1], ref64, sub[0], sub[3]))
+    # W4's shape: the rhmc head's 64 chains, 16 x 6, all 300 stars live
+    w_cfg, w_truth, w_image = _wide_scene(configs, 128, 128, 300)
+    w_img = w_image.to(dev)
+    theta, xi, eps, mask = b4_inputs(w_truth, 64, 300, dev, 152, False)
+    eps = eps / 12.0
+    b6w = frc.make_fused_rhmc(w_cfg.scene, w_img, w_cfg.prior, 300, 16, 6)
+    n_w4 = BEYOND_HELD["b6c_w4"]
+    sub = (theta[:n_w4].contiguous(), xi[:n_w4].contiguous(), eps[:n_w4].contiguous(), mask)
+    ms.update(b6c_w4=_time_ms(lambda: b6w(theta, xi, eps, mask, 1.0), 1, warmup=0),
+              b6c_w4_plain=_time_ms(lambda: fr.fused_rhmc_reference(
+                  w_cfg.scene, w_img, w_cfg.prior, *sub, 1.0, 16, 6), 1, warmup=0),
+              b6c_w4_same=_time_ms(lambda: b6w(*sub, 1.0), 1, warmup=0),
+              b6c_w4_ops=rhmc_full_sparse_ops(theta, mask, w_cfg.scene, 16, 6))
+    print(f"B5 beyond ({c5} chains, K={k5}, 256x256, L={L}): kernel {ms['b5']:.4f} ms, plain "
+          f"{ms['b5_plain']:.4f} ms per trajectory")
+    print(f"B4 beyond ({p_all} particles, K=256, {ms['b4_live']} live stars, 256x256, 6 x 4): "
+          f"kernel {ms['b4']:.3f} ms per trajectory; on {BEYOND_HELD['b4']} of them kernel "
+          f"{ms['b4_same']:.3f} ms, plain {ms['b4_plain']:.3f} ms")
+    print(f"B6c beyond ({p_all} particles, K=256, {ms['b6c_live']} live stars, 256x256, 6 x 4): "
+          f"kernel {ms['b6c']:.3f} ms per trajectory ({ms['b6c_failures']} solver failures); "
+          f"on {BEYOND_HELD['b6c']} of them kernel {ms['b6c_same']:.3f} ms, plain "
+          f"{ms['b6c_plain']:.3f} ms; layout {ms['b6c_layout']}")
+    print(f"B6c beyond (64 chains, K=300, 128x128, 16 x 6): kernel {ms['b6c_w4']:.3f} ms per "
+          f"trajectory; on {BEYOND_HELD['b6c_w4']} of them kernel {ms['b6c_w4_same']:.3f} ms, "
+          f"plain {ms['b6c_w4_plain']:.3f} ms")
+    return err5, err4, err6, ms
+
+
+def run_beyond_slice(api, configs, dev, flc, frdc, frc, fl, frd):
+    """Phase 21b: W1-W4 through the public API, each kernel's launch count
+    set to 0 just before its run and read just after, equal to the run's
+    own count: W1 on B4, W2 on B5, W3 and W4 on B6c, each with finite
+    draws; W1's and W3's SMC at 2 temperature steps with a positive beta
+    and a finite log Z, W4's total flux within 4 posterior sd of the drawn
+    truth (its chains start there, the truth plus 0.01 jitter, and at 2 + 2
+    its step adapts near 1e-6: the check cannot tell a sampler that moves
+    from one that does not).  After W1 and W2 their kernels are held at the run's last state,
+    as phase 19b holds them: B4 on W1's first 128 particles at its step and
+    temperature (_run_state, _arbitrate), B5 on W2's 1024 chains at its
+    adapted step, inverse mass and longest trajectory (_hold_b5_run).
+    Returns each kernel's launches and the largest theta errors."""
+    import numpy as np
+    import torch
+
+    from starcat_torch.configs import apply_overrides
+
+    def run(name, over, want, mod):
+        cfg = apply_overrides(configs[name], over)
+        mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = api.sample(cfg, dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, st = mod.LAUNCHES, out.stats
+        if st["trajectory_kernel"] != want or n <= 0 or n != st["kernel_launches"]:
+            raise AssertionError(f"{name} {json.dumps(over)} did not run through {want}: "
+                                 f"{st['trajectory_kernel']} x{st['kernel_launches']}, "
+                                 f"{want} launches {n}")
+        if not np.isfinite(out.thetas).all():
+            raise AssertionError(f"{name} {json.dumps(over)}: non-finite draws")
+        summ = api.summarize_output(out)
+        tf = summ["total_flux"]
+        truth = float(np.sum(st["truth"]["f"]))
+        print(f"beyond slice {name} {json.dumps(over)}: {wall:.3f} s wall, {want} x{n}, accept "
+              f"{st['accept']:.3f}, step {st['step_size']:.5f}, solver rejections "
+              f"{st.get('solver_rejections')}; total flux {tf['mean']:.1f} ± {tf['sd']:.1f} "
+              f"(R-hat {tf['rhat']:.4f}), truth {truth:.1f}; star count mean "
+              f"{summ['star_count']['mean'] if 'star_count' in summ else cfg.kmax}; peak "
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if cfg.head == "smc":
+            if not (0.0 < st["beta"] and np.isfinite(st["log_z"]) and st["n_temp_steps"] == 2):
+                raise AssertionError(f"{name} {json.dumps(over)}: beta {st['beta']}, log Z "
+                                     f"{st['log_z']} after {st['n_temp_steps']} steps")
+            print(f"  after 2 temperature steps: beta {st['beta']:.6f}, log Z "
+                  f"{st['log_z']:.3f}, mean star count {summ['star_count']['mean']:.3f}")
+        elif cfg.head == "rhmc" and not abs(tf["mean"] - truth) <= 4 * tf["sd"]:
+            raise AssertionError(f"{name} {json.dumps(over)}: total flux {tf['mean']} ± "
+                                 f"{tf['sd']} vs the drawn truth {truth}")
+        return out, n
+
+    out1, n4 = run("cfg4_crowded", W1, "B4", frdc)
+    st = out1.stats
+    cfg = out1.config
+    image = cfg.make_data()[1].to(dev)
+    theta, xi, eps, mask = _run_state(out1, dev, 160, 128)
+    _arbitrate("B4", frdc.make_fused_rhmc_diag, frd.fused_rhmc_diag_reference,
+               f"W1 256x256 K=256 (128 of {out1.thetas.shape[0]} particles, 6 x 4) on its last "
+               f"state (beta {st['beta']:.6f}, step {st['step_size']:.5f})",
+               cfg.scene, image, cfg.prior, cfg.kmax, cfg.smc.n_leapfrog,
+               cfg.smc.fixed_point_iters, theta, xi, eps, mask, st["beta"], True, 8)
+    out2, n5 = run("cfg4_crowded", W2, "B5", flc)
+    err = _hold_b5_run(out2, dev, flc, fl, W2_HOLD_SEED)
+    _, n6 = run("cfg4_crowded", W3, "B6c", frc)
+    _, n6w = run("cfg1_rhmc", W4, "B6c", frc)
+    return {"b4": n4, "b5": n5, "b6c": n6 + n6w}, err
 
 
 def leapfrog_ops(c, k, h, w, n_steps, grad_in):
@@ -3557,6 +4004,20 @@ def main() -> int:
     if b6c_wide <= 0:
         raise AssertionError("B6c's wide path was never launched on its path")
     launches["b6c"] += b6c_wide
+    t0 = time.perf_counter()
+    err_b5x, err_b4x, err_b6cx, ms_x = check_beyond_gates(flc, fl, frdc, frd, frc, fr, CONFIGS,
+                                                          dev)
+    err_b5, err_b4, err_b6c = max(err_b5, err_b5x), max(err_b4, err_b4x), max(err_b6c, err_b6cx)
+    print(f"beyond-gate kernel checks: {time.perf_counter() - t0:.3f} s wall")
+    t0 = time.perf_counter()
+    beyond, err_run = run_beyond_slice(api, CONFIGS, dev, flc, frdc, frc, fl, frd)
+    err_b5 = max(err_b5, err_run)
+    print(f"B5, B4 and B6c beyond the TPU kernels' gates: {time.perf_counter() - t0:.3f} s "
+          f"wall; launches {beyond}")
+    for name, n in beyond.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched beyond the gates: {beyond}")
+        launches[name] += n
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
@@ -3644,6 +4105,34 @@ def main() -> int:
                         "plain_particles": ms_b6cw["plain_particles"],
                         "ms_same": ms_b6cw["b6c_same"], "bound_ms": ms_b6cw["bound_ms"],
                         "bound_by": ms_b6cw["bound_by"], "edge_254": ms_b6cw["edge_254"]}
+    # the slice beyond the TPU kernels' gates (phase 21): each plain time is
+    # of the first plain_chains of its launch (the kernel on those: ms_same)
+    b4x = bound_ms(rhmc_diag_ops(1, ms_x["b4_live"], 256, 256, 6, 4),
+                   rhmc_bytes(ms_x["b4_particles"], 256, 256, 256, True))
+    b5x = bound_ms(leapfrog_ops(ms_x["b5_chains"], ms_x["b5_k"], 256, 256, 10, True),
+                   leapfrog_bytes(ms_x["b5_chains"], ms_x["b5_k"], 256, 256, True))
+    b6x = bound_ms(ms_x["b6c_ops"], rhmc_bytes(ms_x["b6c_particles"], 256, 256, 256, True))
+    b6w = bound_ms(ms_x["b6c_w4_ops"], rhmc_bytes(64, 300, 128, 128, False))
+    rows[3]["beyond"] = {"shape": f"{ms_x['b4_particles']} particles, K=256 "
+                                  f"({ms_x['b4_live']} live), 256x256, 6 x 4",
+                         "launches": beyond["b4"], "ms": ms_x["b4"],
+                         "plain_ms": ms_x["b4_plain"], "plain_chains": BEYOND_HELD["b4"],
+                         "ms_same": ms_x["b4_same"], "bound_ms": b4x[0], "bound_by": b4x[1]}
+    rows[4]["beyond"] = {"shape": f"{ms_x['b5_chains']} chains, K={ms_x['b5_k']}, 256x256, "
+                                  f"L=10",
+                         "launches": beyond["b5"], "ms": ms_x["b5"],
+                         "plain_ms": ms_x["b5_plain"], "plain_chains": ms_x["b5_chains"],
+                         "ms_same": ms_x["b5"], "bound_ms": b5x[0], "bound_by": b5x[1]}
+    rows[-1]["beyond"] = {"shape": f"{ms_x['b6c_particles']} particles, K=256 "
+                                   f"({ms_x['b6c_live']} live), 256x256, 6 x 4",
+                          "launches": beyond["b6c"], "ms": ms_x["b6c"],
+                          "plain_ms": ms_x["b6c_plain"], "plain_chains": BEYOND_HELD["b6c"],
+                          "ms_same": ms_x["b6c_same"], "bound_ms": b6x[0], "bound_by": b6x[1],
+                          "w4": {"shape": "64 chains, K=300 (all live), 128x128, 16 x 6",
+                                 "ms": ms_x["b6c_w4"], "plain_ms": ms_x["b6c_w4_plain"],
+                                 "plain_chains": BEYOND_HELD["b6c_w4"],
+                                 "ms_same": ms_x["b6c_w4_same"], "bound_ms": b6w[0],
+                                 "bound_by": b6w[1]}}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -121,9 +121,11 @@ def _crop(spec, truth, image, side: int):
 
 def shapes(dev):
     """(name, scene, image, prior, K, L, theta, p, eps, inv_mass, mask,
-    entry gradient) at chip_smoke's two timed B5 shapes, its inputs, and at
+    entry gradient) at chip_smoke's two timed B5 shapes, its inputs, at
     two scenes that only B5 serves (beyond B1's K <= 16): the crowded
-    field's 64x64 corner at K = 30 and the flagship scene at K = 20."""
+    field's 64x64 corner at K = 30 and the flagship scene at K = 20, and at
+    the wide path's 192x192 slice (1024 chains, K = 112, chip_smoke.py
+    phase 19a's timed launch)."""
     import chip_smoke
     import torch
 
@@ -131,6 +133,15 @@ def shapes(dev):
     from starcat_torch.configs import CONFIGS
 
     out = []
+    cfg, truth, image = chip_smoke._wide_scene(CONFIGS, 192, 192)
+    theta, p, eps = chip_smoke._crowded_inputs(truth, 1024, 112, dev, 102)
+    eps = 0.002 * eps
+    img, k = image.to(dev), 112
+    inv_mass, mask = torch.full((k, 3), 0.9, device=dev), torch.ones(k, device=dev)
+    g0 = fl.fused_leapfrog_reference(cfg.scene, img, cfg.prior, theta, p, eps, inv_mass, mask,
+                                     0, None)[3]
+    wide = ("192x192 K=112", cfg.scene, img, cfg.prior, k, 10, theta, p, eps, inv_mass, mask,
+            g0)
     for name, cfg_name, k, L, seed, side in (
             ("crowded", "cfg4_crowded", 50, 10, 30, None),
             ("flagship", "cfg6_chees", 10, 20, 31, None),
@@ -149,7 +160,7 @@ def shapes(dev):
         g0 = fl.fused_leapfrog_reference(spec, img, cfg.prior, theta, p, eps, inv_mass,
                                          mask, 0, None)[3]
         out.append((name, spec, img, cfg.prior, k, L, theta, p, eps, inv_mass, mask, g0))
-    return out
+    return out + [wide]
 
 
 def main() -> int:

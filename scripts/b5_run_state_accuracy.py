@@ -2,12 +2,14 @@
 last state, and how far the plain version itself moves when theta moves
 one float32 spacing: the readings behind chip_smoke's _arbitrate_b5.
 
-    python scripts/b5_run_state_accuracy.py [--device cuda|cpu] [--tiny]
+    python scripts/b5_run_state_accuracy.py [--device cuda|cpu] [--tiny | --w2]
 
 Runs the crowded ChEES head as chip_smoke's phase 19b runs it (WIDE_RUN2:
 1024 chains, K = 112 on the 192x192 field, B5's wide path) and the same on
 cfg4's 128x128 field at K = 50 (B5's one-tile path); --tiny instead runs a
-32x32 field of 6 stars at 64 chains (for the CPU).  At each run's last
+32x32 field of 6 stars at 64 chains (for the CPU), and --w2 instead W2
+of chip_smoke's phase 21b (1024 chains, K = 200 on the 256x256 field, its
+momentum drawn from the same seed as the phase's hold).  At each run's last
 state (its adapted step and inverse mass, momentum drawn as the run draws
 it, the entry gradient in) it prints, at L = 0 the gradient's and U's
 distance from float64 for the kernel and the plain version; at L = 10, 32
@@ -146,6 +148,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true", help="a 32x32 field of 6 stars, 64 chains")
+    ap.add_argument("--w2", action="store_true", help="chip_smoke's W2: 256x256, K = 200")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda":
@@ -158,6 +161,9 @@ def main() -> int:
     chees = {k: v for k, v in cs.WIDE_RUN2.items()
              if not k.startswith("scene") and k not in ("n_stars", "kmax")}
     runs = (("wide run 2", cs.WIDE_RUN2), ("one-tile cfg4 128x128 K=50", {**chees, "kmax": 50}))
+    seed = 105
+    if args.w2:
+        runs, seed = (("W2 256x256 K=200", cs.W2),), cs.W2_HOLD_SEED
     if args.tiny:
         runs = (("tiny 32x32 K=6", {**chees, "scene.height": 32, "scene.width": 32,
                                      "n_stars": 6, "kmax": 6, "n_chains": 64, "n_warmup": 40,
@@ -168,7 +174,7 @@ def main() -> int:
         out = api.sample(cfg, dev, seed=0)
         print(f"{label}: run {time.perf_counter() - t0:.2f} s, {out.stats['trajectory_kernel']}, "
               f"accept {out.stats['accept']:.4f}", flush=True)
-        diag(label, out, dev)
+        diag(label, out, dev, seed)
     return 0
 
 

@@ -17,11 +17,12 @@ launch layout, how far the two kernels' outputs are apart on the chains
 whose fixed points converged tightly in both (absolute, and against
 chip_smoke.py phase 18's kernel-versus-plain bars, the chains beyond a bar
 held against the float64 plain version), whether the new build gives
-the same bits on a rerun, and then the time of one trajectory with CUDA
-events in the order old, new, new, old, with the mean of each kernel, the
-ratio and the share of the bound (chip_smoke.rhmc_full_sparse_ops: the
-work these inputs need), of every pixel of every pair
-(rhmc_full_crowded_ops) and of B6's count (rhmc_full_ops), the kernel's
+the same bits on a rerun and the old build's bits on every chain, and
+then the time of one trajectory with CUDA events in the order old, new,
+new, old, with the mean of each kernel, the ratio and the share of the
+bound (chip_smoke.rhmc_full_sparse_ops: the work these inputs need), of
+every pixel of every pair (rhmc_full_crowded_ops) and of B6's count
+(rhmc_full_ops), the kernel's
 first bound.
 The last line is one JSON object.
 Needs a CUDA card and nvcc.
@@ -54,7 +55,12 @@ def build_b6c(path: Path, tag: str):
     lib, report = build_source(path, f"b6c_{tag}_{digest}", entry=ENTRY)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     getattr(lib, ENTRY).argtypes = [vp] * 4 + [ci] + [vp] * 8 + [ci] * 6 + [cf] * 7 + [vp, ci, vp]
-    lib.starcat_fused_rhmc_crowded_sizes.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
+    # a build that exports its wide path's mode writes the workspace's size
+    # in 64 bits, an earlier one in an int
+    lib.size_type = ctypes.c_int64 if hasattr(lib, "starcat_fused_rhmc_crowded_wide_mode") else ci
+    lib.starcat_fused_rhmc_crowded_sizes.argtypes = ([ci] * 3
+                                                     + [ctypes.POINTER(ci),
+                                                        ctypes.POINTER(lib.size_type)])
     return lib, report
 
 
@@ -67,7 +73,7 @@ def launcher(lib, image, k, n_steps, fpi, scalars, theta, xi, eps, mask, beta=1.
 
     dev, c = theta.device, theta.shape[0]
     h, w = image.shape
-    smem, floats = ctypes.c_int(), ctypes.c_int()
+    smem, floats = ctypes.c_int(), lib.size_type()
     if lib.starcat_fused_rhmc_crowded_sizes(k, h, w, ctypes.byref(smem), ctypes.byref(floats)):
         raise RuntimeError("starcat_fused_rhmc_crowded_sizes failed")
     lay = build.query_layout(lib, LAYOUT, c, k, h, w)
@@ -179,6 +185,7 @@ def main() -> int:
         b = run["new"]()
         again = run["new"]()
         torch.cuda.synchronize()
+        same = chip_smoke._same_bits(a, b)
         tight = (a[5] < chip_smoke.TIGHT) & (b[5] < chip_smoke.TIGHT)
         apart = {nm: float(chip_smoke._per_chain((x - y).abs())[tight].max())
                  if bool(tight.any()) else None
@@ -237,7 +244,8 @@ def main() -> int:
               f"{n_steps} x {fpi}): layout {json.dumps(lay)}; old vs new on the "
               f"{int(tight.sum())} of {c} chains converged tightly in both: {json.dumps(apart)}; "
               f"against the kernel-versus-plain bars (p relative): {json.dumps(within)}; "
-              f"solver verdicts differing {verdicts}; new run twice bitwise equal: {repeat}")
+              f"solver verdicts differing {verdicts}; new run twice bitwise equal: {repeat}; "
+              f"old and new the same bits on every chain: {same}")
         times = []
         for tag in ("old", "new", "new", "old"):
             ms = chip_smoke._time_ms(run[tag], args.reps, warmup=1 if c < 1024 else 0)
@@ -267,7 +275,8 @@ def main() -> int:
                                   "layout": lay, "apart": apart, "within": within,
                                   "arbiter": arbiter,
                                   "tight": int(tight.sum()),
-                                  "verdicts_differing": verdicts, "bitwise_repeat": repeat}
+                                  "verdicts_differing": verdicts, "bitwise_repeat": repeat,
+                                  "same_bits": same}
     print(json.dumps(result))
     return 0
 

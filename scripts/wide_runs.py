@@ -7,7 +7,16 @@ contract); and on the full metric, B6c's wide path: the same SMC with the
 full-metric mutation cut to 8 temperature steps (smc_full), and the rhmc
 head on a drawn 128x128 field of 80 stars at K = 80 and the preset's 64
 chains, cut from 400 + 1000 to 300 + 300 (rhmc_full), beside the same run
-on the diagonal metric, B4 (rhmc_diag).  They are the CLI's
+on the diagonal metric, B4 (rhmc_diag).  Beyond the TPU kernels' VMEM
+gates, on a 256x256 field at cfg4's density (200 stars; truth_seed 11,
+data_seed 12, RunConfig's defaults): W1, cfg4's SMC at K_max 256 and the
+preset's widths on B4 (its gate there: K <= 47), cut to W1_STEPS
+temperature steps; W2, the crowded ChEES head on W1's field at K = 200
+and 1024 chains on B5 (gate: K <= 183), cut to W2_ITERS warmup + draws;
+W3, W1 with the full-metric mutation on B6c, cut to W3_STEPS steps; W4,
+the rhmc head on a drawn 128x128 field of 300 stars at K = 300 and the
+preset's 64 chains on B6c (beyond K = 256, D = 900), cut to W4_ITERS
+warmup + draws.  They are the CLI's
 
     python -m starcat_torch run --config cfg4_crowded scene.height=192 \\
         scene.width=192 n_stars=112 kmax=125 --device cuda
@@ -18,6 +27,15 @@ on the diagonal metric, B4 (rhmc_diag).  They are the CLI's
     python -m starcat_torch run --config cfg1_rhmc scene.height=128 \\
         scene.width=128 n_stars=80 kmax=80 n_warmup=300 n_samples=300 --device cuda
     (the last also with rhmc.metric=diag)
+    python -m starcat_torch run --config cfg4_crowded scene.height=256 \
+        scene.width=256 n_stars=200 kmax=256 smc.max_steps=8 --device cuda
+    python -m starcat_torch run --config cfg4_crowded scene.height=256 \
+        scene.width=256 n_stars=200 kmax=200 head=chees n_chains=1024 \
+        n_warmup=40 n_samples=40 --device cuda
+    python -m starcat_torch run --config cfg4_crowded scene.height=256 \
+        scene.width=256 n_stars=200 kmax=256 smc.mutation=rhmc smc.max_steps=4 --device cuda
+    python -m starcat_torch run --config cfg1_rhmc scene.height=128 \
+        scene.width=128 n_stars=300 kmax=300 n_warmup=60 n_samples=60 --device cuda
 
 run through api.sample as the CLI runs them (seed 0), with the kernel's
 launch count set to 0 just before each run and read just after.
@@ -27,7 +45,8 @@ launch count set to 0 just before each run and read just after.
 Each run appends one JSON line to --out as soon as it ends and prints it:
 the card's name and power limit, the wall, the kernel and its launches,
 the head's stats, the total flux (mean, sd, ESS, split R-hat) and star
-count against the drawn truth, the peak device memory, and for the SMC
+count against the drawn truth, the peak device memory, the seconds a
+temperature step or an iteration (warmup and draws), and for the SMC
 runs each temperature step's beta, accept rate, step size, divergences,
 solver rejections and seconds.  Needs a CUDA card and nvcc.
 """
@@ -46,6 +65,9 @@ sys.path.insert(0, str(ROOT))
 SCENE = {"scene.height": 192, "scene.width": 192, "n_stars": 112}
 RHMC = {"scene.height": 128, "scene.width": 128, "n_stars": 80, "kmax": 80, "n_warmup": 300,
         "n_samples": 300}
+BEYOND = {"scene.height": 256, "scene.width": 256, "n_stars": 200}
+W1_STEPS, W3_STEPS, W2_ITERS, W4_ITERS = 8, 4, (40, 40), (60, 60)
+W1 = {**BEYOND, "kmax": 256, "smc.max_steps": W1_STEPS}
 # name: (preset, overrides, kernel)
 RUNS = {"smc": ("cfg4_crowded", {**SCENE, "kmax": 125}, "B4"),
         "chees": ("cfg4_crowded", {**SCENE, "kmax": 112, "head": "chees", "n_chains": 1024},
@@ -53,7 +75,15 @@ RUNS = {"smc": ("cfg4_crowded", {**SCENE, "kmax": 125}, "B4"),
         "smc_full": ("cfg4_crowded", {**SCENE, "kmax": 125, "smc.mutation": "rhmc",
                                       "smc.max_steps": 8}, "B6c"),
         "rhmc_full": ("cfg1_rhmc", RHMC, "B6c"),
-        "rhmc_diag": ("cfg1_rhmc", {**RHMC, "rhmc.metric": "diag"}, "B4")}
+        "rhmc_diag": ("cfg1_rhmc", {**RHMC, "rhmc.metric": "diag"}, "B4"),
+        "w1": ("cfg4_crowded", W1, "B4"),
+        "w2": ("cfg4_crowded", {**BEYOND, "kmax": 200, "head": "chees", "n_chains": 1024,
+                                "n_warmup": W2_ITERS[0], "n_samples": W2_ITERS[1]}, "B5"),
+        "w3": ("cfg4_crowded", {**W1, "smc.mutation": "rhmc", "smc.max_steps": W3_STEPS},
+               "B6c"),
+        "w4": ("cfg1_rhmc", {"scene.height": 128, "scene.width": 128, "n_stars": 300,
+                             "kmax": 300, "n_warmup": W4_ITERS[0], "n_samples": W4_ITERS[1]},
+               "B6c")}
 
 
 def main() -> int:
@@ -116,6 +146,9 @@ def main() -> int:
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if steps:
             rec["steps"] = steps
+            rec["seconds_per_step"] = sum(x["seconds"] for x in steps) / len(steps)
+        else:
+            rec["seconds_per_iteration"] = wall / (cfg.n_warmup + cfg.n_samples)
         if st["trajectory_kernel"] != kernel or mod.LAUNCHES != st["kernel_launches"]:
             raise AssertionError(f"{name} ran {st['trajectory_kernel']} "
                                  f"x{st['kernel_launches']}, {kernel} x{mod.LAUNCHES}")

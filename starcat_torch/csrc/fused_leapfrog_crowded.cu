@@ -83,9 +83,10 @@
 // takes the code above, unchanged.
 //
 // Domain (checked by the wrapper): the one-tile path takes 1 <= K <= 128
-// and H, W at most 128; the wide path every (H, W, K) that the TPU kernel's
-// VMEM gate takes (fused_leapfrog_crowded.tpu_gate, the mirror of
-// starcat/pallas_mxu.py:mxu_fused_supported at an 8-chain tile).
+// and H, W at most 128; the wide path every other (H, W, K) with K >= 1,
+// beyond the TPU kernel's VMEM gate too (the JAX package runs XLA there):
+// its shared memory is fixed, and the chains' state, masks and the image
+// are indexed in 64 bits.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -603,7 +604,17 @@ cudaError_t run(const Params& P, int C, cudaStream_t st, int* blocks_per_sm) {
 // does not depend on the others; a dead slot's sums stay 0, so its gradient
 // is 0 and, with zero momentum, its theta comes back bit for bit.  The
 // shared memory is the tile's residual field, one chunk's profiles and
-// per-star scalars (smem_floats, 199 KB whatever the scene), one block an SM.
+// per-star scalars (smem_floats, 200 KB whatever the scene), one block an SM.
+//
+// A star's position is made in double and kept as a float and its
+// remainder (px + pxl), so a pixel's offset from it, (pixel - (px - 1/2))
+// - pxl, is exact to float32's relative precision in the profiles and
+// their derivatives alike.  A float32 x rounds the centre by up to 2^-17
+// pixels beyond 128 pixels, and at a bright star's stiffness that moves the
+// gradient more than the float32 sums do: at a ChEES run's last state on
+// a 256x256 field the kernel with float32 centres, like its plain version,
+// lay a median 2.4e-3 (relative to 1 + |g|) from float64 there
+// (scripts/b5_run_state_accuracy.py --w2).
 namespace wide {
 
 constexpr int T = 128;
@@ -632,7 +643,7 @@ __device__ inline Geom tile_geom(int H, int W, int i) {
 // mirrored by wide_smem_bytes() in fused_leapfrog_crowded.py
 inline int smem_floats() {
   return T * T + (kChunk + 3) * G::kGx + kChunk * T + 2 * G::kWarps + G::kPartFloats
-         + 4 * kChunk + G::kWarps + 4;
+         + 6 * kChunk + G::kWarps + 4;
 }
 
 struct Smem {
@@ -642,6 +653,7 @@ struct Smem {
   double* red;           // kWarps
   float* part;           // kPartFloats
   float *px, *py, *cw;   // kChunk each: the chunk's live stars' x, y and flux
+  float *pxl, *pyl;      // kChunk each: x - px and y - py, to double precision
   int* live;             // kChunk: their slots
   int* cnt;              // kWarps: the compaction's counts by warp
   float* scal;           // u
@@ -656,6 +668,7 @@ __device__ inline Smem carve(float* base) {
   s.red = reinterpret_cast<double*>(take(2 * G::kWarps));
   s.part = take(G::kPartFloats);
   s.px = take(kChunk); s.py = take(kChunk); s.cw = take(kChunk);
+  s.pxl = take(kChunk); s.pyl = take(kChunk);
   s.live = reinterpret_cast<int*>(take(kChunk));
   s.cnt = reinterpret_cast<int*>(take(G::kWarps));
   s.scal = take(4);
@@ -699,8 +712,13 @@ __device__ int load_chunk(const Params& P, const Smem& s, const float* theta,
   const float sig = P.psf_sigma;
   if (tid < n) {
     const int k = s.live[tid];
-    s.px[tid] = P.W * sigmoidf(theta[3 * k]);
-    s.py[tid] = P.H * sigmoidf(theta[3 * k + 1]);
+    const double xd = P.W / (1.0 + exp(-static_cast<double>(theta[3 * k])));
+    const double yd = P.H / (1.0 + exp(-static_cast<double>(theta[3 * k + 1])));
+    const float xf = static_cast<float>(xd), yf = static_cast<float>(yd);
+    s.px[tid] = xf;
+    s.py[tid] = yf;
+    s.pxl[tid] = static_cast<float>(xd - xf);
+    s.pyl[tid] = static_cast<float>(yd - yf);
     s.cw[tid] = expf(theta[3 * k + 2]) * mask[k];
   }
   __syncthreads();
@@ -709,7 +727,7 @@ __device__ int load_chunk(const Params& P, const Smem& s, const float* theta,
   for (int j = tid / T; j < n + 3; j += kThreads / T) {
     float v = 0.0f;
     if (j < n && pix < t.tw) {
-      const float z = ((static_cast<float>(t.c0 + pix) + 0.5f) - s.px[j]) / sig;
+      const float z = (((static_cast<float>(t.c0 + pix) + 0.5f) - s.px[j]) - s.pxl[j]) / sig;
       v = expf(-0.5f * z * z) * P.psf_norm;
     }
     s.gx[j * G::kGx + pix] = v;
@@ -718,7 +736,7 @@ __device__ int load_chunk(const Params& P, const Smem& s, const float* theta,
   for (int j = tid / T; j < n; j += kThreads / T) {
     float v = 0.0f;
     if (pix < t.th) {
-      const float z = ((static_cast<float>(t.r0 + pix) + 0.5f) - s.py[j]) / sig;
+      const float z = (((static_cast<float>(t.r0 + pix) + 0.5f) - s.py[j]) - s.pyl[j]) / sig;
       v = expf(-0.5f * z * z) * P.psf_norm * s.cw[j];
     }
     s.gyw[j * T + pix] = v;
@@ -825,10 +843,11 @@ __device__ void contract_block(const Params& P, const Smem& s, const Geom& t, in
   const float inv_sig2 = inv_sig * inv_sig;
 
   float acc[S][2][8];
-  float xh[S];
+  float xh[S], xl[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) {
     xh[i] = s.px[min(j0 + i, n - 1)] - 0.5f;
+    xl[i] = s.pxl[min(j0 + i, n - 1)];
 #pragma unroll
     for (int o = 0; o < 2; ++o)
 #pragma unroll
@@ -846,7 +865,7 @@ __device__ void contract_block(const Params& P, const Smem& s, const Geom& t, in
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const float gx = g[i * G::kGx];
-        const float gxz = gx * ((wf - xh[i]) * inv_sig2);
+        const float gxz = gx * (((wf - xh[i]) - xl[i]) * inv_sig2);
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           acc[i][0][r] = fmaf(av[r], gx, acc[i][0][r]);
@@ -867,10 +886,10 @@ __device__ void contract_block(const Params& P, const Smem& s, const Geom& t, in
       const int j = min(j0 + i, n - 1);
       const float4 g0 = ld4(s.gyw + j * T + lo), g1 = ld4(s.gyw + j * T + lo + T / 2);
       const float gyv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float yh = s.py[j] - 0.5f;
+      const float yh = s.py[j] - 0.5f, yl = s.pyl[j];
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const float dy = static_cast<float>(t.r0 + lo + r + (r < 4 ? 0 : T / 2 - 4)) - yh;
+        const float dy = (static_cast<float>(t.r0 + lo + r + (r < 4 ? 0 : T / 2 - 4)) - yh) - yl;
         sums[i][0] = fmaf(gyv[r], acc[i][0][r], sums[i][0]);
         sums[i][1] = fmaf(gyv[r], acc[i][1][r], sums[i][1]);
         sums[i][2] = fmaf(gyv[r] * (dy * inv_sig2), acc[i][0][r], sums[i][2]);

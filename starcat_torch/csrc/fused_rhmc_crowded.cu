@@ -1,9 +1,9 @@
 // Full-Fisher Riemannian trajectory on crowded fields on Hopper (sm_90a):
-// B6c, for the scenes kernel B6 (csrc/fused_rhmc.cu) does not take: up to
-// 256 catalog slots on every scene that B4 (csrc/fused_rhmc_diag_crowded.cu)
-// takes.  Two paths: the one-tile path (this header's first part) for
-// fields up to 128 x 128 pixels and K <= 64, and the wide path (namespace
-// wide, its note there) beyond it.
+// B6c, for the scenes kernel B6 (csrc/fused_rhmc.cu) does not take: every
+// scene and every catalog of K >= 1 slots whose workspace fits the card.
+// Two paths: the one-tile path (this header's first part) for fields up to
+// 128 x 128 pixels and K <= 64, and the wide path (namespace wide, its note
+// there) beyond it.
 //
 // The JAX package runs the full metric beyond its Pallas kernel's gate on
 // XLA (starcat/api.py:205, the smc and trans-d "rhmc" mutations); its
@@ -104,8 +104,10 @@
 //
 // Domain (checked by the wrapper, fused_rhmc_crowded.py, and by in_domain
 // here): the one-tile path for H, W <= 128 and 1 <= K <= 64, where the
-// shared memory (smem_floats) stays within 216 KB; the wide path for
-// 1 <= K <= 256 wherever B4's TPU gate (tpu_gate) takes the scene.
+// shared memory (smem_floats) stays within 216 KB; the wide path for every
+// other scene and 1 <= K <= wide::kMaxStars, the catalogs whose 18 K^2
+// pair sums a 32-bit index reaches (a block's workspace of 22 GB at
+// K = 10922 on 128 x 128).
 #include <cuda_runtime.h>
 
 // the block's dynamic shared memory, which carve() divides
@@ -141,7 +143,7 @@ struct Params {
   float* u1_out;
   float* resid_out;
   float* work;          // kHeader (the chain counter, 0 at launch), then
-                        // (gridDim.x, work_floats(K, H, W))
+                        // (gridDim.x, work_floats(K, H, W)), 64-bit offsets
   int C, K, H, W, n_steps, fpi;
   float psf_sigma, psf_norm, background;
   float logf_mean, logf_sigma, lp_flux_const, jitter;
@@ -218,7 +220,7 @@ __host__ __device__ inline int q_table_pairs(int K) {
 // mirrored by workspace_floats() in fused_rhmc_crowded.py: the working
 // field, the three column profile sets, gy'', the 18 K^2 pair sums, G^-1
 // (D x D) and the q coefficient table
-__host__ __device__ inline int work_floats(int K, int H, int W) {
+__host__ __device__ inline long long work_floats(int K, int H, int W) {
   const int fs = field_stride(W), D = 3 * K;
   return H * fs + 3 * K * fs + round4(K * prof_ld(H)) + round4(18 * K * K) + round4(D * D)
          + kCoef * q_table_pairs(K);
@@ -257,6 +259,7 @@ struct Work {
   float* sraw;                      // (18, K, K): [(hp * 3 + tb) K + i] K + j
   float* ginv;                      // G^-1 (D x D, symmetric)
   float* qcoef;                     // (pairs, kCoef): 9 coefficients, i, j
+  float* scratch;                   // the wide path's streamed Cholesky and L^-1 columns
   int K, D, fs, hp, Hq, Wq, n_dead; // K, D: the chain's live stars and parameters
 };
 
@@ -266,9 +269,10 @@ struct Work {
 // strides, and the chain's live stars.
 enum {
   kLyFs, kLyHp, kLyHq, kLyWq, kLyGyy, kLyGx, kLyGx1, kLyQc, kLySmall,
-  kLySlice, kLyGxg, kLyGx1g, kLyGx2g, kLyGy2g, kLySraw, kLyGinv, kLyQcoef, kLyK, kLyCount
+  kLyGxg, kLyGx1g, kLyGx2g, kLyGy2g, kLySraw, kLyGinv, kLyQcoef, kLyK, kLyCount
 };
 __shared__ int b6c_lay[kLyCount];
+__shared__ long long b6c_slice;     // the block's slice: its offset in the workspace
 __shared__ double b6c_red[kWarps];  // block_sum_d's partial sums
 __shared__ int b6c_chain;           // the block's chain
 __shared__ int b6c_iter[2];         // the trajectory's step and the step's sweep
@@ -289,7 +293,7 @@ __device__ void init_layout(const Params& P) {
   ly[kLyGx1] = ly[kLyGx] + K * fs;
   ly[kLyQc] = region_floats(K, H, W);
   ly[kLySmall] = ly[kLyQc] + 2 * kQPairs * kCoef;
-  ly[kLySlice] = kHeader + static_cast<int>(blockIdx.x) * work_floats(K, H, W);
+  b6c_slice = kHeader + static_cast<long long>(blockIdx.x) * work_floats(K, H, W);
   ly[kLyGxg] = H * fs;
   ly[kLyGx1g] = ly[kLyGxg] + K * fs;
   ly[kLyGx2g] = ly[kLyGx1g] + K * fs;
@@ -343,7 +347,7 @@ __device__ __forceinline__ Work make_work(const Params& P) {
   s.gy2 = s.gx;
   s.qc = sm + ly[kLyQc];
   place_vectors(s, sm + ly[kLySmall], P.K);
-  float* g = P.work + ly[kLySlice];
+  float* g = P.work + b6c_slice;
   s.fld = g;
   s.gxg = g + ly[kLyGxg];
   s.gx1g = g + ly[kLyGx1g];
@@ -448,8 +452,7 @@ __device__ void profiles(const Params& P, const Work& s, const float* th, bool c
   const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
   const int K = s.K, H = P.H, W = P.W, fs = s.fs, hp = s.hp;
   const float sig = P.psf_sigma;
-  if (tid < K) {
-    const int i = tid;
+  for (int i = tid; i < K; i += kThreads) {
     const float su = sigmoidf(th[i]), sv = sigmoidf(th[K + i]);
     const float cx = W * su * (1.0f - su), cy = H * sv * (1.0f - sv);
     const float cx2 = cx * (1.0f - 2.0f * su), cy2 = cy * (1.0f - 2.0f * sv);
@@ -509,14 +512,14 @@ __device__ void profiles(const Params& P, const Work& s, const float* th, bool c
   }
   __syncthreads();
   // the live stars by y (ties by index), which the pair passes group by
-  if (tid < K) {
-    const float yi = s.y[tid];
+  for (int i = tid; i < K; i += kThreads) {
+    const float yi = s.y[i];
     int rank = 0;
     for (int j = 0; j < K; ++j) {
       const float yj = s.y[j];
-      rank += (yj < yi || (yj == yi && j < tid)) ? 1 : 0;
+      rank += (yj < yi || (yj == yi && j < i)) ? 1 : 0;
     }
-    s.ord[rank] = tid;
+    s.ord[rank] = i;
   }
   __syncthreads();
 }
@@ -1916,16 +1919,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
 
 // ---------------------------------------------------------------------------
 // The wide path: every launch beyond the one-tile domain (H or W > 128, or
-// K > 64), up to K = 256 wherever B4 takes the scene (tpu_gate below).  It
-// replaces no TPU kernel: the JAX package runs the full metric there on XLA
+// K > 64), on every scene and up to K = kMaxStars.  It replaces no TPU
+// kernel: the JAX package runs the full metric there on XLA
 // (starcat/api.py:191-205, the smc and trans-d rhmc mutations), since its
 // Pallas kernel's gate is H W <= 48^2, K <= 16.  What bounds it is what
 // bounds the one-tile path (chip_smoke.rhmc_full_sparse_ops: the star-pair
 // terms over their footprints' overlaps and the D^3 dense algebra), but at
-// D = 3 K_live up to 768 the dense algebra is the larger part, and a chain's
-// state (about 3.8 MB at K = 125 on 192 x 192, 12.9 MB at K = 254 on
-// 128 x 128) lives in device memory and, over 132 blocks, beyond the 50 MB
-// L2.  The passes, their order and their math are the one-tile path's;
+// D = 3 K_live in the hundreds and thousands the dense algebra is the
+// larger part, and a chain's state (about 3.8 MB at K = 125 on 192 x 192,
+// 12.9 MB at K = 254 and 188 MB at K = 1000 on 128 x 128) lives in device
+// memory and, over 132 blocks, beyond the 50 MB L2; the wrapper launches
+// fewer blocks where a full grid's slices would pass its share of the
+// card's free memory (fused_rhmc_crowded.launch_layout).  The passes, their order and their math are the one-tile path's;
 // what no longer fits a block's shared memory lives in the block's
 // workspace slice, read through L1 and L2, and the passes that held a
 // whole field or a whole factor in one block walk them in pieces:
@@ -1936,10 +1941,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
 //     the 18 K^2 pair sums, G^-1, the q coefficient table, packed L (D + 1
 //     rows) and L^-1 (dense, D x D by rows);
 //   * shared memory holds the per-star and per-parameter vectors (as the
-//     one-tile path), the q coefficient ring and one region that is, by
-//     phase, the q field's two operand stages over a 128 x 128 pixel tile,
-//     the Cholesky's 32-column panel by rows (D + 1 rows), or L^-1's
-//     columns under way (a D vector a warp);
+//     one-tile path; beyond vec_in_smem, K > 615, they live in the slice),
+//     the q coefficient ring and one region that is, by phase, the q
+//     field's two operand stages over a 128 x 128 pixel tile, the
+//     Cholesky's 32-column panel by rows (D + 1 rows) or L^-1's columns
+//     under way (a D vector a warp); beyond full_panel (K > 347) the region
+//     keeps the stages' size, the panel streams through it in row blocks
+//     and L^-1's columns live in the slice;
+//   * the chain's live slots and their mask values live in the slice;
 //   * the q and phi fields walk the field in 128 x 128 tiles, a 4 x 8 pixel
 //     tile a thread, a pair (or star) whose footprint misses the tile
 //     skipped; the contractions walk it in 128-column blocks, skipping the
@@ -1953,85 +1962,140 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
 //     read into shared memory, factored there a column at a time (one block
 //     barrier a column), written back scaled, and updates the trailing
 //     matrix in the workspace, a warp a column and lanes over its rows, each
-//     entry taking its updates in column order; the back substitution runs
-//     in one warp by columns of L, L^-1 a column a warp by forward
-//     substitution with the column's vector in shared memory, and G^-1 =
-//     L^-T L^-1 reads L^-1 by rows, so a warp's loads are contiguous.
+//     entry taking its updates in column order; beyond full_panel the
+//     panel's top 32 rows are factored so, and the rows below stream
+//     through a fixed row block, a thread a row (cholesky_streamed); the
+//     back substitution runs in one warp by columns of L, L^-1 a column a
+//     warp by forward substitution with the column's vector in shared
+//     memory (beyond full_panel in the slice), and G^-1 = L^-T L^-1 reads
+//     L^-1 by rows, so a warp's loads are contiguous.
 // Every sum runs in an order fixed by the scene and the chain's live stars,
 // so a chain gives the same bits alone, among others and at any chain count;
 // every skipped term is an exact zero.  The bits differ from the one-tile
 // path's (other summation orders); both are held against the plain version.
 namespace wide {
 
-constexpr int kMaxStars = 256;  // K <= 256, D <= 768
+// K <= kMaxStars: the 18 K^2 pair sums (sraw) and every D x D matrix are
+// indexed with 32-bit ints within the block's slice
+constexpr int kMaxStars = 10922;
 constexpr int kTile = 128;      // the q and phi fields' pixel tile, the contractions' column block
 constexpr int kStage = kQK * 2 * kTile + 2 * kQPairs;  // one q operand stage over a tile
 constexpr int kGroup = 8;       // lanes a star pair in the pair passes
 constexpr int kPLd = kPanel + 1;  // floats a row of the Cholesky's panel
+constexpr int kRowBlock = 448;  // rows of the streamed Cholesky's row block
+constexpr int kRing = 2 * kQPairs * kCoef;  // the q coefficient ring
+// the dynamic shared memory a block may take: the card's 232448 bytes less
+// 1 KB for the static shared memory
+constexpr int kSmemFloats = (232448 - 1024) / 4;
 
-// the shared region: the q field's two operand stages or the Cholesky's
-// panel (D + 1 rows), whichever is larger; L^-1's kWarps column vectors of
-// D fit in the panel's
-__host__ __device__ inline int region_floats(int K) {
+__host__ __device__ inline long long round4ll(long long n) { return (n + 3) & ~3LL; }
+
+// 67 floats a star and 12 of per-chain scalars (place_vectors)
+__host__ __device__ inline int vec_floats(int K) { return 67 * K + 12; }
+
+// the region with the Cholesky's whole 32-column panel by rows (D + 1
+// rows), or the q field's two operand stages where those are larger
+__host__ __device__ inline int panel_region(int K) {
   return round4(imax(2 * kStage, kPLd * (3 * K + 1)));
 }
 
+// whether the whole panel, the ring and the vectors fit a block's shared
+// memory (K <= 347): the panel is factored in place.  Beyond, the panel
+// streams through a region of fixed size (cholesky_streamed)
+__host__ __device__ inline bool full_panel(int K) {
+  return panel_region(K) + kRing + vec_floats(K) <= kSmemFloats;
+}
+
+// the shared region: the whole panel (full_panel), else the q field's two
+// operand stages, which hold the streamed panel's top block and a row block
+__host__ __device__ inline int region_floats(int K) {
+  return full_panel(K) ? panel_region(K)
+                       : round4(imax(2 * kStage, kPLd * (kPanel + kRowBlock)));
+}
+
+// whether the per-star vectors stay in shared memory beside the region and
+// the ring (K <= 615); beyond, they live in the block's workspace slice
+__host__ __device__ inline bool vec_in_smem(int K) {
+  return region_floats(K) + kRing + vec_floats(K) <= kSmemFloats;
+}
+
 // mirrored by wide_smem_bytes() in fused_rhmc_crowded.py: the region, the q
-// coefficient ring, 67 floats a star and 12 of per-chain scalars
+// coefficient ring and, where they fit, 67 floats a star and 12 of
+// per-chain scalars
 __host__ __device__ inline int smem_floats(int K) {
-  return region_floats(K) + 2 * kQPairs * kCoef + 67 * K + 12;
+  return region_floats(K) + kRing + (vec_in_smem(K) ? vec_floats(K) : 0);
 }
 
 // mirrored by wide_workspace_floats() in fused_rhmc_crowded.py: the working
 // field and 1/lam, gy and gy' interleaved, gx, gx', gx'', gy'', the 18 K^2
-// pair sums, G^-1, the q coefficient table, packed L and L^-1 (D x D)
-__host__ __device__ inline int work_floats(int K, int H, int W) {
-  const int fs = field_stride(W), hp = prof_ld(H), D = 3 * K;
-  return 2 * H * fs + round4(2 * K * hp) + 3 * K * fs + round4(K * hp) + round4(18 * K * K)
-         + round4(D * D) + kCoef * q_table_pairs(K) + round4(packed_l(D)) + round4(D * D);
+// pair sums, G^-1, the q coefficient table, packed L and L^-1 (D x D), the
+// chain's live slots and their mask values (2 K); beyond full_panel the
+// streamed Cholesky's panel rows (D + 1 rows of kPanel, which L^-1's kWarps
+// column vectors share), and beyond vec_in_smem the per-star vectors, each
+// a multiple of 4 floats, in 64 bits
+__host__ __device__ inline long long work_floats(int K, int H, int W) {
+  const long long fs = field_stride(W), hp = prof_ld(H), k = K, D = 3LL * K;
+  long long n = 2 * H * fs + round4ll(2 * k * hp) + 3 * k * fs + round4ll(k * hp)
+                + round4ll(18 * k * k) + round4ll(D * D) + kCoef * (long long)q_table_pairs(K)
+                + round4ll((D + 1) * (D + 2) / 2) + round4ll(D * D) + round4ll(2 * k);
+  if (!full_panel(K)) n += kPanel * (D + 1);
+  if (!vec_in_smem(K)) n += round4ll(vec_floats(K));
+  return n;
 }
 
 enum {
   kWFs, kWHp, kWQc, kWSmall, kWSlice, kWR1, kWGyy, kWGx, kWGx1, kWGx2, kWGy2, kWSraw,
-  kWGinv, kWQcoef, kWDense, kWK, kWCount
+  kWGinv, kWQcoef, kWDense, kWLive, kWScratch, kWVec, kWFull, kWK, kWCount
 };
-__shared__ int lay[kWCount];
+// the wide layout: offsets in floats, in 64 bits (kWSlice from the
+// workspace's start, the rest from the slice's or from b6c_smem), kWVec
+// also 0 where the vectors stay in shared memory, kWFull 1 where the panel
+// is factored in place
+__shared__ long long lay[kWCount];
 
 // the wide layout into lay (one thread; the chain's K is set per chain)
 __device__ void init_layout(const Params& P) {
-  int* ly = lay;
-  const int K = P.K, H = P.H, W = P.W, D = 3 * K;
-  const int fs = field_stride(W), hp = prof_ld(H);
+  long long* ly = lay;
+  const int K = P.K, H = P.H, W = P.W;
+  const long long fs = field_stride(W), hp = prof_ld(H), k = K, D = 3LL * K;
   ly[kWFs] = fs;
   ly[kWHp] = hp;
   ly[kWQc] = region_floats(K);
-  ly[kWSmall] = ly[kWQc] + 2 * kQPairs * kCoef;
-  ly[kWSlice] = kHeader + static_cast<int>(blockIdx.x) * work_floats(K, H, W);
+  ly[kWSmall] = ly[kWQc] + kRing;
+  ly[kWSlice] = kHeader + static_cast<long long>(blockIdx.x) * work_floats(K, H, W);
   ly[kWR1] = H * fs;  // the working field first
   ly[kWGyy] = 2 * H * fs;
-  ly[kWGx] = ly[kWGyy] + round4(2 * K * hp);
-  ly[kWGx1] = ly[kWGx] + K * fs;
-  ly[kWGx2] = ly[kWGx1] + K * fs;
-  ly[kWGy2] = ly[kWGx2] + K * fs;
-  ly[kWSraw] = ly[kWGy2] + round4(K * hp);
-  ly[kWGinv] = ly[kWSraw] + round4(18 * K * K);
-  ly[kWQcoef] = ly[kWGinv] + round4(D * D);  // 16-byte aligned
-  ly[kWDense] = ly[kWQcoef] + kCoef * q_table_pairs(K);
+  ly[kWGx] = ly[kWGyy] + round4ll(2 * k * hp);
+  ly[kWGx1] = ly[kWGx] + k * fs;
+  ly[kWGx2] = ly[kWGx1] + k * fs;
+  ly[kWGy2] = ly[kWGx2] + k * fs;
+  ly[kWSraw] = ly[kWGy2] + round4ll(k * hp);
+  ly[kWGinv] = ly[kWSraw] + round4ll(18 * k * k);
+  ly[kWQcoef] = ly[kWGinv] + round4ll(D * D);  // 16-byte aligned
+  ly[kWDense] = ly[kWQcoef] + kCoef * (long long)q_table_pairs(K);
+  ly[kWLive] = ly[kWDense] + round4ll((D + 1) * (D + 2) / 2) + round4ll(D * D);
+  ly[kWScratch] = ly[kWLive] + round4ll(2 * k);
+  ly[kWFull] = full_panel(K) ? 1 : 0;
+  ly[kWVec] = vec_in_smem(K) ? 0 : ly[kWScratch] + (ly[kWFull] ? 0 : kPanel * (D + 1));
   ly[kWK] = K;
 }
 
+// kStream: the streamed instantiation, whose per-star vectors lie in shared
+// memory or (kWVec) in the workspace; the other's always in shared memory,
+// an address the compiler knows as shared
+template <bool kStream>
 __device__ __forceinline__ Work make_work(const Params& P) {
-  const int* ly = lay;
+  const long long* ly = lay;
   Work s;
-  s.fs = ly[kWFs];
-  s.hp = ly[kWHp];
+  s.fs = static_cast<int>(ly[kWFs]);
+  s.hp = static_cast<int>(ly[kWHp]);
   s.Hq = kTile;
   s.Wq = kTile;
   float* sm = b6c_smem;
   s.qbuf = sm;
   s.qc = sm + ly[kWQc];
-  place_vectors(s, sm + ly[kWSmall], P.K);
   float* g = P.work + ly[kWSlice];
+  place_vectors(s, kStream && ly[kWVec] != 0 ? g + ly[kWVec] : sm + ly[kWSmall], P.K);
   s.fld = g;
   s.r1 = g + ly[kWR1];
   s.gyy = g + ly[kWGyy];
@@ -2043,10 +2107,19 @@ __device__ __forceinline__ Work make_work(const Params& P) {
   s.ginv = g + ly[kWGinv];
   s.qcoef = g + ly[kWQcoef];
   s.dense = g + ly[kWDense];
-  s.K = ly[kWK];
+  s.scratch = g + ly[kWScratch];
+  s.K = static_cast<int>(ly[kWK]);
   s.D = 3 * s.K;
   s.n_dead = P.K - s.K;
   return s;
+}
+
+// the chain's live slots and their mask values, in the slice (P.K each)
+__device__ __forceinline__ int* live_slots(const Params& P) {
+  return reinterpret_cast<int*>(P.work + lay[kWSlice] + lay[kWLive]);
+}
+__device__ __forceinline__ float* live_masks(const Params& P) {
+  return P.work + lay[kWSlice] + lay[kWLive] + P.K;
 }
 
 // unordered pair u of n items (i <= j, row by row), from the row offsets
@@ -2636,6 +2709,133 @@ __device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
   }
 }
 
+// cholesky beyond full_panel, its panel streamed through the fixed region:
+// the same factor, entry by entry the same operations in the same order.
+// For each 32-column panel, its top block (rows p0 .. p1 - 1) is factored in
+// shared memory as cholesky factors the whole panel (one block barrier a
+// column) and written back scaled; then the rows below stream through in
+// blocks of kRowBlock, a thread a row: the row's panel entries in registers
+// take their updates A_rc -= (A_rj / L_jj) L_cj column by column from the
+// top block's L, are scaled, written to A and, by rows, to the block's
+// shared rows and the workspace's panel rows (s.scratch, kPanel floats a
+// row, for the columns of later row blocks), and update the trailing matrix
+// on the row block's rows, a warp a column and lanes over its rows, each
+// entry taking the panel's 32 updates in column order.  Rows D .. nrows - 1
+// are reduced alongside; log det G as cholesky.  Every thread calls it; it
+// ends synchronised but for s.scal[1].
+__device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float ldead) {
+  const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
+  const int D = s.D, n1 = D + 1;
+  float* A = s.dense;
+  float* top = s.qbuf;                  // top[(r - p0) kPLd + k] = A(r, p0 + k), r < p1
+  float* blk = s.qbuf + kPanel * kPLd;  // blk[(r - r0) kPLd + k] = L(r, p0 + k)
+  float* lp = s.scratch;                // lp[(r - p0) kPanel + k] = L(r, p0 + k), r < D
+  for (int p0 = 0; p0 < D; p0 += kPanel) {
+    const int p1 = min(p0 + kPanel, D);
+    for (int k = warp; k < kPanel; k += kWarps) {
+      const int c = p0 + k;
+      const bool ok = c < p1;
+      const float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      for (int r = p0 + lane; r < p1; r += 32)
+        top[(r - p0) * kPLd + k] = (ok && r >= c) ? ac[r] : 0.0f;
+    }
+    __syncthreads();
+    for (int j = p0; j < p1; ++j) {
+      const int jj = j - p0;
+      const float sjj = top[jj * kPLd + jj];
+      const float dinv = 1.0f / sqrtf(sjj);
+      if (tid == 0) {
+        s.ldiag[j] = sjj * dinv;
+        s.dinv[j] = dinv;
+      }
+      const int c = j + 1 + lane;
+      if (c < p1) {
+        const float lc = top[(c - p0) * kPLd + jj] * dinv;
+        for (int r = j + 1 + warp; r < p1; r += kWarps) {
+          if (r < c) continue;
+          float* e = top + (r - p0) * kPLd + (c - p0);
+          *e -= (top[(r - p0) * kPLd + jj] * dinv) * lc;
+        }
+      }
+      __syncthreads();
+    }
+    for (int k = warp; k < kPanel; k += kWarps) {
+      const int c = p0 + k;
+      const bool ok = c < p1;
+      const float dv = ok ? s.dinv[c] : 0.0f;
+      float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      for (int r = p0 + lane; r < p1; r += 32) {
+        float* e = top + (r - p0) * kPLd + k;
+        const bool below = ok && r > c;
+        const float l = below ? *e * dv : 0.0f;
+        if (below) ac[r] = l;
+        *e = l;
+      }
+    }
+    __syncthreads();
+    for (int r0 = p1; r0 < nrows; r0 += kRowBlock) {
+      const int r1 = min(r0 + kRowBlock, nrows);
+      const int r = r0 + tid;
+      if (r < r1) {
+        float v[kPanel];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k)
+          v[k] = p0 + k < p1 ? A[col_off(p0 + k, n1) - (p0 + k) + r] : 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < kPanel; ++jj) {
+          if (p0 + jj < p1) {
+            const float lj = v[jj] * s.dinv[p0 + jj];
+#pragma unroll
+            for (int cc = jj + 1; cc < kPanel; ++cc)
+              if (p0 + cc < p1) v[cc] -= lj * top[cc * kPLd + jj];
+          }
+        }
+        float* br = blk + (r - r0) * kPLd;
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) {
+          const bool ok = p0 + k < p1;
+          const float l = ok ? v[k] * s.dinv[p0 + k] : 0.0f;
+          if (ok) A[col_off(p0 + k, n1) - (p0 + k) + r] = l;
+          br[k] = l;
+          if (r < D) lp[(r - p0) * kPanel + k] = l;
+        }
+      }
+      __syncthreads();
+      const int cend = min(r1, D);
+      for (int c = p1 + warp; c < cend; c += kWarps) {
+        float lc[kPanel];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) lc[k] = lp[(c - p0) * kPanel + k];
+        float* ac = A + col_off(c, n1) - c;
+        for (int rr = max(c, r0) + lane; rr < r1; rr += 32) {
+          const float* lr = blk + (rr - r0) * kPLd;
+          float a = ac[rr];
+#pragma unroll
+          for (int k = 0; k < kPanel; ++k) a -= lr[k] * lc[k];
+          ac[rr] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (logdet && warp == 0) {
+    double ld_sum = 0.0;
+    for (int j = lane; j < D; j += 32) ld_sum += static_cast<double>(logf(s.ldiag[j]));
+    ld_sum = warp_sum_d(ld_sum);
+    if (lane == 0)
+      s.scal[1] = static_cast<float>(
+          2.0 * (ld_sum + 3.0 * s.n_dead * static_cast<double>(logf(ldead))));
+  }
+}
+
+// the Cholesky of the kernel's instantiation: in place where the whole
+// panel fits shared memory (kStream false), else streamed
+template <bool kStream>
+__device__ __forceinline__ void factor(const Work& s, int nrows, bool logdet, float ldead) {
+  if constexpr (kStream) cholesky_streamed(s, nrows, logdet, ldead);
+  else wide::cholesky(s, nrows, logdet, ldead);
+}
+
 // out = G^-1 b by back substitution, L^T out = L^-1 b, after cholesky(nrows
 // = D + 1) left L^-1 b in row D: warp 0, out_k = (y_k - L(k+1.., k) .
 // out(k+1..)) / L_kk for k = D - 1 .. 0, the dot over column k of L by
@@ -2658,15 +2858,16 @@ __device__ void chol_solve(const Work& s, float* out) {
 
 // L^-1 (dense by rows, X[k D + c] = L^-1(k, c), after packed L) a column a
 // warp by forward substitution on L e_c, the column's vector in shared
-// memory; then G^-1 = L^-T L^-1 into s.ginv (its lower half computed, both
+// memory (beyond full_panel in the workspace's panel rows); then G^-1 = L^-T L^-1 into s.ginv (its lower half computed, both
 // written), lanes over columns b reading rows of L^-1; then the q field's
 // coefficient table.  Every thread calls it; it ends synchronised.
+template <bool kStream>
 __device__ void inverse(const Work& s) {
   const int lane = thread_index() & 31, warp = thread_index() >> 5;
   const int D = s.D, n1 = D + 1;
   const float* A = s.dense;
   float* X = s.dense + round4(packed_l(D));
-  float* v = s.qbuf + warp * D;
+  float* v = (kStream ? s.scratch : s.qbuf) + warp * D;
   for (int c = warp; c < D; c += kWarps) {
     for (int r = c + lane; r < D; r += 32) v[r] = r == c ? 1.0f : 0.0f;
     __syncwarp();
@@ -2727,24 +2928,25 @@ __device__ float hamiltonian(const Work& s, const float* p) {
 // The one-tile build_structs on the wide layout: no copies between the
 // shared and the workspace profile sets (they are one), and no rebuild of
 // the profiles and 1/lam around the q field (nothing overwrote them).
+template <bool kStream>
 __device__ void build_structs(const Params& P, bool p0) {
   const int tid = thread_index(), warp = tid >> 5;
-  const float beta = wide::make_work(P).scal[8];
+  const float beta = wide::make_work<kStream>(P).scal[8];
   double ll;
-  { const Work s = wide::make_work(P); profiles(P, s, s.th_b, true); }
-  { const Work s = wide::make_work(P); ll = render(P, s, beta, true); }
-  { const Work s = wide::make_work(P); wide::pair_contract(P, s); }
-  { const Work s = wide::make_work(P); wide::contract<kGrad>(P, s); }
-  if (warp == 0) potential_terms(P, wide::make_work(P), beta, ll);
-  { const Work s = wide::make_work(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
+  { const Work s = wide::make_work<kStream>(P); profiles(P, s, s.th_b, true); }
+  { const Work s = wide::make_work<kStream>(P); ll = render(P, s, beta, true); }
+  { const Work s = wide::make_work<kStream>(P); wide::pair_contract(P, s); }
+  { const Work s = wide::make_work<kStream>(P); wide::contract<kGrad>(P, s); }
+  if (warp == 0) potential_terms(P, wide::make_work<kStream>(P), beta, ll);
+  { const Work s = wide::make_work<kStream>(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
   {
     const float gdead = 1.0f + P.jitter;
-    const Work s = wide::make_work(P);
-    wide::cholesky(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
+    const Work s = wide::make_work<kStream>(P);
+    wide::factor<kStream>(s, s.D, true, gdead * (1.0f / sqrtf(gdead)));
   }
   if (p0) {
     // p0 = (L xi) m, L the factor of G(theta0)
-    const Work s = wide::make_work(P);
+    const Work s = wide::make_work<kStream>(P);
     const int K = s.K, D = s.D, n1 = D + 1;
     for (int a = tid; a < D; a += kThreads) {
       float acc = s.ldiag[a] * s.vec[a];
@@ -2753,51 +2955,55 @@ __device__ void build_structs(const Params& P, bool p0) {
     }
     __syncthreads();
   }
-  { const Work s = wide::make_work(P); wide::inverse(s); }
-  { const Work s = wide::make_work(P); wide::q_field(P, s); }
-  { const Work s = wide::make_work(P); wide::contract<kQ>(P, s); }
-  metric_terms(P, wide::make_work(P), beta);
+  { const Work s = wide::make_work<kStream>(P); wide::inverse<kStream>(s); }
+  { const Work s = wide::make_work<kStream>(P); wide::q_field(P, s); }
+  { const Work s = wide::make_work<kStream>(P); wide::contract<kQ>(P, s); }
+  metric_terms(P, wide::make_work<kStream>(P), beta);
 }
 
 // dH/dtheta at the structs' theta and the momentum in ph into dh.
+template <bool kStream>
 __device__ void dh_dtheta(const Params& P) {
   const int tid = thread_index();
-  const float beta = wide::make_work(P).scal[8];
+  const float beta = wide::make_work<kStream>(P).scal[8];
   {
-    const Work s = wide::make_work(P);
+    const Work s = wide::make_work<kStream>(P);
     wide::ginv_matvec(s, s.ph, s.a);
-    if (tid < s.K) {
-      s.cu[tid] = s.a[tid] * s.wcx[tid];
-      s.cv[tid] = s.a[s.K + tid] * s.wcy[tid];
-      s.cs[tid] = s.a[2 * s.K + tid] * s.w[tid];
+    for (int i = tid; i < s.K; i += kThreads) {
+      s.cu[i] = s.a[i] * s.wcx[i];
+      s.cv[i] = s.a[s.K + i] * s.wcy[i];
+      s.cs[i] = s.a[2 * s.K + i] * s.w[i];
     }
   }
   __syncthreads();
-  { const Work s = wide::make_work(P); wide::phi_field(P, s); }
-  { const Work s = wide::make_work(P); wide::contract<kSweep>(P, s); }
+  { const Work s = wide::make_work<kStream>(P); wide::phi_field(P, s); }
+  { const Work s = wide::make_work<kStream>(P); wide::contract<kSweep>(P, s); }
   {
-    const Work s = wide::make_work(P);
+    const Work s = wide::make_work<kStream>(P);
     for (int c = tid; c < s.D; c += kThreads) sweep_term(s, beta, s.dh, c);
   }
   __syncthreads();
 }
 
 // G(th)^-1 ph into vec by a fresh metric build at th.
+template <bool kStream>
 __device__ void fisher_solve(const Params& P) {
-  const float beta = wide::make_work(P).scal[8];
-  { const Work s = wide::make_work(P); profiles(P, s, s.th, false); }
-  { const Work s = wide::make_work(P); render(P, s, beta, false); }
-  { const Work s = wide::make_work(P); wide::fisher_pairs(P, s); }
-  { const Work s = wide::make_work(P); assemble_metric(P, s, beta, false, s.ph); }
-  { const Work s = wide::make_work(P); wide::cholesky(s, s.D + 1, false, 0.0f); }
-  { const Work s = wide::make_work(P); wide::chol_solve(s, s.vec); }
+  const float beta = wide::make_work<kStream>(P).scal[8];
+  { const Work s = wide::make_work<kStream>(P); profiles(P, s, s.th, false); }
+  { const Work s = wide::make_work<kStream>(P); render(P, s, beta, false); }
+  { const Work s = wide::make_work<kStream>(P); wide::fisher_pairs(P, s); }
+  { const Work s = wide::make_work<kStream>(P); assemble_metric(P, s, beta, false, s.ph); }
+  { const Work s = wide::make_work<kStream>(P); wide::factor<kStream>(s, s.D + 1, false, 0.0f); }
+  { const Work s = wide::make_work<kStream>(P); wide::chol_solve(s, s.vec); }
 }
 
 // The one-tile kernel's trajectory on the wide layout, the loops over the D
-// parameters strided by the block (D may exceed it).
+// parameters and the stars strided by the block (either may exceed it);
+// kStream (beyond full_panel) streams the Cholesky's panel and keeps L^-1's
+// columns in the workspace, so the other instantiation holds none of that
+// code.
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Params P) {
-  __shared__ int live[kMaxStars];  // the chain's live slots, in order
-  __shared__ float live_m[kMaxStars];
   const int tid = thread_index();
   if (tid == 0) wide::init_layout(P);
 
@@ -2809,6 +3015,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
     {
       const int c = b6c_chain, Ks = P.K, Ds = 3 * Ks;
       if (tid == 0) {
+        int* live = wide::live_slots(P);  // the chain's live slots, in order
+        float* live_m = wide::live_masks(P);
         int n = 0;
         for (int i = 0; i < Ks; ++i) {
           const float m = P.mask[c * P.mask_stride + i];
@@ -2827,9 +3035,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
     }
     __syncthreads();
     {
-      const Work s = wide::make_work(P);
+      const Work s = wide::make_work<kStream>(P);
       const int c = b6c_chain, Ds = 3 * P.K, K = s.K, D = s.D;
-      if (tid < K) s.m[tid] = live_m[tid];
+      const int* live = wide::live_slots(P);
+      for (int i = tid; i < K; i += kThreads) s.m[i] = wide::live_masks(P)[i];
       for (int a = tid; a < D; a += kThreads) {
         const int t = type_of(a, K), i = a - t * K, slot = live[i];
         s.th_b[a] = P.theta[c * Ds + 3 * slot + t];
@@ -2843,9 +3052,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
     }
     __syncthreads();
 
-    wide::build_structs(P, true);
+    wide::build_structs<kStream>(P, true);
     {
-      const Work s = wide::make_work(P);
+      const Work s = wide::make_work<kStream>(P);
       const float h0 = wide::hamiltonian(s, s.p_b);
       if (tid == 0) s.scal[5] = h0;
     }
@@ -2855,14 +3064,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
     while (b6c_iter[0] < P.n_steps) {
       // implicit momentum half-step: p_h = p - eps/2 dH/dtheta(theta, p_h)
       {
-        const Work s = wide::make_work(P);
+        const Work s = wide::make_work<kStream>(P);
         for (int a = tid; a < s.D; a += kThreads) s.ph[a] = s.p_b[a];
         if (tid == 0) b6c_iter[1] = 0;
       }
       __syncthreads();
       while (b6c_iter[1] < P.fpi) {
-        wide::dh_dtheta(P);
-        const Work s = wide::make_work(P);
+        wide::dh_dtheta<kStream>(P);
+        const Work s = wide::make_work<kStream>(P);
         const float half_eps = 0.5f * s.scal[9];
         for (int a = tid; a < s.D; a += kThreads) s.dh[a] = s.p_b[a] - half_eps * s.dh[a];
         __syncthreads();
@@ -2875,7 +3084,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
       }
       // implicit position step: theta' = theta + eps/2 [G(theta)^-1 + G(theta')^-1] p_h
       {
-        const Work s = wide::make_work(P);
+        const Work s = wide::make_work<kStream>(P);
         const float eps = s.scal[9];
         wide::ginv_matvec(s, s.ph, s.vec);
         for (int a = tid; a < s.D; a += kThreads) {
@@ -2886,8 +3095,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
       }
       __syncthreads();
       while (b6c_iter[1] < P.fpi) {
-        wide::fisher_solve(P);
-        const Work s = wide::make_work(P);
+        wide::fisher_solve<kStream>(P);
+        const Work s = wide::make_work<kStream>(P);
         const float half_eps = 0.5f * s.scal[9];
         for (int a = tid; a < s.D; a += kThreads) s.vec[a] = s.base[a] + half_eps * s.vec[a];
         __syncthreads();
@@ -2901,24 +3110,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
       }
       // rebuild at theta'; reused by the final half-step, h1 and the next step
       {
-        const Work s = wide::make_work(P);
+        const Work s = wide::make_work<kStream>(P);
         for (int a = tid; a < s.D; a += kThreads) s.th_b[a] = s.th[a];
       }
       __syncthreads();
-      wide::build_structs(P, false);
-      wide::dh_dtheta(P);
+      wide::build_structs<kStream>(P, false);
+      wide::dh_dtheta<kStream>(P);
       {
-        const Work s = wide::make_work(P);
+        const Work s = wide::make_work<kStream>(P);
         const float half_eps = 0.5f * s.scal[9];
         for (int a = tid; a < s.D; a += kThreads) s.p_b[a] = s.ph[a] - half_eps * s.dh[a];
         if (tid == 0) ++b6c_iter[0];
       }
       __syncthreads();
     }
-    const Work s = wide::make_work(P);
+    const Work s = wide::make_work<kStream>(P);
     const float h1 = wide::hamiltonian(s, s.p_b);
 
     const int c = b6c_chain, Ds = 3 * P.K;
+    const int* live = wide::live_slots(P);
     for (int a = tid; a < s.D; a += kThreads) {
       const int K = s.K, t = type_of(a, K), i = a - t * K, slot = live[i];
       P.theta_out[c * Ds + 3 * slot + t] = s.th_b[a];
@@ -2948,21 +3158,10 @@ bool one_tile(int K, int H, int W) {
   return K >= 1 && K <= kMaxStars && H >= 1 && H <= kMaxSide && W >= 1 && W <= kMaxSide;
 }
 
-// B4's TPU gate (fused_rhmc_diag_crowded.tpu_gate): the VMEM budgets of the
-// JAX package's diag_mxu_supported at an 8-chain tile and
-// diag_fused_supported at a 128-chain tile.
-bool tpu_gate(int K, int H, int W) {
-  const long long hw = static_cast<long long>(H) * W, side = H > W ? H : W;
-  const bool mxu = 10LL * 8 * K * side * 4 + 4LL * 8 * hw * 4 + hw * 4 < (12LL << 20);
-  const bool lanes = 3LL * hw * 128 * 4 + 6LL * K * side * 128 * 4 < (24LL << 20);
-  return mxu || lanes;
-}
-
-// The kernel's domain (fused_rhmc_crowded.domain_error): the one-tile
-// domain, and the wide path's, 1 <= K <= 256 wherever B4 takes the scene.
+// The kernel's domain (fused_rhmc_crowded.domain_error): every scene, and
+// 1 <= K <= wide::kMaxStars.
 bool in_domain(int K, int H, int W) {
-  return one_tile(K, H, W)
-         || (K >= 1 && K <= wide::kMaxStars && H >= 1 && W >= 1 && tpu_gate(K, H, W));
+  return K >= 1 && K <= wide::kMaxStars && H >= 1 && W >= 1;
 }
 
 // The path's shared memory a block, in bytes.
@@ -2973,7 +3172,9 @@ size_t smem_bytes(int K, int H, int W) {
 
 // The path's kernel with its dynamic shared memory allowed.
 cudaError_t prepare(int K, int H, int W, void (**kernel)(Params)) {
-  *kernel = one_tile(K, H, W) ? fused_rhmc_crowded_kernel : wide::fused_rhmc_crowded_wide_kernel;
+  *kernel = one_tile(K, H, W)       ? fused_rhmc_crowded_kernel
+            : wide::full_panel(K) ? wide::fused_rhmc_crowded_wide_kernel<false>
+                                  : wide::fused_rhmc_crowded_wide_kernel<true>;
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(K, H, W)));
 }
@@ -2985,7 +3186,8 @@ extern "C" {
 // Launches `grid` blocks on `stream`, which take the chains from the int
 // counter at `work` (zero at launch) and work in their slices of `work`
 // after its kHeader floats (kHeader + grid x work_floats(K, H, W) floats,
-// allocated by the caller); returns cudaGetLastError() (0 on success).
+// allocated by the caller, offsets in 64 bits); returns cudaGetLastError()
+// (0 on success).
 int starcat_fused_rhmc_crowded(
     const void* theta, const void* xi, const void* eps, const void* mask,
     int mask_stride, const void* beta, const void* image, void* theta_out,
@@ -3052,12 +3254,21 @@ int starcat_fused_rhmc_crowded_layout(int C, int K, int H, int W, int* threads,
 
 // The source's own sizes for K slots on an H x W scene on the launch's
 // path, which the wrapper holds its mirrors to: shared memory a block and
-// workspace floats a block.
-int starcat_fused_rhmc_crowded_sizes(int K, int H, int W, int* smem_out, int* work_floats_out) {
+// workspace floats a block (64-bit).
+int starcat_fused_rhmc_crowded_sizes(int K, int H, int W, int* smem_out,
+                                     long long* work_floats_out) {
   if (!in_domain(K, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   *smem_out = static_cast<int>(smem_bytes(K, H, W));
   *work_floats_out = one_tile(K, H, W) ? work_floats(K, H, W) : wide::work_floats(K, H, W);
   return 0;
+}
+
+// The wide path's way at K: bit 0 the Cholesky's whole panel in shared
+// memory (else streamed), bit 1 the per-star vectors in shared memory (else
+// in the workspace); -1 outside the domain.
+int starcat_fused_rhmc_crowded_wide_mode(int K) {
+  if (K < 1 || K > wide::kMaxStars) return -1;
+  return (wide::full_panel(K) ? 1 : 0) | (wide::vec_in_smem(K) ? 2 : 0);
 }
 
 // The launch's path: 1 one-tile, 0 wide, -1 outside the domain.

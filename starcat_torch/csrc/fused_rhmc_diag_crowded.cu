@@ -92,14 +92,22 @@
 // end of this file (namespace wide): the field in tiles of at most 128 x
 // 128 pixels and the live stars in chunks of 64, the chain's state in a
 // workspace in device memory.  Inside it, the launch takes the code above,
-// unchanged.
+// unchanged.  The wide path takes a pixel's offset from a star as the exact
+// difference of the pixel index and x - 1/2 (as B5 does), in the profiles,
+// the contractions' derivative factors and the q field alike; the code
+// above writes the factors' z / sigma as pixel / sigma^2 plus a per-star
+// constant, whose roundings at pixel indices in the hundreds part the
+// derivative's centre from the profile's by about 1e-5 pixels, and in an
+// early-temperature SMC state at 256x256 that put dH/dtheta, and theta
+// after a trajectory, several times farther from float64 than the float32
+// plain version (scripts/b4_run_state_accuracy.py).
 //
 // Domain (checked by the wrapper): the one-tile path takes 1 <= K <= 128,
 // H and W at most 128 and the block's shared memory (smem_floats) within
-// the card's 227 KB; the wide path every (H, W, K) that the TPU kernels'
-// VMEM gates take (fused_rhmc_diag_crowded.tpu_gate, the mirror of
-// starcat/pallas_rhmc_diag.py:diag_mxu_supported at an 8-chain tile and
-// diag_fused_supported at 1024 chains).
+// the card's 227 KB; the wide path every other (H, W, K) with K >= 1,
+// beyond the TPU kernels' VMEM gates too (the JAX package runs XLA there):
+// its shared memory is fixed, and a chain's workspace slice, the chains'
+// state, masks and the image are indexed in 64 bits.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -982,7 +990,7 @@ struct Smem {
   float *gx, *gy;                // (kChunk + 3, kGx) and (kChunk, kTile), the chunk's live stars
   double* red;                   // kWarps
   float* part;                   // kPartFloats
-  float *cw, *czx0, *czy0, *ca;  // the chunk's: w, (1/2 - x) / sigma, (1/2 - y) / sigma; ca (3, kChunk)
+  float *cw, *xh, *yh, *ca;      // the chunk's: w, x - 1/2, y - 1/2; ca (3, kChunk)
   int* live;                     // the chunk's slots
   float* scal;                   // u, h, delta scratch
 };
@@ -995,7 +1003,7 @@ __device__ inline Smem carve(float* base) {
   s.gx = take((kChunk + 3) * kGx); s.gy = take(kChunk * kTile);
   s.red = reinterpret_cast<double*>(take(2 * kWarps));
   s.part = take(kPartFloats);
-  s.cw = take(kChunk); s.czx0 = take(kChunk); s.czy0 = take(kChunk); s.ca = take(3 * kChunk);
+  s.cw = take(kChunk); s.xh = take(kChunk); s.yh = take(kChunk); s.ca = take(3 * kChunk);
   s.live = reinterpret_cast<int*>(take(kChunk));
   s.scal = take(8);
   return s;
@@ -1054,8 +1062,8 @@ __device__ void load_chunk(const Params& P, const Smem& s, const Work& g, const 
     const float su = g.su[k], sv = g.sv[k];
     s.live[tid] = k;
     s.cw[tid] = g.w[k];
-    s.czx0[tid] = (0.5f - D.W * su) / sig;
-    s.czy0[tid] = (0.5f - D.H * sv) / sig;
+    s.xh[tid] = D.W * su - 0.5f;
+    s.yh[tid] = D.H * sv - 0.5f;
     if (qw) {
       const float inv_sig = 1.0f / sig;
       const float inv_sig2 = inv_sig * inv_sig;
@@ -1070,17 +1078,16 @@ __device__ void load_chunk(const Params& P, const Smem& s, const Work& g, const 
   for (int j = tid / kTile; j < n + 3; j += kThreads / kTile) {
     float v = 0.0f;
     if (j < n && pix < t.tw) {
-      const float z = ((static_cast<float>(t.c0 + pix) + 0.5f) - D.W * g.su[s.live[j]]) / sig;
+      const float z = (static_cast<float>(t.c0 + pix) - s.xh[j]) / sig;
       v = expf(-0.5f * z * z) * P.psf_norm;
     }
     s.gx[j * kGx + pix] = v;
   }
 #pragma unroll 4
   for (int j = tid / kTile; j < n; j += kThreads / kTile) {
-    const float y = D.H * g.sv[s.live[j]];
     float v = 0.0f;
     if (pix < t.th) {
-      const float z = ((static_cast<float>(t.r0 + pix) + 0.5f) - y) / sig;
+      const float z = (static_cast<float>(t.r0 + pix) - s.yh[j]) / sig;
       v = expf(-0.5f * z * z) * P.psf_norm;
     }
     s.gy[j * kTile + pix] = v;
@@ -1192,10 +1199,10 @@ __device__ void contract_block(const Params& P, const Smem& s, const Dims& D, co
   const float* A = MODE == kField ? s.fld : s.r1;
 
   float acc[S][kOps][8];
-  float zs0[S];
+  float xh[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    zs0[i] = s.czx0[min(j0 + i, n - 1)] * inv_sig;
+    xh[i] = s.xh[min(j0 + i, n - 1)];
 #pragma unroll
     for (int o = 0; o < kOps; ++o)
 #pragma unroll
@@ -1214,7 +1221,7 @@ __device__ void contract_block(const Params& P, const Smem& s, const Dims& D, co
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         gx[i] = g[i * kGx];
-        zs[i] = fmaf(wf, inv_sig2, zs0[i]);
+        zs[i] = (wf - xh[i]) * inv_sig2;  // exact difference: the profile's own z / sigma
       }
       contract_column<MODE, S, kOps>(acc, av, gx, zs, inv_sig2);
       a += kTile;
@@ -1231,11 +1238,11 @@ __device__ void contract_block(const Params& P, const Smem& s, const Dims& D, co
       const int j = min(j0 + i, n - 1);
       const float4 g0 = ld4(s.gy + j * kTile + lo), g1 = ld4(s.gy + j * kTile + lo + 64);
       const float gyv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float zy0 = s.czy0[j];
+      const float yh = s.yh[j];
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const float gy = gyv[r];
-        const float zy = fmaf(static_cast<float>(t.r0 + lo + r + (r < 4 ? 0 : 60)), inv_sig, zy0);
+        const float zy = (static_cast<float>(t.r0 + lo + r + (r < 4 ? 0 : 60)) - yh) * inv_sig;
         const float gy1 = gy * zy * inv_sig;
         if (MODE == kField) {
           sums[i][0] = fmaf(gy, acc[i][1][r], sums[i][0]);
@@ -1333,12 +1340,12 @@ __device__ int q_tile(const Params& P, const Smem& s, const Work& g, const Dims&
         const int j = j0 + jj;
         float* rec = s.fld + jj * kRecord + pix;
         const float gy = s.gy[j * kTile + pix];
-        const float zy = fmaf(static_cast<float>(t.r0 + pix), inv_sig, s.czy0[j]);
+        const float zy = (static_cast<float>(t.r0 + pix) - s.yh[j]) * inv_sig;
         const float ysq = gy * gy;
         rec[0] = ysq;
         rec[kTile] = s.ca[kChunk + j] * (ysq * (zy * zy));
         const float gx = s.gx[j * kGx + pix];
-        const float zx = fmaf(static_cast<float>(t.c0 + pix), inv_sig, s.czx0[j]);
+        const float zx = (static_cast<float>(t.c0 + pix) - s.xh[j]) * inv_sig;
         const float xsq = gx * gx;
         rec[2 * kTile] = xsq * fmaf(s.ca[j], zx * zx, s.ca[2 * kChunk + j]);
         rec[3 * kTile] = xsq;

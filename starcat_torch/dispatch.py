@@ -8,12 +8,15 @@ fused_leapfrog_crowded.py), the same with a runtime step count for ChEES
 (B3, fused_rhmc_diag.py; B4, fused_rhmc_diag_crowded.py) and the
 full-Fisher one (B6, fused_rhmc.py; B6c, fused_rhmc_crowded.py): three
 pairs of kernels, the leapfrog's serving two contracts.  The small-scene
-kernel takes what its domain holds, the crowded-field kernel what its own
-holds, and a scene beyond both raises naming both limits.  The small-scene
-kernels' domains are their own (their shared memory, their star counts);
-B5 and B4 take what their TPU kernels' VMEM gates take, and B6c, which
-replaces no TPU kernel, up to K = 256 whatever B4 takes, so the full
-metric runs wherever the diagonal one does.  The heads do not care which
+kernel takes what its domain holds (its shared memory, its star counts:
+H W <= 48^2 and K <= 16), the crowded-field kernel every other scene and
+catalog, as the JAX package's _select_kernel sends every scene beyond its
+Pallas kernels' VMEM gates to XLA (starcat/api.py:44-53): B5 and B4 take
+every scene and K >= 1, B6c every scene and 1 <= K <= 10922 (its 32-bit
+indices into a block's pair sums).  So the choice raises only for K < 1
+(and the full metric beyond K = 10922), naming both kernels.  Where a
+launch's workspace does not fit the card, its allocation raises PyTorch's
+out-of-memory error; nothing falls back.  The heads do not care which
 kernel of a pair runs: the contracts are the same, and on the CPU both
 wrappers run the same plain version.
 

@@ -16,8 +16,9 @@ is (K, 3); mask is (K,) shared or (C, K) per chain.  ``n_steps == 0``
 returns (U, grad U) at theta; without an entry gradient the trajectory
 evaluates it first.
 
-The kernel takes every scene and catalog that its TPU kernel takes
-(:func:`tpu_gate`, the JAX package's VMEM gate).  Inside its first domain
+The kernel takes every scene and every catalog of K >= 1 slots, as the JAX
+package's XLA route does beyond its Pallas kernel's VMEM gate
+(starcat/api.py:44-53).  Inside its first domain
 (:func:`one_tile`: at most 128 x 128 pixels and 1 <= K <= 128) a launch
 takes that one-tile code, unchanged: its GEMM passes tile the scene in the
 smallest square of 32, 64 or 128 pixels a side that holds it
@@ -27,8 +28,10 @@ shared memory at every such K (206 KB at 128x128 with K = 128), the
 crowded field's K = 50 and 64 among them.  Beyond it the wide path walks
 the field in tiles of at most 128 x 128 pixels and the catalog in chunks
 of WIDE_CHUNK slots, 512 threads a chain, the chain's state in the
-launch's outputs.  Scenes and catalogs inside B1's domain run on B1
-(fused_leapfrog.py); :func:`dispatch.leapfrog_module` chooses.
+launch's outputs: its shared memory does not grow with the field or the
+catalog, and it indexes the chains' state and the image in 64 bits.
+Scenes and catalogs inside B1's domain run on B1 (fused_leapfrog.py);
+:func:`dispatch.leapfrog_module` chooses.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_leapfrog.fused_leapfrog_reference` (the same
@@ -98,31 +101,20 @@ def wide_smem_bytes() -> int:
     wide::smem_floats in the source), whatever the scene: the tile's
     residual field (128 x 128), one chunk's profiles gx (WIDE_CHUNK + 3,
     132) and gyw (WIDE_CHUNK, 128), the block sum's doubles and the column
-    halves' partial sums as at T = 128, 4 floats a chunk slot, the
-    compaction's counts a warp and 4 of scratch."""
+    halves' partial sums as at T = 128, 6 floats a chunk slot (x, y, flux,
+    slot, and x's and y's remainders), the compaction's counts a warp and 4
+    of scratch."""
     side, warps = 128, tile_threads(128) // 32
     return 4 * (side * side + (WIDE_CHUNK + 3) * (side + 4) + WIDE_CHUNK * side + 2 * warps
-                + 3 * 4 * 16 + 4 * WIDE_CHUNK + warps + 4)
-
-
-def tpu_gate(spec: SceneSpec, kmax: int) -> bool:
-    """The scenes and catalogs the TPU's kernel takes, at any chain count
-    the port runs: the VMEM budget of starcat/pallas_mxu.py's
-    mxu_fused_supported at its 8-chain tile, computed here without the JAX
-    package."""
-    hw, side = spec.height * spec.width, max(spec.height, spec.width)
-    return 4 * 8 * kmax * side * 4 + 3 * 8 * hw * 4 + hw * 4 < 12 * 2**20
+                + 3 * 4 * 16 + 6 * WIDE_CHUNK + warps + 4)
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
-    """Why the kernel does not take this scene and catalog, or None."""
+    """Why the kernel does not take this scene and catalog, or None: it
+    takes every scene and K >= 1."""
     if kmax < 1:
         return f"the crowded-field CUDA leapfrog (B5) takes K >= 1, got K={kmax}"
-    if tpu_gate(spec, kmax):  # the one-tile domain lies inside the gate
-        return None
-    return (f"the crowded-field CUDA leapfrog (B5) takes the scenes and catalogs of its "
-            f"TPU kernel's VMEM gate (mxu_fused_supported at an 8-chain tile), got "
-            f"{spec.height}x{spec.width} with K={kmax}")
+    return None
 
 
 def launch_layout(c: int, kmax: int, height: int, width: int) -> dict:

@@ -8,21 +8,26 @@ contract (fused_rhmc.py) for the scenes B6 does not take:
         -> (theta' (C, K, 3), p' (C, K, 3), h0, h1, u1, resid (C,))
 
 The JAX package has no Pallas kernel here: beyond its B6 gate it runs the
-full metric on XLA (starcat/api.py:205).  The kernel takes 1 <= K <= 256
-catalog slots on every scene that B4 takes
-(:func:`fused_rhmc_diag_crowded.tpu_gate`); :func:`dispatch.rhmc_full_module`
-gives it what B6's domain does not hold.  Inside its first domain
-(:func:`one_tile`: at most 128 x 128 pixels and K <= 64, where a chain's
-field and dense algebra fit one block's shared memory) a launch takes that
-one-tile code; beyond it the wide path, which keeps the fields and the
-dense algebra in the block's workspace slice and walks the field in
-128 x 128 tiles.  One launch takes every chain: a persistent grid of one
-block an SM, whose blocks take the chains from a counter in the
+full metric on XLA (starcat/api.py:205), on every scene and catalog.  So
+does the kernel, up to K = WIDE_MAX_STARS slots (its 32-bit indices into a
+block's K^2 pair sums; a block's workspace is then 22 GB);
+:func:`dispatch.rhmc_full_module` gives it what B6's domain does not hold.
+Inside its first domain (:func:`one_tile`: at most 128 x 128 pixels and
+K <= 64, where a chain's field and dense algebra fit one block's shared
+memory) a launch takes that one-tile code; beyond it the wide path, which
+keeps the fields and the dense algebra in the block's workspace slice and
+walks the field in 128 x 128 tiles; beyond K = 347 (:func:`full_panel`) its
+Cholesky streams the panel through shared memory in row blocks, and
+beyond K = 615 (:func:`vectors_in_shared`) the per-star vectors live in
+the slice too.  One launch takes every chain: a persistent grid of at most
+one block an SM, whose blocks take the chains from a counter in the
 workspace's header, each block in its own slice of that workspace in
-device memory, which the wrapper allocates (:func:`workspace_bytes`; the
-allocation raises before the launch if the card cannot give it) and whose
-counter it zeroes before each launch, so the memory follows the card, not
-the chain count.
+device memory, which the wrapper allocates and whose counter it zeroes
+before each launch.  The grid is cut where a full one's slices would pass
+WORKSPACE_SHARE of the card's free memory (:func:`launch_layout`), so the
+memory follows the card, not the chain count; where even one slice does
+not fit, the allocation raises PyTorch's out-of-memory error before the
+launch.  A chain's bits do not depend on the grid.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_rhmc.fused_rhmc_reference` (the same function),
@@ -35,15 +40,14 @@ import functools
 
 import torch
 
-from .build import launch_riemannian, riemannian_library, riemannian_scalars
+from .build import MAX_SMEM_BYTES, launch_riemannian, riemannian_library, riemannian_scalars
 from .fused_rhmc import fused_rhmc_reference
-from .fused_rhmc_diag_crowded import tpu_gate
 from .potential import PriorSpec
 from .scene import SceneSpec
 
 MAX_STARS = 64    # kMaxStars in the source: the one-tile path's K
 MAX_SIDE = 128    # kMaxSide in the source: the one-tile path's H, W <= 128
-WIDE_MAX_STARS = 256  # wide::kMaxStars in the source: K <= 256, D <= 768
+WIDE_MAX_STARS = 10922  # wide::kMaxStars in the source: 18 K^2 < 2^31
 WIDE_TILE = 128   # wide::kTile: the q and phi fields' pixel tile
 THREADS = 512     # kThreads in the source
 Q_PAIRS = 8       # kQPairs in the source: star pairs of a q-field chunk
@@ -52,6 +56,15 @@ Q_COEF = 12       # kCoef: floats a pair in the q coefficient table
 HEADER_FLOATS = 4  # kHeader: the workspace's header, the chain counter first
 CHOL_PANEL_LD = 36  # kPanelLd: floats a row of the Cholesky's panel by rows
 WIDE_PANEL_LD = 33  # wide::kPLd: floats a row of the wide Cholesky's 32-column panel
+WIDE_PANEL = 32   # kPanel: the Cholesky's panel columns
+WIDE_ROW_BLOCK = 448  # wide::kRowBlock: rows of the streamed Cholesky's row block
+WIDE_RING = 2 * Q_PAIRS * Q_COEF  # wide::kRing: the q coefficient ring
+# wide::kSmemFloats: the dynamic shared floats a block may take, the card's
+# less 1 KB for the static shared memory
+WIDE_SMEM_FLOATS = (MAX_SMEM_BYTES - 1024) // 4
+# the share of the card's free memory a launch's workspace may take before
+# the grid is cut (launch_layout)
+WORKSPACE_SHARE = 0.5
 
 # Launch count of the CUDA kernel.
 LAUNCHES = 0
@@ -129,34 +142,74 @@ def one_tile(kmax: int, height: int, width: int) -> bool:
     return 1 <= kmax <= MAX_STARS and height <= MAX_SIDE and width <= MAX_SIDE
 
 
-def wide_region_floats(kmax: int) -> int:
-    """The wide path's shared region (wide::region_floats in the source):
-    the q field's two operand stages over a 128 x 128 tile (depth Q_DEPTH,
-    T and X of 128 each, and 16 floats of row ranges) or the Cholesky's
-    32-column panel by rows (D + 1 rows of WIDE_PANEL_LD floats),
-    whichever is larger, rounded up to 4."""
+def _vec_floats(kmax: int) -> int:
+    return 67 * kmax + 12
+
+
+def _panel_region(kmax: int) -> int:
     stage = Q_DEPTH * 2 * WIDE_TILE + 2 * Q_PAIRS
     return _round4(max(2 * stage, WIDE_PANEL_LD * (3 * kmax + 1)))
+
+
+def full_panel(kmax: int) -> bool:
+    """Whether the wide path factors the Cholesky's whole 32-column panel
+    (D + 1 rows) in shared memory (wide::full_panel in the source): where
+    it, the q coefficient ring and the per-star vectors fit, K <= 347.
+    Beyond, the panel streams through a region of fixed size."""
+    return _panel_region(kmax) + WIDE_RING + _vec_floats(kmax) <= WIDE_SMEM_FLOATS
+
+
+def wide_region_floats(kmax: int) -> int:
+    """The wide path's shared region (wide::region_floats in the source):
+    with the whole panel (:func:`full_panel`) the q field's two operand
+    stages over a 128 x 128 tile (depth Q_DEPTH, T and X of 128 each, and
+    16 floats of row ranges) or the panel by rows (D + 1 rows of
+    WIDE_PANEL_LD floats), whichever is larger; beyond, the stages, which
+    hold the streamed panel's top block and a row block of WIDE_ROW_BLOCK
+    rows; rounded up to 4."""
+    if full_panel(kmax):
+        return _panel_region(kmax)
+    stage = Q_DEPTH * 2 * WIDE_TILE + 2 * Q_PAIRS
+    return _round4(max(2 * stage, WIDE_PANEL_LD * (WIDE_PANEL + WIDE_ROW_BLOCK)))
+
+
+def vectors_in_shared(kmax: int) -> bool:
+    """Whether the wide path keeps its 67 floats a star and 12 of per-chain
+    scalars in shared memory beside the region and the ring
+    (wide::vec_in_smem in the source), K <= 615; beyond, in the block's
+    workspace slice."""
+    return wide_region_floats(kmax) + WIDE_RING + _vec_floats(kmax) <= WIDE_SMEM_FLOATS
 
 
 def wide_smem_bytes(kmax: int) -> int:
     """Shared memory one block of the wide path needs (mirrors
     wide::smem_floats in the source), whatever the scene: the region, the
-    q coefficient ring, 67 floats a star and 12 of per-chain scalars."""
-    return 4 * (wide_region_floats(kmax) + 2 * Q_PAIRS * Q_COEF + 67 * kmax + 12)
+    q coefficient ring and, where they fit, 67 floats a star and 12 of
+    per-chain scalars."""
+    vec = _vec_floats(kmax) if vectors_in_shared(kmax) else 0
+    return 4 * (wide_region_floats(kmax) + WIDE_RING + vec)
 
 
 def wide_workspace_floats(kmax: int, height: int, width: int) -> int:
     """Device memory one block of the wide path works in, in floats
-    (mirrors wide::work_floats in the source): the working field and 1/lam,
-    gy and gy' interleaved at the odd star stride H | 1, gx, gx', gx'',
-    gy'', the 18 K^2 pair sums, G^-1 (D^2), the q coefficient table, packed
-    L (D + 1 rows) and L^-1 (D^2), each a multiple of 4."""
+    (mirrors wide::work_floats in the source, 64-bit): the working field
+    and 1/lam, gy and gy' interleaved at the odd star stride H | 1, gx,
+    gx', gx'', gy'', the 18 K^2 pair sums, G^-1 (D^2), the q coefficient
+    table, packed L (D + 1 rows), L^-1 (D^2) and the chain's live slots and
+    mask values (2 K); beyond :func:`full_panel` the streamed Cholesky's
+    panel rows (D + 1 rows of 32, which L^-1's 16 column vectors share),
+    and beyond :func:`vectors_in_shared` the per-star vectors; each a
+    multiple of 4."""
     fs, hp, d = field_stride(width), height | 1, 3 * kmax
     pairs = (kmax * (kmax + 1) // 2 + Q_PAIRS - 1) // Q_PAIRS * Q_PAIRS
-    return (2 * height * fs + _round4(2 * kmax * hp) + 3 * kmax * fs + _round4(kmax * hp)
-            + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs
-            + _round4((d + 1) * (d + 2) // 2) + _round4(d * d))
+    n = (2 * height * fs + _round4(2 * kmax * hp) + 3 * kmax * fs + _round4(kmax * hp)
+         + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs
+         + _round4((d + 1) * (d + 2) // 2) + _round4(d * d) + _round4(2 * kmax))
+    if not full_panel(kmax):
+        n += WIDE_PANEL * (d + 1)
+    if not vectors_in_shared(kmax):
+        n += _round4(_vec_floats(kmax))
+    return n
 
 
 def launch_smem_bytes(kmax: int, height: int, width: int) -> int:
@@ -180,15 +233,12 @@ def workspace_bytes(kmax: int, height: int, width: int, blocks: int = 1) -> int:
 
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
-    """Why the kernel does not take this scene and catalog, or None."""
+    """Why the kernel does not take this scene and catalog, or None: it
+    takes every scene and 1 <= K <= WIDE_MAX_STARS."""
     if not 1 <= kmax <= WIDE_MAX_STARS:
         return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes "
                 f"1 <= K <= {WIDE_MAX_STARS}, got K={kmax}")
-    if one_tile(kmax, spec.height, spec.width) or tpu_gate(spec, kmax):
-        return None
-    return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes the scenes and "
-            f"catalogs that B4 takes (its TPU kernel's VMEM gates), got "
-            f"{spec.height}x{spec.width} with K={kmax}")
+    return None
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:
@@ -206,38 +256,53 @@ def _library_layout(device_index: int, kmax: int, height: int, width: int) -> di
 
     lib = riemannian_library("fused_rhmc_crowded")
     fn = lib.starcat_fused_rhmc_crowded_sizes
-    ci = ctypes.c_int
-    fn.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
+    ci, cll = ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [ci] * 3 + [ctypes.POINTER(ci), ctypes.POINTER(cll)]
     fn.restype = ci
     lib.starcat_fused_rhmc_crowded_one_tile.argtypes = [ci] * 3
     lib.starcat_fused_rhmc_crowded_one_tile.restype = ci
-    smem, work = ci(), ci()
+    lib.starcat_fused_rhmc_crowded_wide_mode.argtypes = [ci]
+    lib.starcat_fused_rhmc_crowded_wide_mode.restype = ci
+    smem, work = ci(), cll()
     want = (int(one_tile(kmax, height, width)), launch_smem_bytes(kmax, height, width),
-            launch_workspace_floats(kmax, height, width))
+            launch_workspace_floats(kmax, height, width),
+            int(full_panel(kmax)) | 2 * int(vectors_in_shared(kmax)))
     with torch.cuda.device(device_index):
         rc = fn(kmax, height, width, ctypes.byref(smem), ctypes.byref(work))
         if rc != 0:
             raise RuntimeError(f"starcat_fused_rhmc_crowded_sizes failed ({rc})")
         got = (lib.starcat_fused_rhmc_crowded_one_tile(kmax, height, width), smem.value,
-               work.value)
+               work.value, lib.starcat_fused_rhmc_crowded_wide_mode(kmax))
         if got != want:
             raise RuntimeError(
-                f"B6c's build takes (one-tile path, shared bytes, workspace floats a block) "
-                f"{got}; fused_rhmc_crowded.py says {want}")
+                f"B6c's build takes (one-tile path, shared bytes, workspace floats a block, "
+                f"wide mode) {got}; fused_rhmc_crowded.py says {want}")
         lay = query_layout(lib, "starcat_fused_rhmc_crowded_layout", 1, kmax, height, width)
         sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return dict(threads=lay["threads"], blocks_per_sm=lay["blocks_per_sm"], sms=sms)
 
 
+def memory_grid(kmax: int, height: int, width: int, free_bytes: int) -> int:
+    """The most blocks whose workspace slices take at most WORKSPACE_SHARE
+    of ``free_bytes``, and at least 1 (whose allocation then raises where
+    one slice does not fit)."""
+    slice_bytes = 4 * launch_workspace_floats(kmax, height, width)
+    return max(1, int(WORKSPACE_SHARE * free_bytes) // slice_bytes)
+
+
 def launch_layout(c: int, kmax: int, height: int, width: int, device=None) -> dict:
     """How the kernel lays out a launch of c chains on the card: threads a
     block, the blocks an SM holds, the grid (at most the SMs times that,
-    its blocks taking the chains from the workspace's counter), the chains
-    a block takes on average, rounded up, and the workspace's bytes."""
+    and at most memory_grid over the memory the card has free now, the
+    CUDA driver's free memory and the allocator's cached blocks), its blocks
+    taking the chains from the workspace's counter, the chains a block
+    takes on average, rounded up, and the workspace's bytes."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lay = _library_layout(index, kmax, height, width)
-    grid = min(c, lay["blocks_per_sm"] * lay["sms"])
+    free = (torch.cuda.mem_get_info(index)[0] + torch.cuda.memory_reserved(index)
+            - torch.cuda.memory_allocated(index))
+    grid = min(c, lay["blocks_per_sm"] * lay["sms"], memory_grid(kmax, height, width, free))
     if grid < 1:
         raise RuntimeError(f"B6c fits no block on this card ({lay})")
     return dict(threads=lay["threads"], blocks_per_sm=lay["blocks_per_sm"], grid=grid,

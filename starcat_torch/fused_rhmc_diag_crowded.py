@@ -14,15 +14,20 @@ chain; beta is a float or a device scalar tensor, which the kernel reads
 without a host sync.  resid is the per-chain solver residual, NaN when the
 trajectory blew up.
 
-The kernel takes every scene and catalog that its TPU kernel takes
-(:func:`tpu_gate`, the JAX package's VMEM gates).  Inside its first domain
+The kernel takes every scene and every catalog of K >= 1 slots, as the JAX
+package's XLA route does beyond its Pallas kernel's VMEM gates
+(starcat/api.py:44-53).  Inside its first domain
 (:func:`one_tile`: at most 128 x 128 pixels, which its GEMM passes tile in
 one block of pixels, and two fields and two profile sets that fit one
 block's shared memory: at 128x128, K up to 78, cfg4's K = 64 among them) a
 launch takes that one-tile code, unchanged; beyond it the wide path, which
 walks the field in tiles of at most 128 x 128 pixels and the live stars in
 chunks of WIDE_CHUNK, the chain's state in a workspace in device memory
-that the wrapper allocates (:func:`workspace_floats` a chain).  Smaller
+that the wrapper allocates (:func:`workspace_floats` a chain, 312 KB at
+256x256 with K = 256, 1.06 MB at 512x512 with K = 64), indexed in 64 bits;
+its shared memory does not grow with the field or the catalog.  Where the
+workspace does not fit the card, its allocation raises PyTorch's
+out-of-memory error before the launch.  Smaller
 scenes run on B3 (fused_rhmc_diag.py); :func:`dispatch.rhmc_diag_module`
 chooses.
 
@@ -95,29 +100,13 @@ def workspace_floats(kmax: int, height: int, width: int) -> int:
     return (bands * width * MAX_SIDE + 49 * kmax + 3) & ~3
 
 
-def tpu_gate(spec: SceneSpec, kmax: int) -> bool:
-    """The scenes and catalogs the TPU's kernels of the pair take, at any
-    chain count the port runs: the VMEM budgets of
-    starcat/pallas_rhmc_diag.py's diag_mxu_supported (B4's, at its 8-chain
-    tile) and diag_fused_supported (B3's, at 1024 chains, a 128-chain
-    tile), computed here without the JAX package."""
-    hw, side = spec.height * spec.width, max(spec.height, spec.width)
-    mxu = 10 * 8 * kmax * side * 4 + 4 * 8 * hw * 4 + hw * 4 < 12 * 2**20
-    lanes = 3 * hw * 128 * 4 + 6 * kmax * side * 128 * 4 < 24 * 2**20
-    return mxu or lanes
-
-
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
-    """Why the kernel does not take this scene and catalog, or None."""
+    """Why the kernel does not take this scene and catalog, or None: it
+    takes every scene and K >= 1."""
     if kmax < 1:
         return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes K >= 1, "
                 f"got K={kmax}")
-    if tpu_gate(spec, kmax):  # the one-tile domain lies inside the gate
-        return None
-    return (f"the crowded-field CUDA diagonal-Fisher trajectory (B4) takes the scenes and "
-            f"catalogs of its TPU kernel's VMEM gates (diag_mxu_supported at an 8-chain "
-            f"tile, diag_fused_supported at 1024 chains), got {spec.height}x{spec.width} "
-            f"with K={kmax}")
+    return None
 
 
 def check_domain(spec: SceneSpec, kmax: int) -> None:

@@ -64,14 +64,20 @@ def test_b5_domain_takes_scenes_that_fit(h, w, k):
 
 
 @pytest.mark.parametrize("h,w,k,match", [
-    (128, 128, 668, "got 128x128 with K=668"),
+    (128, 128, 668, None),
     (128, 128, 0, "K >= 1, got K=0"),
-    (192, 192, 362, "got 192x192 with K=362"),
-    (352, 128, 180, "got 352x128 with K=180"),
-    (256, 256, 184, "VMEM gate"),
+    (192, 192, 362, None),
+    (352, 128, 180, None),
+    (256, 256, 184, None),
 ])
 def test_b5_domain_rejects_the_edges(h, w, k, match):
+    """One past each of the TPU gate's edges B5 now runs (match None: its
+    wide path, as the JAX package runs XLA there); only K < 1 raises."""
     err = flc.domain_error(_spec(h, w), k)
+    if match is None:
+        assert err is None and not flc.one_tile(k, h, w)
+        flc.check_domain(_spec(h, w), k)
+        return
     assert err is not None and "(B5)" in err and match in err
     with pytest.raises(ValueError, match="B5"):
         flc.check_domain(_spec(h, w), k)

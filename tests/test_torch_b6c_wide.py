@@ -246,8 +246,8 @@ def _spec(h, w):
     return SceneSpec(h, w, 1.5, 20.0)
 
 
-# B6c's domain edges, each with B4's (the TPU gate's) largest K there: the
-# one-tile edge, then the wide path's
+# B6c's old domain edges (before the TPU gates went), each with B4's (the
+# TPU gate's) largest K there: the one-tile edge, then the wide path's
 EDGES = ((128, 128, 64), (128, 128, 254), (192, 192, 125), (256, 256, 47), (304, 96, 89),
          (96, 304, 89), (32, 32, 256), (1, 1, 1))
 
@@ -257,27 +257,34 @@ def test_b6c_takes_the_edges_of_its_domain(h, w, k):
     assert frc.domain_error(_spec(h, w), k) is None
     frc.check_domain(_spec(h, w), k)
     assert dispatch.trajectory_kernel("rhmc", "full", _spec(h, w), k) in ("B6", "B6c")
-    # wherever the diagonal metric runs on B4 up to K = 256, the full metric
-    # runs on B6c
+    # wherever the diagonal metric runs on B4, the full metric runs on B6c
     assert frdc.domain_error(_spec(h, w), k) is None
 
 
 @pytest.mark.parametrize("h,w,k,match", [
-    (128, 128, 255, r"\(B6\).*\(B6c\) takes the scenes and catalogs that B4 takes.*"
-                    r"128x128 with K=255"),
-    (192, 192, 126, r"\(B6\).*\(B6c\).*192x192 with K=126"),
-    (256, 256, 48, r"\(B6\).*\(B6c\).*256x256 with K=48"),
-    (304, 96, 90, r"\(B6\).*\(B6c\).*304x96 with K=90"),
-    (400, 400, 1, r"\(B6\).*\(B6c\).*400x400 with K=1"),
-    (32, 32, 257, r"\(B6\).*\(B6c\) takes 1 <= K <= 256, got K=257"),
-    (32, 32, 0, r"\(B6\).*\(B6c\) takes 1 <= K <= 256, got K=0"),
+    (128, 128, 255, None),
+    (192, 192, 126, None),
+    (256, 256, 48, None),
+    (304, 96, 90, None),
+    (400, 400, 1, None),
+    (32, 32, 257, None),
+    (32, 32, 0, r"\(B6\).*\(B6c\) takes 1 <= K <= 10922, got K=0"),
 ])
 def test_one_past_each_edge_raises_naming_b6_and_b6c(h, w, k, match):
+    """One past each of the old edges B6c now runs (match None: its wide
+    path, as the JAX package runs XLA there); only K < 1 raises, naming
+    both kernels."""
+    prior = CONFIGS["cfg4_crowded"].prior
+    if match is None:
+        assert dispatch.trajectory_kernel("rhmc", "full", _spec(h, w), k) == "B6c"
+        assert not frc.one_tile(k, h, w) and frc.domain_error(_spec(h, w), k) is None
+        fused = dispatch.make_rhmc_full(_spec(h, w), torch.zeros((h, w)), prior, k, 2, 2)
+        assert callable(fused)
+        return
     with pytest.raises(ValueError, match=match):
         dispatch.trajectory_kernel("rhmc", "full", _spec(h, w), k)
     with pytest.raises(ValueError, match=match):
-        dispatch.make_rhmc_full(_spec(h, w), torch.zeros((h, w)), CONFIGS["cfg4_crowded"].prior,
-                                k, 2, 2)
+        dispatch.make_rhmc_full(_spec(h, w), torch.zeros((h, w)), prior, k, 2, 2)
 
 
 # the wide runs on the card: cfg4's SMC with the full-metric mutation on the
@@ -297,13 +304,11 @@ def test_the_wide_runs_resolve_to_b6c(name, over):
     assert dispatch.trajectory_kernel(cfg.head, api._metric_of(cfg), cfg.scene,
                                       cfg.kmax) == "B6c"
     assert not frc.one_tile(cfg.kmax, cfg.scene.height, cfg.scene.width)
-    # beyond the domain the choice raises naming both kernels; kernel=auto
-    # meets the same error when the head builds its trajectory
+    # beyond B4's TPU gate (400x400) B6c runs too, on kernel=auto and cuda
     beyond = dataclasses.replace(cfg, scene=cfg.scene._replace(height=400, width=400))
-    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
-        api.resolve_kernel("cuda", cuda, beyond)
-    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
-        dispatch.trajectory_kernel(cfg.head, "full", beyond.scene, cfg.kmax)
+    for pref in ("auto", "cuda"):
+        assert api.resolve_kernel(pref, cuda, beyond) == "cuda"
+    assert dispatch.trajectory_kernel(cfg.head, "full", beyond.scene, cfg.kmax) == "B6c"
 
 
 # -- the wide path's sizes ------------------------------------------------------
@@ -349,17 +354,19 @@ def test_b6c_wide_workspace_follows_the_source():
     and 1/lam (H rows at the field stride each), gy and gy' at the odd star
     stride, gx, gx', gx'', gy'', the 18 K^2 pair sums, G^-1, the q
     coefficient table (12 floats a pair, whole chunks of 8), packed L with
-    the momentum's row and L^-1 (D x D), each a multiple of 4 floats."""
+    the momentum's row and L^-1 (D x D), and the chain's live slots and
+    their mask values (2 K, once in static shared memory), each
+    a multiple of 4 floats."""
     k, h, w, d = 125, 192, 192, 375
     pairs = (k * (k + 1) // 2 + 7) // 8 * 8
     assert pairs == 7880
     assert frc.wide_workspace_floats(k, h, w) == (
         2 * 192 * 192 + (2 * 125 * 193 + 2) + 3 * 125 * 192 + (125 * 193 + 3)
         + (18 * 125 * 125 + 2) + (d * d + 3) + 12 * pairs + 376 * 377 // 2
-        + (d * d + 3)) == 946052
+        + (d * d + 3) + 252) == 946304
     # a block works in 3.8 MB at the slice's shape, 12.9 MB at 128x128 K = 254
     # (1.71 GB for a grid of one block on each of an H100's 132 SMs)
-    assert frc.workspace_bytes(125, 192, 192, 1) == 4 * (4 + 946052)
+    assert frc.workspace_bytes(125, 192, 192, 1) == 4 * (4 + 946304)
     assert round(frc.workspace_bytes(254, 128, 128, 132) / 1e9, 2) == 1.71
     assert all(frc.wide_workspace_floats(k, h, w) % 4 == 0
                for k in (1, 5, 65, 125, 254) for h, w in ((129, 128), (7, 13), (304, 96)))

@@ -153,16 +153,18 @@ def test_kernel_choice_by_shape(spec, kmax, leapfrog, diag):
 
 
 def test_kernel_choice_raises_beyond_both_domains():
-    """The crowded-field kernels take what their TPU kernels' VMEM gates
-    take (tests/test_torch_wide_fields.py holds the edges on a grid):
-    beyond that, the choice raises naming both kernels of the pair."""
+    """The crowded-field kernels take every scene beyond their TPU kernels'
+    VMEM gates (tests/test_torch_beyond_gates.py holds a grid up to 512 x
+    512 and K = 1000): the choice raises only for an empty catalog, naming
+    both kernels of the pair."""
     big = SceneSpec(384, 384, 1.5, 20.0)
-    with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\).*VMEM gate"):
-        dispatch.leapfrog_module(big, 64)
-    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\).*VMEM gates"):
-        dispatch.rhmc_diag_module(big, 64)
-    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\).*K=255"):
-        dispatch.rhmc_diag_module(CROWDED, 255)
+    assert dispatch.leapfrog_module(big, 64)[1] == "B5"
+    assert dispatch.rhmc_diag_module(big, 64)[1] == "B4"
+    assert dispatch.rhmc_diag_module(CROWDED, 255)[1] == "B4"
+    with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\) takes K >= 1, got K=0"):
+        dispatch.leapfrog_module(big, 0)
+    with pytest.raises(ValueError, match=r"\(B3\).*\(B4\) takes K >= 1, got K=0"):
+        dispatch.rhmc_diag_module(big, 0)
     # B4's one-tile shared memory holds K <= 78 at 128x128, its wide path
     # the rest of its gate's K <= 254; B5's one-tile path every K <= 128,
     # its wide path up to its gate's 667
@@ -170,20 +172,19 @@ def test_kernel_choice_raises_beyond_both_domains():
     assert flc.smem_bytes(128, 128, 128) <= MAX_SMEM_BYTES
     assert dispatch.leapfrog_module(CROWDED, 128)[1] == "B5"
     assert dispatch.leapfrog_module(CROWDED, 667)[1] == "B5"
-    with pytest.raises(ValueError, match=r"\(B5\).*K=668"):
-        dispatch.leapfrog_module(CROWDED, 668)
+    assert dispatch.leapfrog_module(CROWDED, 668)[1] == "B5"
     assert dispatch.rhmc_diag_module(CROWDED, 79)[1] == "B4"
     assert dispatch.rhmc_diag_module(CROWDED, 254)[1] == "B4"
-    # the full metric runs on B6c, its crowded-field kernel, there and
-    # raises only beyond both full-metric kernels, naming both; ChEES's
-    # runtime step count (B2's contract) runs on B5 there and raises only
-    # beyond both leapfrog kernels
+    # the full metric runs on B6c, its crowded-field kernel, there and on
+    # the big field; ChEES's runtime step count (B2's contract) on B5
     assert dispatch.trajectory_kernel("rhmc", "full", CROWDED, 64) == "B6c"
-    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
-        dispatch.trajectory_kernel("rhmc", "full", big, 64)
+    assert dispatch.trajectory_kernel("rhmc", "full", big, 64) == "B6c"
     assert dispatch.trajectory_kernel("chees", None, CROWDED, 50) == "B5"
+    assert dispatch.trajectory_kernel("chees", None, big, 64) == "B5"
+    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
+        dispatch.trajectory_kernel("rhmc", "full", big, 0)
     with pytest.raises(ValueError, match=r"\(B1/B2\).*\(B5\)"):
-        dispatch.trajectory_kernel("chees", None, big, 64)
+        dispatch.trajectory_kernel("chees", None, big, 0)
 
 
 def test_b4_shared_memory_follows_its_gemm_layout():
@@ -224,12 +225,14 @@ def test_api_resolves_the_crowded_kernels():
     assert api.resolve_kernel("cuda", cuda, rh) == "cuda"
     full = apply_overrides(rh, {"rhmc.metric": "full"})
     assert api.resolve_kernel("cuda", cuda, full) == "cuda"
-    with pytest.raises(ValueError, match=r"\(B6\).*\(B6c\)"):
-        api.resolve_kernel("cuda", cuda, dataclasses.replace(
-            full, scene=full.scene._replace(height=256, width=256)))
-    huge = dataclasses.replace(cfg, scene=cfg.scene._replace(height=256, width=256))
-    with pytest.raises(ValueError, match="B4"):
-        api.resolve_kernel("cuda", cuda, huge)
+    # beyond the TPU kernels' gates (256x256 at K = 50 and 64) auto and
+    # cuda take the crowded-field kernels on a card; cuda off a card raises
+    for c in (dataclasses.replace(full, scene=full.scene._replace(height=256, width=256)),
+              dataclasses.replace(cfg, scene=cfg.scene._replace(height=256, width=256))):
+        assert api.resolve_kernel("cuda", cuda, c) == "cuda"
+        assert api.resolve_kernel("auto", cuda, c) == "cuda"
+        with pytest.raises(ValueError, match="needs a CUDA device"):
+            api.resolve_kernel("cuda", cpu, c)
 
 
 # -- the preset and its scene --------------------------------------------------

@@ -578,18 +578,25 @@ def test_b6c_gives_a_chain_the_same_bits_at_any_chain_count(dev):
 
 
 def test_b6c_ptxas_reports_no_spills(dev):
-    """The B6c build keeps every value in registers or shared memory: its
-    ptxas report (nvcc -Xptxas -v) shows 0 bytes of spill stores and loads
-    and no stack frame."""
+    """The B6c build keeps every value in registers or shared memory in the
+    kernels that run up to K = 347, the one-tile kernel and the wide
+    kernel with the whole Cholesky panel in shared memory: their ptxas
+    reports (nvcc -Xptxas -v) show 0 bytes of spill stores and loads and no
+    stack frame.  The third, the wide kernel that streams the panel beyond
+    K = 347 (wide_kernel<true>), spills, and is 1.14x the second's time
+    where both run (PERF.md)."""
     import re
 
     from starcat_torch import build
 
     _, report, _ = build.build_kernel("fused_rhmc_crowded")
-    spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                        r"(\d+) bytes spill loads", report)
-    assert spills, report
-    assert all(int(n) == 0 for row in spills for n in row), report
+    rows = dict(re.findall(r"Function properties for (\S+)\s+(\d+ bytes stack frame, \d+ "
+                           r"bytes spill stores, \d+ bytes spill loads)", report))
+    assert len(rows) == 3, report
+    kept = {f: r for f, r in rows.items() if "wide_kernelILb1E" not in f}
+    assert len(kept) == 2, report
+    assert all(r == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+               for r in kept.values()), report
 
 
 def test_b6c_chain_counter_gives_the_same_bits_at_many_chains_a_block(dev):
@@ -639,11 +646,11 @@ def test_b6c_wrapper_rejects_bad_inputs(dev):
         fused(theta, xi, eps, mask, torch.tensor(1.0))
     with pytest.raises(ValueError, match="theta"):
         fused(theta[0], xi, eps, mask)
+    # every scene and 1 <= K <= 10922: only beyond those does the wrapper raise
     with pytest.raises(ValueError, match="B6c"):
-        frc.make_fused_rhmc(spec._replace(height=400, width=400),
-                            torch.zeros((400, 400), device=dev), prior, 20, 2, 2)
+        frc.make_fused_rhmc(spec, img, prior, 0, 2, 2)
     with pytest.raises(ValueError, match="B6c"):
-        frc.make_fused_rhmc(spec, img, prior, 257, 2, 2)
+        frc.make_fused_rhmc(spec, img, prior, 10923, 2, 2)
 
 
 def _b6c_wide_inputs(h, w, k, c, dev, seed):

@@ -165,33 +165,42 @@ def test_kernel_selection():
     with pytest.raises(ValueError, match="kernel must be"):
         api.resolve_kernel("pallas", cpu, cfg)
     # ChEES's runtime step count runs on B2 inside its domain and on the
-    # crowded-field kernel B5 beyond it, as the hmc head does, up to B5's
-    # TPU gate (K <= 183 at 256x256); beyond both it raises, naming B5
+    # crowded-field kernel B5 beyond it, as the hmc head does, also beyond
+    # B5's TPU gate (K <= 183 at 256x256); only an empty catalog raises,
+    # naming B5
     crowded = dataclasses.replace(cfg, scene=cfg.scene._replace(height=128, width=128))
     assert api.resolve_kernel("cuda", torch.device("cuda"), crowded) == "cuda"
     wide = dataclasses.replace(crowded, scene=cfg.scene._replace(height=256, width=256))
     assert api.resolve_kernel("cuda", torch.device("cuda"),
                               dataclasses.replace(wide, kmax=183)) == "cuda"
+    assert api.resolve_kernel("cuda", torch.device("cuda"),
+                              dataclasses.replace(wide, kmax=184)) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(wide, kmax=184))
+        api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(wide, kmax=0))
     hmc_crowded = dataclasses.replace(crowded, head="hmc")
     assert api.resolve_kernel("cuda", torch.device("cuda"), hmc_crowded) == "cuda"
-    # the Riemannian heads run kernel B3, and B4 beyond its domain; beyond
-    # both the error names both
+    # the Riemannian heads run kernel B3, and B4 beyond its domain, also
+    # beyond B4's TPU gate (K <= 47 at 256x256); only an empty catalog
+    # raises, naming both
     huge = dict(scene=cfg.scene._replace(height=256, width=256), kmax=64)
     for name in ("cfg5_transdim_mcmc", "cfg1_rhmc"):
         big = dataclasses.replace(CONFIGS[name], kmax=64,
                                   rhmc=CONFIGS[name].rhmc._replace(metric="diag"))
         assert api.resolve_kernel("cuda", torch.device("cuda"), big) == "cuda"
+        assert api.resolve_kernel("cuda", torch.device("cuda"),
+                                  dataclasses.replace(big, **huge)) == "cuda"
         with pytest.raises(ValueError, match="B3.*B4"):
-            api.resolve_kernel("cuda", torch.device("cuda"), dataclasses.replace(big, **huge))
+            api.resolve_kernel("cuda", torch.device("cuda"),
+                               dataclasses.replace(big, **dict(huge, kmax=0)))
         assert api.resolve_kernel("auto", cpu, CONFIGS[name]) == "torch"
     hmc_td = apply_overrides(CONFIGS["cfg5_transdim_mcmc"], {"tdm.mutation": "hmc"})
     assert api.resolve_kernel("cuda", torch.device("cuda"),
                               dataclasses.replace(hmc_td, kmax=64)) == "cuda"
+    assert api.resolve_kernel("cuda", torch.device("cuda"),
+                              dataclasses.replace(hmc_td, **dict(huge, kmax=184))) == "cuda"
     with pytest.raises(ValueError, match="B5"):
         api.resolve_kernel("cuda", torch.device("cuda"),
-                           dataclasses.replace(hmc_td, **dict(huge, kmax=184)))
+                           dataclasses.replace(hmc_td, **dict(huge, kmax=0)))
 
 
 def test_unported_head_raises():
@@ -236,8 +245,8 @@ def test_short_cfg7_advi_run_on_the_plain_path(full_rank):
 @pytest.mark.parametrize("name", ["cfg2_nuts", "cfg7_advi"])
 def test_nuts_and_advi_run_on_the_plain_leapfrog_kernels(name):
     """NUTS leaves and ADVI gradients take B1 on the flagship scene and B5 on
-    a crowded one, up to B5's TPU gate (K <= 183 at 256x256); kernel=cuda
-    beyond both, or off a card, raises."""
+    a crowded one, also beyond B5's TPU gate (K <= 183 at 256x256);
+    kernel=cuda for an empty catalog, or off a card, raises."""
     from starcat_torch import dispatch
 
     cfg = CONFIGS[name]
@@ -253,8 +262,9 @@ def test_nuts_and_advi_run_on_the_plain_leapfrog_kernels(name):
     assert api.resolve_kernel("cuda", cuda, crowded) == "cuda"
     wide = dataclasses.replace(crowded, scene=cfg.scene._replace(height=256, width=256))
     assert api.resolve_kernel("cuda", cuda, wide) == "cuda"
+    assert api.resolve_kernel("cuda", cuda, dataclasses.replace(wide, kmax=184)) == "cuda"
     with pytest.raises(ValueError, match="B5"):
-        api.resolve_kernel("cuda", cuda, dataclasses.replace(wide, kmax=184))
+        api.resolve_kernel("cuda", cuda, dataclasses.replace(wide, kmax=0))
 
 
 def test_cli_validate_gates_all_eight_heads():
