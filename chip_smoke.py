@@ -206,7 +206,14 @@
    on B6c, W4's total flux within 4 posterior sd of the truth (where its
    chains start: the truth plus 0.01 jitter, a step near 1e-6 after 2 + 2,
    so a finite run on B6c, not a posterior, is what it shows); B4 and B5
-   then held at W1's and W2's last states;
+   then held at W1's and W2's last states; (c) B6c's slice addressing past
+   both 32-bit thresholds, where a trajectory takes hours: the wide path's
+   address probe (one block writing a sentinel through the passes' own
+   index helpers at the first and last pair sum, packed L entry, L^-1 and
+   G^-1 entry and q coefficient of a real slice) on 128x128 at K = 10923
+   (the pair sums past 2^31 floats), 15447 (the D x D matrices past it)
+   and the largest K whose slice the card's free memory holds, every
+   offset equal to the exact one and every sentinel read back;
 22. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work; B6c's row
@@ -3407,10 +3414,11 @@ B5_BEYOND = ((128, 128, 668, 5), (128, 128, 1000, 4), (256, 256, 200, 6), (512, 
 B4_BEYOND = ((128, 128, 255, 5), (128, 128, 1000, 4), (256, 256, 256, 6), (512, 512, 64, 3))
 # (H, W, K, chains, per-chain masks, the fraction of b4_inputs' step,
 # n_steps, fixed-point sweeps, the drawn field's stars: None at cfg4's
-# density): B6c at the slice's 256x256 K = 256, one past the old K <= 256
-# on 128x128, at K = 300 (the whole Cholesky panel in shared memory), at
-# K = 700 (the panel streamed, the per-star vectors in the workspace) and
-# on a 512x512 field
+# density): B6c at the slice's 256x256 K = 256, on 128x128 at K = 257, at
+# K = 300 (the whole Cholesky panel in shared memory) and at K = 700 (the
+# panel streamed, the per-star vectors in the workspace), and on a 512x512
+# field; past the 32-bit thresholds (K = 10923, 15447) the address probe
+# holds its slice offsets (check_b6c_addressing)
 B6C_BEYOND = ((256, 256, 256, 4, True, 6, 6, 4, 256), (128, 128, 257, 6, False, 48, 6, 4, 257),
               (128, 128, 300, 4, True, 12, 6, 4, 300), (128, 128, 700, 3, False, 96, 2, 2, 700),
               (512, 512, 32, 4, True, 6, 6, 4, None))
@@ -3627,6 +3635,50 @@ def check_beyond_gates(flc, fl, frdc, frd, frc, fr, configs, dev):
           f"trajectory; on {BEYOND_HELD['b6c_w4']} of them kernel {ms['b6c_w4_same']:.3f} ms, "
           f"plain {ms['b6c_w4_plain']:.3f} ms")
     return err5, err4, err6, ms
+
+
+# the address probe's catalogs beside the largest the card holds: the first
+# K whose pair sums pass 2^31 - 1 floats (18 K^2) and the first whose dense
+# D x D matrices do (D (D + 1), D = 3 K)
+PROBE_K = (10923, 15447)
+PROBE_MARGIN = 2**28  # bytes left free beside the largest slice
+
+
+def check_b6c_addressing(frc, dev):
+    """Phase 21c: B6c's slice addressing beyond both 32-bit thresholds, where
+    a trajectory (a Cholesky of D > 32,000 on one SM) takes hours: the
+    wide path's address probe (fused_rhmc_crowded.address_probe: one block
+    writes a sentinel through the passes' own index helpers at each corner
+    of a real slice, the first and last pair sum, packed L entry, L^-1 and
+    G^-1 entry and q coefficient) on 128x128 at PROBE_K and at the largest
+    K whose one-block slice fits the card's free memory less PROBE_MARGIN,
+    each offset against Python's exact integers and each sentinel read back
+    there.  The allocation also holds the build's sizes to the Python
+    mirrors at those K.  Returns {K: slice GiB}."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0] - PROBE_MARGIN
+    lo = frc.largest_kmax(128, 128, free)
+    if lo <= PROBE_K[-1]:
+        raise AssertionError(f"B6c's address probe: {free} bytes free hold K <= {lo} only")
+    out = {}
+    for k in (*PROBE_K, lo):
+        got = frc.address_probe(k, 128, 128, dev)
+        gib = got["slice_bytes"] / 2**30
+        print(f"B6c address probe, 128x128 K={k} (D = {3 * k}, slice {gib:.3f} GiB"
+              + (f", the largest of {(free + PROBE_MARGIN) / 2**30:.3f} GiB free)" if k == lo
+                 else ")") + ": " + "; ".join(
+                  f"{c['name']} {c['offset']} (exact {c['exact']}, read "
+                  f"{c['value']})" for c in got["corners"]))
+        if not got["ok"]:
+            raise AssertionError(f"B6c's address probe at K={k}: {json.dumps(got['corners'])}")
+        out[k] = gib
+        torch.cuda.empty_cache()
+    print(f"B6c address probe: every offset exact and every sentinel read back at K = "
+          f"{', '.join(str(k) for k in out)}")
+    return out
 
 
 def run_beyond_slice(api, configs, dev, flc, frdc, frc, fl, frd):
@@ -4018,6 +4070,9 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} was never launched beyond the gates: {beyond}")
         launches[name] += n
+    t0 = time.perf_counter()
+    probed = check_b6c_addressing(frc, dev)
+    print(f"B6c's slice addressing: {time.perf_counter() - t0:.3f} s wall")
     # a leaf and an 8-draw gradient at the shapes of this path, against their
     # own bounds (one evaluation each; the leaf's entry gradient is in)
     for name, c, n in (("leaf", 1024, 1), ("grad8", 8, 0)):
@@ -4132,7 +4187,8 @@ def main() -> int:
                                  "ms": ms_x["b6c_w4"], "plain_ms": ms_x["b6c_w4_plain"],
                                  "plain_chains": BEYOND_HELD["b6c_w4"],
                                  "ms_same": ms_x["b6c_w4_same"], "bound_ms": b6w[0],
-                                 "bound_by": b6w[1]}}
+                                 "bound_by": b6w[1]},
+                          "address_probe_slice_gib": probed}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,10 +110,9 @@ def _metric_of(cfg: RunConfig) -> str | None:
 def resolve_kernel(pref: str, device: torch.device, cfg: RunConfig) -> str:
     """RunConfig.kernel -> "cuda" or "torch".  Nothing falls back: "cuda"
     off a CUDA device or beyond the domains of both kernels of the head's
-    pair (dispatch.py: B1/B5, B3/B4, B6/B6c; only K < 1, and the full
-    metric beyond K = 10922) raises, and "auto" on a CUDA device takes the
-    pair's kernel, as the JAX package's _select_kernel takes XLA beyond
-    its Pallas kernels' gates."""
+    pair (dispatch.py: B1/B5, B3/B4, B6/B6c; only K < 1) raises, and
+    "auto" on a CUDA device takes the pair's kernel, as the JAX package's
+    _select_kernel takes XLA beyond its Pallas kernels' gates."""
     if pref not in ("auto", "cuda", "torch"):
         raise ValueError(f"kernel must be 'auto'|'cuda'|'torch', got {pref!r}")
     metric = _metric_of(cfg)

@@ -105,9 +105,12 @@
 // Domain (checked by the wrapper, fused_rhmc_crowded.py, and by in_domain
 // here): the one-tile path for H, W <= 128 and 1 <= K <= 64, where the
 // shared memory (smem_floats) stays within 216 KB; the wide path for every
-// other scene and 1 <= K <= wide::kMaxStars, the catalogs whose 18 K^2
-// pair sums a 32-bit index reaches (a block's workspace of 22 GB at
-// K = 10922 on 128 x 128).
+// other scene and K >= 1, up to the card's memory (a block's slice is 22 GB
+// at K = 10923 on 128 x 128 and fills an 80 GB card's free memory near
+// K = 21,300), its offsets into the slice in 64 bits where they pass 2^31
+// (the index helpers' note).  A launch whose fields and profiles pass 2^31
+// floats of a slice (a field of about 10^9 pixels) returns an error
+// (wide::fields_in_32_bits).
 #include <cuda_runtime.h>
 
 // the block's dynamic shared memory, which carve() divides
@@ -182,9 +185,30 @@ __host__ __device__ inline int gx_slot(int K, int H, int W) {
   return imax(2 * K * field_stride(W), round4(K * prof_ld(H)));
 }
 
+// The index helpers of the slice's large arrays.  Off is the offset type:
+// int on the one-tile path (K <= 64: a slice of under 2^19 floats), long
+// long on the wide path, whose products pass 2^31 - 1 within a block's
+// slice where the card holds it (K up to about 21,300 at 128 x 128 on an
+// 80 GB card):
+//   * the 18 K^2 pair sums at plane_off(n, K) (plane 17's end passes 2^31 at
+//     K = 10923);
+//   * packed L and L^-1 (packed_l, col_off) and the dense D x D matrices by
+//     rows (row_off), where D (D + 1) passes it: D = 46341, K = 15447;
+//   * the q coefficient table (coef_off) and G^-1's 3 x 3 star blocks K D
+//     rows apart (q_table), where 6 K^2 passes it: K = 18919.
+// Each returns a plane's, a column's or a row's base offset, which the wide
+// path takes once as a pointer outside its inner loops; the offsets inside
+// stay in 32 bits (i K + j < K^2, a row below D + 1, col_step's k n): K^2
+// < 2^31 for every K whose slice a card holds (18 K^2 floats alone pass
+// 80 GB at K = 34,000).  The fields and profiles before the pair sums are
+// addressed in 32 bits from the slice's start (wide::fields_in_32_bits);
+// the wide kernel takes each chain's (K, 3) rows of theta, xi and the
+// outputs at a 64-bit chain offset.
+
 // L packed by columns with N1 = D + 1 rows (the momentum's row last):
 // column c holds rows c .. D
-__host__ __device__ inline int packed_l(int D) { return (D + 1) * (D + 2) / 2; }
+template <typename Off = int>
+__host__ __device__ inline Off packed_l(int D) { return (static_cast<Off>(D) + 1) * (D + 2) / 2; }
 
 // L^-1 packed by columns, D rows
 __host__ __device__ inline int packed_x(int D) { return D * (D + 1) / 2; }
@@ -227,7 +251,22 @@ __host__ __device__ inline long long work_floats(int K, int H, int W) {
 }
 
 // offset of packed column c with n rows (column c holds rows c .. n - 1)
-__device__ __forceinline__ int col_off(int c, int n) { return c * n - (c * (c - 1)) / 2; }
+template <typename Off = int>
+__device__ __forceinline__ Off col_off(int c, int n) {
+  return static_cast<Off>(c) * n - static_cast<Off>(c) * (c - 1) / 2;
+}
+
+// offset of plane n of the 18 K^2 pair sums, (n, i, j) at plane_off + i K + j
+template <typename Off = int>
+__device__ __forceinline__ Off plane_off(int n, int K) { return static_cast<Off>(n) * (K * K); }
+
+// offset of row a of a D x D matrix by rows
+template <typename Off = int>
+__device__ __forceinline__ Off row_off(int a, int D) { return static_cast<Off>(a) * D; }
+
+// offset of pair u's kCoef floats in the q coefficient table
+template <typename Off = int>
+__device__ __forceinline__ Off coef_off(int u) { return static_cast<Off>(u) * kCoef; }
 
 // Per-star scalars, index i over the live stars; per-parameter vectors,
 // index a = t K + i.
@@ -958,17 +997,19 @@ __device__ __forceinline__ float jcoef(const Work& s, int t, int i) {
 // warps, rows over lanes), info' into s.infod when `with_infod`, and `rhs`
 // (D, or null) into row D, where the factorisation turns it into L^-1 rhs.
 // Ends synchronised.
+template <typename Off = int>
 __device__ void assemble_metric(const Params& P, const Work& s, float beta,
                                 bool with_infod, const float* rhs) {
   const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
-  const int K = s.K, D = s.D, KK = K * K, n1 = D + 1;
+  const int K = s.K, D = s.D, n1 = D + 1;
   for (int cb = warp; cb < D; cb += kWarps) {
     const int tb = type_of(cb, K), j = cb - tb * K;
     const float cbj = jcoef(s, tb, j);
-    float* col = s.dense + col_off(cb, n1) - cb;  // col[r] = G(r, cb)
+    float* col = s.dense + col_off<Off>(cb, n1) - cb;  // col[r] = G(r, cb)
     for (int ra = cb + lane; ra < D; ra += 32) {
       const int ta = type_of(ra, K), i = ra - ta * K;
-      const float f = jcoef(s, ta, i) * cbj * s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j];
+      const float f = jcoef(s, ta, i) * cbj
+                      * s.sraw[plane_off<Off>(hp_of_type(ta) * 3 + tb, K) + i * K + j];
       float g = beta * f;
       if (ra == cb) {
         const float m = s.m[i];
@@ -984,7 +1025,7 @@ __device__ void assemble_metric(const Params& P, const Work& s, float beta,
     }
   }
   if (rhs != nullptr)
-    for (int c = tid; c < D; c += kThreads) s.dense[col_off(c, n1) - c + D] = rhs[c];
+    for (int c = tid; c < D; c += kThreads) s.dense[col_off<Off>(c, n1) - c + D] = rhs[c];
   __syncthreads();
 }
 
@@ -1188,9 +1229,11 @@ __device__ void chol_solve(const Work& s, float* out) {
 
 // The q field's coefficient table from s.ginv: the star pairs that share a
 // pixel where both stars' profiles are non-zero (every other pair's terms
-// are exact zeros), in (i, j) order, their number into s.scal[4]; for each,
+// are exact zeros), in (i, j) order, their number into s.scal[4] (a float
+// on the one-tile path, its int's bits on the wide one: q_pairs); for each,
 // the nine G^-1 (ta K + i, tb K + j) coef_ta,i coef_tb,j, doubled for i < j,
 // then i and j.  Every thread calls it; it ends synchronised.
+template <typename Off = int>
 __device__ void q_table(const Work& s) {
   const int tid = thread_index(), lane = tid & 31, warp = tid >> 5;
   const int K = s.K, D = s.D;
@@ -1210,7 +1253,9 @@ __device__ void q_table(const Work& s) {
       s.qrow[i] = n;
       n += c;
     }
-    s.scal[4] = static_cast<float>(n);
+    // at most 2080 pairs on the one-tile path; beyond 2^24 pairs (K > 5792
+    // on the wide one) a float no longer holds every count
+    s.scal[4] = sizeof(Off) == sizeof(int) ? static_cast<float>(n) : __int_as_float(n);
   }
   __syncthreads();
   for (int i = warp; i < K; i += kWarps) {
@@ -1222,12 +1267,13 @@ __device__ void q_table(const Work& s) {
       const int at = u + __popc(bal & ((1u << lane) - 1u));
       u += __popc(bal);
       if (!ov) continue;
-      float* e = s.qcoef + at * kCoef;
+      float* e = s.qcoef + coef_off<Off>(at);
       const float m = i == j ? 1.0f : 2.0f;
       const float ci[3] = {s.wcx[i], s.wcy[i], s.w[i]};
       const float cj[3] = {s.wcx[j], s.wcy[j], s.w[j]};
-      const float* g = s.ginv + i * D + j;  // g[ta K D + tb K] = G^-1(ta K + i, tb K + j)
-      const int KD = K * D;
+      // g[ta K D + tb K] = G^-1(ta K + i, tb K + j)
+      const float* g = s.ginv + row_off<Off>(i, D) + j;
+      const Off KD = row_off<Off>(K, D);
       // T(0,0) = e0 P00, T(0,1) = e1 P01 + e2 P00, T(1,0) = e3 P10 + e4 P00,
       // T(1,1) = e5 P11 + e6 P10 + e7 P01 + e8 P00 (q_operands)
       e[0] = m * g[0] * ci[0] * cj[0];
@@ -1308,11 +1354,13 @@ __device__ void ginv_matvec(const Work& s, const float* p, float* out) {
 
 // Chunk n of the q coefficient table (kQPairs pairs) into ring slot `slot`
 // by cp.async; the issuing threads wait for it before the next barrier.
+template <typename Off = int>
 __device__ __forceinline__ void stage_qcoef(const Work& s, int n, int slot) {
   const int tid = thread_index();
   constexpr int kVec = kQPairs * kCoef / 4;
   if (tid < kVec) {
-    cp_async16(s.qc + slot * kQPairs * kCoef + 4 * tid, s.qcoef + n * kQPairs * kCoef + 4 * tid);
+    cp_async16(s.qc + slot * kQPairs * kCoef + 4 * tid,
+               s.qcoef + coef_off<Off>(n * kQPairs) + 4 * tid);
     cp_async_commit();
   }
 }
@@ -1576,9 +1624,10 @@ __device__ void potential_terms(const Params& P, const Work& s, float beta, doub
 //         + 1/2 Ginv_cc info'_c, one warp a parameter c, lanes over stars j,
 // with S assembled from Sraw: S[m][tb][i][j] = coef_tb,j sum_terms coefH_i
 // Sraw[hp][tb][i][j].  Ends synchronised.
+template <typename Off = int>
 __device__ void metric_terms(const Params& P, const Work& s, float beta) {
   const int lane = thread_index() & 31, warp = thread_index() >> 5;
-  const int K = s.K, D = s.D, KK = K * K;
+  const int K = s.K, D = s.D;
   for (int c = warp; c < D; c += kWarps) {
     const int tc = type_of(c, K), i = c - tc * K;
     float sg = 0.0f;
@@ -1593,10 +1642,10 @@ __device__ void metric_terms(const Params& P, const Work& s, float beta) {
       else if (lo == 1 && hi == 1) { hp0 = 3; c0 = s.wcy2[i]; hp1 = 4; c1 = s.wcyy[i]; }
       else if (lo == 1 && hi == 2) { hp0 = 3; c0 = s.wcy[i]; }
       else { hp0 = 5; c0 = s.w[i]; }
-      const float* grow = s.ginv + (ta * K + i) * D;
+      const float* grow = s.ginv + row_off<Off>(ta * K + i, D);
       for (int tb = 0; tb < 3; ++tb) {
-        const float* q0 = s.sraw + (hp0 * 3 + tb) * KK + i * K;
-        const float* q1 = hp1 >= 0 ? s.sraw + (hp1 * 3 + tb) * KK + i * K : nullptr;
+        const float* q0 = s.sraw + plane_off<Off>(hp0 * 3 + tb, K) + i * K;
+        const float* q1 = hp1 >= 0 ? s.sraw + plane_off<Off>(hp1 * 3 + tb, K) + i * K : nullptr;
         for (int j = lane; j < K; j += 32) {
           float sv = c0 * q0[j];
           if (q1 != nullptr) sv = sv + c1 * q1[j];
@@ -1608,7 +1657,7 @@ __device__ void metric_terms(const Params& P, const Work& s, float beta) {
     if (lane == 0) {
       const float cq = jcoef(s, tc, i) * s.dots[(tc == 0 ? 0 : (tc == 1 ? 3 : 5)) * K + i];
       s.t1[c] = s.t1[c] + beta * sg - 0.5f * beta * cq
-                + 0.5f * s.ginv[c * D + c] * s.infod[c];
+                + 0.5f * s.ginv[row_off<Off>(c, D) + c] * s.infod[c];
     }
   }
   __syncthreads();
@@ -1919,7 +1968,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
 
 // ---------------------------------------------------------------------------
 // The wide path: every launch beyond the one-tile domain (H or W > 128, or
-// K > 64), on every scene and up to K = kMaxStars.  It replaces no TPU
+// K > 64), on every scene and every K whose slice the card holds.  It replaces no TPU
 // kernel: the JAX package runs the full metric there on XLA
 // (starcat/api.py:191-205, the smc and trans-d rhmc mutations), since its
 // Pallas kernel's gate is H W <= 48^2, K <= 16.  What bounds it is what
@@ -1975,9 +2024,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_kernel(Params 
 // path's (other summation orders); both are held against the plain version.
 namespace wide {
 
-// K <= kMaxStars: the 18 K^2 pair sums (sraw) and every D x D matrix are
-// indexed with 32-bit ints within the block's slice
-constexpr int kMaxStars = 10922;
+// the slice's offsets: 64-bit (the index helpers' note)
+using WOff = long long;
 constexpr int kTile = 128;      // the q and phi fields' pixel tile, the contractions' column block
 constexpr int kStage = kQK * 2 * kTile + 2 * kQPairs;  // one q operand stage over a tile
 constexpr int kGroup = 8;       // lanes a star pair in the pair passes
@@ -1989,6 +2037,25 @@ constexpr int kRing = 2 * kQPairs * kCoef;  // the q coefficient ring
 constexpr int kSmemFloats = (232448 - 1024) / 4;
 
 __host__ __device__ inline long long round4ll(long long n) { return (n + 3) & ~3LL; }
+
+// column c of a matrix packed by columns of n rows as a pointer whose entry
+// r is row r, its offset in 64 bits
+template <typename T>
+__device__ __forceinline__ T* packed_col(T* A, int c, int n) { return A + col_off<WOff>(c, n) - c; }
+
+// from packed_col(A, c, n) to packed_col(A, c + k, n) in 32 bits (k < 32 in
+// the streamed Cholesky: under 32 n)
+__device__ __forceinline__ int col_step(int c, int k, int n) {
+  return k * (n - c - 1) - k * (k - 1) / 2;
+}
+
+// L^-1, dense by rows, after packed L (D + 1 rows) in the slice
+__device__ __forceinline__ float* linv(const Work& s) {
+  return s.dense + round4ll(packed_l<WOff>(s.D));
+}
+
+// the q field's pair count, which q_table<WOff> stores as an int's bits
+__device__ __forceinline__ int q_pairs(const Work& s) { return __float_as_int(s.scal[4]); }
 
 // 67 floats a star and 12 of per-chain scalars (place_vectors)
 __host__ __device__ inline int vec_floats(int K) { return 67 * K + 12; }
@@ -2251,7 +2318,7 @@ constexpr int kPerRound = kWarps * (32 / kGroup);  // star pairs a round
 // products and all 36 sums stay in registers), the sums kept across the
 // chunks, then added across the group.
 __device__ void pair_contract(const Params& P, const Work& s) {
-  const int K = s.K, fs = s.fs, hp = s.hp, KK = K * K;
+  const int K = s.K, fs = s.fs, hp = s.hp;
   const int n_pairs = K * (K + 1) / 2;
   const Group q = group_of();
   for (int base = 0; base < n_pairs; base += kPerRound) {
@@ -2331,8 +2398,8 @@ __device__ void pair_contract(const Params& P, const Work& s) {
     if (has && q.g == 0) {
 #pragma unroll
       for (int n = 0; n < 18; ++n) {
-        s.sraw[n * KK + i * K + j] = acc[n];
-        if (i != j) s.sraw[n * KK + j * K + i] = acm[n];
+        s.sraw[plane_off<WOff>(n, K) + i * K + j] = acc[n];
+        if (i != j) s.sraw[plane_off<WOff>(n, K) + j * K + i] = acm[n];
       }
     }
   }
@@ -2343,7 +2410,7 @@ __device__ void pair_contract(const Params& P, const Work& s) {
 // a pair, from 4 row products), a star pair a lane group over its
 // footprint overlap's 4-column chunks, as pair_contract.
 __device__ void fisher_pairs(const Params& P, const Work& s) {
-  const int K = s.K, fs = s.fs, hp = s.hp, KK = K * K;
+  const int K = s.K, fs = s.fs, hp = s.hp;
   const int n_pairs = K * (K + 1) / 2;
   const Group q = group_of();
   for (int base = 0; base < n_pairs; base += kPerRound) {
@@ -2412,8 +2479,8 @@ __device__ void fisher_pairs(const Params& P, const Work& s) {
 #pragma unroll
         for (int tb = 0; tb < 3; ++tb) {
           const float v = acc[ta * 3 + tb];
-          s.sraw[(hp_of_type(ta) * 3 + tb) * KK + i * K + j] = v;
-          s.sraw[(hp_of_type(tb) * 3 + ta) * KK + j * K + i] = v;
+          s.sraw[plane_off<WOff>(hp_of_type(ta) * 3 + tb, K) + i * K + j] = v;
+          s.sraw[plane_off<WOff>(hp_of_type(tb) * 3 + ta, K) + j * K + i] = v;
         }
       }
     }
@@ -2429,7 +2496,7 @@ __device__ void q_operands(const Params& P, const Work& s, int n, int slot, floa
                            int tr0, int tc0) {
   const int tid = thread_index();
   const int H = P.H, fs = s.fs, hp = s.hp;
-  const int n_pairs = static_cast<int>(s.scal[4]);
+  const int n_pairs = q_pairs(s);
   const float* coef = s.qc + slot * kQPairs * kCoef;
   float* T = buf;
   float* X = buf + kQK * kTile;
@@ -2490,7 +2557,7 @@ __device__ void q_operands(const Params& P, const Work& s, int n, int slot, floa
 __device__ void q_field(const Params& P, const Work& s) {
   const int tid = thread_index();
   const int H = P.H, fs = s.fs;
-  const int n_pairs = static_cast<int>(s.scal[4]);
+  const int n_pairs = q_pairs(s);
   const int n_chunks = (n_pairs + kQPairs - 1) / kQPairs;
   const int r0 = 4 * (tid >> 4), c0 = 4 * (tid & 15);
   const int wrow = 4 * ((tid & ~31) >> 4);  // the warp's first row in the tile (8 rows)
@@ -2500,11 +2567,11 @@ __device__ void q_field(const Params& P, const Work& s) {
       float acc[4][8];
 #pragma unroll
       for (int n = 0; n < 32; ++n) (&acc[0][0])[n] = 0.f;
-      stage_qcoef(s, 0, 0);
+      stage_qcoef<WOff>(s, 0, 0);
       cp_async_wait_all();
       __syncthreads();
       wide::q_operands(P, s, 0, 0, s.qbuf, tr0, tc0);
-      if (n_chunks > 1) stage_qcoef(s, 1, 1);
+      if (n_chunks > 1) stage_qcoef<WOff>(s, 1, 1);
       cp_async_wait_all();
       __syncthreads();
       for (int n = 0; n < n_chunks; ++n) {
@@ -2512,7 +2579,7 @@ __device__ void q_field(const Params& P, const Work& s) {
         const float* X = T + kQK * kTile;
         if (n + 1 < n_chunks)
           wide::q_operands(P, s, n + 1, (n + 1) & 1, s.qbuf + ((n + 1) & 1) * kStage, tr0, tc0);
-        if (n + 2 < n_chunks) stage_qcoef(s, n + 2, n & 1);
+        if (n + 2 < n_chunks) stage_qcoef<WOff>(s, n + 2, n & 1);
         const int* rng = reinterpret_cast<const int*>(X + kQK * kTile);
         for (int pl = 0; pl < kQPairs; ++pl) {
           // a pair whose row profiles vanish on the warp's rows, or whose
@@ -2639,7 +2706,7 @@ __device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
     for (int k = warp; k < kPanel; k += kWarps) {
       const int c = p0 + k;
       const bool ok = c < p1;
-      const float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      const float* ac = packed_col(A, ok ? c : p0, n1);
       for (int r = p0 + lane; r < nrows; r += 32)
         pr[(r - p0) * kPLd + k] = (ok && r >= c) ? ac[r] : 0.0f;
     }
@@ -2671,7 +2738,7 @@ __device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
       const int c = p0 + k;
       const bool ok = c < p1;
       const float dv = ok ? s.dinv[c] : 0.0f;
-      float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      float* ac = packed_col(A, ok ? c : p0, n1);
       for (int r = p0 + lane; r < nrows; r += 32) {
         float* e = pr + (r - p0) * kPLd + k;
         const bool below = ok && r > c;
@@ -2688,7 +2755,7 @@ __device__ void cholesky(const Work& s, int nrows, bool logdet, float ldead) {
       float lc[kPanel];
 #pragma unroll
       for (int k = 0; k < kPanel; ++k) lc[k] = pr[(c - p0) * kPLd + k];
-      float* ac = A + col_off(c, n1) - c;
+      float* ac = packed_col(A, c, n1);
       for (int r = c + lane; r < nrows; r += 32) {
         const float* lr = pr + (r - p0) * kPLd;
         float a = ac[r];
@@ -2735,7 +2802,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
     for (int k = warp; k < kPanel; k += kWarps) {
       const int c = p0 + k;
       const bool ok = c < p1;
-      const float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      const float* ac = packed_col(A, ok ? c : p0, n1);
       for (int r = p0 + lane; r < p1; r += 32)
         top[(r - p0) * kPLd + k] = (ok && r >= c) ? ac[r] : 0.0f;
     }
@@ -2763,7 +2830,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
       const int c = p0 + k;
       const bool ok = c < p1;
       const float dv = ok ? s.dinv[c] : 0.0f;
-      float* ac = A + col_off(ok ? c : p0, n1) - (ok ? c : p0);
+      float* ac = packed_col(A, ok ? c : p0, n1);
       for (int r = p0 + lane; r < p1; r += 32) {
         float* e = top + (r - p0) * kPLd + k;
         const bool below = ok && r > c;
@@ -2773,6 +2840,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
       }
     }
     __syncthreads();
+    float* const ap = packed_col(A, p0, n1);  // the panel's column p0 + k at ap + col_step
     for (int r0 = p1; r0 < nrows; r0 += kRowBlock) {
       const int r1 = min(r0 + kRowBlock, nrows);
       const int r = r0 + tid;
@@ -2780,7 +2848,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
         float v[kPanel];
 #pragma unroll
         for (int k = 0; k < kPanel; ++k)
-          v[k] = p0 + k < p1 ? A[col_off(p0 + k, n1) - (p0 + k) + r] : 0.0f;
+          v[k] = p0 + k < p1 ? ap[col_step(p0, k, n1) + r] : 0.0f;
 #pragma unroll
         for (int jj = 0; jj < kPanel; ++jj) {
           if (p0 + jj < p1) {
@@ -2795,7 +2863,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
         for (int k = 0; k < kPanel; ++k) {
           const bool ok = p0 + k < p1;
           const float l = ok ? v[k] * s.dinv[p0 + k] : 0.0f;
-          if (ok) A[col_off(p0 + k, n1) - (p0 + k) + r] = l;
+          if (ok) ap[col_step(p0, k, n1) + r] = l;
           br[k] = l;
           if (r < D) lp[(r - p0) * kPanel + k] = l;
         }
@@ -2806,7 +2874,7 @@ __device__ void cholesky_streamed(const Work& s, int nrows, bool logdet, float l
         float lc[kPanel];
 #pragma unroll
         for (int k = 0; k < kPanel; ++k) lc[k] = lp[(c - p0) * kPanel + k];
-        float* ac = A + col_off(c, n1) - c;
+        float* ac = packed_col(A, c, n1);
         for (int rr = max(c, r0) + lane; rr < r1; rr += 32) {
           const float* lr = blk + (rr - r0) * kPLd;
           float a = ac[rr];
@@ -2845,7 +2913,7 @@ __device__ void chol_solve(const Work& s, float* out) {
   if (thread_index() < 32) {
     const int lane = thread_index();
     for (int k = D - 1; k >= 0; --k) {
-      const float* lk = s.dense + col_off(k, n1) - k;  // lk[r] = L(r, k)
+      const float* lk = packed_col(s.dense, k, n1);  // lk[r] = L(r, k)
       float acc = 0.0f;
       for (int r = k + 1 + lane; r < D; r += 32) acc += lk[r] * out[r];
       acc = warp_sum(acc);
@@ -2866,32 +2934,35 @@ __device__ void inverse(const Work& s) {
   const int lane = thread_index() & 31, warp = thread_index() >> 5;
   const int D = s.D, n1 = D + 1;
   const float* A = s.dense;
-  float* X = s.dense + round4(packed_l(D));
+  float* X = linv(s);
   float* v = (kStream ? s.scratch : s.qbuf) + warp * D;
   for (int c = warp; c < D; c += kWarps) {
     for (int r = c + lane; r < D; r += 32) v[r] = r == c ? 1.0f : 0.0f;
     __syncwarp();
     for (int k = c; k < D; ++k) {
       const float xk = v[k] * s.dinv[k];
-      if (lane == 0) X[k * D + c] = xk;
-      const float* lk = A + col_off(k, n1) - k;  // column k of L
+      if (lane == 0) X[row_off<WOff>(k, D) + c] = xk;
+      const float* lk = packed_col(A, k, n1);  // column k of L
       for (int r = k + 1 + lane; r < D; r += 32) v[r] -= lk[r] * xk;
       __syncwarp();
     }
   }
   __syncthreads();
   for (int a = warp; a < D; a += kWarps) {
+    const float* const xa = X + row_off<WOff>(a, D) + a;  // L^-1(k, a) at xa + (k - a) D
+    float* const ga = s.ginv + row_off<WOff>(a, D);
     for (int b0 = 0; b0 <= a; b0 += 32) {
       const int b = b0 + lane;
       if (b > a) break;
       float acc = 0.0f;
-      for (int k = a; k < D; ++k) acc += X[k * D + a] * X[k * D + b];
-      s.ginv[a * D + b] = acc;
-      s.ginv[b * D + a] = acc;
+      const float* xk = xa;
+      for (int k = a; k < D; ++k, xk += D) acc += xk[0] * xk[b - a];
+      ga[b] = acc;
+      s.ginv[row_off<WOff>(b, D) + a] = acc;
     }
   }
   __syncthreads();
-  q_table(s);
+  q_table<WOff>(s);
 }
 
 // out = G^-1 p with the carried s.ginv, a thread a parameter (down column
@@ -2901,7 +2972,8 @@ __device__ void ginv_matvec(const Work& s, const float* p, float* out) {
   const int D = s.D;
   for (int a = thread_index(); a < D; a += kThreads) {
     float acc = 0.0f;
-    for (int b = 0; b < D; ++b) acc += s.ginv[b * D + a] * p[b];
+    const float* g = s.ginv + a;  // G^-1(b, a) at g + b D
+    for (int b = 0; b < D; ++b, g += D) acc += g[0] * p[b];
     out[a] = acc;
   }
   __syncthreads();
@@ -2938,7 +3010,10 @@ __device__ void build_structs(const Params& P, bool p0) {
   { const Work s = wide::make_work<kStream>(P); wide::pair_contract(P, s); }
   { const Work s = wide::make_work<kStream>(P); wide::contract<kGrad>(P, s); }
   if (warp == 0) potential_terms(P, wide::make_work<kStream>(P), beta, ll);
-  { const Work s = wide::make_work<kStream>(P); assemble_metric(P, s, beta, true, nullptr); }  // synchronises
+  {  // synchronises
+    const Work s = wide::make_work<kStream>(P);
+    assemble_metric<WOff>(P, s, beta, true, nullptr);
+  }
   {
     const float gdead = 1.0f + P.jitter;
     const Work s = wide::make_work<kStream>(P);
@@ -2950,7 +3025,7 @@ __device__ void build_structs(const Params& P, bool p0) {
     const int K = s.K, D = s.D, n1 = D + 1;
     for (int a = tid; a < D; a += kThreads) {
       float acc = s.ldiag[a] * s.vec[a];
-      for (int k = 0; k < a; ++k) acc += s.dense[col_off(k, n1) - k + a] * s.vec[k];
+      for (int k = 0; k < a; ++k) acc += packed_col(s.dense, k, n1)[a] * s.vec[k];
       s.p_b[a] = acc * s.m[a - type_of(a, K) * K];
     }
     __syncthreads();
@@ -2958,7 +3033,7 @@ __device__ void build_structs(const Params& P, bool p0) {
   { const Work s = wide::make_work<kStream>(P); wide::inverse<kStream>(s); }
   { const Work s = wide::make_work<kStream>(P); wide::q_field(P, s); }
   { const Work s = wide::make_work<kStream>(P); wide::contract<kQ>(P, s); }
-  metric_terms(P, wide::make_work<kStream>(P), beta);
+  metric_terms<WOff>(P, wide::make_work<kStream>(P), beta);
 }
 
 // dH/dtheta at the structs' theta and the momentum in ph into dh.
@@ -2992,7 +3067,7 @@ __device__ void fisher_solve(const Params& P) {
   { const Work s = wide::make_work<kStream>(P); profiles(P, s, s.th, false); }
   { const Work s = wide::make_work<kStream>(P); render(P, s, beta, false); }
   { const Work s = wide::make_work<kStream>(P); wide::fisher_pairs(P, s); }
-  { const Work s = wide::make_work<kStream>(P); assemble_metric(P, s, beta, false, s.ph); }
+  { const Work s = wide::make_work<kStream>(P); assemble_metric<WOff>(P, s, beta, false, s.ph); }
   { const Work s = wide::make_work<kStream>(P); wide::factor<kStream>(s, s.D + 1, false, 0.0f); }
   { const Work s = wide::make_work<kStream>(P); wide::chol_solve(s, s.vec); }
 }
@@ -3017,9 +3092,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
       if (tid == 0) {
         int* live = wide::live_slots(P);  // the chain's live slots, in order
         float* live_m = wide::live_masks(P);
+        const float* mask = P.mask + static_cast<WOff>(c) * P.mask_stride;
         int n = 0;
         for (int i = 0; i < Ks; ++i) {
-          const float m = P.mask[c * P.mask_stride + i];
+          const float m = mask[i];
           if (m != 0.0f) {
             live[n] = i;
             live_m[n] = m;
@@ -3028,21 +3104,23 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
         }
         lay[kWK] = n;
       }
+      const WOff co = static_cast<WOff>(c) * Ds;  // the chain's (K, 3) arrays
       for (int n = tid; n < Ds; n += kThreads) {
-        P.theta_out[c * Ds + n] = P.theta[c * Ds + n];
-        P.p_out[c * Ds + n] = 0.0f;
+        P.theta_out[co + n] = P.theta[co + n];
+        P.p_out[co + n] = 0.0f;
       }
     }
     __syncthreads();
     {
       const Work s = wide::make_work<kStream>(P);
-      const int c = b6c_chain, Ds = 3 * P.K, K = s.K, D = s.D;
+      const int c = b6c_chain, K = s.K, D = s.D;
+      const WOff co = static_cast<WOff>(c) * (3 * P.K);
       const int* live = wide::live_slots(P);
       for (int i = tid; i < K; i += kThreads) s.m[i] = wide::live_masks(P)[i];
       for (int a = tid; a < D; a += kThreads) {
         const int t = type_of(a, K), i = a - t * K, slot = live[i];
-        s.th_b[a] = P.theta[c * Ds + 3 * slot + t];
-        s.vec[a] = P.xi[c * Ds + 3 * slot + t];
+        s.th_b[a] = P.theta[co + 3 * slot + t];
+        s.vec[a] = P.xi[co + 3 * slot + t];
       }
       if (tid == 0) {
         s.scal[6] = 0.0f;  // the residual
@@ -3127,12 +3205,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
     const Work s = wide::make_work<kStream>(P);
     const float h1 = wide::hamiltonian(s, s.p_b);
 
-    const int c = b6c_chain, Ds = 3 * P.K;
+    const int c = b6c_chain;
+    const WOff co = static_cast<WOff>(c) * (3 * P.K);
     const int* live = wide::live_slots(P);
     for (int a = tid; a < s.D; a += kThreads) {
       const int K = s.K, t = type_of(a, K), i = a - t * K, slot = live[i];
-      P.theta_out[c * Ds + 3 * slot + t] = s.th_b[a];
-      P.p_out[c * Ds + 3 * slot + t] = s.p_b[a];
+      P.theta_out[co + 3 * slot + t] = s.th_b[a];
+      P.p_out[co + 3 * slot + t] = s.p_b[a];
     }
     if (tid == 0) {
       P.h0_out[c] = s.scal[5];
@@ -3140,6 +3219,48 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rhmc_crowded_wide_kernel(Pa
       P.u1_out[c] = s.scal[0];
       P.resid_out[c] = s.scal[6];
     }
+  }
+}
+
+// The fields and profiles (the working field, 1/lam, gy, gy', the three
+// column profile sets, gy''), which the passes address in 32 bits from the
+// slice's start: whether they end below 2^31 floats (2 H W + 3 K (H + W)
+// in all, rounded up: a field of up to about 10^9 pixels).
+__host__ __device__ inline bool fields_in_32_bits(int K, int H, int W) {
+  const long long fs = field_stride(W), hp = prof_ld(H), k = K;
+  return 2 * H * fs + round4ll(2 * k * hp) + 3 * k * fs + round4ll(k * hp) <= 0x7fffffffLL;
+}
+
+// The address probe (starcat_fused_rhmc_crowded_addr_probe): one thread
+// lays out block 0's slice at P.K with every slot live (init_layout,
+// make_work) and, through the index helpers the passes call, writes the
+// sentinel -(n + 1) at each corner n and its offset from the workspace's
+// start to off[n]: 0, 1 the pair sums' first and plane 17's last; 2, 3 packed
+// L's first and last (row D of column D - 1); 4 the last diagonal entry as
+// the streamed Cholesky steps to it from its panel's first column
+// (col_step); 5, 6 L^-1's first and last; 7, 8 G^-1's; 9, 10 the q
+// coefficient table's first and last float.
+constexpr int kProbeCorners = 11;
+__global__ void addr_probe_kernel(Params P, long long* off) {
+  if (threadIdx.x != 0) return;
+  wide::init_layout(P);
+  const Work s = wide::make_work<true>(P);
+  const int K = s.K, D = s.D, n1 = D + 1, p0 = (D - 1) / kPanel * kPanel;
+  float* const at[kProbeCorners] = {
+      s.sraw + plane_off<WOff>(0, K),
+      s.sraw + plane_off<WOff>(17, K) + (K - 1) * K + (K - 1),
+      packed_col(s.dense, 0, n1),
+      packed_col(s.dense, D - 1, n1) + D,
+      packed_col(s.dense, p0, n1) + col_step(p0, D - 1 - p0, n1) + (D - 1),
+      linv(s),
+      linv(s) + row_off<WOff>(D - 1, D) + (D - 1),
+      s.ginv,
+      s.ginv + row_off<WOff>(D - 1, D) + (D - 1),
+      s.qcoef + coef_off<WOff>(0),
+      s.qcoef + coef_off<WOff>(q_table_pairs(K) - 1) + (kCoef - 1)};
+  for (int n = 0; n < kProbeCorners; ++n) {
+    *at[n] = -static_cast<float>(n + 1);
+    off[n] = at[n] - P.work;
   }
 }
 
@@ -3158,10 +3279,14 @@ bool one_tile(int K, int H, int W) {
   return K >= 1 && K <= kMaxStars && H >= 1 && H <= kMaxSide && W >= 1 && W <= kMaxSide;
 }
 
-// The kernel's domain (fused_rhmc_crowded.domain_error): every scene, and
-// 1 <= K <= wide::kMaxStars.
-bool in_domain(int K, int H, int W) {
-  return K >= 1 && K <= wide::kMaxStars && H >= 1 && W >= 1;
+// The kernel's domain (fused_rhmc_crowded.domain_error): every scene and
+// K >= 1; where a slice does not fit the card, its allocation fails.
+bool in_domain(int K, int H, int W) { return K >= 1 && H >= 1 && W >= 1; }
+
+// Whether a launch's offsets are exact: the one-tile path's always, the
+// wide path's where its fields lie within 32 bits (wide::fields_in_32_bits).
+bool addressable(int K, int H, int W) {
+  return one_tile(K, H, W) || wide::fields_in_32_bits(K, H, W);
 }
 
 // The path's shared memory a block, in bytes.
@@ -3195,7 +3320,8 @@ int starcat_fused_rhmc_crowded(
     int C, int K, int H, int W, int n_steps, int fpi, float psf_sigma,
     float psf_norm, float background, float logf_mean, float logf_sigma,
     float lp_flux_const, float jitter, void* work, int grid, void* stream) {
-  if (!in_domain(K, H, W) || C < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_domain(K, H, W) || !addressable(K, H, W) || C < 1 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params P;
   P.theta = static_cast<const float*>(theta);
   P.xi = static_cast<const float*>(xi);
@@ -3265,11 +3391,36 @@ int starcat_fused_rhmc_crowded_sizes(int K, int H, int W, int* smem_out,
 
 // The wide path's way at K: bit 0 the Cholesky's whole panel in shared
 // memory (else streamed), bit 1 the per-star vectors in shared memory (else
-// in the workspace); -1 outside the domain.
+// in the workspace); -1 for K < 1.
 int starcat_fused_rhmc_crowded_wide_mode(int K) {
-  if (K < 1 || K > wide::kMaxStars) return -1;
+  if (K < 1) return -1;
   return (wide::full_panel(K) ? 1 : 0) | (wide::vec_in_smem(K) ? 2 : 0);
 }
+
+// The wide path's address probe at K slots on an H x W scene: one block on
+// `stream` writes wide::kProbeCorners sentinels into block 0's slice of
+// `work` (kHeader + wide::work_floats(K, H, W) floats at least, allocated
+// by the caller) through the passes' index helpers, and their 64-bit
+// offsets from `work` to `offsets` (kProbeCorners int64 on the device), for
+// the host to hold against exact integers (wide::addr_probe_kernel).
+// Returns a CUDA error code; cudaErrorInvalidValue where the launch takes
+// the one-tile path or its fields pass 32 bits.
+int starcat_fused_rhmc_crowded_addr_probe(int K, int H, int W, void* work, void* offsets,
+                                          void* stream) {
+  if (!in_domain(K, H, W) || one_tile(K, H, W) || !addressable(K, H, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P{};
+  P.K = K;
+  P.H = H;
+  P.W = W;
+  P.work = static_cast<float*>(work);
+  wide::addr_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, static_cast<long long*>(offsets));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The probe's corner count (wide::kProbeCorners).
+int starcat_fused_rhmc_crowded_probe_corners() { return wide::kProbeCorners; }
 
 // The launch's path: 1 one-tile, 0 wide, -1 outside the domain.
 int starcat_fused_rhmc_crowded_one_tile(int K, int H, int W) {

@@ -11,11 +11,10 @@ pairs of kernels, the leapfrog's serving two contracts.  The small-scene
 kernel takes what its domain holds (its shared memory, its star counts:
 H W <= 48^2 and K <= 16), the crowded-field kernel every other scene and
 catalog, as the JAX package's _select_kernel sends every scene beyond its
-Pallas kernels' VMEM gates to XLA (starcat/api.py:44-53): B5 and B4 take
-every scene and K >= 1, B6c every scene and 1 <= K <= 10922 (its 32-bit
-indices into a block's pair sums).  So the choice raises only for K < 1
-(and the full metric beyond K = 10922), naming both kernels.  Where a
-launch's workspace does not fit the card, its allocation raises PyTorch's
+Pallas kernels' VMEM gates to XLA (starcat/api.py:44-53): B5, B4 and B6c
+take every scene and K >= 1.  So the choice raises only for K < 1, naming
+both kernels.  Where a launch's workspace does not fit the card (B6c's
+beyond about K = 21,300 on 128x128), its allocation raises PyTorch's
 out-of-memory error; nothing falls back.  The heads do not care which
 kernel of a pair runs: the contracts are the same, and on the CPU both
 wrappers run the same plain version.

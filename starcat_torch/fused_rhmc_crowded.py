@@ -9,8 +9,10 @@ contract (fused_rhmc.py) for the scenes B6 does not take:
 
 The JAX package has no Pallas kernel here: beyond its B6 gate it runs the
 full metric on XLA (starcat/api.py:205), on every scene and catalog.  So
-does the kernel, up to K = WIDE_MAX_STARS slots (its 32-bit indices into a
-block's K^2 pair sums; a block's workspace is then 22 GB);
+does the kernel, on every scene and K >= 1 up to the card's memory (a
+block's workspace is 22 GB at K = 10923 on 128 x 128 and fills an 80 GB
+card's free memory near K = 21,300; the kernel addresses it in 64 bits,
+:func:`address_probe`);
 :func:`dispatch.rhmc_full_module` gives it what B6's domain does not hold.
 Inside its first domain (:func:`one_tile`: at most 128 x 128 pixels and
 K <= 64, where a chain's field and dense algebra fit one block's shared
@@ -27,7 +29,9 @@ before each launch.  The grid is cut where a full one's slices would pass
 WORKSPACE_SHARE of the card's free memory (:func:`launch_layout`), so the
 memory follows the card, not the chain count; where even one slice does
 not fit, the allocation raises PyTorch's out-of-memory error before the
-launch.  A chain's bits do not depend on the grid.
+launch.  A chain's bits do not depend on the grid.  A wide launch whose
+fields and profiles pass 2^31 floats of a slice (a field of about 10^9
+pixels, :func:`wide_fields_in_32_bits`) raises after that allocation.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version, :func:`fused_rhmc.fused_rhmc_reference` (the same function),
@@ -47,13 +51,19 @@ from .scene import SceneSpec
 
 MAX_STARS = 64    # kMaxStars in the source: the one-tile path's K
 MAX_SIDE = 128    # kMaxSide in the source: the one-tile path's H, W <= 128
-WIDE_MAX_STARS = 10922  # wide::kMaxStars in the source: 18 K^2 < 2^31
 WIDE_TILE = 128   # wide::kTile: the q and phi fields' pixel tile
 THREADS = 512     # kThreads in the source
 Q_PAIRS = 8       # kQPairs in the source: star pairs of a q-field chunk
 Q_DEPTH = 4 * Q_PAIRS  # kQK: that chunk's GEMM depth
 Q_COEF = 12       # kCoef: floats a pair in the q coefficient table
 HEADER_FLOATS = 4  # kHeader: the workspace's header, the chain counter first
+INT32_MAX = 2**31 - 1
+# wide::kProbeCorners in the source, in its order (address_probe)
+PROBE_CORNERS = ("pair sums, first", "pair sums, plane 17's last", "packed L, first",
+                 "packed L, last (row D of column D - 1)",
+                 "packed L, last diagonal by the streamed panel's step", "L^-1, first",
+                 "L^-1, last", "G^-1, first", "G^-1, last", "q coefficients, first",
+                 "q coefficients, last")
 CHOL_PANEL_LD = 36  # kPanelLd: floats a row of the Cholesky's panel by rows
 WIDE_PANEL_LD = 33  # wide::kPLd: floats a row of the wide Cholesky's 32-column panel
 WIDE_PANEL = 32   # kPanel: the Cholesky's panel columns
@@ -190,26 +200,62 @@ def wide_smem_bytes(kmax: int) -> int:
     return 4 * (wide_region_floats(kmax) + WIDE_RING + vec)
 
 
-def wide_workspace_floats(kmax: int, height: int, width: int) -> int:
-    """Device memory one block of the wide path works in, in floats
-    (mirrors wide::work_floats in the source, 64-bit): the working field
-    and 1/lam, gy and gy' interleaved at the odd star stride H | 1, gx,
-    gx', gx'', gy'', the 18 K^2 pair sums, G^-1 (D^2), the q coefficient
-    table, packed L (D + 1 rows), L^-1 (D^2) and the chain's live slots and
-    mask values (2 K); beyond :func:`full_panel` the streamed Cholesky's
-    panel rows (D + 1 rows of 32, which L^-1's 16 column vectors share),
-    and beyond :func:`vectors_in_shared` the per-star vectors; each a
-    multiple of 4."""
+def wide_layout(kmax: int, height: int, width: int) -> dict:
+    """The wide path's slice (wide::init_layout in the source), offsets in
+    floats from the slice's start: the working field, 1/lam ("r1"), gy and
+    gy' interleaved at the odd star stride H | 1, gx, gx', gx'', gy'', the 18
+    K^2 pair sums, G^-1 (D^2), the q coefficient table (Q_COEF floats a star
+    pair, in whole chunks of Q_PAIRS), packed L (D + 1 rows), L^-1 (D^2) and
+    the chain's live slots and mask values (2 K); beyond :func:`full_panel`
+    the streamed Cholesky's panel rows (D + 1 rows of 32, which L^-1's 16
+    column vectors share), and beyond :func:`vectors_in_shared` the
+    per-star vectors; each a multiple of 4.  "end" is the slice's size."""
     fs, hp, d = field_stride(width), height | 1, 3 * kmax
     pairs = (kmax * (kmax + 1) // 2 + Q_PAIRS - 1) // Q_PAIRS * Q_PAIRS
-    n = (2 * height * fs + _round4(2 * kmax * hp) + 3 * kmax * fs + _round4(kmax * hp)
-         + _round4(18 * kmax * kmax) + _round4(d * d) + Q_COEF * pairs
-         + _round4((d + 1) * (d + 2) // 2) + _round4(d * d) + _round4(2 * kmax))
+    lay = {"r1": height * fs, "gyy": 2 * height * fs}
+    lay["gx"] = lay["gyy"] + _round4(2 * kmax * hp)
+    lay["gy2"] = lay["gx"] + 3 * kmax * fs
+    lay["sraw"] = lay["gy2"] + _round4(kmax * hp)
+    lay["ginv"] = lay["sraw"] + _round4(18 * kmax * kmax)
+    lay["qcoef"] = lay["ginv"] + _round4(d * d)
+    lay["dense"] = lay["qcoef"] + Q_COEF * pairs
+    lay["linv"] = lay["dense"] + _round4((d + 1) * (d + 2) // 2)
+    lay["live"] = lay["linv"] + _round4(d * d)
+    lay["end"] = lay["live"] + _round4(2 * kmax)
     if not full_panel(kmax):
-        n += WIDE_PANEL * (d + 1)
+        lay["end"] += WIDE_PANEL * (d + 1)
     if not vectors_in_shared(kmax):
-        n += _round4(_vec_floats(kmax))
-    return n
+        lay["end"] += _round4(_vec_floats(kmax))
+    return lay
+
+
+def wide_workspace_floats(kmax: int, height: int, width: int) -> int:
+    """Device memory one block of the wide path works in, in floats
+    (mirrors wide::work_floats in the source, 64-bit): the end of
+    :func:`wide_layout`."""
+    return wide_layout(kmax, height, width)["end"]
+
+
+def wide_fields_in_32_bits(kmax: int, height: int, width: int) -> bool:
+    """Whether the wide path's fields and profiles, which its passes address
+    in 32 bits from the slice's start, end below 2^31 floats
+    (wide::fields_in_32_bits in the source): 2 H W + 3 K (H + W) floats in
+    all, rounded up, a field of up to about 10^9 pixels."""
+    return wide_layout(kmax, height, width)["sraw"] <= INT32_MAX
+
+
+def probe_offsets(kmax: int, height: int, width: int) -> tuple[int, ...]:
+    """The offsets, in floats from the workspace's start, at which the
+    address probe's corners (PROBE_CORNERS) lie in block 0's slice, by
+    exact integer arithmetic on :func:`wide_layout`."""
+    lay = {k: HEADER_FLOATS + v for k, v in wide_layout(kmax, height, width).items()}
+    d = 3 * kmax
+    pairs = (kmax * (kmax + 1) // 2 + Q_PAIRS - 1) // Q_PAIRS * Q_PAIRS
+    # packed L by columns of d + 1 rows: column c starts at c (d + 1) - c (c - 1) / 2
+    last_col = lay["dense"] + (d - 1) * (d + 1) - (d - 1) * (d - 2) // 2 - (d - 1)
+    return (lay["sraw"], lay["sraw"] + 18 * kmax * kmax - 1, lay["dense"], last_col + d,
+            last_col + d - 1, lay["linv"], lay["linv"] + d * d - 1, lay["ginv"],
+            lay["ginv"] + d * d - 1, lay["qcoef"], lay["qcoef"] + Q_COEF * pairs - 1)
 
 
 def launch_smem_bytes(kmax: int, height: int, width: int) -> int:
@@ -234,10 +280,10 @@ def workspace_bytes(kmax: int, height: int, width: int, blocks: int = 1) -> int:
 
 def domain_error(spec: SceneSpec, kmax: int) -> str | None:
     """Why the kernel does not take this scene and catalog, or None: it
-    takes every scene and 1 <= K <= WIDE_MAX_STARS."""
-    if not 1 <= kmax <= WIDE_MAX_STARS:
-        return (f"the crowded-field CUDA full-Fisher trajectory (B6c) takes "
-                f"1 <= K <= {WIDE_MAX_STARS}, got K={kmax}")
+    takes every scene and K >= 1 (past the card's memory, the workspace's
+    allocation raises)."""
+    if kmax < 1:
+        return f"the crowded-field CUDA full-Fisher trajectory (B6c) takes K >= 1, got K={kmax}"
     return None
 
 
@@ -288,6 +334,20 @@ def memory_grid(kmax: int, height: int, width: int, free_bytes: int) -> int:
     one slice does not fit)."""
     slice_bytes = 4 * launch_workspace_floats(kmax, height, width)
     return max(1, int(WORKSPACE_SHARE * free_bytes) // slice_bytes)
+
+
+def largest_kmax(height: int, width: int, free_bytes: int) -> int:
+    """The largest K whose one-block workspace (:func:`workspace_bytes`)
+    fits ``free_bytes`` on an H x W scene (0 where none does): the most
+    slots one chain of the full metric can take on a card with that much
+    free memory."""
+    lo, hi = 0, 1
+    while workspace_bytes(hi, height, width, 1) <= free_bytes:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if workspace_bytes(mid, height, width, 1) <= free_bytes else (lo, mid)
+    return lo
 
 
 def launch_layout(c: int, kmax: int, height: int, width: int, device=None) -> dict:
@@ -341,9 +401,60 @@ def make_fused_rhmc(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
         work = torch.empty(lay["workspace_bytes"] // 4, dtype=torch.float32,
                            device=theta.device)
         work[:HEADER_FLOATS].zero_()  # the chain counter
+        if not wide_fields_in_32_bits(kmax, spec.height, spec.width) and not one_tile(
+                kmax, spec.height, spec.width):
+            raise ValueError(f"B6c's wide path addresses a slice's fields in 32 bits: "
+                             f"{spec.height}x{spec.width} at K={kmax} passes them")
         out = launch_riemannian("fused_rhmc_crowded", image, kmax, n_steps, fpi, scalars,
                                 theta, xi, eps, mask, beta, workspace=(work, lay["grid"]))
         LAUNCHES += 1
         return out
 
     return fused
+
+
+def address_probe(kmax: int, height: int, width: int, device=None) -> dict:
+    """The wide path's addressing at K slots on an H x W scene, on the card:
+    a workspace of one block's slice is allocated (after _library_layout
+    holds the build's sizes to this module's mirrors at that K), the
+    probe's corners (PROBE_CORNERS) set to NaN at their exact offsets
+    (:func:`probe_offsets`), then one block of
+    starcat_fused_rhmc_crowded_addr_probe writes a sentinel -(n + 1) at
+    corner n through the kernel's own index helpers and returns the 64-bit
+    offsets it took.  Returns each corner's offset, the exact one and the
+    value read back at the returned offset (None outside the workspace),
+    the slice's bytes and "ok": every offset exact and every sentinel read
+    back."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    dev = torch.device("cuda", index)
+    _library_layout(index, kmax, height, width)
+    lib = riemannian_library("fused_rhmc_crowded")
+    fn = lib.starcat_fused_rhmc_crowded_addr_probe
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [ci] * 3 + [vp] * 3
+    fn.restype = ci
+    lib.starcat_fused_rhmc_crowded_probe_corners.restype = ci
+    if lib.starcat_fused_rhmc_crowded_probe_corners() != len(PROBE_CORNERS):
+        raise RuntimeError("B6c's build probes another number of corners than PROBE_CORNERS")
+    want = probe_offsets(kmax, height, width)
+    work = torch.empty(workspace_bytes(kmax, height, width, 1) // 4, dtype=torch.float32,
+                       device=dev)
+    work[torch.tensor(want, dtype=torch.int64, device=dev)] = float("nan")
+    offsets = torch.full((len(want),), -1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(index):
+        rc = fn(kmax, height, width, work.data_ptr(), offsets.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"starcat_fused_rhmc_crowded_addr_probe failed ({rc}): "
+                           f"{lib.starcat_cuda_error_string(rc).decode()}")
+    got = offsets.tolist()
+    inside = [0 <= g < work.numel() for g in got]
+    read = work[torch.tensor([g if ok else 0 for g, ok in zip(got, inside)],
+                             device=dev)].tolist()
+    corners = [dict(name=name, offset=g, exact=w, value=v if ok else None,
+                    ok=g == w and ok and v == -(n + 1))
+               for n, (name, g, w, v, ok) in enumerate(zip(PROBE_CORNERS, got, want, read,
+                                                          inside))]
+    return dict(kmax=kmax, height=height, width=width, slice_bytes=4 * work.numel() - 4 *
+                HEADER_FLOATS, corners=corners, ok=all(c["ok"] for c in corners))

@@ -268,7 +268,7 @@ def test_b6c_takes_the_edges_of_its_domain(h, w, k):
     (304, 96, 90, None),
     (400, 400, 1, None),
     (32, 32, 257, None),
-    (32, 32, 0, r"\(B6\).*\(B6c\) takes 1 <= K <= 10922, got K=0"),
+    (32, 32, 0, r"\(B6\).*\(B6c\) takes K >= 1, got K=0"),
 ])
 def test_one_past_each_edge_raises_naming_b6_and_b6c(h, w, k, match):
     """One past each of the old edges B6c now runs (match None: its wide

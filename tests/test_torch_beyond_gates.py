@@ -16,6 +16,7 @@ mutation on a 256x64 field at K_max 128, beyond B4's gate, fed the JAX
 keys' own draws, against the JAX package's XLA step."""
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -141,19 +142,17 @@ def test_kernel_auto_resolves_to_cuda_beyond_the_tpu_gates(h, w, k):
 @pytest.mark.parametrize("head,metric,pattern", [
     ("hmc", None, r"\(B1/B2\).*\(B5\) takes K >= 1, got K=0"),
     ("smc", "diag", r"\(B3\).*\(B4\) takes K >= 1, got K=0"),
-    ("rhmc", "full", r"\(B6\).*\(B6c\) takes 1 <= K <= 10922, got K=0"),
+    ("rhmc", "full", r"\(B6\).*\(B6c\) takes K >= 1, got K=0"),
 ])
 def test_only_an_empty_catalog_raises(head, metric, pattern):
-    """K < 1 raises naming both kernels of the pair, on every field; so does
-    the full metric past B6c's 32-bit pair-sum index (K = 10923)."""
+    """K < 1 raises naming both kernels of the pair, on every field; K =
+    10923, past the full metric's old 32-bit pair-sum index, runs on the
+    crowded-field kernel of every pair."""
     for h, w in ((8, 8), (512, 512)):
         with pytest.raises(ValueError, match=pattern):
             dispatch.trajectory_kernel(head, metric, _spec(h, w), 0)
-    if metric == "full":
-        with pytest.raises(ValueError, match=r"1 <= K <= 10922, got K=10923"):
-            dispatch.trajectory_kernel(head, metric, _spec(128, 128), 10923)
-    else:
-        assert dispatch.trajectory_kernel(head, metric, _spec(128, 128), 10923) in ("B4", "B5")
+    want = ("B6c",) if metric == "full" else ("B4", "B5")
+    assert dispatch.trajectory_kernel(head, metric, _spec(128, 128), 10923) in want
 
 
 # -- (b) B6c's sizes beyond K = 256 ----------------------------------------------
@@ -206,6 +205,128 @@ def test_b6c_workspace_sizes_are_exact_past_two_to_the_31():
     assert frc.memory_grid(1000, 128, 128, 80 * 10**9) == int(0.5 * 80e9) // slice_bytes == 210
     assert frc.memory_grid(1000, 128, 128, 10 * 10**9) == 26
     assert frc.memory_grid(1000, 128, 128, 10**6) == 1
+
+
+# -- (b2) the full metric at every catalog the card holds ------------------------
+
+INT32_MAX = 2**31 - 1
+# where B6c's slice offsets pass 32 bits: the 18 K^2 pair sums, the D x D
+# matrices (D (D + 1), D = 3 K) and the q coefficient table (6 K^2)
+PAIR_SUMS_K = math.isqrt(INT32_MAX // 18) + 1
+DENSE_K = next(k for k in range(15000, 16000) if 3 * k * (3 * k + 1) > INT32_MAX)
+COEF_K = next(k for k in range(18000, 20000) if 6 * k * (k + 1) > INT32_MAX)
+# the last K whose pair sums a 32-bit index reached, the first past it, the
+# first past the dense matrices' threshold, and near the largest slice an
+# 80 GB card holds at 128x128
+LARGE_K = (PAIR_SUMS_K - 1, PAIR_SUMS_K, DENSE_K, 21000)
+
+
+def test_the_thresholds_are_where_the_source_says():
+    """The K at which each of B6c's slice arrays passes 2^31 - 1 floats:
+    plane 17's last pair sum at K = 10923, D (D + 1) at K = 15447 (D =
+    46341), the q coefficient table (and G^-1's star blocks 2 K D rows
+    apart) at K = 18919; each array fits at the K before.  The fields and
+    profiles, addressed in 32 bits, pass it only on fields of about 10^9
+    pixels."""
+    assert (PAIR_SUMS_K, DENSE_K, COEF_K) == (10923, 15447, 18919)
+    for k, size in ((PAIR_SUMS_K, lambda k: 18 * k * k),
+                    (DENSE_K, lambda k: 3 * k * (3 * k + 1)),
+                    (COEF_K, lambda k: 12 * ((k * (k + 1) // 2 + 7) // 8 * 8))):
+        assert size(k) > INT32_MAX >= size(k - 1) - 1
+    # the fields and profiles stay in 32 bits but on fields of about 10^9
+    # pixels, where a launch raises rather than wrap
+    assert frc.wide_fields_in_32_bits(21000, 512, 512)
+    assert frc.wide_fields_in_32_bits(1, 32000, 32000)
+    assert not frc.wide_fields_in_32_bits(1, 32767, 32767)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+@pytest.mark.parametrize("h,w", ((8, 8), (128, 128), (512, 512)))
+def test_the_full_metric_runs_on_b6c_at_every_catalog(h, w, k):
+    """The full metric's trajectory (the rhmc head, SMC's and trans-d's rhmc
+    mutation) names B6c at K up to 21000 on every field, and kernel=auto and
+    cuda resolve to the kernel on a card: nothing gives way to the plain
+    version; only the workspace's allocation can refuse, past the card's
+    memory."""
+    spec = _spec(h, w)
+    assert frc.domain_error(spec, k) is None
+    assert dispatch.trajectory_kernel("rhmc", "full", spec, k) == "B6c"
+    cuda = torch.device("cuda")
+    over = {"scene.height": h, "scene.width": w, "n_stars": 50, "kmax": k}
+    cfgs = [apply_overrides(CONFIGS["cfg1_rhmc"], over),
+            apply_overrides(CONFIGS["cfg4_crowded"], {**over, "smc.mutation": "rhmc"}),
+            apply_overrides(CONFIGS["cfg5_transdim_mcmc"], {**over, "tdm.mutation": "rhmc"})]
+    for cfg in cfgs:
+        assert api._metric_of(cfg) == "full"
+        assert dispatch.trajectory_kernel(cfg.head, "full", cfg.scene, cfg.kmax) == "B6c"
+        assert api.resolve_kernel("auto", cuda, cfg) == "cuda"
+        assert api.resolve_kernel("cuda", cuda, cfg) == "cuda"
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+def test_b6c_sizes_at_the_largest_catalogs_are_exact(k):
+    """At K up to 21000 on 128x128: the streamed panel and the per-star
+    vectors in the slice, the shared memory of the stages and the ring, the
+    workspace by exact integer formulas (past 2^31 floats), the grid one
+    block on an 80 GB card (WORKSPACE_SHARE of 80 GB holds no whole slice)
+    and more where more is free, the largest catalog that just this slice
+    holds this K, and the probe's corners inside the slice, each past 2^31
+    - 1 where its array passes it."""
+    def r4(n):
+        return (n + 3) // 4 * 4
+
+    h = w = 128
+    d, hp = 3 * k, h | 1
+    pairs = (k * (k + 1) // 2 + 7) // 8 * 8
+    assert not frc.full_panel(k) and not frc.vectors_in_shared(k)
+    assert frc.wide_smem_bytes(k) == 4 * (2 * (32 * 256 + 16) + 192)
+    want = (2 * h * w + r4(2 * k * hp) + 3 * k * w + r4(k * hp) + r4(18 * k * k) + r4(d * d)
+            + 12 * pairs + r4((d + 1) * (d + 2) // 2) + r4(d * d) + r4(2 * k)
+            + 32 * (d + 1) + r4(67 * k + 12))
+    floats = frc.wide_workspace_floats(k, h, w)
+    assert floats == want and floats > INT32_MAX
+    assert frc.workspace_bytes(k, h, w, 1) == 4 * (4 + want)
+    assert frc.memory_grid(k, h, w, 80 * 10**9) == 1
+    assert frc.memory_grid(20000, h, w, 80 * 10**9) == frc.memory_grid(40000, h, w, 80 * 10**9) == 1
+    assert frc.memory_grid(k, h, w, 10**6) == 1
+    assert frc.memory_grid(k, h, w, 400 * 10**9) == max(1, 200 * 10**9 // (4 * want))
+    # the largest catalog a card with just this slice free holds is this one
+    assert frc.largest_kmax(h, w, 4 * (4 + want)) == k
+    assert frc.largest_kmax(h, w, 4 * (4 + want) - 1) == k - 1
+    assert frc.wide_fields_in_32_bits(k, h, w)
+    off = frc.probe_offsets(k, h, w)
+    assert len(off) == len(frc.PROBE_CORNERS)
+    assert all(4 <= o < 4 + floats for o in off)
+    lay = frc.wide_layout(k, h, w)
+    # each corner's offset within its array, past 32 bits where the array is
+    within = {1: (off[1] - 4 - lay["sraw"], 18 * k * k - 1),
+              6: (off[6] - 4 - lay["linv"], d * d - 1),
+              8: (off[8] - 4 - lay["ginv"], d * d - 1),
+              10: (off[10] - 4 - lay["qcoef"], 12 * pairs - 1)}
+    for n, (got, last) in within.items():
+        assert got == last
+    assert (18 * k * k - 1 > INT32_MAX) == (k >= PAIR_SUMS_K)
+    assert (d * d - 1 > INT32_MAX) == (k >= DENSE_K)
+
+
+@pytest.mark.parametrize("d", (3, 96, 2100, 3 * PAIR_SUMS_K, 3 * DENSE_K, 63000))
+def test_packed_column_steps_are_exact_in_32_bits(d):
+    """B6c's streamed Cholesky takes its panel's first column's offset in 64
+    bits (col_off) and the steps to the panel's other columns in 32
+    (col_step): col_off(c + k) - col_off(c) - k = k (n - c - 1) - k (k -
+    1) / 2 below 2^31, for every panel of a D-parameter factor (n = D + 1
+    rows)."""
+    n = d + 1
+
+    def col_off(c):
+        return c * n - c * (c - 1) // 2
+
+    for p0 in sorted({0, 32, (d - 1) // 32 * 32, max(0, d - 33) // 32 * 32}):
+        for k in range(min(32, d - p0)):
+            step = k * (n - p0 - 1) - k * (k - 1) // 2
+            assert col_off(p0 + k) - (p0 + k) - (col_off(p0) - p0) == step
+            assert 0 <= step <= 32 * n < INT32_MAX
+    assert col_off(d - 1) + 1 == (d + 1) * (d + 2) // 2 - 2
 
 
 # -- (c) the plain versions against the JAX package's XLA route ------------------

@@ -580,11 +580,11 @@ def test_b6c_gives_a_chain_the_same_bits_at_any_chain_count(dev):
 def test_b6c_ptxas_reports_no_spills(dev):
     """The B6c build keeps every value in registers or shared memory in the
     kernels that run up to K = 347, the one-tile kernel and the wide
-    kernel with the whole Cholesky panel in shared memory: their ptxas
-    reports (nvcc -Xptxas -v) show 0 bytes of spill stores and loads and no
-    stack frame.  The third, the wide kernel that streams the panel beyond
-    K = 347 (wide_kernel<true>), spills, and is 1.14x the second's time
-    where both run (PERF.md)."""
+    kernel with the whole Cholesky panel in shared memory, and in the wide
+    path's address probe: their ptxas reports (nvcc -Xptxas -v) show 0
+    bytes of spill stores and loads and no stack frame.  The fourth, the
+    wide kernel that streams the panel beyond K = 347 (wide_kernel<true>),
+    spills, and is 1.14x the second's time where both run (PERF.md)."""
     import re
 
     from starcat_torch import build
@@ -592,9 +592,9 @@ def test_b6c_ptxas_reports_no_spills(dev):
     _, report, _ = build.build_kernel("fused_rhmc_crowded")
     rows = dict(re.findall(r"Function properties for (\S+)\s+(\d+ bytes stack frame, \d+ "
                            r"bytes spill stores, \d+ bytes spill loads)", report))
-    assert len(rows) == 3, report
+    assert len(rows) == 4, report
     kept = {f: r for f, r in rows.items() if "wide_kernelILb1E" not in f}
-    assert len(kept) == 2, report
+    assert len(kept) == 3 and any("addr_probe" in f for f in kept), report
     assert all(r == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
                for r in kept.values()), report
 
@@ -646,11 +646,28 @@ def test_b6c_wrapper_rejects_bad_inputs(dev):
         fused(theta, xi, eps, mask, torch.tensor(1.0))
     with pytest.raises(ValueError, match="theta"):
         fused(theta[0], xi, eps, mask)
-    # every scene and 1 <= K <= 10922: only beyond those does the wrapper raise
+    # every scene and K >= 1: only below does the wrapper raise, and K =
+    # 10923, past the old 32-bit pair-sum index, makes a trajectory
     with pytest.raises(ValueError, match="B6c"):
         frc.make_fused_rhmc(spec, img, prior, 0, 2, 2)
-    with pytest.raises(ValueError, match="B6c"):
-        frc.make_fused_rhmc(spec, img, prior, 10923, 2, 2)
+    assert callable(frc.make_fused_rhmc(spec, img, prior, 10923, 2, 2))
+
+
+@pytest.mark.parametrize("h,w,k", [(32, 32, 65), (128, 128, 348), (128, 128, 700),
+                                   (136, 18, 10923)])
+def test_b6c_address_probe_reaches_every_corner_of_a_slice(dev, h, w, k):
+    """The wide path's index helpers, run by the kernel's address probe in a
+    real slice: every corner's offset (pair sums, packed L, the streamed
+    panel's step, L^-1, G^-1, the q coefficients) equals the exact one, and
+    its sentinel is read back there; at K = 10923 the last pair sum lies
+    past 2^31 floats."""
+    from starcat_torch import fused_rhmc_crowded as frc
+
+    got = frc.address_probe(k, h, w, dev)
+    assert got["ok"], got["corners"]
+    if k == 10923:
+        assert got["corners"][1]["offset"] > 2**31
+    torch.cuda.empty_cache()
 
 
 def _b6c_wide_inputs(h, w, k, c, dev, seed):

@@ -206,7 +206,7 @@ def test_full_metric_kernel_choice(h, w, k, kernel):
     (400, 400, 16, None),
     (256, 256, 48, None),
     (128, 128, 257, None),
-    (32, 32, 0, r"\(B6\).*\(B6c\).*1 <= K"),
+    (32, 32, 0, r"\(B6\).*\(B6c\).*K >= 1"),
 ])
 def test_full_metric_beyond_both_domains_names_both_kernels(h, w, k, match):
     """Beyond B6's domain and B4's TPU gate (match None) the full metric runs
@@ -370,15 +370,15 @@ def test_b6c_domain_takes_its_edges(h, w, k):
 
 @pytest.mark.parametrize("h,w,k,match", [
     (128, 128, 257, None),
-    (32, 32, 0, "1 <= K <= 10922, got K=0"),
+    (32, 32, 0, "takes K >= 1, got K=0"),
     (400, 400, 8, None),
     (256, 256, 48, None),
-    (128, 128, 10923, "1 <= K <= 10922, got K=10923"),
+    (128, 128, 10923, None),
 ])
 def test_b6c_domain_rejects_beyond_its_edges(h, w, k, match):
-    """The old edges (K = 256, B4's TPU gate) are gone: B6c takes every
-    scene and 1 <= K <= 10922 (its 32-bit index into a block's 18 K^2 pair
-    sums); beyond, the error names it (match)."""
+    """The old edges (K = 256, B4's TPU gate; the last K whose 18 K^2 pair
+    sums a 32-bit index reached) are gone: B6c takes every scene and K >= 1;
+    below, the error names it (match)."""
     err = frc.domain_error(_spec(h, w), k)
     if match is None:
         assert err is None

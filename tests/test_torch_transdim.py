@@ -314,10 +314,10 @@ def test_short_preset_runs_on_the_plain_path(name, over):
 def test_unported_metric_or_mutation_raises(head, over, match):
     """The full metric and the trans-d rhmc mutation run on kernel B6 or,
     beyond its domain, B6c now: asked for a kernel beyond both domains (K =
-    10923, past B6c's 32-bit pair-sum index), they raise naming both; an
-    unknown mutation still raises before any kernel is chosen."""
+    0: B6c takes every K >= 1), they raise naming both; an unknown mutation
+    still raises before any kernel is chosen."""
     cfg = apply_overrides(dataclasses.replace(CONFIGS["cfg1_rhmc"], head=head, n_chains=2,
-                                              n_samples=2, n_warmup=2, kmax=10923,
+                                              n_samples=2, n_warmup=2, kmax=0,
                                               kernel="cuda"), over)
     with pytest.raises(ValueError, match=match):
         api.sample(cfg, "cpu")
