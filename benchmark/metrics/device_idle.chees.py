@@ -1,0 +1,10 @@
+"""device_idle.chees: the share of the traced window in which no kernel, copy
+or set ran on the device (1 - the union of device intervals / the window)."""
+
+HEAD = "chees"
+
+
+def read(run):
+    if run.trace is None or run.head.name != HEAD or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.union_s() / run.trace.window_s)
