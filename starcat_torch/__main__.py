@@ -3,7 +3,7 @@
 Commands:
   list                                                list presets
   run       --config cfg6_chees [--device cuda] [--checkpoint PATH]
-            [--metrics PATH] [--resume] [key=value ...]
+            [--metrics PATH] [--trace DIR] [--resume] [key=value ...]
   report    --config cfg0_single_star [--device cuda] [--seed S]
             [--out-prefix P] [key=value ...]
   validate  [--config cfg0_single_star]
@@ -24,6 +24,9 @@ sampling blocks, SMC temperature steps, ADVI windows, the end of the run)
 to PATH; ``--checkpoint PATH`` writes a checkpoint after every sampling
 block (SMC: every temperature step), and ``--resume`` continues a killed
 run from it, printing the summary of the remaining draws only.
+``--trace DIR`` runs the job under ``torch.profiler`` (metrics.profile_trace)
+and writes its Chrome trace ``trace_<pid>.json`` and the program's spans and
+counters ``spans_<pid>.json`` into DIR.
 
 ``report`` runs a preset on the device and writes ``P_catalog.json`` (the
 condensed catalog and completeness / purity against the mock truth,
@@ -65,10 +68,12 @@ def cmd_list(_args):
 
 def cmd_run(args):
     from .api import sample, summarize_output
+    from .metrics import profile_trace
 
     cfg = _load_config(args)
-    out = sample(cfg, args.device, seed=args.seed, metrics_path=args.metrics,
-                 checkpoint_path=args.checkpoint, resume=args.resume)
+    with profile_trace(args.trace):
+        out = sample(cfg, args.device, seed=args.seed, metrics_path=args.metrics,
+                     checkpoint_path=args.checkpoint, resume=args.resume)
     record = {
         "config": cfg.name,
         "head": cfg.head,
@@ -239,6 +244,8 @@ def main(argv=None):
     p_run.add_argument("--checkpoint", default=None,
                        help="checkpoint path, written after every block or SMC step")
     p_run.add_argument("--metrics", default=None, help="JSONL metrics sink")
+    p_run.add_argument("--trace", default=None, metavar="DIR",
+                       help="profile the job: Chrome trace and the program's spans into DIR")
     p_run.add_argument("--resume", action="store_true",
                        help="continue a killed run from --checkpoint")
     p_run.add_argument("overrides", nargs="*", help="key=value overrides")

@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import dist
+from . import dist, metrics
 from .adapt import (
     AdamState,
     adam_update,
@@ -128,13 +128,15 @@ def _chees_iteration(states: ChainState, grad_fn: Callable, eps, inv_mass,
 
     p0 = p0 / torch.sqrt(inv_mass) * mask3
     h0 = states.u + kinetic_energy(p0, inv_mass)
-    if leapfrog_impl is None:
-        theta_n, p_n, u_n, grad_n = plain_trajectory(grad_fn)(
-            states.theta, p0, eps, inv_mass, mask, n_steps, states.grad)
-    else:
-        theta_n, p_n, u_n, grad_n = leapfrog_impl(
-            states.theta, p0, states.u, states.grad, eps, n_steps, inv_mass,
-            mask)
+    with metrics.span("chees.trajectory"):
+        if leapfrog_impl is None:
+            theta_n, p_n, u_n, grad_n = plain_trajectory(grad_fn)(
+                states.theta, p0, eps, inv_mass, mask, n_steps, states.grad)
+        else:
+            theta_n, p_n, u_n, grad_n = leapfrog_impl(
+                states.theta, p0, states.u, states.grad, eps, n_steps, inv_mass,
+                mask)
+    metrics.count("chees.leapfrog_steps", n_steps, states.theta.shape[0])
     h1 = u_n + kinetic_energy(p_n, inv_mass)
     e_err = h1 - h0
     e_err = torch.where(torch.isfinite(e_err), e_err, torch.full_like(e_err, math.inf))
@@ -361,8 +363,11 @@ def _maybe_relocate(st: ChainState, i: int, grad_fn: Callable, mask,
     recomputed so the next trajectory starts from the moved configuration."""
     if relocate_fn is None or config.relocate_every <= 0 or i % config.relocate_every:
         return st
-    theta_new, _ = relocate_fn(st.theta, mask)
-    u, g = grad_fn(theta_new)
+    with metrics.span("chees.relocate"):
+        theta_new, accepted = relocate_fn(st.theta, mask)
+        metrics.count("chees.relocations", st.theta.shape[0])
+        metrics.count("chees.relocations_accepted", accepted)
+        u, g = grad_fn(theta_new)
     return ChainState(theta_new, u, g)
 
 
@@ -408,15 +413,16 @@ def chees_sample(states: ChainState, grad_fn: Callable, mask, n_samples: int,
     div = torch.empty((c, n_samples), dtype=torch.bool, device=dev)
     for n in range(n_samples):
         i = start + n
-        p0, u_acc = _draw(generator, st.theta, mesh)
-        st, info, _ = _chees_iteration(
-            st, grad_fn, eps, inv_mass, mask, _halton2(i), traj,
-            config.max_leapfrog, config.divergence_threshold, p0, u_acc,
-            leapfrog_impl, mesh)
-        st = _maybe_relocate(st, i, grad_fn, mask, config, relocate_fn)
-        thetas[:, n] = st.theta
-        aprob[:, n] = info.accept_prob
-        div[:, n] = info.diverged
+        with metrics.span("chees.iteration"):
+            p0, u_acc = _draw(generator, st.theta, mesh)
+            st, info, _ = _chees_iteration(
+                st, grad_fn, eps, inv_mass, mask, _halton2(i), traj,
+                config.max_leapfrog, config.divergence_threshold, p0, u_acc,
+                leapfrog_impl, mesh)
+            st = _maybe_relocate(st, i, grad_fn, mask, config, relocate_fn)
+            thetas[:, n] = st.theta
+            aprob[:, n] = info.accept_prob
+            div[:, n] = info.diverged
     return SampleResult(thetas, aprob, div, st)
 
 

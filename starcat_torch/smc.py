@@ -53,7 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import diagnostics, dist
+from . import diagnostics, dist, metrics
 from .checkpoint import restore_state, save_state
 from .driver import ChainState
 from .hmc import hmc_transition
@@ -305,45 +305,52 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
         return sts.theta, info.accept_prob, info.diverged, torch.zeros_like(info.diverged)
 
     def step(s: SMCState, draws: StepDraws) -> SMCState:
-        # 1-2. adaptive tempering and reweighting (weights are equal
-        # after the previous resampling), on the whole population
-        theta, mask, loglik = dist.gather((s.theta, s.mask, s.loglik), mesh)
-        db = _next_dbeta(s.beta, loglik, cfg.ess_target_frac * p)
-        beta = s.beta + db
-        logw = db * loglik
-        log_z = s.log_z + torch.logsumexp(logw, 0) - math.log(float(p))
+        with metrics.span("smc.step"):
+            # 1-2. adaptive tempering and reweighting (weights are equal
+            # after the previous resampling), on the whole population
+            with metrics.span("smc.temper"):
+                theta, mask, loglik = dist.gather((s.theta, s.mask, s.loglik), mesh)
+                db = _next_dbeta(s.beta, loglik, cfg.ess_target_frac * p)
+                beta = s.beta + db
+                logw = db * loglik
+                log_z = s.log_z + torch.logsumexp(logw, 0) - math.log(float(p))
 
-        # 3. systematic resampling; this rank keeps its rows of the
-        # resampled population
-        idx = dist.shard(systematic_resample(logw, draws.u_res, cfg.n_islands), mesh)
-        theta, mask = theta[idx], mask[idx]
+                # 3. systematic resampling; this rank keeps its rows of the
+                # resampled population
+                idx = dist.shard(systematic_resample(logw, draws.u_res, cfg.n_islands), mesh)
+                theta, mask = theta[idx], mask[idx]
 
-        # 4a. trans-dimensional sweeps at the tempered likelihood
-        if draws.sweeps:
-            tllf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
-            tll = beta * loglik[idx]
-            for sd in draws.sweeps:
-                theta, mask, tll, _ = transdim_sweep(theta, mask, tll, tllf, prior,
-                                                     spec, cfg.transdim, sd, image)
+            # 4a. trans-dimensional sweeps at the tempered likelihood
+            with metrics.span("smc.sweeps"):
+                if draws.sweeps:
+                    tllf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
+                    tll = beta * loglik[idx]
+                    for sd in draws.sweeps:
+                        theta, mask, tll, info = transdim_sweep(theta, mask, tll, tllf, prior,
+                                                                spec, cfg.transdim, sd, image)
+                        metrics.count("transdim.accepted", info.accepted)
+                    metrics.count("transdim.moves", theta.shape[0], len(draws.sweeps))
 
-        # 4b. within-model mutation at temperature beta
-        aprobs, div, fail = [], 0, 0
-        for noise, u_jit, u_acc in draws.mutation:
-            theta, ap, dv, sf = mutate(theta, mask, beta, s.eps, noise, u_jit, u_acc)
-            ap, dv, sf = dist.gather((ap, dv, sf), mesh)
-            aprobs.append(ap)
-            div = div + dv.sum(dtype=torch.int32)
-            fail = fail + sf.sum(dtype=torch.int32)
-        mean_accept = torch.stack(aprobs).mean() if aprobs else torch.zeros_like(s.eps)
+            # 4b. within-model mutation at temperature beta
+            with metrics.span("smc.mutate"):
+                aprobs, div, fail = [], 0, 0
+                for noise, u_jit, u_acc in draws.mutation:
+                    theta, ap, dv, sf = mutate(theta, mask, beta, s.eps, noise, u_jit, u_acc)
+                    ap, dv, sf = dist.gather((ap, dv, sf), mesh)
+                    aprobs.append(ap)
+                    div = div + dv.sum(dtype=torch.int32)
+                    fail = fail + sf.sum(dtype=torch.int32)
+                mean_accept = torch.stack(aprobs).mean() if aprobs else torch.zeros_like(s.eps)
 
-        # Robbins-Monro step-size controller toward the target acceptance
-        eps = torch.clamp(s.eps * torch.exp(0.3 * (mean_accept - cfg.target_accept)),
-                          1e-5, 10.0)
-        return SMCState(
-            theta, mask, log_likelihood(theta, mask, spec, image), beta, log_z,
-            eps, s.n_steps + 1, mean_accept,
-            s.final_done + (s.beta >= 1.0).to(torch.int32),
-            s.divergences + div, s.solver_rejections + fail)
+                # Robbins-Monro step-size controller toward the target acceptance
+                eps = torch.clamp(s.eps * torch.exp(0.3 * (mean_accept - cfg.target_accept)),
+                                  1e-5, 10.0)
+            with metrics.span("smc.refresh"):
+                loglik = log_likelihood(theta, mask, spec, image)
+            return SMCState(
+                theta, mask, loglik, beta, log_z, eps, s.n_steps + 1, mean_accept,
+                s.final_done + (s.beta >= 1.0).to(torch.int32),
+                s.divergences + div, s.solver_rejections + fail)
 
     return step
 

@@ -1,6 +1,9 @@
-"""starcat_torch's JSONL metrics stream against the JAX package's: the same
-small run of every head through both ``api.sample``s, on the CPU, must
-write the same events in the same order with the same keys.  The values
+"""starcat_torch's JSONL metrics stream against the JAX package's, and the
+port's own spans and counters (metrics.span / count, the benchmark's
+readers of them, ``run --trace``).
+
+The same small run of every head through both ``api.sample``s, on the CPU,
+must write the same events in the same order with the same keys.  The values
 differ (JAX keys and torch generators never give the same draws), so only
 those that need no shared draws are compared: the blocks' ``done``
 sequence and ``n_total``, the warmup phases, the ADVI windows and the SMC
@@ -17,6 +20,8 @@ records to its schedule.
 from __future__ import annotations
 
 import json
+import math
+import os
 
 import pytest
 import torch
@@ -25,9 +30,15 @@ from starcat import api as japi
 from starcat.configs import CONFIGS as JCONFIGS
 from starcat.configs import apply_overrides as japply
 from starcat_torch import api as tapi
+from starcat_torch import chees as tchees
 from starcat_torch import metrics as tmetrics
+from starcat_torch import smc as tsmc
 from starcat_torch.configs import CONFIGS as TCONFIGS
 from starcat_torch.configs import apply_overrides as tapply
+from starcat_torch.driver import init_chain_states
+from starcat_torch.potential import PriorSpec, make_potential_and_grad, unconstrain
+from starcat_torch.scene import SceneSpec, make_mock_image
+from starcat_torch.transdim import TransDimConfig
 
 torch.set_num_threads(1)
 
@@ -171,18 +182,276 @@ def test_logger_on_a_rank_other_than_0_writes_nothing(tmp_path, monkeypatch):
 
 
 def test_timed_and_profile_trace(tmp_path):
-    """timed logs the wall of its block; profile_trace writes a Chrome
-    trace, and is a no-op for None."""
-    path = tmp_path / "t.jsonl"
-    log = tmetrics.MetricsLogger(str(path), "r")
-    with tmetrics.timed(log, "phase", device="cpu", n=3):
-        torch.ones(4).sum()
-    log.close()
-    (rec,) = _events(path)
-    assert rec["event"] == "phase" and rec["wall_seconds"] >= 0 and rec["n"] == 3
+    """profile_trace writes a Chrome trace and, beside it, the block's
+    record: the spans opened in it (with their parents) and its counters;
+    it clears what was recorded before, and is a no-op for None."""
+    with tmetrics.tracing():
+        with tmetrics.span("before"):
+            pass
     with tmetrics.profile_trace(None):
         pass
     with tmetrics.profile_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    (trace,) = (tmp_path / "trace").iterdir()
-    assert "traceEvents" in json.loads(trace.read_text())
+        with tmetrics.span("outer"):
+            with tmetrics.span("inner"):
+                torch.ones(4).sum()
+            tmetrics.count("things", torch.tensor([True, False, True]))
+            tmetrics.count("things", 2, 3)
+    names = sorted(p.name for p in (tmp_path / "trace").iterdir())
+    assert names == [f"spans_{os.getpid()}.json", f"trace_{os.getpid()}.json"]
+    trace = json.loads((tmp_path / "trace" / names[1]).read_text())
+    assert {"outer", "inner"} <= {e.get("name") for e in trace["traceEvents"]}
+    rec = json.loads((tmp_path / "trace" / names[0]).read_text())
+    assert [(s["name"], s["parent"]) for s in rec["spans"]] == [("outer", None), ("inner", 0)]
+    assert rec["counters"] == {"things": 8}
+    for s in rec["spans"]:
+        assert s["host_start_ns"] <= s["host_end_ns"] and s["host_ms"] >= 0
+        assert "device_ms" not in s   # no device intervals off CUDA
+    assert tmetrics.record() == rec
+    tmetrics.reset_record()
+
+
+# -- the program's spans and counters (metrics.span / metrics.count) ---------
+
+T_SPEC = SceneSpec(8, 8, 1.5, 4.0)
+T_PRIOR = PriorSpec(4.0, 0.7)
+T_TRUTH = (torch.tensor([2.5, 5.2]), torch.tensor([3.1, 5.6]), torch.tensor([150.0, 90.0]))
+SMC_SPANS = ["smc.temper", "smc.sweeps", "smc.mutate", "smc.refresh"]
+
+
+@pytest.fixture(scope="module")
+def image8():
+    return make_mock_image(torch.Generator().manual_seed(0), *T_TRUTH, T_SPEC)
+
+
+@pytest.fixture
+def clean_record():
+    tmetrics.reset_record()
+    yield
+    tmetrics.reset_record()
+
+
+def _smc_steps(image, n_steps=2, wrap_sweep=None):
+    """``n_steps`` seeded temperature steps from a seeded population of 16
+    particles at K_max 3: two trans-d sweeps and one plain HMC mutation."""
+    cfg = tsmc.SMCConfig(n_particles=16, mutation="hmc", n_mutation_steps=1, n_leapfrog=3,
+                         n_transdim_sweeps=2, step_size0=0.05,
+                         transdim=TransDimConfig(lam_count=2.0))
+    g = torch.Generator().manual_seed(5)
+    s = tsmc.init_smc(g, T_SPEC, image, T_PRIOR, 3, cfg)
+    step = tsmc.make_smc_step(T_SPEC, image, T_PRIOR, 3, cfg)
+    for _ in range(n_steps):
+        s = step(s, tsmc.draw_step(g, 16, 3, T_SPEC, T_PRIOR, cfg, "cpu"))
+    return s
+
+
+def _chees_block(image, n=4, wrap_relocate=None, max_leapfrog=8):
+    """``n`` seeded ChEES sampling iterations of 6 chains on the two-star
+    scene, a relocate move an iteration, on the plain trajectory."""
+    mask = torch.ones(2)
+    pg = make_potential_and_grad(T_SPEC, image, T_PRIOR)
+    grad_fn = lambda th: pg(th, mask)  # noqa: E731
+    g = torch.Generator().manual_seed(7)
+    theta0 = unconstrain(*T_TRUTH, T_SPEC)[None] + 0.05 * torch.randn((6, 2, 3), generator=g)
+    reloc = tchees.make_chees_relocate(T_SPEC, image, T_PRIOR, g)
+    if wrap_relocate is not None:
+        reloc = wrap_relocate(reloc)
+    cfg = tchees.ChEESConfig(max_leapfrog=max_leapfrog)
+    return tchees.chees_sample(init_chain_states(theta0, grad_fn), grad_fn, mask, n,
+                               torch.tensor(0.05), torch.ones(2, 3), torch.tensor(0.3), cfg, g,
+                               None, start=3, relocate_fn=reloc)
+
+
+def test_tracing_off_records_nothing(image8, clean_record, monkeypatch):
+    """Under no profiler and outside tracing(), an SMC step and a ChEES block
+    never open a profiler range or make a CUDA event, every span is the one
+    shared null context, and the record stays empty."""
+    calls = []
+
+    def counting(real):
+        def f(*a, **k):
+            calls.append(real)
+            return real(*a, **k)
+        return f
+
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        counting(torch.profiler.record_function))
+    monkeypatch.setattr(torch.cuda, "Event", counting(torch.cuda.Event))
+    monkeypatch.setattr(tmetrics._RECORDER, "count", counting(tmetrics._RECORDER.count))
+    assert tmetrics.span("smc.step") is tmetrics.span("chees.iteration")
+    _smc_steps(image8, 1)
+    _chees_block(image8, 2)
+    assert calls == [] and tmetrics.record() == {"spans": [], "counters": {}}
+
+
+def test_spans_nest_under_the_profiler(image8, clean_record):
+    """Under torch.profiler every span stands in the profiler's events, inside
+    its parent: the SMC step's four layers in smc.step, the trajectory and
+    the relocate move in chees.iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _smc_steps(image8, 1)
+        _chees_block(image8, 2)
+    parents = {}
+    for e in prof.events():
+        if e.name.startswith(("smc.", "chees.")):
+            parents.setdefault(e.name, set()).add(e.cpu_parent.name if e.cpu_parent else None)
+    assert parents == {"smc.step": {None}, **{n: {"smc.step"} for n in SMC_SPANS},
+                       "chees.iteration": {None}, "chees.trajectory": {"chees.iteration"},
+                       "chees.relocate": {"chees.iteration"}}
+    rec = tmetrics.record()
+    assert [s["name"] for s in rec["spans"]][:5] == ["smc.step"] + SMC_SPANS
+
+
+def test_smc_step_spans_and_children(image8, clean_record):
+    """A three-step run records one smc.step a step, each with the four
+    children in order and no other span; each child lies inside its step."""
+    with tmetrics.tracing():
+        _smc_steps(image8, 3)
+    spans = tmetrics.record()["spans"]
+    steps = [i for i, s in enumerate(spans) if s["name"] == "smc.step"]
+    assert len(steps) == 3 and len(spans) == 15
+    for i in steps:
+        kids = [s for s in spans if s["parent"] == i]
+        assert [s["name"] for s in kids] == SMC_SPANS
+        assert spans[i]["parent"] is None
+        for s in kids:
+            assert spans[i]["host_start_ns"] <= s["host_start_ns"] <= s["host_end_ns"]
+            assert s["host_end_ns"] <= spans[i]["host_end_ns"]
+
+
+def test_transdim_counters_match_the_sweeps(image8, clean_record, monkeypatch):
+    """transdim.accepted is the sum of the accepted flags every sweep returns;
+    transdim.moves is particles x sweeps."""
+    seen = []
+    real = tsmc.transdim_sweep
+
+    def sweep(*a, **k):
+        out = real(*a, **k)
+        seen.append(int(out[3].accepted.sum()))
+        return out
+
+    monkeypatch.setattr(tsmc, "transdim_sweep", sweep)
+    with tmetrics.tracing():
+        _smc_steps(image8, 3)
+    counters = tmetrics.record()["counters"]
+    assert len(seen) == 6 and sum(seen) > 0
+    assert counters == {"transdim.accepted": sum(seen), "transdim.moves": 16 * 6}
+
+
+def test_relocate_and_leapfrog_counters(image8, clean_record):
+    """chees.relocations_accepted is the sum of relocate_fn's accepted flags,
+    chees.relocations the chains a relocate sweep, and chees.leapfrog_steps
+    chains x clamp(ceil(u_i T / eps), 1, cap) over the iterations (u_i the
+    Halton point of iteration i)."""
+    seen = []
+
+    def wrap(reloc):
+        def f(theta, mask):
+            out = reloc(theta, mask)
+            seen.append(int(out[1].sum()))
+            return out
+        return f
+
+    with tmetrics.tracing():
+        _chees_block(image8, 5, wrap_relocate=wrap, max_leapfrog=5)
+    counters = tmetrics.record()["counters"]
+    steps = [min(max(math.ceil(float(torch.tensor(tchees._halton2(i)) * torch.tensor(0.3)
+                                      / torch.tensor(0.05))), 1), 5) for i in range(3, 8)]
+    assert len(seen) == 5 and steps == [5, 1, 4, 3, 5]   # the cap cuts iteration 7's 6
+    assert counters == {"chees.relocations": 6 * 5, "chees.relocations_accepted": sum(seen),
+                        "chees.leapfrog_steps": 6 * sum(steps)}
+
+
+@pytest.mark.parametrize("head", ["smc", "chees"])
+def test_tracing_leaves_the_bits(image8, clean_record, head):
+    """The same seeded SMC steps or ChEES block give the same bits with
+    tracing off, inside tracing() and under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        if head == "smc":
+            s = _smc_steps(image8, 2)
+            return [s.theta, s.mask, s.loglik, s.beta, s.log_z, s.eps]
+        r = _chees_block(image8, 3)
+        return [r.thetas, r.accept_prob, r.final_states.u, r.final_states.grad]
+
+    off = run()
+    with tmetrics.tracing():
+        on = run()
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = run()
+    assert tmetrics.record()["spans"]
+    for a, b, c in zip(off, on, profiled):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _span(name, parent, host_ms, device_ms):
+    return {"name": name, "parent": parent, "host_start_ns": 0,
+            "host_end_ns": int(host_ms * 1e6), "host_ms": host_ms,
+            "device_start_ns": 0, "device_end_ns": int(device_ms * 1e6), "device_ms": device_ms}
+
+
+# two SMC steps and two ChEES iterations (one relocating), by hand
+HAND_RECORD = {
+    "spans": [_span("smc.step", None, 40.0, 100.0), _span("smc.temper", 0, 2.0, 3.0),
+              _span("smc.sweeps", 0, 20.0, 30.0), _span("smc.mutate", 0, 15.0, 60.0),
+              _span("smc.refresh", 0, 1.0, 5.0),
+              _span("smc.step", None, 50.0, 110.0), _span("smc.temper", 5, 2.0, 5.0),
+              _span("smc.sweeps", 5, 20.0, 34.0), _span("smc.mutate", 5, 15.0, 64.0),
+              _span("smc.refresh", 5, 1.0, 5.0),
+              _span("chees.iteration", None, 12.0, 50.0), _span("chees.trajectory", 10, 1.0, 45.0),
+              _span("chees.relocate", 10, 9.0, 3.0),
+              _span("chees.iteration", None, 14.0, 48.0), _span("chees.trajectory", 13, 1.0, 47.0)],
+    "counters": {"transdim.moves": 400, "transdim.accepted": 30, "chees.relocations": 64,
+                 "chees.relocations_accepted": 4, "chees.leapfrog_steps": 9000},
+}
+READERS = {
+    "sweeps_ms_per_step.smc": ("smc", 32.0), "tempering_ms_per_step.smc": ("smc", 4.0),
+    "mutation_ms_per_step.smc": ("smc", 62.0), "host_ms_per_step.smc": ("smc", 45.0),
+    "transdim_accept.smc": ("smc", 7.5), "relocate_ms_per_iter.chees": ("chees", 1.5),
+    "host_ms_per_iter.chees": ("chees", 13.0), "relocate_accept.chees": ("chees", 6.25),
+}
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_program_trace_readers(name, monkeypatch):
+    """Each reader of the program's record gives None on an empty record,
+    for another head, and where the record has no device intervals (for a
+    device metric), and its value on a record built by hand."""
+    from benchmark import core
+
+    head, want = READERS[name]
+    read = core.reader(name)
+
+    def run(head_name):
+        return type("Run", (), {"head": type("H", (), {"name": head_name})(),
+                                "trace": None, "counters": {}})()
+
+    monkeypatch.setattr(tmetrics, "record", lambda: {"spans": [], "counters": {}})
+    assert read(run(head)) is None
+    monkeypatch.setattr(tmetrics, "record", lambda: HAND_RECORD)
+    assert read(run(head)) == pytest.approx(want, rel=1e-12)
+    assert read(run("chees" if head == "smc" else "smc")) is None
+    host_only = {"spans": [{k: v for k, v in s.items() if not k.startswith("device")}
+                           for s in HAND_RECORD["spans"]], "counters": HAND_RECORD["counters"]}
+    monkeypatch.setattr(tmetrics, "record", lambda: host_only)
+    assert (read(run(head)) is None) == ("host" not in name and "accept" not in name)
+    monkeypatch.delattr(tmetrics, "record")
+    assert read(run(head)) is None   # a program without the recorder
+
+
+def test_run_cli_trace_writes_the_trace_and_the_spans(tmp_path, capsys):
+    """run --trace DIR profiles the job: the Chrome trace and the program's
+    spans and counters land in DIR, one chees.iteration a sampling draw."""
+    from starcat_torch.__main__ import main
+
+    d = tmp_path / "tr"
+    main(["run", "--config", "cfg6_chees", "n_chains=4", "n_warmup=10", "n_samples=6",
+          "chees.max_leapfrog=4", "--device", "cpu", "--trace", str(d)])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["head"] == "chees"
+    rec = json.loads((d / f"spans_{os.getpid()}.json").read_text())
+    assert (d / f"trace_{os.getpid()}.json").exists()
+    assert sum(s["name"] == "chees.iteration" for s in rec["spans"]) == 6
+    assert rec["counters"]["chees.relocations"] >= 4 * 6
+    tmetrics.reset_record()
