@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-1. prints the card (nvidia-smi name and power limit) and builds the six
+1. prints the card (nvidia-smi name and power limit) and builds the seven
    CUDA kernels from csrc/ with nvcc, one process per source, started
    together, printing each kernel's registers and spills;
 2. holds the fused leapfrog kernel (B1/B2) against its plain torch version
@@ -56,6 +56,19 @@
    with K = 37 (against float64 too), checks a chain that overflows, times
    one trajectory at the preset's 4096 particles, and checks and times B4
    beside B3 at B3's timed shape (cfg5);
+6b. holds the trans-d sweep kernel against its plain version (the sweep at
+   the tempered Poisson likelihood, plain PyTorch on the card) on the same
+   inputs and draws at cfg4's shape (4096 chains, K = 64, 128x128, residual
+   births, beta 0.3 from a device scalar), cfg3's (4096 chains, K = 16,
+   32x32, prior births), cfg5's (256 chains, beta 1) and four shapes that
+   walk several regions of the field or chunks of the catalog (192x192 at
+   K = 125, prior births at K = 100, 200x136 at K = 100, 250x240 at
+   K = 200; SWEEP_SHAPES): the move type on
+   every chain, the acceptance on at least 99.5% of them (the others
+   decisions within the log alpha tolerance of log u), and on the agreeing
+   chains log alpha, the mask, theta and tll; one launch a sweep, the same
+   bits on a rerun and for seven chains alone; times the kernel and the
+   plain version at each shape;
 7-10. drive each path at full width through the public API, the launch
    counts set to 0 just before each and read just after: the fixed-K path
    (cfg6_chees, B2's contract, and the HMC head, B1's); the diagonal
@@ -214,6 +227,11 @@
    (the pair sums past 2^31 floats), 15447 (the D x D matrices past it)
    and the largest K whose slice the card's free memory holds, every
    offset equal to the exact one and every sentinel read back;
+Every path from 8 on that runs an SMC or trans-d MCMC head also sets the
+sweep kernel's launch count to 0 just before it and reads it just after,
+and holds each such run's own count from its stats (``sweep_launches``,
+the report's from its process's printed stats): each must be above 0 with
+``sweep_kernel`` fused_transdim_sweep;
 22. prints one JSON line with a row per kernel (launches on its paths, the
    largest error against its plain version, kernel and plain times, and the
    bound: the least time the card could take for the same work; B6c's row
@@ -1343,6 +1361,219 @@ def check_b4_kernel(frdc, frd, rhmc_mod, cfg4, cfg5, dev):
     return err, ms
 
 
+# Phase 6b, the trans-d sweep kernel: (name, preset, overrides, chains,
+# beta) of each shape it is held at: the SMC presets' at a device beta and
+# cfg5's at the untempered likelihood, each one region of the field and
+# one chunk of the catalog; then shapes that walk several of either, at
+# cfg4's star density: phase 19's 192x192 slice at K_max 125 (36 regions
+# of 32 x 32, two chunks), prior births at K 100 on 128x128 (one 128 x 128
+# region, two chunks), a 200x136 field that pads unevenly to 32 x 32
+# regions at K 100, and a 250x240 one that pads unevenly to four 128 x 128
+# regions at K 200 (four chunks).  SWEEP_AGREE is the least share of
+# chains whose acceptance must agree with the plain version's (the rest
+# must be decisions within the log alpha tolerance of log u).
+SWEEP_SHAPES = (
+    ("cfg4", "cfg4_crowded", {}, 4096, 0.3),
+    ("cfg3", "cfg3_transdim_smc", {}, 4096, 0.3),
+    ("cfg5", "cfg5_transdim_mcmc", {}, 256, 1.0),
+    ("cfg4_192", "cfg4_crowded",
+     {"scene.height": 192, "scene.width": 192, "n_stars": 112, "kmax": 125}, 1024, 0.3),
+    ("cfg4_prior_k100", "cfg4_crowded",
+     {"kmax": 100, "smc.transdim.birth_proposal": "prior"}, 1024, 0.3),
+    ("cfg4_200x136", "cfg4_crowded",
+     {"scene.height": 200, "scene.width": 136, "n_stars": 83, "kmax": 100}, 512, 0.3),
+    ("cfg4_250x240", "cfg4_crowded",
+     {"scene.height": 250, "scene.width": 240, "n_stars": 183, "kmax": 200}, 256, 0.3),
+)
+SWEEP_AGREE = 0.995
+
+
+def sweep_config(configs, preset, over):
+    """A SWEEP_SHAPES entry's configuration: the preset with its overrides."""
+    from starcat_torch.configs import apply_overrides
+
+    return apply_overrides(configs[preset], over)
+
+
+def sweep_inputs(cfg, c, dev, seed, beta):
+    """A sweep's inputs on cfg's scene: theta near the truth in its first
+    slots (prior-like draws past them), per-chain masks with n_true - 10 ..
+    n_true + 10 live slots in shuffled order (chain 0 with none, chain 1
+    with all K, so that both guards are held), the tempered log-likelihood
+    and draw_sweep's draws; beta a device scalar or a float."""
+    import torch
+
+    from starcat_torch import transdim as td
+    from starcat_torch.potential import log_likelihood
+
+    truth, image = cfg.make_data()
+    img = image.to(dev)
+    k = cfg.kmax
+    tcfg = cfg.smc.transdim if cfg.head == "smc" else cfg.tdm.transdim
+    theta, _, _ = _crowded_inputs(truth, c, k, dev, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    n_true = truth.shape[0]
+    n_alive = torch.randint(max(0, n_true - 10), min(k, n_true + 10) + 1, (c,), generator=gen,
+                            device=dev)
+    n_alive[0], n_alive[1] = 0, k
+    order = torch.argsort(torch.rand((c, k), generator=gen, device=dev), dim=1)
+    mask = (order < n_alive[:, None]).to(torch.float32)
+    b = torch.tensor(beta, device=dev) if cfg.head == "smc" else float(beta)
+    tll = b * log_likelihood(theta, mask, cfg.scene, img)
+    draws = td.draw_sweep(gen, c, k, cfg.scene, cfg.prior, tcfg, dev)
+    return img, theta, mask, tll, b, tcfg, draws
+
+
+def sweep_ops(h, w, mask):
+    """The sweep's pixel work that the kernel needs: one render of each
+    chain's proposed catalog, whose live stars are within one of its
+    current ones (counted as the current), one multiply-add as two
+    operations; the transcendental functions and the profiles are left
+    out, so the bound is if anything low."""
+    return 2.0 * h * w * float(mask.double().sum())
+
+
+def sweep_bytes(c, k, h, w, n_pix_rows):
+    """theta, mask, tll, beta and the image in; a chain's scalar draws and
+    up to two Gumbel rows of K, and the pixel Gumbel rows of the residual
+    births (n_pix_rows of H W); theta', mask', tll', log alpha, accepted
+    (a byte) and the move (8 bytes) out."""
+    return (4 * (3 * c * k + c * k + c + 1 + h * w + 12 * c + 2 * c * k + n_pix_rows * h * w
+                 + 3 * c * k + c * k + 2 * c) + 9 * c)
+
+
+def _compare_sweep(name, out, ref, draws, spacing):
+    """The kernel's sweep against the plain version's on the same inputs:
+    the move type everywhere; the acceptance on at least SWEEP_AGREE of the
+    chains, the others decisions within the log alpha tolerance of log u;
+    on the agreeing chains log alpha within rtol 1e-4 and atol 2e-2 plus
+    16 float32 spacings at the tempered log-likelihood's magnitude (two
+    sums over the image, each rounded in its own order: the relocate
+    move's and the CPU tests' bar plus the sums' rounding), the -inf of a
+    failed guard in both or neither, the mask exactly, theta within 1e-4
+    and tll within rtol 1e-5, atol 1e-3 (tests/test_torch_transdim.py's
+    _assert_same_move).  Returns (largest theta error, the shares)."""
+    import torch
+
+    th, m, ll, info = out
+    th_r, m_r, ll_r, info_r = ref
+    if not torch.equal(info.move_type, info_r.move_type):
+        raise AssertionError(f"sweep {name}: the move types differ")
+    same = info.accepted == info_r.accepted
+    agree = float(same.float().mean())
+    la, la_r = info.log_alpha, info_r.log_alpha
+    guard, guard_r = la == -float("inf"), la_r == -float("inf")
+    if not torch.equal(guard, guard_r):
+        raise AssertionError(f"sweep {name}: a move's guard differs")
+    tol = 2e-2 + 16.0 * spacing + 1e-4 * la_r.abs()
+    off = ((la - la_r).abs() > tol) & torch.isfinite(la_r) & same
+    if bool(off.any()):
+        i = int(off.nonzero()[0])
+        raise AssertionError(f"sweep {name}: log alpha {float(la[i])} against "
+                             f"{float(la_r[i])} on chain {i}")
+    u_acc = torch.where(info_r.move_type <= 1, draws.bd[-1], draws.sm[-1])
+    near = ((la_r - torch.log(u_acc)).abs() <= tol) | ((la - torch.log(u_acc)).abs() <= tol)
+    if bool((~same & ~near).any()):
+        i = int((~same & ~near).nonzero()[0])
+        raise AssertionError(f"sweep {name}: an acceptance differs beyond the tolerance of log u "
+                             f"on chain {i}: log alpha {float(la[i])} against {float(la_r[i])}, "
+                             f"log u {float(torch.log(u_acc[i]))}")
+    if agree < SWEEP_AGREE:
+        raise AssertionError(f"sweep {name}: acceptance agrees on {agree:.4f} of the chains")
+    if not torch.equal(m[same], m_r[same]):
+        raise AssertionError(f"sweep {name}: the masks differ")
+    err_th = _max_err(th[same], th_r[same])
+    err_ll = float(((ll - ll_r).abs() - 1e-5 * ll_r.abs())[same].max())
+    if not (err_th <= 1e-4 and err_ll <= 1e-3):
+        raise AssertionError(f"sweep {name}: theta error {err_th}, tll error {err_ll}")
+    finite = torch.isfinite(la_r) & same
+    err_la = float((la - la_r).abs()[finite].max()) if bool(finite.any()) else 0.0
+    return err_th, {"agree": agree, "log_alpha_err": err_la,
+                    "accepted": float(info_r.accepted.float().mean())}
+
+
+def check_sweep_kernel(fts, configs, dev):
+    """Phase 6b: the trans-d sweep kernel against its plain version
+    (transdim.poisson_sweep_reference, on the card) on the same inputs and
+    draws at each of SWEEP_SHAPES: cfg4's shape (4096 chains, K 64,
+    128x128, residual births, beta 0.3 from a device scalar), cfg3's (4096,
+    K 16, 32x32, prior births), cfg5's (256 chains, beta 1 as a float) and
+    four that walk several regions or chunks: _compare_sweep's bars; one
+    launch a sweep; the same bits on a rerun and for the first seven chains
+    alone; then the kernel and the plain version timed at each shape.
+    Returns the largest theta error and the times."""
+    import numpy as np
+    import torch
+
+    from starcat_torch import transdim as td
+
+    err, ms = 0.0, {}
+    for name, preset, over, c, beta in SWEEP_SHAPES:
+        cfg = sweep_config(configs, preset, over)
+        img, theta, mask, tll, b, tcfg, draws = sweep_inputs(cfg, c, dev, 60, beta)
+        args = (b, cfg.prior, cfg.scene, img, tcfg)
+
+        def kernel(th=theta, m=mask, t=tll, d=draws):
+            return td.poisson_sweep(th, m, t, args[0], *args[1:], d)
+
+        fts.reset_launch_counts()
+        out = kernel()
+        if fts.LAUNCHES != 1:
+            raise AssertionError(f"sweep {name}: {fts.LAUNCHES} launches for one sweep")
+        ref = td.poisson_sweep_reference(theta, mask, tll, *args, draws)
+        spacing = float(np.spacing(np.float32(tll.abs().max().item())))
+        e, shares = _compare_sweep(name, out, ref, draws, spacing)
+        err = max(err, e)
+        again = kernel()
+        sub = td.SweepDraws(draws.u_sel[:7], tuple(t[:7] for t in draws.bd),
+                            tuple(t[:7] for t in draws.sm))
+        alone = kernel(theta[:7], mask[:7], tll[:7], sub)
+        for a, r, al in zip(out[:3] + tuple(out[3]), again[:3] + tuple(again[3]),
+                            alone[:3] + tuple(alone[3])):
+            if not (_same_bits([a], [r]) if a.is_floating_point() else torch.equal(a, r)):
+                raise AssertionError(f"sweep {name}: not the same bits on a rerun")
+            if not (_same_bits([a[:7]], [al]) if a.is_floating_point() else
+                    torch.equal(a[:7], al)):
+                raise AssertionError(f"sweep {name}: not the same bits for 7 chains alone")
+        h, w, k = cfg.scene.height, cfg.scene.width, cfg.kmax
+        births = int(((out[3].move_type == 0) & (mask.sum(-1) < k)).sum())
+        bound = bound_ms(sweep_ops(h, w, mask),
+                         sweep_bytes(c, k, h, w, births if tcfg.birth_proposal == "residual"
+                                     else 0))
+        ms[name] = _time_ms(kernel, 10)
+        ms[name + "_plain"] = _time_ms(
+            lambda: td.poisson_sweep_reference(theta, mask, tll, *args, draws), 3)
+        ms[name + "_bound"], ms[name + "_bound_by"] = bound
+        ms[name + "_live"] = int(mask.sum())
+        print(f"sweep kernel {name} ({c} chains, K={k}, {h}x{w}, {tcfg.birth_proposal} births, "
+              f"beta {beta}): moves {torch.bincount(out[3].move_type, minlength=4).tolist()}, "
+              f"accepted {shares['accepted']:.4f}, acceptance agrees on {shares['agree']:.4f}, "
+              f"log alpha err {shares['log_alpha_err']:.3g}, theta err {e:.3g}; kernel "
+              f"{ms[name]:.4f} ms, plain {ms[name + '_plain']:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); layout "
+              f"{json.dumps(fts.launch_layout(c, k, h, w))}")
+    return err, ms
+
+
+def sweep_launches(label, st):
+    """A trans-d run's (an SMC or trans-d MCMC head's) launches of the sweep
+    kernel, from its stats; raises unless its sweeps ran on the kernel."""
+    n = st.get("sweep_launches", 0)
+    if st.get("sweep_kernel") != "fused_transdim_sweep" or n <= 0:
+        raise AssertionError(f"{label}: its sweeps did not run on the sweep kernel "
+                             f"({st.get('sweep_kernel')}, {n} launches)")
+    return n
+
+
+def path_sweeps(label, fts):
+    """The sweep kernel's launches on a path since its count was set to 0
+    just before it; raises if there were none."""
+    if fts.LAUNCHES <= 0:
+        raise AssertionError(f"the sweep kernel was never launched on the {label}")
+    return fts.LAUNCHES
+
+
 def run_slice(api, cfg, dev):
     """Phase 7: the fixed-K path at full width through the public API."""
     import dataclasses
@@ -1427,6 +1658,8 @@ def run_riemannian_slice(api, configs, dev):
         print(line)
         if st["kernel"] != "rhmc_diag_cuda" or st["kernel_launches"] <= 0:
             raise AssertionError(f"{name} did not run through B3: {st}")
+        if rcfg.head == "transdim":
+            sweep_launches(f"slice {name}", st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{name}: non-finite draws")
         if not 0.5 <= st["accept"] <= 1.0:
@@ -1490,6 +1723,8 @@ def run_b6_slice(api, configs, dev):
         want = "rhmc_cuda" if rcfg.head == "smc" else "rhmc_full_cuda"
         if st["kernel"] != want or st["kernel_launches"] <= 0:
             raise AssertionError(f"{name} did not run through B6: {st}")
+        if rcfg.head == "smc":
+            sweep_launches(f"slice {name}", st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{name}: non-finite draws")
         if rcfg.head == "smc":
@@ -1548,6 +1783,7 @@ def run_crowded_slice(api, configs, dev):
           f"{json.dumps(REF_CFG4_STEP3)}")
     if st["trajectory_kernel"] != "B4" or st["kernel_launches"] <= 0:
         raise AssertionError(f"cfg4 did not run through B4: {st}")
+    sweep_launches("slice cfg4_crowded", st)
     if st["n_temp_steps"] != 3 or not np.isfinite(out.thetas).all():
         raise AssertionError(f"cfg4: {st['n_temp_steps']} steps, finite "
                              f"{np.isfinite(out.thetas).all()}")
@@ -1855,6 +2091,10 @@ def run_durability(api, configs, dev):
             raise AssertionError(f"durability {case}: the killed run's checkpoint holds "
                                  f"{done}, not {expect_done}")
         _same_bits_or_raise(case, f"the run resumed at {done}", _outputs(resumed), rest)
+        if cfg.head in ("smc", "transdim"):
+            for leg, out in (("uninterrupted", full), ("unblocked", plain),
+                             ("resumed", resumed)):
+                sweep_launches(f"durability {case} ({leg})", out.stats)
 
         events = [json.loads(line)["event"] for line in mp_a.read_text().splitlines()]
         for ev, count in DURABILITY_EVENTS[case]:
@@ -1911,7 +2151,8 @@ REPORT_DIR = Path(__file__).resolve().parent / "build" / "report"
 
 def run_report(configs, dev):
     """Phase 14 (see the module docstring).  Returns the launches of each
-    kernel counter, as each run's stats count them."""
+    kernel counter, as each run's stats count them (the sweep kernel's of
+    the trans-d MCMC report under "sweep")."""
     import numpy as np
 
     from starcat_torch.catalogs import match_catalogs
@@ -1959,6 +2200,8 @@ def run_report(configs, dev):
                                  f"{st['trajectory_kernel']}, expected {kernel}")
         counter = REPORT_COUNTER[kernel]
         launches[counter] = launches.get(counter, 0) + st["kernel_launches"]
+        if cfg.head == "transdim":
+            launches["sweep"] = launches.get("sweep", 0) + sweep_launches(f"report {name}", st)
         cp = cat["completeness_purity"]
         skipped = rec.get("skipped")
         print(f"report {name}: {wall:.3f} s wall (run {st['wall_seconds']:.3f} s, kernel "
@@ -2014,7 +2257,8 @@ def mesh_worker(case: str, rank: str, world: str, init_file: str, out: str) -> i
 
 def run_mesh(api, configs, dev):
     """Phase 15 (see the module docstring).  Returns the launches of each
-    kernel counter over the sharded runs."""
+    kernel counter over the sharded runs (the sweep kernel's under
+    "sweep")."""
     import tempfile
 
     import numpy as np
@@ -2026,7 +2270,7 @@ def run_mesh(api, configs, dev):
     from starcat_torch import fused_rhmc as fr
     from starcat_torch.configs import apply_overrides
 
-    launches = {"dyn": 0, "b6": 0}
+    launches = {"dyn": 0, "b6": 0, "sweep": 0}
     singles = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_distributed(dev, init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
@@ -2050,6 +2294,9 @@ def run_mesh(api, configs, dev):
                 if n <= 0:
                     raise AssertionError(f"mesh {case}: {counter} never launched")
                 launches[counter] += n
+                if cfg.head == "smc":
+                    sweep_launches(f"mesh {case} (unsharded)", single.stats)
+                    launches["sweep"] += sweep_launches(f"mesh {case}", sharded.stats)
                 _same_bits_or_raise(case, "the run on a mesh of one", _mesh_outputs(sharded),
                                     singles[case])
                 print(f"mesh {case}: world 1 equals the unsharded run bit for bit (draws "
@@ -2707,6 +2954,8 @@ def run_full_crowded_slice(api, configs, dev, frc, fr):
                 raise AssertionError(f"{name} {over}: B6c launches {n}, the run's "
                                      f"{st['kernel_launches']}")
             launches += n
+        if cfg.head in ("smc", "transdim"):
+            sweep_launches(f"{name} {over}", st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{name} {over}: non-finite draws")
         print(f"B6c slice {name} {json.dumps(over)}: {wall:.3f} s wall, "
@@ -3186,6 +3435,8 @@ def run_wide_slice(api, configs, dev, flc, frdc, fl, frd):
             raise AssertionError(f"{json.dumps(over)} did not run through {want}: "
                                  f"{st['trajectory_kernel']} x{st['kernel_launches']}, "
                                  f"{want} launches {n}")
+        if cfg.head == "smc":
+            sweep_launches(json.dumps(over), st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{json.dumps(over)}: non-finite draws")
         summ = api.summarize_output(out)
@@ -3362,6 +3613,8 @@ def run_b6c_wide_slice(api, configs, dev, frc):
             raise AssertionError(f"{name} {json.dumps(over)} did not run through B6c: "
                                  f"{st['trajectory_kernel']} x{st['kernel_launches']}, B6c "
                                  f"launches {n}")
+        if cfg.head == "smc":
+            sweep_launches(f"{name} {json.dumps(over)}", st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{name} {json.dumps(over)}: non-finite draws")
         launches += n
@@ -3712,6 +3965,8 @@ def run_beyond_slice(api, configs, dev, flc, frdc, frc, fl, frd):
             raise AssertionError(f"{name} {json.dumps(over)} did not run through {want}: "
                                  f"{st['trajectory_kernel']} x{st['kernel_launches']}, "
                                  f"{want} launches {n}")
+        if cfg.head == "smc":
+            sweep_launches(f"{name} {json.dumps(over)}", st)
         if not np.isfinite(out.thetas).all():
             raise AssertionError(f"{name} {json.dumps(over)}: non-finite draws")
         summ = api.summarize_output(out)
@@ -3877,7 +4132,7 @@ def _build_all(build):
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("fused_leapfrog", "fused_rhmc_diag", "fused_rhmc", "fused_leapfrog_crowded",
-             "fused_rhmc_diag_crowded", "fused_rhmc_crowded")
+             "fused_rhmc_diag_crowded", "fused_rhmc_crowded", "fused_transdim_sweep")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build_kernel, names)))
@@ -3909,6 +4164,7 @@ def main() -> int:
     from starcat_torch import fused_rhmc_crowded as frc
     from starcat_torch import fused_rhmc_diag as frd
     from starcat_torch import fused_rhmc_diag_crowded as frdc
+    from starcat_torch import fused_transdim_sweep as fts
     from starcat_torch.configs import CONFIGS
 
     smi = subprocess.run(
@@ -3931,6 +4187,9 @@ def main() -> int:
     err_b5, ms_b5 = check_b5_kernel(flc, fl, hmc, cfg4, cfg, dev)
     err_b5 = max(err_b5, check_b5_edges(flc, fl, cfg4, dev))
     err_b4, ms_b4 = check_b4_kernel(frdc, frd, rhmc, cfg4, CONFIGS["cfg5_transdim_mcmc"], dev)
+    t0 = time.perf_counter()
+    err_sweep, ms_sweep = check_sweep_kernel(fts, CONFIGS, dev)
+    print(f"sweep kernel checks: {time.perf_counter() - t0:.3f} s wall")
 
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3943,24 +4202,30 @@ def main() -> int:
         raise AssertionError(f"a kernel contract was never launched: {launches}")
 
     frd.reset_launch_counts()
+    fts.reset_launch_counts()
     t0 = time.perf_counter()
     run_riemannian_slice(api, CONFIGS, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["b3"] = frd.LAUNCHES
-    print(f"Riemannian path: {wall:.3f} s wall; B3 launches {launches['b3']}")
+    launches["sweep"] = path_sweeps("Riemannian path", fts)
+    print(f"Riemannian path: {wall:.3f} s wall; B3 launches {launches['b3']}, sweep "
+          f"launches {fts.LAUNCHES}")
     if launches["b3"] <= 0:
         raise AssertionError("B3 was never launched on the Riemannian path")
     print(f"B3 at the cfg1 shape: kernel {ms_b3['cfg1']:.4f} ms, plain "
           f"{ms_b3['cfg1_plain']:.4f} ms per trajectory")
 
     fr.reset_launch_counts()
+    fts.reset_launch_counts()
     t0 = time.perf_counter()
     run_b6_slice(api, CONFIGS, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["b6"] = fr.LAUNCHES
-    print(f"full-metric path: {wall:.3f} s wall; B6 launches {launches['b6']}")
+    launches["sweep"] += path_sweeps("full-metric path", fts)
+    print(f"full-metric path: {wall:.3f} s wall; B6 launches {launches['b6']}, sweep "
+          f"launches {fts.LAUNCHES}")
     if launches["b6"] <= 0:
         raise AssertionError("B6 was never launched on the full-metric path")
     print(f"B6 at the cfg1 shape: kernel {ms_b6['cfg1']:.4f} ms, plain "
@@ -3968,14 +4233,16 @@ def main() -> int:
 
     flc.reset_launch_counts()
     frdc.reset_launch_counts()
+    fts.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     run_crowded_slice(api, CONFIGS, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["b4"], launches["b5"] = frdc.LAUNCHES, flc.LAUNCHES
+    launches["sweep"] += path_sweeps("crowded path", fts)
     print(f"crowded path: {wall:.3f} s wall; B4 launches {launches['b4']}, B5 launches "
-          f"{launches['b5']}; peak device memory "
+          f"{launches['b5']}, sweep launches {fts.LAUNCHES}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     if launches["b4"] <= 0 or launches["b5"] <= 0:
         raise AssertionError(f"a crowded-field kernel was never launched: {launches}")
@@ -3993,7 +4260,9 @@ def main() -> int:
         raise AssertionError("B1 was never launched on the NUTS and ADVI path")
     launches["static"] += fl.STATIC_LAUNCHES
     t0 = time.perf_counter()
+    fts.reset_launch_counts()
     dur = run_durability(api, CONFIGS, dev)
+    dur["sweep"] = path_sweeps("durability path", fts)
     print(f"durability path: {time.perf_counter() - t0:.3f} s wall; launches {dur}")
     for name in ("dyn", "static", "b3", "b6"):
         if dur[name] <= 0:
@@ -4002,6 +4271,7 @@ def main() -> int:
     if dur["b4"] <= 0:
         raise AssertionError(f"B4 was never launched on the durability path: {dur}")
     launches["b4"] += dur["b4"]
+    launches["sweep"] += dur["sweep"]
     t0 = time.perf_counter()
     rep = run_report(CONFIGS, dev)
     print(f"report path: {time.perf_counter() - t0:.3f} s wall; launches {rep}")
@@ -4027,9 +4297,11 @@ def main() -> int:
     err_b6c, ms_b6c = check_b6c_kernel(frc, fr, rhmc, CONFIGS, dev)
     print(f"B6c kernel checks: {time.perf_counter() - t0:.3f} s wall")
     t0 = time.perf_counter()
+    fts.reset_launch_counts()
     launches["b6c"] = run_full_crowded_slice(api, CONFIGS, dev, frc, fr)
+    launches["sweep"] += path_sweeps("path beyond B6's domain", fts)
     print(f"full metric beyond B6's domain: {time.perf_counter() - t0:.3f} s wall; B6c "
-          f"launches {launches['b6c']}")
+          f"launches {launches['b6c']}, sweep launches {fts.LAUNCHES}")
     if launches["b6c"] <= 0:
         raise AssertionError("B6c was never launched on its path")
     t0 = time.perf_counter()
@@ -4037,7 +4309,9 @@ def main() -> int:
     err_b5, err_b4 = max(err_b5, err_b5w), max(err_b4, err_b4w)
     print(f"wide kernel checks: {time.perf_counter() - t0:.3f} s wall")
     t0 = time.perf_counter()
+    fts.reset_launch_counts()
     wide, err_run = run_wide_slice(api, CONFIGS, dev, flc, frdc, fl, frd)
+    wide["sweep"] = path_sweeps("wide path", fts)
     err_b5 = max(err_b5, err_run)
     print(f"B5 and B4 beyond their one-tile domains: {time.perf_counter() - t0:.3f} s wall; "
           f"launches {wide}")
@@ -4050,9 +4324,11 @@ def main() -> int:
     err_b6c = max(err_b6c, err_b6cw)
     print(f"B6c wide checks: {time.perf_counter() - t0:.3f} s wall")
     t0 = time.perf_counter()
+    fts.reset_launch_counts()
     b6c_wide = run_b6c_wide_slice(api, CONFIGS, dev, frc)
+    launches["sweep"] += path_sweeps("path beyond B6c's one-tile domain", fts)
     print(f"the full metric beyond B6c's one-tile domain: {time.perf_counter() - t0:.3f} s "
-          f"wall; B6c launches {b6c_wide}")
+          f"wall; B6c launches {b6c_wide}, sweep launches {fts.LAUNCHES}")
     if b6c_wide <= 0:
         raise AssertionError("B6c's wide path was never launched on its path")
     launches["b6c"] += b6c_wide
@@ -4062,7 +4338,9 @@ def main() -> int:
     err_b5, err_b4, err_b6c = max(err_b5, err_b5x), max(err_b4, err_b4x), max(err_b6c, err_b6cx)
     print(f"beyond-gate kernel checks: {time.perf_counter() - t0:.3f} s wall")
     t0 = time.perf_counter()
+    fts.reset_launch_counts()
     beyond, err_run = run_beyond_slice(api, CONFIGS, dev, flc, frdc, frc, fl, frd)
+    beyond["sweep"] = path_sweeps("path beyond the gates", fts)
     err_b5 = max(err_b5, err_run)
     print(f"B5, B4 and B6c beyond the TPU kernels' gates: {time.perf_counter() - t0:.3f} s "
           f"wall; launches {beyond}")
@@ -4131,6 +4409,18 @@ def main() -> int:
     ]
     # B6c's kernel time and bound are of the full-width launch, its plain
     # time of the first plain_particles of it (the kernel on those: ms_same)
+    # the trans-d sweep (phase 6b): kernel, plain and bound at cfg4's shape,
+    # every other SWEEP_SHAPES entry's beside it; launches on this run's SMC
+    # and trans-d MCMC paths, each path's counted on its own
+    sweep_row = row("fused_transdim_sweep (the trans-d sweep, one move a chain)",
+                    "starcat_torch/csrc/fused_transdim_sweep.cu",
+                    "none (the JAX package's XLA sweep, starcat/transdim.py:523)",
+                    launches["sweep"], err_sweep, ms_sweep["cfg4"], ms_sweep["cfg4_plain"],
+                    (ms_sweep["cfg4_bound"], ms_sweep["cfg4_bound_by"]))
+    sweep_row.update({nm: {"ms": ms_sweep[nm], "plain_ms": ms_sweep[nm + "_plain"],
+                           "bound_ms": ms_sweep[nm + "_bound"],
+                           "bound_by": ms_sweep[nm + "_bound_by"]}
+                      for nm, *_ in SWEEP_SHAPES[1:]})
     rows[-1].update(particles=ms_b6c["particles"], plain_particles=ms_b6c["plain_particles"],
                     ms_same=ms_b6c["b6c_16"],
                     bound_ms_dense=bound_ms(ms_b6c["ops_dense"], b6c_bytes)[0],
@@ -4189,6 +4479,7 @@ def main() -> int:
                                  "ms_same": ms_x["b6c_w4_same"], "bound_ms": b6w[0],
                                  "bound_by": b6w[1]},
                           "address_probe_slice_gib": probed}
+    rows.append(sweep_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

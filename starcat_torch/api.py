@@ -13,7 +13,11 @@ smc ``hmc`` mutation has no kernel and is always ``hmc_torch``);
 ``stats["trajectory_kernel"]``
 names the CUDA kernel (B1, B2, B3, B4, B5, B6 or B6c, chosen by
 dispatch.trajectory_kernel from the scene's shape; "torch" on the plain
-path) and ``stats["kernel_launches"]`` counts the kernels' launches.
+path) and ``stats["kernel_launches"]`` counts the trajectory kernels'
+launches.  The smc and transdim heads also give ``stats["sweep_kernel"]``,
+the path of their trans-d sweeps (``fused_transdim_sweep`` with
+kernel="cuda", else ``torch``), and ``stats["sweep_launches"]``, that
+kernel's launches in the run.
 The run draws every random number from one ``torch.Generator`` on the
 run's device, seeded from ``seed``.
 
@@ -50,6 +54,7 @@ from . import (
     fused_rhmc_crowded,
     fused_rhmc_diag,
     fused_rhmc_diag_crowded,
+    fused_transdim_sweep,
 )
 from .chees import make_chees_relocate, make_fused_leapfrog_impl, run_chees
 from .configs import RunConfig
@@ -192,6 +197,7 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     if cfg.head in ("hmc", "oracle", "nuts", "rhmc"):
         ck["thin"] = cfg.thin
     launches0 = sum(k.LAUNCHES for k in _KERNELS)
+    sweeps0 = fused_transdim_sweep.LAUNCHES
     t_start = time.perf_counter()
     theta0 = (dist.shard(_init_chains(generator, cfg, truth_theta.to(device)), mesh)
               if cfg.head not in ("smc", "advi", "transdim") else None)
@@ -305,6 +311,10 @@ def _sample(cfg: RunConfig, device: torch.device, seed: int, image, on_step, log
     if logger is not None:
         logger.log("run_complete", head=cfg.head,
                    **{k: v for k, v in stats.items() if isinstance(v, (int, float))})
+    if cfg.head in ("smc", "transdim"):
+        # set after run_complete: the stream's records keep their keys
+        stats["sweep_kernel"] = "fused_transdim_sweep" if kernel == "cuda" else "torch"
+        stats["sweep_launches"] = fused_transdim_sweep.LAUNCHES - sweeps0
     stats["device"] = (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else str(device))
     stats["truth"] = {k: v.numpy() for k, v in zip("xyf", constrain(truth_theta, spec))}

@@ -35,7 +35,9 @@ The spans (each opened once, where its work runs):
   relocate, ``chees.relocate`` (the relocate sweep and the grad refresh).
 
 The counters: ``transdim.moves`` and ``transdim.accepted`` (an SMC step's
-trans-d moves kept and accepted), ``chees.relocations`` and
+trans-d moves kept and accepted), ``transdim.kernel_moves`` (the trans-d
+moves that ran on the sweep kernel, chains x launches, counted in
+transdim.poisson_sweep), ``chees.relocations`` and
 ``chees.relocations_accepted``, ``chees.leapfrog_steps`` (chains × each
 iteration's step count).
 

@@ -9,12 +9,14 @@ Per temperature step:
   3. systematic resampling, over the whole population or within each of
      ``n_islands`` contiguous islands (independent ancestries);
   4. ``n_transdim_sweeps`` birth/death + split/merge sweeps at the tempered
-     log-likelihood beta * loglik, then ``n_mutation_steps`` within-model
-     moves on the tempered target: ``rhmc`` (the dense Fisher metric,
-     kernel B6 or B6c), ``rhmc_diag`` (its diagonal, kernel B3 or B4) or ``hmc`` (the
-     plain leapfrog at unit mass; it has no kernel, here or in the
-     reference); the step size follows a Robbins-Monro controller on the
-     mean acceptance, and the untempered log-likelihood is refreshed.
+     log-likelihood beta * loglik (transdim.poisson_sweep: with ``fused``
+     on the card the sweep kernel), then ``n_mutation_steps``
+     within-model moves on the tempered target: ``rhmc`` (the dense Fisher
+     metric, kernel B6 or B6c), ``rhmc_diag`` (its diagonal, kernel B3 or
+     B4) or ``hmc`` (the plain leapfrog at unit mass; it has no kernel,
+     here or in the reference); the step size follows a Robbins-Monro
+     controller on the mean acceptance, and the untempered log-likelihood
+     is refreshed.
 
 The reference's ``rhmc_pallas`` and ``rhmc_diag_pallas`` name the same two
 kernels here.  Every reduction over the population (the weights, logZ, the
@@ -66,7 +68,7 @@ from .potential import (
 )
 from .rhmc import RHMCConfig, make_trajectory, rhmc_transition
 from .scene import SceneSpec
-from .transdim import TransDimConfig, draw_sweep, transdim_sweep
+from .transdim import TransDimConfig, draw_sweep, poisson_sweep
 from .transdim_mcmc import draw_counts
 
 # mutation name -> Riemannian metric; "hmc" has none.  The reference's
@@ -275,9 +277,10 @@ def _chunked(trajectory, chunk: int):
 def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                   kmax: int, cfg: SMCConfig, fused: bool = False, mesh=None):
     """One temperature step, step(state, draws) -> state: reweight,
-    resample, sweep, mutate.  fused=True runs the Riemannian mutations on
-    their CUDA kernels (B6 or B6c for rhmc, B3 or B4 for rhmc_diag); the hmc mutation
-    always runs the plain tempered leapfrog.  Under a ``mesh`` the state's
+    resample, sweep, mutate.  fused=True runs the sweeps on the sweep kernel
+    and the Riemannian mutations on their CUDA kernels (B6 or B6c for rhmc,
+    B3 or B4 for rhmc_diag); the hmc mutation always runs the plain
+    tempered leapfrog.  Under a ``mesh`` the state's
     particles and the draws' (all but u_res) are this rank's."""
     check_mutation(cfg.mutation)
     metric = MUTATIONS[cfg.mutation]
@@ -320,14 +323,15 @@ def make_smc_step(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                 idx = dist.shard(systematic_resample(logw, draws.u_res, cfg.n_islands), mesh)
                 theta, mask = theta[idx], mask[idx]
 
-            # 4a. trans-dimensional sweeps at the tempered likelihood
+            # 4a. trans-dimensional sweeps at the tempered likelihood, each
+            # one launch of the sweep kernel on the card
             with metrics.span("smc.sweeps"):
                 if draws.sweeps:
-                    tllf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
                     tll = beta * loglik[idx]
                     for sd in draws.sweeps:
-                        theta, mask, tll, info = transdim_sweep(theta, mask, tll, tllf, prior,
-                                                                spec, cfg.transdim, sd, image)
+                        theta, mask, tll, info = poisson_sweep(theta, mask, tll, beta, prior,
+                                                               spec, image, cfg.transdim, sd,
+                                                               fused)
                         metrics.count("transdim.accepted", info.accepted)
                     metrics.count("transdim.moves", theta.shape[0], len(draws.sweeps))
 

@@ -16,6 +16,13 @@ feed it the reference's own draws; :func:`draw_sweep` draws them from the
 run's generator in a fixed order.  Like the reference, a move computes both
 of its branches for every chain and selects per chain, and a slot update is
 a one-hot ``torch.where``.
+
+:func:`poisson_sweep` is the sweep at the tempered Poisson likelihood
+beta log L, which the SMC and trans-d MCMC heads run: on the card, where
+the head runs its kernels, one launch of a hand-written CUDA kernel
+(fused_transdim_sweep.py), in which each chain computes only the move it
+keeps; otherwise its plain version, :func:`poisson_sweep_reference`, which
+is :func:`transdim_sweep` with that likelihood.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import metrics
 from .potential import PriorSpec, constrain, log_likelihood, sample_prior, unconstrain
 from .scene import SceneSpec, gaussian_profile_1d, pixel_centers, render_scene
 
@@ -452,6 +460,37 @@ def transdim_sweep(theta: torch.Tensor, mask: torch.Tensor,
 
     th, m, ll = sel(bd[0], sm[0]), sel(bd[1], sm[1]), sel(bd[2], sm[2])
     return th, m, ll, MoveInfo(*(sel(a, b) for a, b in zip(bd[3], sm[3])))
+
+
+def poisson_sweep_reference(theta: torch.Tensor, mask: torch.Tensor, tll: torch.Tensor,
+                            beta, prior: PriorSpec, spec: SceneSpec, image: torch.Tensor,
+                            cfg: TransDimConfig, draws: SweepDraws):
+    """The plain version of :func:`poisson_sweep`: :func:`transdim_sweep`
+    at the tempered likelihood beta * log_likelihood."""
+    def tempered(th, m):
+        return beta * log_likelihood(th, m, spec, image)
+
+    return transdim_sweep(theta, mask, tll, tempered, prior, spec, cfg, draws, image)
+
+
+def poisson_sweep(theta: torch.Tensor, mask: torch.Tensor, tll: torch.Tensor, beta,
+                  prior: PriorSpec, spec: SceneSpec, image: torch.Tensor,
+                  cfg: TransDimConfig, draws: SweepDraws, fused: bool = True):
+    """One sweep at the tempered Poisson likelihood: returns what
+    :func:`transdim_sweep` returns, (theta, mask, tll, MoveInfo), for tll
+    = beta * log L and either birth proposal.  theta (C, K, 3), mask (C, K),
+    tll (C,); beta a float or a 0-d tensor.  On CUDA tensors with ``fused``
+    the kernel (one launch, or a raise); on CPU tensors, or with
+    fused=False, the plain version.  Counts the chains that ran on the
+    kernel in ``transdim.kernel_moves`` (0 on the plain version)."""
+    if fused and theta.device.type != "cpu":
+        from .fused_transdim_sweep import fused_poisson_sweep
+
+        out = fused_poisson_sweep(theta, mask, tll, beta, prior, spec, image, cfg, draws)
+        metrics.count("transdim.kernel_moves", theta.shape[0])
+        return out
+    metrics.count("transdim.kernel_moves", 0)
+    return poisson_sweep_reference(theta, mask, tll, beta, prior, spec, image, cfg, draws)
 
 
 def draw_sweep(generator: torch.Generator, c: int, kmax: int, spec: SceneSpec,

@@ -5,7 +5,8 @@ distribution over (mask, theta), the slot-symmetrised measure of
 transdim.py:
 
   1. ``n_transdim_sweeps`` birth/death + split/merge sweeps, which change
-     each chain's alive mask;
+     each chain's alive mask (transdim.poisson_sweep at beta: with ``fused``
+     on the card the sweep kernel);
   2. one within-model move at each chain's current mask, dead slots frozen:
      ``hmc`` (kernel B1's or B5's trajectory), ``rhmc`` (kernel B6's or B6c's
      full-Fisher trajectory) or ``rhmc_diag`` (kernel B3's or B4's
@@ -59,7 +60,7 @@ from .potential import (
 )
 from .rhmc import RHMCConfig, make_trajectory, rhmc_transition
 from .scene import SceneSpec
-from .transdim import TransDimConfig, draw_sweep, transdim_sweep
+from .transdim import TransDimConfig, draw_sweep, poisson_sweep
 
 
 TD_MUTATIONS = ("hmc", "rhmc", "rhmc_diag")
@@ -149,16 +150,15 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
     :func:`draw_transition` when not given; under a ``mesh`` at full width,
     keeping this rank's rows).
 
-    fused=True runs the within-model trajectory in the CUDA kernel (B1 or,
-    on crowded fields, B5 for ``hmc``; B6 or B6c for ``rhmc``; B3 or B4 for
-    ``rhmc_diag``); off it, the plain torch trajectory."""
+    fused=True runs the sweeps on the sweep kernel and the within-model
+    trajectory in the CUDA kernel (B1 or, on crowded fields, B5 for
+    ``hmc``; B6 or B6c for ``rhmc``; B3 or B4 for ``rhmc_diag``); off it,
+    the plain torch sweeps and trajectory."""
     if cfg.mutation not in TD_MUTATIONS:
         raise ValueError(f"unknown mutation {cfg.mutation!r}; ported: {', '.join(TD_MUTATIONS)}")
     if beta == 1.0:
-        llf = lambda th, m: log_likelihood(th, m, spec, image)  # noqa: E731
         pg = make_potential_and_grad(spec, image, prior)
     else:
-        llf = lambda th, m: beta * log_likelihood(th, m, spec, image)  # noqa: E731
         tpg = make_tempered_potential_and_grad(spec, image, prior)
         pg = lambda th, m: tpg(th, m, beta)  # noqa: E731
 
@@ -203,8 +203,8 @@ def make_transdim_kernel(spec: SceneSpec, image: torch.Tensor, prior: PriorSpec,
                                                         theta.device), c, mesh)
         td_acc = torch.zeros((c,), dtype=torch.float32, device=theta.device)
         for sd in draws.sweeps:
-            theta, mask, ll, info = transdim_sweep(theta, mask, ll, llf, prior, spec,
-                                                   cfg.transdim, sd, image)
+            theta, mask, ll, info = poisson_sweep(theta, mask, ll, beta, prior, spec, image,
+                                                  cfg.transdim, sd, fused)
             td_acc = td_acc + info.accepted.to(torch.float32)
         td_accept = td_acc / max(cfg.n_transdim_sweeps, 1)
 

@@ -1541,3 +1541,80 @@ def test_a_cuda_checkpoint_does_not_restore_on_the_cpu(dev, tmp_path):
     back = restore_state(path, checkpoint_like(ChainState(th, torch.zeros(4, device=dev), th),
                                                torch.Generator(device=dev)), dev)
     assert back.states.theta.device.type == "cuda"
+
+
+# -- the trans-d sweep kernel ---------------------------------------------------
+
+
+def _sweep_case(name, c, dev, seed=60):
+    """chip_smoke.SWEEP_SHAPES' entry ``name`` at c chains."""
+    import chip_smoke
+
+    _, preset, over, _, beta = next(e for e in chip_smoke.SWEEP_SHAPES if e[0] == name)
+    cfg = chip_smoke.sweep_config(CONFIGS, preset, over)
+    return cfg, chip_smoke.sweep_inputs(cfg, c, dev, seed, beta)
+
+
+# the shapes that walk regions or chunks at 256-301 chains, so that the
+# bar's 99.5% leaves room for a decision within float32's rounding of log
+# u; 250x240 at phase 6b's own inputs (256 chains), since there the plain
+# version's log alpha is itself up to 0.15 off float64
+@pytest.mark.parametrize("name,c", [("cfg4", 96), ("cfg3", 301), ("cfg5", 64),
+                                    ("cfg4_192", 301), ("cfg4_prior_k100", 257),
+                                    ("cfg4_200x136", 301), ("cfg4_250x240", 256)])
+def test_sweep_kernel_matches_plain(dev, name, c):
+    """The sweep kernel against its plain version on the same inputs and
+    draws, at chip_smoke.py phase 6b's bars, one launch a sweep, the same
+    bits on a rerun; at the presets' shapes (one region, one chunk) and at
+    shapes that walk several regions of the field or chunks of the
+    catalog, as the build's layout says."""
+    import chip_smoke
+    from starcat_torch import fused_transdim_sweep as fts
+    from starcat_torch import transdim as td
+
+    cfg, (img, theta, mask, tll, b, tcfg, draws) = _sweep_case(name, c, dev)
+    fts.reset_launch_counts()
+    out = td.poisson_sweep(theta, mask, tll, b, cfg.prior, cfg.scene, img, tcfg, draws)
+    again = td.poisson_sweep(theta, mask, tll, b, cfg.prior, cfg.scene, img, tcfg, draws)
+    assert fts.LAUNCHES == 2
+    ref = td.poisson_sweep_reference(theta, mask, tll, b, cfg.prior, cfg.scene, img, tcfg, draws)
+    spacing = float(np.spacing(np.float32(tll.abs().max().item())))
+    chip_smoke._compare_sweep(name, out, ref, draws, spacing)
+    for a, r in zip(out[:3] + tuple(out[3]), again[:3] + tuple(again[3])):
+        assert torch.equal(a, r)
+    h, w, k = cfg.scene.height, cfg.scene.width, cfg.kmax
+    lay = fts.launch_layout(c, k, h, w)
+    side = lay["region_rows"]
+    assert lay["chains_per_block"] * lay["threads_per_chain"] == 256
+    assert lay["chunk"] == min(k, 64) and lay["blocks"] == -(-c // lay["chains_per_block"])
+    walks = (-(-h // side)) * (-(-w // side)) > 1 or k > 64
+    assert walks == (name not in ("cfg4", "cfg3", "cfg5"))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sweep_kernel_on_smc_steps_counts_its_moves(dev, fused):
+    """cfg4's SMC steps on the card run their sweeps on the kernel with
+    fused=True, and the program's transdim.kernel_moves equals
+    transdim.moves; with fused=False on the plain version, none."""
+    from starcat_torch import metrics, smc
+    from starcat_torch import fused_transdim_sweep as fts
+
+    cfg = CONFIGS["cfg4_crowded"]
+    truth, img = cfg.make_data()
+    img = img.to(dev)
+    scfg = cfg.smc._replace(n_particles=256)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step = smc.make_smc_step(cfg.scene, img, cfg.prior, cfg.kmax, scfg, fused=fused)
+    s = smc.init_smc(gen, cfg.scene, img, cfg.prior, cfg.kmax, scfg)
+    fts.reset_launch_counts()
+    metrics.reset_record()
+    with metrics.tracing():
+        for _ in range(2):
+            s = step(s, smc.draw_step(gen, 256, cfg.kmax, cfg.scene, cfg.prior, scfg, dev))
+    counters = metrics.record()["counters"]
+    metrics.reset_record()
+    moves = 2 * 256 * 12
+    assert fts.LAUNCHES == (2 * scfg.n_transdim_sweeps if fused else 0)
+    assert counters["transdim.moves"] == moves
+    assert counters["transdim.kernel_moves"] == (moves if fused else 0)
+    assert torch.isfinite(s.theta).all() and 0.0 < float(s.beta) < 1.0

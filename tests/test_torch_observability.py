@@ -322,21 +322,23 @@ def test_smc_step_spans_and_children(image8, clean_record):
 
 def test_transdim_counters_match_the_sweeps(image8, clean_record, monkeypatch):
     """transdim.accepted is the sum of the accepted flags every sweep returns;
-    transdim.moves is particles x sweeps."""
+    transdim.moves is particles x sweeps; transdim.kernel_moves counts none
+    of them on the CPU, where the sweeps run the plain version."""
     seen = []
-    real = tsmc.transdim_sweep
+    real = tsmc.poisson_sweep
 
     def sweep(*a, **k):
         out = real(*a, **k)
         seen.append(int(out[3].accepted.sum()))
         return out
 
-    monkeypatch.setattr(tsmc, "transdim_sweep", sweep)
+    monkeypatch.setattr(tsmc, "poisson_sweep", sweep)
     with tmetrics.tracing():
         _smc_steps(image8, 3)
     counters = tmetrics.record()["counters"]
     assert len(seen) == 6 and sum(seen) > 0
-    assert counters == {"transdim.accepted": sum(seen), "transdim.moves": 16 * 6}
+    assert counters == {"transdim.accepted": sum(seen), "transdim.moves": 16 * 6,
+                        "transdim.kernel_moves": 0}
 
 
 def test_relocate_and_leapfrog_counters(image8, clean_record):

@@ -26,8 +26,8 @@ from starcat_torch.convert import (
     transdim_config_from_jax,
     transdim_mcmc_config_from_jax,
 )
-from starcat_torch.potential import PriorSpec, log_likelihood, sample_prior
-from starcat_torch.scene import SceneSpec
+from starcat_torch.potential import PriorSpec, constrain, log_likelihood, sample_prior
+from starcat_torch.scene import SceneSpec, render_scene
 from starcat_torch.transdim_mcmc import (
     TransDimMCMCConfig,
     init_td_states,
@@ -321,3 +321,250 @@ def test_unported_metric_or_mutation_raises(head, over, match):
                                               kernel="cuda"), over)
     with pytest.raises(ValueError, match=match):
         api.sample(cfg, "cpu")
+
+
+# -- poisson_sweep: the sweep at the tempered Poisson likelihood --------------
+
+SPEC_P = SceneSpec(16, 16, 1.5, 10.0)
+PRIOR_P = PriorSpec(logf_mean=5.0, logf_sigma=0.7)
+
+
+def _poisson_inputs(proposal, shared_mask, beta, c=32, k=6, seed=5):
+    """A drawn 16x16 scene, chains near its truth with 0..K live slots (one
+    mask pattern for every chain, or one a chain), the tempered
+    log-likelihood and a sweep's draws."""
+    gen = torch.Generator().manual_seed(seed)
+    truth = sample_prior(gen, 3, PRIOR_P, "cpu")
+    x, y, f = constrain(truth, SPEC_P)
+    img = torch.poisson(render_scene(x, y, f, torch.ones(3), SPEC_P), generator=gen)
+    theta = sample_prior(gen, c * k, PRIOR_P, "cpu").reshape(c, k, 3)
+    theta[:, :3] = truth + 0.05 * torch.randn((c, 3, 3), generator=gen)
+    order = torch.argsort(torch.rand((c, k), generator=gen), dim=1)
+    mask = (order < (torch.arange(c) % (k + 1))[:, None]).to(torch.float32)
+    if shared_mask:
+        mask = mask[3:4].expand(c, k).contiguous()
+    cfg = ttd.TransDimConfig(lam_count=3.0, birth_proposal=proposal)
+    tll = beta * log_likelihood(theta, mask, SPEC_P, img)
+    draws = ttd.draw_sweep(gen, c, k, SPEC_P, PRIOR_P, cfg, "cpu")
+    return theta, mask, tll, img, cfg, draws
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("beta", ["zero", "tensor", "one", "untempered"])
+@pytest.mark.parametrize("shared_mask", [True, False])
+@pytest.mark.parametrize("proposal", ["prior", "residual"])
+def test_poisson_sweep_is_transdim_sweep_at_the_tempered_likelihood(proposal, shared_mask,
+                                                                    beta):
+    """On the CPU poisson_sweep is its plain version, which is
+    transdim_sweep with loglik_fn = beta * log_likelihood, bit for bit, at
+    either birth proposal, one mask for every chain or one a chain, and
+    beta 0 (a flat likelihood), a 0-d tensor or 1; at beta 1 it equals the
+    untempered log_likelihood too (x * 1.0 is x)."""
+    b = {"zero": 0.0, "tensor": torch.tensor(0.37), "one": 1.0, "untempered": 1.0}[beta]
+    theta, mask, tll, img, cfg, draws = _poisson_inputs(proposal, shared_mask, b)
+    if beta == "untempered":
+        llf = lambda t, m: log_likelihood(t, m, SPEC_P, img)  # noqa: E731
+    else:
+        llf = lambda t, m: b * log_likelihood(t, m, SPEC_P, img)  # noqa: E731
+    want = ttd.transdim_sweep(theta, mask, tll, llf, PRIOR_P, SPEC_P, cfg, draws, img)
+    got = ttd.poisson_sweep(theta, mask, tll, b, PRIOR_P, SPEC_P, img, cfg, draws)
+    _assert_same_bits(got, want)
+    _assert_same_bits(ttd.poisson_sweep_reference(theta, mask, tll, b, PRIOR_P, SPEC_P, img,
+                                                  cfg, draws), want)
+    assert got[3].move_type.dtype == torch.int64 and got[3].accepted.dtype == torch.bool
+    types = set(got[3].move_type.tolist())
+    assert types & {0, 1} and types & {2, 3}
+    if beta == "zero":
+        assert 0 < int(got[3].accepted.sum())
+
+
+def _bad_inputs(case):
+    """poisson_sweep's inputs with one thing the kernel does not take."""
+    theta, mask, tll, img, cfg, draws = _poisson_inputs("residual", False, 1.0)
+    beta = 1.0
+    if case == "theta_dtype":
+        theta = theta.double()
+    elif case == "mask_shape":
+        mask = mask[:, :-1].contiguous()
+    elif case == "mask_flat":
+        mask = mask[0].contiguous()
+    elif case == "tll_noncontiguous":
+        tll = torch.stack([tll, tll], 1)[:, 0]
+    elif case == "image_device":
+        img = img.to("meta")
+    elif case == "g_pix_shape":
+        draws = draws._replace(bd=draws.bd[:2] + (draws.bd[2][:, :-1],) + draws.bd[3:])
+    elif case == "z_delta_dtype":
+        draws = draws._replace(sm=draws.sm[:4] + (draws.sm[4].double(),) + draws.sm[5:])
+    elif case == "prior_draws":
+        cfg = cfg._replace(birth_proposal="prior")
+    elif case == "beta_device":
+        beta = torch.tensor(1.0, device="meta")
+    elif case == "beta_dtype":
+        beta = torch.tensor(1.0, dtype=torch.float64)
+    return theta, mask, tll, beta, PRIOR_P, SPEC_P, img, cfg, draws
+
+
+@pytest.mark.parametrize("case,match", [
+    ("theta_dtype", "theta must be float32"),
+    ("mask_shape", r"mask must have shape \(32, 6\)"),
+    ("mask_flat", r"mask must have shape \(32, 6\)"),
+    ("tll_noncontiguous", "tll must be contiguous"),
+    ("image_device", "image is on meta"),
+    ("g_pix_shape", r"bd.g_pix must have shape \(32, 256\)"),
+    ("z_delta_dtype", "sm.z_delta must be float32"),
+    ("prior_draws", "do not match birth_proposal='prior'"),
+    ("beta_device", "beta must be one float32"),
+    ("beta_dtype", "beta must be one float32"),
+    ("cpu", "needs CUDA tensors"),
+])
+def test_fused_sweep_wrapper_rejects_what_the_kernel_does_not_take(case, match):
+    from starcat_torch import fused_transdim_sweep as fts
+
+    before = fts.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        fts.fused_poisson_sweep(*_bad_inputs(case))
+    assert fts.LAUNCHES == before
+
+
+def test_fused_sweep_scalars_and_workspace_match_the_source():
+    """The wrapper's float constants are as many as the source reads, in
+    its order's count; a residual-birth sweep takes C H W floats of
+    workspace and a prior-birth one none."""
+    import re
+
+    from starcat_torch import build
+    from starcat_torch import fused_transdim_sweep as fts
+
+    src = (build.CSRC / "fused_transdim_sweep.cu").read_text()
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kScalars"] == fts.N_SCALARS == len(fts.scalars(SPEC_P, PRIOR_P,
+                                                                  ttd.TransDimConfig()))
+    assert fts.workspace_floats(4096, 128, 128, "residual") == 4096 * 128 * 128
+    assert fts.workspace_floats(4096, 32, 32, "prior") == 0
+
+
+def _smc_step_inputs(proposal, mutation="rhmc_diag"):
+    from starcat_torch import smc
+
+    gen = torch.Generator().manual_seed(2)
+    _, _, _, img, _, _ = _poisson_inputs(proposal, False, 1.0)
+    cfg = smc.SMCConfig(n_particles=16, mutation=mutation, n_mutation_steps=1, n_leapfrog=2,
+                        fixed_point_iters=2, n_transdim_sweeps=3, mutation_chunk=16,
+                        transdim=ttd.TransDimConfig(lam_count=3.0, birth_proposal=proposal))
+    state = smc.init_smc(gen, SPEC_P, img, PRIOR_P, 6, cfg)
+    draws = smc.draw_step(gen, 16, 6, SPEC_P, PRIOR_P, cfg, "cpu")
+    return smc, img, cfg, state, draws
+
+
+class _SweepSpy:
+    """transdim.poisson_sweep, recording the beta and the kernel choice
+    (``fused``) of each call."""
+
+    def __init__(self):
+        self.betas, self.fused = [], []
+
+    def __call__(self, theta, mask, tll, beta, prior, spec, image, cfg, draws, fused=True):
+        self.betas.append(beta)
+        self.fused.append(fused)
+        return ttd.poisson_sweep(theta, mask, tll, beta, prior, spec, image, cfg, draws, fused)
+
+
+@pytest.mark.parametrize("proposal", ["prior", "residual"])
+def test_smc_step_routes_its_sweeps_through_poisson_sweep(monkeypatch, proposal):
+    smc, img, cfg, state, draws = _smc_step_inputs(proposal)
+    step = smc.make_smc_step(SPEC_P, img, PRIOR_P, 6, cfg)
+    want = step(state, draws)
+    spy = _SweepSpy()
+    monkeypatch.setattr(smc, "poisson_sweep", spy)
+    got = step(state, draws)
+    assert len(spy.betas) == cfg.n_transdim_sweeps and spy.fused == [False] * len(spy.betas)
+    assert all(b is got.beta or torch.equal(b, got.beta) for b in spy.betas)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_transdim_mcmc_routes_its_sweeps_through_poisson_sweep(monkeypatch):
+    import starcat_torch.transdim_mcmc as tdm
+
+    _, _, _, img, _, _ = _poisson_inputs("prior", False, 1.0)
+    cfg = TransDimMCMCConfig(mutation="rhmc_diag", n_leapfrog=2, fixed_point_iters=2,
+                             n_transdim_sweeps=2, transdim=ttd.TransDimConfig(lam_count=3.0))
+    spy = _SweepSpy()
+    monkeypatch.setattr(tdm, "poisson_sweep", spy)
+    for beta in (1.0, 0.4):
+        gen = torch.Generator().manual_seed(3)
+        kernel = make_transdim_kernel(SPEC_P, img, PRIOR_P, 6, cfg, gen, beta=beta)
+        st = init_td_states(gen, SPEC_P, img, PRIOR_P, 6, 8, 3.0, beta=beta)
+        st, info = kernel(st, torch.tensor(0.05))
+        assert torch.isfinite(st.loglik).all() and bool((info.td_accept >= 0).all())
+    assert spy.betas == [1.0, 1.0, 0.4, 0.4] and spy.fused == [False] * 4
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_kernel_moves_count_only_the_sweeps_on_the_kernel(monkeypatch, fused):
+    """The step hands its kernel choice to poisson_sweep, which counts in
+    transdim.kernel_moves the chains of each sweep that ran on the kernel:
+    none on CPU tensors, where it runs the plain version either way (the
+    card's count: tests/test_torch_cuda.py)."""
+    from starcat_torch import metrics
+
+    # the hmc mutation has no kernel, so fused sets only the sweeps' path
+    smc, img, cfg, state, draws = _smc_step_inputs("residual", "hmc")
+    spy = _SweepSpy()
+    monkeypatch.setattr(smc, "poisson_sweep", spy)
+    step = smc.make_smc_step(SPEC_P, img, PRIOR_P, 6, cfg, fused=fused)
+    metrics.reset_record()
+    with metrics.tracing():
+        step(state, draws)
+    counters = metrics.record()["counters"]
+    metrics.reset_record()
+    assert spy.fused == [fused] * cfg.n_transdim_sweeps
+    assert counters["transdim.moves"] == cfg.n_particles * cfg.n_transdim_sweeps
+    assert counters["transdim.kernel_moves"] == 0
+
+
+@pytest.mark.parametrize("head,over", [
+    ("smc", {"smc.n_particles": "16", "smc.mutation": "hmc", "smc.n_leapfrog": "2",
+             "smc.ess_target_frac": "1e-6", "smc.n_final_rounds": "1"}),
+    ("transdim", {"n_chains": "4", "n_samples": "4", "n_warmup": "4", "tdm.n_leapfrog": "2"}),
+])
+def test_trans_d_heads_report_their_sweep_path(head, over):
+    """api.sample's smc and transdim heads name their sweeps' path and count
+    the sweep kernel's launches: the plain version and none on the CPU."""
+    cfg = apply_overrides(CONFIGS["cfg0_single_star"], dict(over, head=head))
+    st = api.sample(cfg, "cpu", seed=0).stats
+    assert st["sweep_kernel"] == "torch" and st["sweep_launches"] == 0
+
+
+@pytest.mark.parametrize("counters,want", [
+    (None, None),
+    ({"transdim.moves": 48}, None),
+    ({"transdim.moves": 48, "transdim.kernel_moves": 0}, 0.0),
+    ({"transdim.moves": 48, "transdim.kernel_moves": 48}, 100.0),
+])
+def test_sweep_kernel_share_reads_none_without_a_record(counters, want):
+    """sweep_kernel_share.smc reads nothing where the program recorded
+    nothing, or counted no kernel moves (a program without the counter)."""
+    import types
+
+    from benchmark import core
+    from starcat_torch import metrics
+
+    read = core.reader("sweep_kernel_share.smc")
+    run = types.SimpleNamespace(head=types.SimpleNamespace(name="smc"))
+    metrics.reset_record()
+    if counters is not None:
+        with metrics.tracing():
+            for name, v in counters.items():
+                metrics.count(name, v)
+    try:
+        assert read(run) == want
+        run.head.name = "chees"
+        assert read(run) is None
+    finally:
+        metrics.reset_record()
